@@ -37,3 +37,11 @@ jax.config.update("jax_platforms", "cpu")
 assert len(jax.devices()) == 8, (
     f"expected 8 virtual CPU devices, got {jax.devices()}"
 )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA card (the CUDA kernels of "
+        "distributed_learning_tpu_torch); skips without one",
+    )

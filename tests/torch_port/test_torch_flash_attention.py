@@ -1,0 +1,149 @@
+"""Flash attention of the PyTorch port against the JAX package.
+
+On the CPU the port's wrappers run their plain versions; they are held
+against the JAX package's Pallas kernels run with ``interpret=True`` (its
+own CPU path), on identical numpy inputs.  Tolerances are the JAX
+package's own bars for its kernels (``tests/test_ring_attention.py``):
+atol 5e-5 in float32, atol/rtol 0.05 in bfloat16.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/torch_port/test_torch_kernels_gpu.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_learning_tpu.ops.flash_attention import (
+    flash_attention as jax_flash,
+    flash_attention_with_lse as jax_flash_lse,
+)
+from distributed_learning_tpu.ops.ring_attention import (
+    attention_reference as jax_reference,
+)
+from distributed_learning_tpu_torch.ops import flash_attention as fa
+from distributed_learning_tpu_torch.ops.ring_attention import attention_reference
+
+F32_ATOL = 5e-5
+BF16_TOL = 0.05
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, co = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
+    return q, k, v, co
+
+
+def _torch_grads(fn, arrays, dtype, co):
+    ts = [torch.tensor(a, dtype=dtype, requires_grad=True) for a in arrays]
+    out = fn(*ts)
+    (out.to(torch.float32) * torch.tensor(co)).sum().backward()
+    return out.detach().to(torch.float32).numpy(), [t.grad.to(torch.float32).numpy() for t in ts]
+
+
+def _jax_grads(fn, arrays, dtype, co):
+    js = [jnp.asarray(a, dtype) for a in arrays]
+
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v).astype(jnp.float32) * co)
+
+    out = np.asarray(fn(*js).astype(jnp.float32))
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*js)
+    return out, [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+@pytest.mark.parametrize(
+    "causal,window,dtype",
+    [
+        (True, None, "float32"),
+        (False, None, "float32"),
+        (True, 24, "float32"),
+        (True, None, "bfloat16"),
+        (True, 24, "bfloat16"),
+    ],
+)
+def test_flash_attention_matches_jax_interpret(causal, window, dtype):
+    """Values and q/k/v grads of the plain path vs the Pallas kernels."""
+    shape = (2, 64, 2, 32)
+    q, k, v, co = _inputs(shape, seed=3)
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    got, got_g = _torch_grads(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=causal, window=window),
+        (q, k, v), tdt, co,
+    )
+    want, want_g = _jax_grads(
+        lambda q, k, v: jax_flash(q, k, v, causal=causal, window=window,
+                                  block_q=32, block_k=32, interpret=True),
+        (q, k, v), jdt, co,
+    )
+    tol = dict(atol=F32_ATOL) if dtype == "float32" else dict(atol=BF16_TOL, rtol=BF16_TOL)
+    np.testing.assert_allclose(got, want, **tol)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g, w, **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_with_lse_matches_jax_interpret(causal):
+    """Output, lse and grads with a non-zero lse cotangent (the ``dadj``
+    term of both backward kernels)."""
+    shape = (1, 64, 2, 32)
+    q, k, v, co = _inputs(shape, seed=5)
+    cl = np.random.default_rng(6).normal(size=(1, 2, 64)).astype(np.float32)
+
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out, lse = fa.flash_attention_with_lse(*ts, causal=causal)
+    ((out * torch.tensor(co)).sum() + (lse * torch.tensor(cl)).sum()).backward()
+
+    def jloss(q, k, v):
+        o, l = jax_flash_lse(q, k, v, causal=causal, block_q=32, block_k=32,
+                             interpret=True)
+        return jnp.sum(o * co) + jnp.sum(l * cl)
+
+    jo, jl = jax_flash_lse(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                           block_q=32, block_k=32, interpret=True)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo), atol=F32_ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jl), atol=F32_ATOL)
+    for t, g in zip(ts, jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=F32_ATOL)
+
+
+def test_ragged_length_matches_reference():
+    """A T that no tile divides: values and grads vs the JAX oracle."""
+    shape = (1, 50, 2, 32)
+    q, k, v, co = _inputs(shape, seed=8)
+    got, got_g = _torch_grads(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True, window=9),
+        (q, k, v), torch.float32, co,
+    )
+    want, want_g = _jax_grads(
+        lambda q, k, v: jax_reference(q, k, v, causal=True, window=9),
+        (q, k, v), jnp.float32, co,
+    )
+    np.testing.assert_allclose(got, want, atol=F32_ATOL)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g, w, atol=F32_ATOL)
+
+
+def test_attention_reference_matches_jax():
+    q, k, v, _ = _inputs((2, 32, 2, 16), seed=9)
+    for causal, window in ((True, None), (False, None), (True, 5)):
+        got = attention_reference(*(torch.tensor(a) for a in (q, k, v)),
+                                  causal=causal, window=window)
+        want = jax_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                             causal=causal, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_cpu_path_counts_no_launch_and_checks_inputs():
+    fa.reset_launch_counts()
+    q = torch.zeros(1, 8, 1, 32)
+    fa.flash_attention(q, q, q)
+    assert all(k.launches == 0 for k in fa.KERNELS.values())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="window requires causal"):
+        fa.flash_attention(q, q, q, causal=False, window=4)

@@ -1,0 +1,105 @@
+"""The port's CUDA flash-attention kernels against their plain PyTorch
+versions, on the card.  Every test here is marked ``gpu`` and skips
+without a CUDA device.  This file imports no JAX, so it also runs where
+only PyTorch is installed:
+
+    python -m pytest --noconftest -m gpu tests/torch_port/test_torch_kernels_gpu.py
+"""
+
+import pytest
+import torch
+
+from distributed_learning_tpu_torch.ops import flash_attention as fa
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# The limits of chip_smoke.py.  bfloat16: a difference of one or two bf16
+# ulps is under 2**-6 of the element, inside rtol; atol covers elements
+# near zero only, below the values compared (|O|, |dQ| ~0.03 and late-key
+# dK, dV ~0.003-0.01 at T 4096); ``tile`` bounds ||a - b|| / ||b|| over
+# each 64-row tile of each (batch, head).  float32: summation order only.
+TOL = {
+    torch.bfloat16: {"o": 5e-3, "grad": 2e-3, "rtol": 2e-2, "tile": 1e-2},
+    torch.float32: {"o": 2e-5, "grad": 2e-5, "rtol": 2e-5, "tile": 1e-5},
+}
+
+
+def _max_tile_rel_err(a, b, rows=64):
+    a, b = a.float(), b.float()
+    pad = (0, 0, 0, 0, 0, (-b.shape[1]) % rows)
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x, pad)
+        return x.reshape(x.shape[0], -1, rows, *x.shape[2:]).square().sum((2, 4)).sqrt()
+
+    num, den = tiles(a - b), tiles(b)
+    return float(torch.where(num == 0, torch.zeros_like(num), num / den).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,T,H,D,dtype,causal,window,with_dadj",
+    [
+        (2, 256, 2, 128, torch.bfloat16, True, None, False),
+        (2, 200, 2, 64, torch.float32, True, 37, False),
+        (1, 130, 3, 32, torch.float32, False, None, True),
+        (1, 192, 2, 128, torch.bfloat16, True, None, True),
+    ],
+)
+def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
+                                              window, with_dadj):
+    """Forward (with and without lse), dQ and dK/dV kernels against their
+    plain versions on the same inputs, element by element and tile by
+    tile, at the limits of ``TOL``."""
+    g = torch.Generator(device=card).manual_seed(0)
+    # Q, K, V as strided views of one packed buffer, as the model passes them.
+    qkv = torch.randn(B, T, 3, H, D, generator=g, device=card).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(B, T, H, D, generator=g, device=card).to(dtype)
+    dadj = (torch.randn(B, H, T, generator=g, device=card) if with_dadj else None)
+    scale = D ** -0.5
+    tol = TOL[dtype]
+
+    def close(a, b, kind):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol[kind], rtol=tol["rtol"])
+        assert _max_tile_rel_err(a, b) <= tol["tile"]
+
+    o, lse = fa.flash_fwd(q, k, v, scale, causal, window, with_lse=True)
+    o2, none = fa.flash_fwd(q, k, v, scale, causal, window, with_lse=False)
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    torch.cuda.synchronize()
+    assert none is None
+    close(o, po, "o")
+    close(o2, po, "o")
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    dq = fa.flash_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, window)
+    pdq = fa.plain_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
+    pdk, pdv = fa.plain_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, window)
+    torch.cuda.synchronize()
+    for a, b in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        close(a, b, "grad")
+
+
+@pytest.mark.gpu
+def test_kernels_are_deterministic_and_counted(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=g, device=card,
+                           dtype=torch.bfloat16, requires_grad=True) for _ in range(3))
+    fa.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        out = fa.flash_attention(q, k, v)
+        grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+        runs.append([out.detach()] + list(grads))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert {k.name: k.launches for k in fa.KERNELS.values()} == {
+        "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+    }
