@@ -6,17 +6,23 @@ one NVIDIA card: the quickest proof that the port builds and trains there.
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
-1. build   — compile ``csrc/flash_attention.cu`` with nvcc.
-2. kernels — each flash-attention kernel against its plain PyTorch version
-             on the same card tensors: the slice's launch shape (4 agents x
-             B 2 x 8 heads, T 4096, head dim 128, bf16, causal), the lse
-             cotangent (``dadj``) path, a windowed ragged case, a non-causal
-             case, a head-dim-64 case and a float32 head-dim-32 case.
+1. build   — compile ``csrc/*.cu`` with nvcc, one process per source, all
+             together; prints the seconds and each kernel's registers and
+             spills as ptxas reports them.
+2. kernels — each flash-attention kernel and the dK/dV pre-pass against
+             its plain PyTorch version on the same card tensors: the
+             slice's launch shape (4 agents x B 2 x 8 heads, T 4096, head
+             dim 128, bf16, causal), the lse cotangent (``dadj``) path, a
+             windowed ragged case, a non-causal case, head-dim-64 cases,
+             the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
+             window of 100 over T 1000, non-causal T 333) and the CUDA-core
+             bodies (float32, bf16 head dim 32).
 3. slice   — ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
              for 3 epochs of 3 steps with one gossip round per epoch, on
-             cyclic token windows; launch counts must match layers x steps.
+             cyclic token windows; launch counts must match layers x steps,
+             and every forward and dK/dV launch must take the wgmma body.
 4. plain   — from identical weights, one training step through the kernels
              and one through plain attention (``attn_impl="full"``):
              the loss and every leaf's gradient (Q, K and V weights
@@ -24,7 +30,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              drops key tile 0 must not.
 5. times   — each kernel at the slice's shape: CUDA-event time, its bound
              on this card, its plain version's time, and
-             ``scaled_dot_product_attention``'s time as a yardstick.
+             ``scaled_dot_product_attention``'s time as a yardstick (none
+             for the pre-pass, which no one PyTorch call computes).
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
@@ -54,12 +61,20 @@ import torch
 # kernel is the larger of its bytes over HBM rate and its operations over
 # the bf16 tensor-core rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # CUDA cores, for the pre-pass's float32 reduction
 PEAK_HBM_BYTES = 3.35e12
 
 # The slice's model: the JAX package's full-scale LM (benchmarks/bench_lm.py).
 AGENTS, LAYERS, HEADS, HEAD_DIM, VOCAB, SEQ, BATCH = 4, 8, 8, 128, 8192, 4096, 2
 EPOCHS, STEPS = 3, 3
-SOURCE = "distributed_learning_tpu_torch/csrc/flash_attention.cu"
+CSRC = "distributed_learning_tpu_torch/csrc"
+# The source that holds each kernel's body on the slice's path.
+SOURCES = {
+    "flash_fwd": f"{CSRC}/flash_attention_sm90.cu",
+    "flash_bwd_dq": f"{CSRC}/flash_attention.cu",
+    "flash_bwd_dkv": f"{CSRC}/flash_attention_sm90.cu",
+    "flash_bwd_rowterm": f"{CSRC}/flash_attention_sm90.cu",
+}
 # The slice against its plain path (phase 4): relative limits on the loss
 # and on each leaf's gradient, per agent.  The plain path rounds the
 # scores to bfloat16 before its softmax, so a leaf's gradient differs
@@ -135,12 +150,36 @@ def compare(a, b, atol, rtol, tile):
 # ---------------------------------------------------------------------- #
 # Phase 1: build                                                         #
 # ---------------------------------------------------------------------- #
+def ptxas_summary(report: str) -> dict:
+    """``{kernel<dtype,D>: "R regs, S spill bytes"}`` from ptxas -v."""
+    out, name, spills = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"[0-9](flash_[a-z_0-9]+?kernel(?:_sm90)?)I(13__nv_bfloat16|f)?Li(\d+)E", line)
+        if m:
+            dtype = {"13__nv_bfloat16": "bf16,", "f": "f32,", None: ""}[m.group(2)]
+            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} regs, {spills} spill bytes"
+            name = None
+    return out
+
+
 def phase_build() -> None:
     from distributed_learning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library()
-    emit({"phase": "build", "source": SOURCE, "seconds": round(time.perf_counter() - t0, 3)})
+    lib = _build.load_library()
+    seconds = time.perf_counter() - t0
+    smem = {f"{name}<{D}>": lib.dlt_flash_wgmma_smem_bytes(which, D)
+            for which, name in ((0, "flash_fwd_kernel_sm90"), (2, "flash_dkv_kernel_sm90"))
+            for D in (64, 128)}
+    emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
+          "seconds": round(seconds, 3), "ptxas": ptxas_summary(_build.ptxas_report()),
+          "wgmma_dynamic_smem_bytes": smem})
 
 
 # ---------------------------------------------------------------------- #
@@ -155,6 +194,8 @@ def _qkv(B, T, H, D, dtype, seed):
 
 
 def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, controls=False):
+    # The lse cotangent enters through flash_attention_with_lse, which has no window.
+    assert window is None or not with_lse_grad
     q, k, v, do = _qkv(B, T, H, D, dtype, seed=B * T + D)
     scale = D ** -0.5
     tol = TOL[dtype]
@@ -182,6 +223,10 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     torch.cuda.synchronize()
     check("dq", dq, pdq, "grad")
     del dq, pdq
+    rt = fa.flash_bwd_rowterm(po, do, dadj)
+    torch.cuda.synchronize()
+    errs["rowterm"] = compare(rt, fa.plain_bwd_rowterm(po, do, dadj), 1e-4, 1e-5, 0.0)
+    del rt
     pdk, pdv = fa.plain_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, window)
     dk, dv = fa.flash_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, window)
     torch.cuda.synchronize()
@@ -209,7 +254,9 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
         for name, a, b in zip(("lse_fn.dq", "lse_fn.dk", "lse_fn.dv"), grads, (pdq, pdk, pdv)):
             check(name, a, b, "grad")
     res["max_abs_err"] = {k: v[0] for k, v in errs.items()}
-    res["max_tile_rel_err"] = {k: v[1] for k, v in errs.items() if k != "fwd_lse.lse"}
+    res["max_tile_rel_err"] = {k: v[1] for k, v in errs.items()
+                               if k not in ("fwd_lse.lse", "rowterm")}
+    res["body"] = "wgmma" if fa.wgmma_body(dtype, D) else "cuda_core"
     res["ok"] = all(v[2] for v in errs.values()) and all(res.get("controls_rejected", {}).values())
     emit({"phase": "kernels", **res})
     if not res["ok"]:
@@ -218,6 +265,7 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
         "flash_fwd": max(errs["fwd_lse.o"][0], errs["fwd.o"][0]),
         "flash_bwd_dq": errs["dq"][0],
         "flash_bwd_dkv": max(errs["dk"][0], errs["dv"][0]),
+        "flash_bwd_rowterm": errs["rowterm"][0],
     }
     return per_kernel
 
@@ -230,7 +278,15 @@ def phase_kernels(fa):
     _compare_case(fa, "window_ragged", 2, 1000, 2, 128, bf16, True, 256, False)
     _compare_case(fa, "non_causal_dadj", 2, 512, 4, 128, bf16, False, None, True)
     _compare_case(fa, "head_dim_64", 2, 768, 4, 64, bf16, True, None, False)
+    # The edges of the wgmma bodies' 128-row tiles.
+    _compare_case(fa, "under_one_tile", 2, 64, 2, 128, bf16, True, None, False)
+    _compare_case(fa, "one_row_past_a_tile", 2, 129, 2, 128, bf16, True, None, False)
+    _compare_case(fa, "window_under_a_tile", 2, 1000, 2, 128, bf16, True, 100, False)
+    _compare_case(fa, "head_dim_64_non_causal_dadj", 2, 384, 2, 64, bf16, False, None, True)
+    _compare_case(fa, "non_causal_ragged", 2, 333, 2, 128, bf16, False, None, False)
+    # The CUDA-core bodies.
     _compare_case(fa, "f32_head_dim_32", 2, 333, 2, 32, f32, True, None, True)
+    _compare_case(fa, "bf16_head_dim_32", 2, 200, 2, 32, bf16, True, None, True)
     torch.cuda.empty_cache()
     return main
 
@@ -293,22 +349,27 @@ def phase_slice(fa):
               "epoch_seconds": round(dt, 4),
               "train_tokens_per_s_incl_eval_and_mix": round(tokens_per_epoch / dt, 1)})
     launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
     n_eval = math.ceil(len(master.test_data[0]) / master.eval_batch_size)
     expect = {
         "flash_fwd": LAYERS * EPOCHS * (STEPS + n_eval),
         "flash_bwd_dq": LAYERS * EPOCHS * STEPS,
         "flash_bwd_dkv": LAYERS * EPOCHS * STEPS,
+        "flash_bwd_rowterm": LAYERS * EPOCHS * STEPS,
     }
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "slice_summary", "params_per_agent": master.model.param_count(),
           "agents": AGENTS, "layers": LAYERS, "seq": SEQ, "batch_per_agent": BATCH,
-          "launches": launches, "expected_launches": expect,
+          "launches": launches, "launches_by_body": bodies, "expected_launches": expect,
           "peak_memory_bytes": peak, "epoch_losses": losses})
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        if bodies[name]["wgmma"] != launches[name]:
+            raise AssertionError(f"{name} left the wgmma body: {bodies[name]}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    return master, launches
+    return master, launches, bodies
 
 
 def phase_profile(master, out_dir):
@@ -338,10 +399,14 @@ def phase_profile(master, out_dir):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    groups = {"attention kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
+    # Kernel name (either body) -> group.
+    flash = {"flash_fwd_kernel": "A flash_fwd", "flash_dq_kernel": "B flash_dq",
+             "flash_dkv_kernel": "C flash_dkv", "flash_bwd_rowterm_kernel": "C pre-pass"}
+    groups = dict.fromkeys([*flash.values(), "GEMMs (cuBLAS)", "other"], 0.0)
     for us, key, _ in rows:
-        if re.search(r"flash_(fwd|dq|dkv)_kernel", key):
-            groups["attention kernels"] += us
+        m = re.search(r"flash_(fwd|dq|dkv)_kernel|flash_bwd_rowterm_kernel", key)
+        if m:
+            groups[flash[m.group(0)]] += us
         elif re.search(r"gemm|nvjet|cutlass|sm90_xmma", key, re.I):
             groups["GEMMs (cuBLAS)"] += us
         else:
@@ -463,20 +528,30 @@ def phase_times(fa):
     pairs = B * H * T * (T + 1) // 2  # live (row, col) pairs of the causal mask
     elem = B * T * H * D * 2          # bytes of one bf16 (B, T, H, D) tensor
     row = B * H * T * 4               # bytes of one float32 (B, H, T) tensor
+    rowterm = fa.flash_bwd_rowterm(o, do, None)
+    # (flops, bytes): each input read once, each output written once.
     work = {
         "flash_fwd": (4 * pairs * D, 3 * elem + elem + row),
         "flash_bwd_dq": (6 * pairs * D, 5 * elem + row + elem),
-        "flash_bwd_dkv": (8 * pairs * D, 5 * elem + row + 2 * elem),
+        # Q, K, V, dO, lse and the pre-pass's row term in; dK, dV out.
+        "flash_bwd_dkv": (8 * pairs * D, 4 * elem + 2 * row + 2 * elem),
+        # O and dO in, the row term out.
+        "flash_bwd_rowterm": (2 * B * T * H * D, 2 * elem + row),
     }
+    peak = dict.fromkeys(work, PEAK_BF16_FLOPS)
+    peak["flash_bwd_rowterm"] = PEAK_FP32_FLOPS
     kernel_fn = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True, None, with_lse=True),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, o, do, lse, None, scale, True, None),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, do, lse, None, scale, True, None),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, do, lse, None, scale, True, None,
+                                                  rowterm=rowterm),
+        "flash_bwd_rowterm": lambda: fa.flash_bwd_rowterm(o, do, None),
     }
     plain_fn = {
         "flash_fwd": lambda: fa.plain_fwd(q, k, v, scale, True, None, with_lse=True),
         "flash_bwd_dq": lambda: fa.plain_bwd_dq(q, k, v, o, do, lse, None, scale, True, None),
         "flash_bwd_dkv": lambda: fa.plain_bwd_dkv(q, k, v, o, do, lse, None, scale, True, None),
+        "flash_bwd_rowterm": lambda: fa.plain_bwd_rowterm(o, do, None),
     }
     # Yardstick only: one PyTorch call per function (SDPA forward; SDPA's
     # backward, which computes dQ, dK and dV in one call, for B and C).
@@ -485,13 +560,16 @@ def phase_times(fa):
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 5)
     out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_h, (qh, kh, vh), doh, retain_graph=True), 5)
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd,
+               "flash_bwd_rowterm": None}
     times = {}
     for name in kernel_fn:
         flops, nbytes = work[name]
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops, t_bytes = flops / peak[name] * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        ms = cuda_ms(kernel_fn[name], 5)
         times[name] = {
-            "ms": cuda_ms(kernel_fn[name], 5),
+            "ms": ms,
+            "tflops": flops / ms / 1e9,
             "plain_ms": cuda_ms(plain_fn[name], 2),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -525,7 +603,7 @@ def main(argv=None) -> int:
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
     phase_build()
     main_errs = phase_kernels(fa)
-    master, launches = phase_slice(fa)
+    master, launches, bodies = phase_slice(fa)
     if args.profile:
         phase_profile(master, args.out)
     del master
@@ -537,8 +615,10 @@ def main(argv=None) -> int:
     for k in fa.KERNELS.values():
         t = times[k.name]
         kernels.append({
-            "name": k.name, "route": "cuda", "source": SOURCE, "replaces": k.replaces,
-            "launches": launches[k.name], "max_abs_err": main_errs[k.name],
+            "name": k.name, "route": "cuda", "source": SOURCES[k.name],
+            "replaces": k.replaces, "launches": launches[k.name],
+            "body": "+".join(b for b, n in bodies[k.name].items() if n),
+            "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -1,10 +1,16 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a): the CUDA-core bodies of the
+// forward, dQ and dK/dV kernels, and the dispatcher over all bodies.
 //
 // Port of the three Pallas TPU kernels in
 // distributed_learning_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel   <- _flash_kernel     (launched by _fwd_call)
 //   flash_dq_kernel    <- _flash_dq_kernel  (launched by _bwd_call)
 //   flash_dkv_kernel   <- _flash_dkv_kernel (launched by _bwd_call)
+// The forward and dK/dV kernels also have a wgmma/TMA body
+// (flash_attention_sm90.cu) for bfloat16 with head dim 64 or 128;
+// dispatch() picks it by (dtype, D) alone (uses_wgmma_body in
+// flash_params.cuh).  The bodies here serve float32 inputs, head dim 32,
+// and dQ for every input.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -30,23 +36,27 @@
 // Bound on this card: at the slice's shapes (T = 4096, D = 128, causal)
 // each kernel does ~1,000 flops per byte it must move (chip_smoke.py
 // prints both counts), far above the ~295 where HBM (3.35 TB/s) stops
-// being the limit, so the tensor cores (989 TFLOP/s bf16) bound it.  This first version is the simple correct
-// design: 64 x 64 tiles staged through shared memory as float32, each of
-// 256 threads accumulating a 4 x 4 score micro-tile and a 4 x (D/16)
-// output micro-tile with CUDA-core FMAs.  bf16 products are exact in
-// float32, so rounding P and dS to bf16 before the FMA reproduces what a
-// bf16 tensor-core product with float32 accumulation computes.  It runs
-// far below the tensor-core bound; wgmma/TMA tiles are the next step
-// (ROADMAP.md, PERF.md).
+// being the limit, so the tensor cores (989 TFLOP/s bf16) bound it.  These
+// bodies are the simple correct design: 64 x 64 tiles staged through
+// shared memory as float32, each of 256 threads accumulating a 4 x 4 score
+// micro-tile and a 4 x (D/16) output micro-tile with CUDA-core FMAs.  bf16
+// products are exact in float32, so rounding P and dS to bf16 before the
+// FMA reproduces what a bf16 tensor-core product with float32
+// accumulation computes, and float32 inputs get full float32 products.
+// They run far below the tensor-core bound (PERF.md).
 //
 // Built by ops/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -Xcompiler -fPIC
 // and bound through ctypes: each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_params.cuh"
 
 namespace {
 
@@ -55,32 +65,6 @@ constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid
 constexpr int kPP = kBK + 4;   // padded row of the P / dS tiles
 constexpr float kNegInf = -1e30f;  // large-but-finite, as the TPU kernels
-
-}  // namespace
-
-// Mirrored field for field by FlashParams in ops/_build.py.
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;            // forward: written; backward: read
-  float* lse;         // (B, H, T); forward writes it when non-null
-  const void* dout;   // dO, contiguous (B, T, H, D)
-  const float* dadj;  // (B, H, T) lse cotangent, or null
-  void* dq;
-  void* dk;
-  void* dv;
-  int64_t q_sb, q_st, q_sh;  // element strides of q over (B, T, H); D is unit
-  int64_t k_sb, k_st, k_sh;
-  int64_t v_sb, v_st, v_sh;
-  int32_t B, H, T, D;
-  float scale;
-  int32_t causal;
-  int32_t window;  // <= 0: no window
-  int32_t dtype;   // 0: float32, 1: bfloat16
-};
-
-namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -553,10 +537,14 @@ bool valid(const FlashParams* p) {
 template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
   const int n_tiles = (p.T + kBQ - 1) / kBQ;  // kBQ == kBK
-  switch (which) {
-    case 0: return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), n_tiles, p, stream);
-    case 1: return launch(flash_dq_kernel<T, D>, dq_smem<D>(), n_tiles, p, stream);
-    default: return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), n_tiles, p, stream);
+  if (which == 1) return launch(flash_dq_kernel<T, D>, dq_smem<D>(), n_tiles, p, stream);
+  // Forward and dK/dV for bf16 with D 64 or 128 run the wgmma bodies, so
+  // these are not built for them.
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
+    return cudaErrorInvalidValue;
+  } else {
+    return which == 0 ? launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), n_tiles, p, stream)
+                      : launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), n_tiles, p, stream);
   }
 }
 
@@ -572,8 +560,12 @@ cudaError_t dispatch_d(int which, const FlashParams& p, cudaStream_t stream) {
 int dispatch(int which, const FlashParams* p, void* stream) {
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = p->dtype == 0 ? dispatch_d<float>(which, *p, s)
-                                  : dispatch_d<__nv_bfloat16>(which, *p, s);
+  cudaError_t err;
+  if (uses_wgmma_body(which, p->dtype, p->D)) {
+    err = which == 0 ? flash_fwd_sm90(*p, s) : flash_dkv_sm90(*p, s);
+  } else {
+    err = p->dtype == 0 ? dispatch_d<float>(which, *p, s) : dispatch_d<__nv_bfloat16>(which, *p, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -586,6 +578,14 @@ extern "C" {
 int dlt_flash_fwd(const FlashParams* p, void* stream) { return dispatch(0, p, stream); }
 int dlt_flash_bwd_dq(const FlashParams* p, void* stream) { return dispatch(1, p, stream); }
 int dlt_flash_bwd_dkv(const FlashParams* p, void* stream) { return dispatch(2, p, stream); }
+int dlt_flash_bwd_rowterm(const FlashParams* p, void* stream) {
+  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(flash_rowterm(*p, static_cast<cudaStream_t>(stream)));
+}
+// 1 if dispatch(which, ...) takes the wgmma/TMA body for this dtype and head dim.
+int dlt_flash_uses_wgmma(int which, int dtype, int D) { return uses_wgmma_body(which, dtype, D); }
+// Dynamic shared memory a wgmma body launches with (which 0 or 2, D 64 or 128).
+int dlt_flash_wgmma_smem_bytes(int which, int D) { return flash_sm90_smem_bytes(which, D); }
 int dlt_flash_struct_size() { return static_cast<int>(sizeof(FlashParams)); }
 
 }  // extern "C"

@@ -1,15 +1,18 @@
-"""Build and load the port's CUDA kernels (``csrc/flash_attention.cu``)
-through ctypes.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) through ctypes.
 
-The source is compiled at first use with
+The sources are compiled at first use, one ``nvcc`` per ``.cu``, all
+started together, then linked into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c <source>.cu
+    nvcc -shared <objects> -o libdlt_flash-<hash>.so
 
 into ``distributed_learning_tpu_torch/_build/`` (listed in ``.gitignore``),
-under a name that carries a hash of the source, so an edited kernel is
-rebuilt and a stale library is never loaded.  The C entry points take
-plain pointers and the stream as ``ctypes.c_void_p`` and return
+under a name that carries a hash of every file under ``csrc/`` (sources
+and headers), so an edited kernel or header is rebuilt and a stale library
+is never loaded.  ptxas's report (registers, spills, shared memory of each
+kernel) is kept beside the library as ``<name>.ptxas.txt``.  The C entry
+points take plain pointers and the stream as ``ctypes.c_void_p`` and return
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -24,25 +27,32 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
-__all__ = ["FlashParams", "BUILD_DIR", "check", "load_library"]
+__all__ = ["FlashParams", "BUILD_DIR", "CSRC", "check", "library_path", "load_library",
+           "ptxas_report"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "flash_attention.cu"
+CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+# sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target.
+# -Xptxas=-v reports each kernel's registers and spills.  No -lcuda and no
+# CUTLASS include: the TMA maps are encoded through the runtime's driver
+# entry point (cudaGetDriverEntryPoint), and the PTX is written by hand.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+
+_ENTRIES = ("dlt_flash_fwd", "dlt_flash_bwd_dq", "dlt_flash_bwd_dkv", "dlt_flash_bwd_rowterm")
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
 class FlashParams(ctypes.Structure):
     """Field-for-field mirror of ``struct FlashParams`` in
-    ``csrc/flash_attention.cu``."""
+    ``csrc/flash_params.cuh``."""
 
     _fields_ = [
         ("q", ctypes.c_void_p),
@@ -52,6 +62,7 @@ class FlashParams(ctypes.Structure):
         ("lse", ctypes.c_void_p),
         ("dout", ctypes.c_void_p),
         ("dadj", ctypes.c_void_p),
+        ("rowterm", ctypes.c_void_p),
         ("dq", ctypes.c_void_p),
         ("dk", ctypes.c_void_p),
         ("dv", ctypes.c_void_p),
@@ -82,25 +93,57 @@ def _nvcc() -> str:
     )
 
 
+def _sources() -> List[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    """Where the library built from the current ``csrc/`` lives: its name
+    hashes every source and header, name and content."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    return BUILD_DIR / f"libdlt_flash-{h.hexdigest()[:16]}.so"
+
+
 def _build() -> Path:
-    """The library's path, compiled first if no build of this source
-    exists.  It is written to a temporary name and renamed, so an
+    """The library's path, compiled first if no build of these sources
+    exists.  It is linked to a temporary name and renamed, so an
     interrupted build never leaves a truncated file."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libflash_attention-{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {SOURCE.name}:\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, out)
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cus]
+    procs = [
+        (src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for src, obj in zip(cus, objs)
+    ]
+    reports = [(src, proc.communicate()[1], proc.returncode) for src, proc in procs]
+    for src, err, code in reports:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}) for {src.name}:\n{err[-4000:]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+    out.with_suffix(".ptxas.txt").write_text("".join(f"== {src.name}\n{err}"
+                                                     for src, err, _ in reports))
+    os.replace(tmp, out)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's ``-v`` output for the current build ('' if it has none)."""
+    path = library_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 def load_library() -> ctypes.CDLL:
@@ -109,10 +152,14 @@ def load_library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib = ctypes.CDLL(str(_build()))
-    for fn in ("dlt_flash_fwd", "dlt_flash_bwd_dq", "dlt_flash_bwd_dkv"):
+    for fn in _ENTRIES:
         f = getattr(lib, fn)
         f.argtypes = [ctypes.POINTER(FlashParams), ctypes.c_void_p]
         f.restype = ctypes.c_int
+    lib.dlt_flash_uses_wgmma.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.dlt_flash_uses_wgmma.restype = ctypes.c_int
+    lib.dlt_flash_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dlt_flash_wgmma_smem_bytes.restype = ctypes.c_int
     lib.dlt_flash_struct_size.argtypes = []
     lib.dlt_flash_struct_size.restype = ctypes.c_int
     size = lib.dlt_flash_struct_size()

@@ -2,14 +2,24 @@
 plain PyTorch versions (port of ``distributed_learning_tpu/ops/
 flash_attention.py``).
 
-Three kernels, in ``csrc/flash_attention.cu``, each behind a wrapper that
-counts its launches:
+Three kernels and a pre-pass, in ``csrc/``, each behind a wrapper that
+counts its launches, per body:
 
 * :data:`flash_fwd` — the online-softmax forward (TPU ``_flash_kernel``),
   with or without the per-row logsumexp ``lse``;
 * :data:`flash_bwd_dq` — dQ for one Q tile per block (``_flash_dq_kernel``);
 * :data:`flash_bwd_dkv` — dK and dV for one K/V tile per block
-  (``_flash_dkv_kernel``).
+  (``_flash_dkv_kernel``);
+* :data:`flash_bwd_rowterm` — dK/dV's pre-pass, ``dadj - rowsum(dO * O)``
+  once per row (part of the dK/dV port, not a TPU kernel of its own).
+
+The forward and dK/dV kernels have two bodies: ``"wgmma"`` (tensor cores,
+TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64
+or 128, and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and
+head dim 32, where wgmma has no float32-exact product.  The C++
+dispatcher picks the body by (dtype, D) alone; :func:`wgmma_body` mirrors
+it.  A bfloat16 view that TMA cannot read (base or a stride not a
+multiple of 16 bytes) raises instead of taking another body.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs its plain version, which repeats the kernel's arithmetic
@@ -49,6 +59,9 @@ __all__ = [
     "plain_fwd",
     "plain_bwd_dq",
     "plain_bwd_dkv",
+    "plain_bwd_rowterm",
+    "flash_bwd_rowterm",
+    "wgmma_body",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -94,15 +107,18 @@ def plain_fwd(q, k, v, scale, causal, window, with_lse):
     return o, lse
 
 
+def plain_bwd_rowterm(o, do, dadj):
+    """Plain version of dK/dV's pre-pass: ``dadj - rowsum(dO * O)`` as
+    (B, H, T) float32 (``-rowsum`` without ``dadj``)."""
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).permute(0, 2, 1)
+    return -delta if dadj is None else dadj - delta
+
+
 def _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window):
     s = _scores(q, k, scale, causal, window)
     p = torch.exp(s - lse[..., None])  # masked entries -> 0
-    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)  # (B, T, H)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32), v.to(torch.float32))
-    adj = delta.permute(0, 2, 1)[..., None]
-    if dadj is not None:
-        adj = adj - dadj[..., None]
-    return p, p * (dp - adj)
+    return p, p * (dp + plain_bwd_rowterm(o, do, dadj)[..., None])
 
 
 def plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window):
@@ -125,6 +141,27 @@ def plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window):
 # --------------------------------------------------------------------- #
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the forward and dK/dV kernels take their wgmma/TMA body
+    for this input: bfloat16 with head dim 64 or 128.  Mirrors
+    ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
+    return dtype == torch.bfloat16 and head_dim in (64, 128)
+
+
+def _check_tma(**tensors) -> None:
+    """TMA reads a tile from a base and strides that are multiples of 16
+    bytes; a view that breaks that raises (no other body is taken)."""
+    for name, t in tensors.items():
+        nbytes = t.element_size()
+        bad = [s for s in t.stride()[:-1] if (s * nbytes) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{name}: the wgmma/TMA kernels need a base address and strides that are "
+                f"multiples of 16 bytes; got address % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())} of {nbytes}-byte elements"
+            )
 
 
 def _check_qkv(q, k, v):
@@ -169,35 +206,48 @@ def _params(q, k, v, scale, causal, window, **ptrs) -> _build.FlashParams:
 
 
 class _Kernel:
-    """One CUDA entry point with its launch counter.  ``launches`` counts
-    calls that launched the kernel; plain-version calls do not count."""
+    """One CUDA entry point with its launch counters.  ``launches`` counts
+    calls that launched the kernel, ``by_body`` the same per body;
+    plain-version calls do not count."""
 
-    def __init__(self, name: str, entry: str, replaces: str):
+    def __init__(self, name: str, entry: str, replaces: str, bodies=("cuda_core",)):
         self.name = name
         self.entry = entry
         self.replaces = replaces
         self.launches = 0
+        self.by_body = dict.fromkeys(bodies, 0)
 
-    def launch(self, params: _build.FlashParams, device: torch.device) -> None:
+    def launch(self, params: _build.FlashParams, device: torch.device,
+               body: str = "cuda_core") -> None:
         lib = _build.load_library()
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, self.entry)(ctypes.byref(params), ctypes.c_void_p(stream))
         _build.check(code, self.name)
         self.launches += 1
+        self.by_body[body] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_body = dict.fromkeys(self.by_body, 0)
 
 
-_FWD = _Kernel("flash_fwd", "dlt_flash_fwd",
-               "distributed_learning_tpu/ops/flash_attention.py:118")
-_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq",
-              "distributed_learning_tpu/ops/flash_attention.py:178")
-_DKV = _Kernel("flash_bwd_dkv", "dlt_flash_bwd_dkv",
-               "distributed_learning_tpu/ops/flash_attention.py:234")
-KERNELS = {k.name: k for k in (_FWD, _DQ, _DKV)}
+_TPU = "distributed_learning_tpu/ops/flash_attention.py"
+_FWD = _Kernel("flash_fwd", "dlt_flash_fwd", f"{_TPU}:118", ("wgmma", "cuda_core"))
+_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq", f"{_TPU}:178")
+_DKV = _Kernel("flash_bwd_dkv", "dlt_flash_bwd_dkv", f"{_TPU}:234", ("wgmma", "cuda_core"))
+# Part of C's port: the delta that _flash_dkv_kernel computes per block
+# (:261), hoisted out of the dK/dV kernel's loop.
+_ROWTERM = _Kernel("flash_bwd_rowterm", "dlt_flash_bwd_rowterm", f"{_TPU}:261")
+KERNELS = {k.name: k for k in (_FWD, _DQ, _DKV, _ROWTERM)}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
+
+
+def _body(q) -> str:
+    return "wgmma" if wgmma_body(q.dtype, q.shape[-1]) else "cuda_core"
 
 
 def flash_fwd(q, k, v, scale, causal, window, with_lse):
@@ -206,10 +256,13 @@ def flash_fwd(q, k, v, scale, causal, window, with_lse):
     if q.device.type == "cpu":
         return plain_fwd(q, k, v, scale, causal, window, with_lse)
     B, T, H, D = q.shape
+    body = _body(q)
+    if body == "wgmma":
+        _check_tma(q=q, k=k, v=v)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _FWD.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse), q.device)
+    _FWD.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse), q.device, body)
     return o, lse
 
 
@@ -240,16 +293,50 @@ def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window):
-    """Backward kernel C: ``(dK, dV)``.  ``dadj`` may be None."""
+def flash_bwd_rowterm(o, do, dadj):
+    """dK/dV's pre-pass: ``dadj - rowsum(dO * O)`` as (B, H, T) float32
+    for (B, T, H, D) ``o`` and ``do``; ``dadj`` may be None."""
+    if o.device.type == "cpu":
+        return plain_bwd_rowterm(o, do, dadj)
+    if o.shape != do.shape or o.dim() != 4 or o.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"o and do must share one (B, T, H, D) shape with D in {_HEAD_DIMS}")
+    if o.dtype != do.dtype or o.dtype not in _DTYPES:
+        raise TypeError(f"o and do must share a dtype in float32/bfloat16; got {o.dtype}, {do.dtype}")
+    B, T, H, D = o.shape
+    if dadj is not None and (dadj.shape != (B, H, T) or dadj.dtype != torch.float32):
+        raise ValueError("dadj must be (B, H, T) float32")
+    o, do = o.contiguous(), do.contiguous()
+    dadj = None if dadj is None else dadj.contiguous()
+    _check_tma(o=o, do=do)
+    rowterm = torch.empty((B, H, T), dtype=torch.float32, device=o.device)
+    _ROWTERM.launch(_params(o, o, o, 1.0, False, None, o=o, dout=do, dadj=dadj,
+                            rowterm=rowterm), o.device)
+    return rowterm
+
+
+def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """Backward kernel C: ``(dK, dV)``.  ``dadj`` may be None.  The
+    wgmma body reads its row term from the pre-pass, run here unless the
+    caller passes its result as ``rowterm``; the CUDA-core body computes
+    it in the kernel."""
     _check_qkv(q, k, v)
     o, do, lse, dadj = _bwd_inputs(q, o, do, lse, dadj)
     if q.device.type == "cpu":
         return plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window)
+    body = _body(q)
+    if body != "wgmma":
+        rowterm = None
+    else:
+        _check_tma(q=q, k=k, v=v, do=do)
+        if rowterm is None:
+            rowterm = flash_bwd_rowterm(o, do, dadj)
+        elif rowterm.shape != lse.shape or rowterm.dtype != torch.float32:
+            raise ValueError("rowterm must be (B, H, T) float32")
+        rowterm = rowterm.contiguous()
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _DKV.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                        dadj=dadj, dk=dk, dv=dv), q.device)
+                        dadj=dadj, rowterm=rowterm, dk=dk, dv=dv), q.device, body)
     return dk, dv
 
 

@@ -138,6 +138,52 @@ def test_attention_reference_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,D,wgmma", [
+    (torch.bfloat16, 64, True),
+    (torch.bfloat16, 128, True),
+    (torch.bfloat16, 32, False),
+    (torch.float32, 64, False),
+    (torch.float32, 128, False),
+])
+def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
+    """bf16 with D 64 or 128 takes the wgmma/TMA body; float32 (no
+    float32-exact wgmma) and D 32 the CUDA-core body."""
+    assert fa.wgmma_body(dtype, D) is wgmma
+
+
+def test_tma_rule_rejects_a_view_with_a_stride_off_16_bytes():
+    buf = torch.zeros(8192, dtype=torch.bfloat16)
+    fused = buf[:2 * 8 * 3 * 2 * 64].view(2, 8, 3, 2, 64)  # the model's fused QKV
+    fa._check_tma(q=fused[:, :, 0], k=fused[:, :, 1], v=fused[:, :, 2])
+    bad_row = buf.as_strided((1, 8, 2, 64), (8 * 132, 132, 64, 1))  # 264-byte rows
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._check_tma(q=bad_row)
+    bad_base = buf[1:1 + 8 * 2 * 64].view(1, 8, 2, 64)  # 2 bytes past an aligned base
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._check_tma(k=bad_base)
+
+
+@pytest.mark.parametrize("with_dadj", [False, True])
+def test_plain_rowterm_is_dadj_minus_rowsum_of_do_times_o(with_dadj):
+    """The pre-pass's plain version against numpy: dadj - sum_d dO * O, as
+    the JAX dK/dV kernel forms it (``dp - delta + adj``)."""
+    rng = np.random.default_rng(12)
+    B, T, H, D = 2, 40, 3, 16
+    o, do = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(2))
+    dadj = rng.normal(size=(B, H, T)).astype(np.float32) if with_dadj else None
+    got = fa.plain_bwd_rowterm(torch.tensor(o), torch.tensor(do),
+                               None if dadj is None else torch.tensor(dadj))
+    want = -np.einsum("bthd,bthd->bht", do, o)
+    if dadj is not None:
+        want = want + dadj
+    assert got.shape == (B, H, T) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # flash_bwd_rowterm on the CPU is the plain version.
+    same = fa.flash_bwd_rowterm(torch.tensor(o), torch.tensor(do),
+                                None if dadj is None else torch.tensor(dadj))
+    assert torch.equal(same, got)
+
+
 def test_cpu_path_counts_no_launch_and_checks_inputs():
     fa.reset_launch_counts()
     q = torch.zeros(1, 8, 1, 32)

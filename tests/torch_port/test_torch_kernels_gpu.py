@@ -50,6 +50,14 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 200, 2, 64, torch.float32, True, 37, False),
         (1, 130, 3, 32, torch.float32, False, None, True),
         (1, 192, 2, 128, torch.bfloat16, True, None, True),
+        # The edges of the wgmma bodies' 128-row tiles.
+        (2, 64, 2, 128, torch.bfloat16, True, None, False),
+        (2, 129, 2, 128, torch.bfloat16, True, None, False),
+        (2, 1000, 2, 128, torch.bfloat16, True, 100, False),
+        (2, 384, 2, 64, torch.bfloat16, False, None, True),
+        (2, 333, 2, 128, torch.bfloat16, False, None, False),
+        # bf16 with head dim 32 stays on the CUDA-core bodies.
+        (2, 200, 2, 32, torch.bfloat16, True, 50, True),
     ],
 )
 def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
@@ -78,6 +86,8 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     close(o, po, "o")
     close(o2, po, "o")
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(fa.flash_bwd_rowterm(po, do, dadj),
+                               fa.plain_bwd_rowterm(po, do, dadj), atol=1e-4, rtol=1e-5)
     dq = fa.flash_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
     dk, dv = fa.flash_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, window)
     pdq = fa.plain_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
@@ -88,10 +98,17 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
 
 
 @pytest.mark.gpu
-def test_kernels_are_deterministic_and_counted(card):
+@pytest.mark.parametrize("shape,dtype,body", [
+    ((2, 256, 2, 64), torch.bfloat16, "wgmma"),
+    ((2, 512, 2, 128), torch.bfloat16, "wgmma"),
+    ((2, 256, 2, 32), torch.float32, "cuda_core"),
+])
+def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
+    """Two runs give the same bits, and every launch is counted once, on
+    the body that ``wgmma_body`` names."""
     g = torch.Generator(device=card).manual_seed(1)
-    q, k, v = (torch.randn(2, 256, 2, 64, generator=g, device=card,
-                           dtype=torch.bfloat16, requires_grad=True) for _ in range(3))
+    q, k, v = (torch.randn(*shape, generator=g, device=card,
+                           dtype=dtype, requires_grad=True) for _ in range(3))
     fa.reset_launch_counts()
     runs = []
     for _ in range(2):
@@ -100,6 +117,32 @@ def test_kernels_are_deterministic_and_counted(card):
         runs.append([out.detach()] + list(grads))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    wgmma = body == "wgmma"
     assert {k.name: k.launches for k in fa.KERNELS.values()} == {
         "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+        "flash_bwd_rowterm": 2 if wgmma else 0,
     }
+    assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
+    assert fa.KERNELS["flash_bwd_dkv"].by_body == {"wgmma": 2 * wgmma,
+                                                   "cuda_core": 2 * (not wgmma)}
+    assert fa.KERNELS["flash_bwd_dq"].by_body == {"cuda_core": 2}
+
+
+@pytest.mark.gpu
+def test_dispatcher_agrees_with_python_body_predicate(card):
+    from distributed_learning_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for which in (0, 2):  # forward, dK/dV
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for D in (32, 64, 128):
+                assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D)
+    assert not any(lib.dlt_flash_uses_wgmma(1, 1, D) for D in (32, 64, 128))  # dQ
+
+
+@pytest.mark.gpu
+def test_wgmma_body_rejects_a_view_tma_cannot_read(card):
+    buf = torch.zeros(4096, device=card, dtype=torch.bfloat16)
+    q = buf.as_strided((1, 8, 2, 64), (8 * 132, 132, 64, 1))  # 264-byte rows
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa.flash_fwd(q, q, q, 0.125, True, None, with_lse=False)
