@@ -9,10 +9,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. build   — compile ``csrc/*.cu`` with nvcc, one process per source, all
              together; prints the seconds and each kernel's registers and
              spills as ptxas reports them.
-2. kernels — each flash-attention kernel and the dK/dV pre-pass against
-             its plain PyTorch version on the same card tensors: the
-             slice's launch shape (4 agents x B 2 x 8 heads, T 4096, head
-             dim 128, bf16, causal), the lse cotangent (``dadj``) path, a
+2. kernels — each flash-attention kernel and the backward's pre-pass
+             against its plain PyTorch version on the same card tensors:
+             the slice's launch shape (4 agents x B 2 x 8 heads, T 4096,
+             head dim 128, bf16, causal; there the limits must also reject
+             a dQ whose first Q tile and a dK or dV whose last key tile is
+             zeroed), the lse cotangent (``dadj``) path, a
              windowed ragged case, a non-causal case, head-dim-64 cases,
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
              window of 100 over T 1000, non-causal T 333) and the CUDA-core
@@ -21,8 +23,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
              for 3 epochs of 3 steps with one gossip round per epoch, on
-             cyclic token windows; launch counts must match layers x steps,
-             and every forward and dK/dV launch must take the wgmma body.
+             cyclic token windows; launch counts must match layers x steps
+             (the pre-pass once per layer backward), and every forward, dQ
+             and dK/dV launch must take the wgmma body.
 4. plain   — from identical weights, one training step through the kernels
              and one through plain attention (``attn_impl="full"``):
              the loss and every leaf's gradient (Q, K and V weights
@@ -71,7 +74,7 @@ CSRC = "distributed_learning_tpu_torch/csrc"
 # The source that holds each kernel's body on the slice's path.
 SOURCES = {
     "flash_fwd": f"{CSRC}/flash_attention_sm90.cu",
-    "flash_bwd_dq": f"{CSRC}/flash_attention.cu",
+    "flash_bwd_dq": f"{CSRC}/flash_attention_sm90.cu",
     "flash_bwd_dkv": f"{CSRC}/flash_attention_sm90.cu",
     "flash_bwd_rowterm": f"{CSRC}/flash_attention_sm90.cu",
 }
@@ -175,7 +178,8 @@ def phase_build() -> None:
     lib = _build.load_library()
     seconds = time.perf_counter() - t0
     smem = {f"{name}<{D}>": lib.dlt_flash_wgmma_smem_bytes(which, D)
-            for which, name in ((0, "flash_fwd_kernel_sm90"), (2, "flash_dkv_kernel_sm90"))
+            for which, name in ((0, "flash_fwd_kernel_sm90"), (1, "flash_dq_kernel_sm90"),
+                                (2, "flash_dkv_kernel_sm90"))
             for D in (64, 128)}
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
           "seconds": round(seconds, 3), "ptxas": ptxas_summary(_build.ptxas_report()),
@@ -222,6 +226,16 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     dq = fa.flash_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
     torch.cuda.synchronize()
     check("dq", dq, pdq, "grad")
+    rejected = {}
+    if controls:
+        # The limits must reject a dQ kernel that leaves the first Q tile
+        # at zero: its few live keys under the causal mask make it the
+        # smallest tile.
+        broken = dq.clone()
+        broken[:, :TILE_ROWS] = 0
+        rejected["dq_first_tile_zeroed"] = not compare(
+            broken, pdq, tol["grad"], tol["rtol"], tol["tile"])[2]
+        del broken
     del dq, pdq
     rt = fa.flash_bwd_rowterm(po, do, dadj)
     torch.cuda.synchronize()
@@ -235,7 +249,6 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     if controls:
         # The limits must reject a dK/dV kernel that leaves the last key
         # tile at zero: its few queries make it the smallest tile.
-        rejected = {}
         for name, a, b in (("dk", dk, pdk), ("dv", dv, pdv)):
             broken = a.clone()
             broken[:, -TILE_ROWS:] = 0
@@ -364,7 +377,7 @@ def phase_slice(fa):
           "peak_memory_bytes": peak, "epoch_losses": losses})
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if bodies[name]["wgmma"] != launches[name]:
             raise AssertionError(f"{name} left the wgmma body: {bodies[name]}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -455,8 +468,8 @@ def _drop_first_key_tile(fa):
     (keys 0-63, which every query reaches) gets no gradient."""
     real = fa.flash_bwd_dkv
 
-    def broken(*args):
-        dk, dv = real(*args)
+    def broken(*args, **kwargs):
+        dk, dv = real(*args, **kwargs)
         dk[:, :TILE_ROWS] = 0
         dv[:, :TILE_ROWS] = 0
         return dk, dv
@@ -532,7 +545,8 @@ def phase_times(fa):
     # (flops, bytes): each input read once, each output written once.
     work = {
         "flash_fwd": (4 * pairs * D, 3 * elem + elem + row),
-        "flash_bwd_dq": (6 * pairs * D, 5 * elem + row + elem),
+        # Q, K, V, dO, lse and the pre-pass's row term in; dQ out.
+        "flash_bwd_dq": (6 * pairs * D, 4 * elem + 2 * row + elem),
         # Q, K, V, dO, lse and the pre-pass's row term in; dK, dV out.
         "flash_bwd_dkv": (8 * pairs * D, 4 * elem + 2 * row + 2 * elem),
         # O and dO in, the row term out.
@@ -542,7 +556,8 @@ def phase_times(fa):
     peak["flash_bwd_rowterm"] = PEAK_FP32_FLOPS
     kernel_fn = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True, None, with_lse=True),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, o, do, lse, None, scale, True, None),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, o, do, lse, None, scale, True, None,
+                                                rowterm=rowterm),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, do, lse, None, scale, True, None,
                                                   rowterm=rowterm),
         "flash_bwd_rowterm": lambda: fa.flash_bwd_rowterm(o, do, None),

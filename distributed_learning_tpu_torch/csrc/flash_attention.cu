@@ -6,11 +6,10 @@
 //   flash_fwd_kernel   <- _flash_kernel     (launched by _fwd_call)
 //   flash_dq_kernel    <- _flash_dq_kernel  (launched by _bwd_call)
 //   flash_dkv_kernel   <- _flash_dkv_kernel (launched by _bwd_call)
-// The forward and dK/dV kernels also have a wgmma/TMA body
-// (flash_attention_sm90.cu) for bfloat16 with head dim 64 or 128;
-// dispatch() picks it by (dtype, D) alone (uses_wgmma_body in
-// flash_params.cuh).  The bodies here serve float32 inputs, head dim 32,
-// and dQ for every input.
+// Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
+// bfloat16 with head dim 64 or 128; dispatch() picks it by (dtype, D)
+// alone (uses_wgmma_body in flash_params.cuh).  The bodies here serve
+// float32 inputs and head dim 32.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -537,14 +536,15 @@ bool valid(const FlashParams* p) {
 template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
   const int n_tiles = (p.T + kBQ - 1) / kBQ;  // kBQ == kBK
-  if (which == 1) return launch(flash_dq_kernel<T, D>, dq_smem<D>(), n_tiles, p, stream);
-  // Forward and dK/dV for bf16 with D 64 or 128 run the wgmma bodies, so
-  // these are not built for them.
+  // bf16 with D 64 or 128 runs the wgmma bodies, so these are not built for it.
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
     return cudaErrorInvalidValue;
   } else {
-    return which == 0 ? launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), n_tiles, p, stream)
-                      : launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), n_tiles, p, stream);
+    switch (which) {
+      case 0: return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), n_tiles, p, stream);
+      case 1: return launch(flash_dq_kernel<T, D>, dq_smem<D>(), n_tiles, p, stream);
+      default: return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), n_tiles, p, stream);
+    }
   }
 }
 
@@ -562,7 +562,9 @@ int dispatch(int which, const FlashParams* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (uses_wgmma_body(which, p->dtype, p->D)) {
-    err = which == 0 ? flash_fwd_sm90(*p, s) : flash_dkv_sm90(*p, s);
+    err = which == 0   ? flash_fwd_sm90(*p, s)
+          : which == 1 ? flash_dq_sm90(*p, s)
+                       : flash_dkv_sm90(*p, s);
   } else {
     err = p->dtype == 0 ? dispatch_d<float>(which, *p, s) : dispatch_d<__nv_bfloat16>(which, *p, s);
   }
@@ -584,7 +586,7 @@ int dlt_flash_bwd_rowterm(const FlashParams* p, void* stream) {
 }
 // 1 if dispatch(which, ...) takes the wgmma/TMA body for this dtype and head dim.
 int dlt_flash_uses_wgmma(int which, int dtype, int D) { return uses_wgmma_body(which, dtype, D); }
-// Dynamic shared memory a wgmma body launches with (which 0 or 2, D 64 or 128).
+// Dynamic shared memory a wgmma body launches with (which 0, 1 or 2; D 64 or 128).
 int dlt_flash_wgmma_smem_bytes(int which, int D) { return flash_sm90_smem_bytes(which, D); }
 int dlt_flash_struct_size() { return static_cast<int>(sizeof(FlashParams)); }
 

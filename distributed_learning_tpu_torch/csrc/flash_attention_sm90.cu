@@ -1,10 +1,12 @@
-// Flash attention forward (A) and dK/dV (C) for Hopper (sm_90a) on the
-// tensor cores, bfloat16 with head dim 64 or 128, and the dK/dV pre-pass.
+// Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
+// on the tensor cores, bfloat16 with head dim 64 or 128, and the
+// backward's pre-pass.
 //
 //   flash_fwd_kernel_sm90     <- _flash_kernel      (launched by _fwd_call)
+//   flash_dq_kernel_sm90      <- _flash_dq_kernel   (launched by _bwd_call)
 //   flash_dkv_kernel_sm90     <- _flash_dkv_kernel  (launched by _bwd_call)
-//   flash_bwd_rowterm_kernel     pre-pass of the dK/dV kernel: rowterm =
-//                                dadj - rowsum(dO * O), once per row
+//   flash_bwd_rowterm_kernel     pre-pass of both backward kernels:
+//                                rowterm = dadj - rowsum(dO * O), once per row
 //   (all in distributed_learning_tpu/ops/flash_attention.py)
 //
 // They compute what the CUDA-core bodies in flash_attention.cu compute:
@@ -14,9 +16,9 @@
 // (B, H, T) float32, and keep()'s causal, sliding-window and ragged-T
 // masks, with dead tiles skipped as loop bounds.
 //
-// Bound: at the slice's shapes (T 4096, D 128, causal) both do ~1,000
-// flops per byte they must move, so the tensor cores (989 TFLOP/s bf16)
-// bound them.  The design follows that:
+// Bound: at the slice's shapes (T 4096, D 128, causal) all three do
+// ~1,000 flops per byte they must move, so the tensor cores (989 TFLOP/s
+// bf16) bound them.  The design follows that:
 //   * every product is a wgmma (m64nNk16, bf16 in, float32 accumulate);
 //     P and dS go from the float32 accumulator to the register A operand
 //     of the next product and never touch shared memory;
@@ -28,13 +30,17 @@
 //     the producer warpgroup (24) to the consumers (240);
 //   * the forward overlaps each tile's softmax with the previous tile's
 //     P.V in the same warpgroup, and ping-pongs the two warpgroups so the
-//     softmax of one runs under the products of the other; the dK/dV
-//     kernel forms dS^T while dV's product runs, and a warpgroup skips the
-//     Q tiles that see none of its keys;
+//     softmax of one runs under the products of the other; the backward
+//     kernels form P while dP's product runs (dQ) or dS^T while dV's
+//     product runs (dK/dV), and a warpgroup skips the tiles that none of
+//     its rows can see;
+//   * both backward kernels read the row term from the pre-pass, so O is
+//     read once per backward instead of once per (key tile, Q tile);
 //   * masks are applied only on tiles that a mask can touch (the causal
 //     diagonal, window edges, the ragged end); other tiles skip them.
-// The dK/dV kernel keeps one block per 128-key tile, each block writes
-// only its own rows: no atomics, the same bits run to run.
+// The dQ kernel keeps one block per 128-query tile and the dK/dV kernel
+// one per 128-key tile; each block writes only its own rows: no atomics,
+// the same bits run to run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -52,13 +58,16 @@ using bf16 = __nv_bfloat16;
 constexpr int kConsumers = 2;                     // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kStages = 2;  // depth of the K/V (forward) and Q/dO (dK/dV) rings
+constexpr int kStages = 2;  // depth of the K/V (forward, dQ) and Q/dO (dK/dV) rings
 constexpr int kLine = 128;  // bytes of one swizzled tile row (64 bf16)
 constexpr float kNegInf = -1e30f;  // large-but-finite, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Forward: 128 query rows per block (64 per consumer), 128-key tiles.
 constexpr int kFwdBQ = 128, kFwdBK = 128;
+// dQ: 128 query rows per block (64 per consumer), 64-key tiles, so S, dP
+// (m64n64 each) and the 64 x D dQ accumulator fit the consumers' registers.
+constexpr int kDqBQ = 128, kDqBK = 64;
 // dK/dV: 128 keys per block (64 per consumer), 64-query tiles.
 constexpr int kDkvBK = 128, kDkvBQ = 64;
 
@@ -391,6 +400,184 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B. dQ = scale * sum_k dS K, dS = P * (dO V^T + rowterm), the row term
+// dadj - rowsum(dO * O) read from the pre-pass.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = (D / 64) * kDqBQ * kLine;   // the Q or the dO tile
+  static constexpr int kKV = (D / 64) * kDqBK * kLine;  // one K or V tile
+  static constexpr int kDO = kQ, kK = 2 * kQ, kV = kK + kStages * kKV, kBar = kV + kStages * kKV;
+  static constexpr int kBytes = kBar + 64 + 1024;  // barriers, alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + L::kDO;
+  uint8_t* k_s = smem + L::kK;
+  uint8_t* v_s = smem + L::kV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_q = bars;  // Q and dO
+  uint64_t* full = bars + 1;  // K and V of a stage
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int n_qt = (p.T + kDqBQ - 1) / kDqBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kDqBQ;  // longest causal rows first
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  int k_lo = 0, k_hi = p.T;
+  if (p.causal) {
+    k_hi = min(p.T, q0 + kDqBQ);
+    if (p.window > 0) k_lo = max(0, q0 - (p.window - 1));
+  }
+  const int kt_lo = k_lo / kDqBK, n_kt = (k_hi + kDqBK - 1) / kDqBK - kt_lo;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread loads Q and dO once, then keeps the K/V ring full.
+    reg_dealloc<kProducerRegs>();
+    if (t == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_do);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_expect_tx(full_q, 2 * L::kQ);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(q_s + c * kDqBQ * kLine, &tm_q, full_q, c * 64, h, q0, b);
+        tma_load_4d(do_s + c * kDqBQ * kLine, &tm_do, full_q, c * 64, h, q0, b);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kStages, k0 = (kt_lo + i) * kDqBK;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(k_s + s * L::kKV + c * kDqBK * kLine, &tm_k, &full[s], c * 64, h, k0, b);
+          tma_load_4d(v_s + s * L::kKV + c * kDqBK * kLine, &tm_v, &full[s], c * 64, h, k0, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+    // and keeps their dQ in registers for the whole walk.  This thread
+    // holds rows r_lo and r_lo + 8, key columns 8 j + c_lo + {0, 1}.
+    reg_alloc<kConsumerRegs>();
+    const int lane = t % 32;
+    const int r_lo = 16 * (t / 32) + lane / 4, c_lo = 2 * (lane % 4);
+    const int wrow0 = q0 + 64 * wg, row0 = wrow0 + r_lo;
+    const uint32_t q_base = smem_addr(q_s) + wg * 64 * kLine;
+    const uint32_t do_base = smem_addr(do_s) + wg * 64 * kLine;
+    const float scale_log2 = p.scale * kLog2e;
+    // lse (times log2(e)) and the row term of this thread's two rows; rows
+    // past T take 0, and the ragged mask zeroes their P.
+    float lse2[2], rt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const int64_t idx = static_cast<int64_t>(bh) * p.T + row;
+      lse2[r] = row < p.T ? p.lse[idx] * kLog2e : 0.f;
+      rt[r] = row < p.T ? p.rowterm[idx] : 0.f;
+    }
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(full_q, 0);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % kStages, k0 = (kt_lo + i) * kDqBK;
+      const uint32_t k_base = smem_addr(k_s + s * L::kKV), v_base = smem_addr(v_s + s * L::kKV);
+      // A key tile that none of this warpgroup's rows sees.
+      const bool dead = wrow0 >= p.T ||
+                        (p.causal && (k0 > wrow0 + 63 ||
+                                      (p.window > 0 && k0 + kDqBK - 1 < wrow0 - (p.window - 1))));
+      mbar_wait(&full[s], (i / kStages) & 1);
+      if (!dead) {
+        // S = Q K^T, then dP = dO V^T, 64 rows x 64 keys each.
+        float st[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(st, desc_sw128(q_base + kmajor_step(kk, kDqBQ), 16, 1024),
+                       desc_sw128(k_base + kmajor_step(kk, kDqBK), 16, 1024), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, desc_sw128(do_base + kmajor_step(kk, kDqBQ), 16, 1024),
+                       desc_sw128(v_base + kmajor_step(kk, kDqBK), 16, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+
+        // P = exp(scale S - lse), 0 where masked, while dP is on the tensor cores.
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * j + e] = ex2(fmaf(st[4 * j + e], scale_log2, -lse2[e >> 1]));
+        }
+        if (needs_mask(p, wrow0, 64, k0, kDqBK)) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!keep(p, row0 + 8 * (e >> 1), k0 + 8 * j + c_lo + (e & 1))) st[4 * j + e] = 0.f;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+
+        // dS = P (dP + rowterm), rounded to bf16 as the A operand of dS K.
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[4 * j + e] = st[4 * j + e] * (dp[4 * j + e] + rt[e >> 1]);
+        }
+        uint32_t sf[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_frag(dp, kk, sf[kk]);
+
+        // dQ += dS K: K is the MN-major B operand (keys are the depth).
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqBK / 16; ++kk)
+          wgmma_rs_nd<D>(dq, sf[kk], desc_sw128(k_base + kk * 16 * kLine, kDqBK * kLine, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(sf);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: scale * dQ as bf16, staged in this warpgroup's rows of the
+    // Q tile (which only it reads), then 16-byte stores.
+    uint8_t* stage = q_s + wg * 64 * kLine;
+    fence_proxy_async();
+    stage_rows<D>(stage, kDqBQ * kLine, dq, p.scale, p.scale, r_lo, c_lo);
+    named_sync(1 + wg, 128);
+    store_rows<D>(static_cast<bf16*>(p.dq), stage, kDqBQ * kLine, p, b, h, wrow0, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C. dV = sum_q P^T dO, dK = scale * sum_q dS^T Q, in the transposed
 // orientation: keys are the rows of every product.
 // ---------------------------------------------------------------------------
@@ -592,7 +779,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Pre-pass of C: rowterm[b, h, t] = dadj[b, h, t] - sum_d dO[b, t, h, d] O[b, t, h, d]
+// Pre-pass of B and C: rowterm[b, h, t] = dadj[b, h, t] - sum_d dO[b, t, h, d] O[b, t, h, d]
 // in float32, reading O and dO once (16 bytes a thread, D / VEC threads
 // a row).  Bound by bytes.
 // ---------------------------------------------------------------------------
@@ -689,6 +876,24 @@ cudaError_t fwd(const FlashParams& p, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t bwd_dq(const FlashParams& p, cudaStream_t stream) {
+  const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
+  CUtensorMap mq, mk, mv, mdo;
+  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kDqBQ) ||
+      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, kDqBK) ||
+      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, kDqBK) ||
+      !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, kDqBQ))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DqSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + kDqBQ - 1) / kDqBQ, p.B * p.H);
+  flash_dq_kernel_sm90<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, p);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t dkv(const FlashParams& p, cudaStream_t stream) {
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
   CUtensorMap mq, mk, mv, mdo;
@@ -739,6 +944,14 @@ cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
   return p.D == 64 ? fwd<64>(p, stream) : fwd<128>(p, stream);
 }
 
+cudaError_t flash_dq_sm90(const FlashParams& p, cudaStream_t stream) {
+  if (!tma_ok(p.q, p.q_sb, p.q_st, p.q_sh) || !tma_ok(p.k, p.k_sb, p.k_st, p.k_sh) ||
+      !tma_ok(p.v, p.v_sb, p.v_st, p.v_sh) || reinterpret_cast<uintptr_t>(p.dout) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(p.dq) % 16 != 0 || p.rowterm == nullptr || p.lse == nullptr)
+    return cudaErrorInvalidValue;
+  return p.D == 64 ? bwd_dq<64>(p, stream) : bwd_dq<128>(p, stream);
+}
+
 cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
   if (!tma_ok(p.q, p.q_sb, p.q_st, p.q_sh) || !tma_ok(p.k, p.k_sb, p.k_st, p.k_sh) ||
       !tma_ok(p.v, p.v_sb, p.v_st, p.v_sh) || reinterpret_cast<uintptr_t>(p.dout) % 16 != 0 ||
@@ -750,6 +963,7 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
 
 int flash_sm90_smem_bytes(int which, int D) {
   if (which == 0) return D == 64 ? FwdSmem<64>::kBytes : FwdSmem<128>::kBytes;
+  if (which == 1) return D == 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
   return D == 64 ? DkvSmem<64>::kBytes : DkvSmem<128>::kBytes;
 }
 

@@ -10,16 +10,18 @@ counts its launches, per body:
 * :data:`flash_bwd_dq` — dQ for one Q tile per block (``_flash_dq_kernel``);
 * :data:`flash_bwd_dkv` — dK and dV for one K/V tile per block
   (``_flash_dkv_kernel``);
-* :data:`flash_bwd_rowterm` — dK/dV's pre-pass, ``dadj - rowsum(dO * O)``
-  once per row (part of the dK/dV port, not a TPU kernel of its own).
+* :data:`flash_bwd_rowterm` — the backward's pre-pass, ``dadj -
+  rowsum(dO * O)`` once per row, which the wgmma dQ and dK/dV bodies
+  read (part of their port, not a TPU kernel of its own).
 
-The forward and dK/dV kernels have two bodies: ``"wgmma"`` (tensor cores,
-TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64
-or 128, and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and
-head dim 32, where wgmma has no float32-exact product.  The C++
-dispatcher picks the body by (dtype, D) alone; :func:`wgmma_body` mirrors
-it.  A bfloat16 view that TMA cannot read (base or a stride not a
-multiple of 16 bytes) raises instead of taking another body.
+All three kernels have two bodies: ``"wgmma"`` (tensor cores, TMA-fed,
+``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64 or 128,
+and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and head
+dim 32, where wgmma has no float32-exact product.  The C++ dispatcher
+picks the body by (dtype, D) alone; :func:`wgmma_body` mirrors it.  A
+bfloat16 view that TMA cannot read (base or a stride not a multiple of
+16 bytes) raises instead of taking another body.  A layer's backward
+runs the pre-pass once and hands its result to both backward kernels.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs its plain version, which repeats the kernel's arithmetic
@@ -108,29 +110,33 @@ def plain_fwd(q, k, v, scale, causal, window, with_lse):
 
 
 def plain_bwd_rowterm(o, do, dadj):
-    """Plain version of dK/dV's pre-pass: ``dadj - rowsum(dO * O)`` as
-    (B, H, T) float32 (``-rowsum`` without ``dadj``)."""
+    """Plain version of the backward's pre-pass: ``dadj - rowsum(dO * O)``
+    as (B, H, T) float32 (``-rowsum`` without ``dadj``)."""
     delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).permute(0, 2, 1)
     return -delta if dadj is None else dadj - delta
 
 
-def _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window):
+def _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     s = _scores(q, k, scale, causal, window)
     p = torch.exp(s - lse[..., None])  # masked entries -> 0
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32), v.to(torch.float32))
-    return p, p * (dp + plain_bwd_rowterm(o, do, dadj)[..., None])
+    if rowterm is None:
+        rowterm = plain_bwd_rowterm(o, do, dadj)
+    return p, p * (dp + rowterm[..., None])
 
 
-def plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window):
-    """Plain version of the dQ kernel."""
-    _, ds = _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window)
+def plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """Plain version of the dQ kernel; ``rowterm``, when given, is the
+    pre-pass's result for these ``o``, ``do`` and ``dadj``."""
+    _, ds = _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", _round(ds, k.dtype), k.to(torch.float32))
     return dq.to(q.dtype)
 
 
-def plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window):
-    """Plain version of the dK/dV kernel: ``(dk, dv)``."""
-    p, ds = _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window)
+def plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """Plain version of the dK/dV kernel: ``(dk, dv)``; ``rowterm`` as in
+    :func:`plain_bwd_dq`."""
+    p, ds = _probs_and_dscores(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
     dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, do.dtype), do.to(torch.float32))
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", _round(ds, q.dtype), q.to(torch.float32))
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -144,9 +150,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the forward and dK/dV kernels take their wgmma/TMA body
-    for this input: bfloat16 with head dim 64 or 128.  Mirrors
-    ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
+    """Whether the kernels (forward, dQ and dK/dV alike) take their
+    wgmma/TMA body for this input: bfloat16 with head dim 64 or 128.
+    Mirrors ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
     return dtype == torch.bfloat16 and head_dim in (64, 128)
 
 
@@ -233,10 +239,11 @@ class _Kernel:
 
 _TPU = "distributed_learning_tpu/ops/flash_attention.py"
 _FWD = _Kernel("flash_fwd", "dlt_flash_fwd", f"{_TPU}:118", ("wgmma", "cuda_core"))
-_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq", f"{_TPU}:178")
+_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq", f"{_TPU}:178", ("wgmma", "cuda_core"))
 _DKV = _Kernel("flash_bwd_dkv", "dlt_flash_bwd_dkv", f"{_TPU}:234", ("wgmma", "cuda_core"))
-# Part of C's port: the delta that _flash_dkv_kernel computes per block
-# (:261), hoisted out of the dK/dV kernel's loop.
+# Part of B's and C's port: the delta that _flash_dkv_kernel computes per
+# block (:261), as _flash_dq_kernel does (:212), hoisted out of both
+# backward kernels' loops.
 _ROWTERM = _Kernel("flash_bwd_rowterm", "dlt_flash_bwd_rowterm", f"{_TPU}:261")
 KERNELS = {k.name: k for k in (_FWD, _DQ, _DKV, _ROWTERM)}
 
@@ -266,36 +273,48 @@ def flash_fwd(q, k, v, scale, causal, window, with_lse):
     return o, lse
 
 
-def _bwd_inputs(q, o, do, lse, dadj):
+def _bwd_inputs(q, o, do, lse, dadj, rowterm):
     shape = q.shape
     B, T, H, _ = shape
     if o.shape != shape or do.shape != shape:
         raise ValueError("o and do must have q's (B, T, H, D) shape")
-    if lse.shape != (B, H, T) or lse.dtype != torch.float32:
-        raise ValueError("lse must be (B, H, T) float32")
-    if dadj is not None and (dadj.shape != (B, H, T) or dadj.dtype != torch.float32):
-        raise ValueError("dadj must be (B, H, T) float32")
+    for name, t in (("lse", lse), ("dadj", dadj), ("rowterm", rowterm)):
+        if t is not None and (t.shape != (B, H, T) or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be (B, H, T) float32")
     if q.device.type == "cuda":
         o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
         dadj = None if dadj is None else dadj.contiguous()
-    return o, do, lse, dadj
+        rowterm = None if rowterm is None else rowterm.contiguous()
+    return o, do, lse, dadj, rowterm
 
 
-def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window):
-    """Backward kernel B: dQ.  ``dadj`` (the lse cotangent) may be None."""
+def _bwd_rowterm(q, k, v, o, do, dadj, rowterm):
+    """The row term a backward kernel reads: on the wgmma body (after the
+    TMA rule) the pre-pass's result, run here unless the caller passes it;
+    on the CUDA-core body None, which computes its own."""
+    if _body(q) != "wgmma":
+        return None
+    _check_tma(q=q, k=k, v=v, do=do)
+    return flash_bwd_rowterm(o, do, dadj) if rowterm is None else rowterm
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """Backward kernel B: dQ.  ``dadj`` (the lse cotangent) may be None.
+    ``rowterm`` is the pre-pass's result, as for :func:`flash_bwd_dkv`."""
     _check_qkv(q, k, v)
-    o, do, lse, dadj = _bwd_inputs(q, o, do, lse, dadj)
+    o, do, lse, dadj, rowterm = _bwd_inputs(q, o, do, lse, dadj, rowterm)
     if q.device.type == "cpu":
-        return plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window)
+        return plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _DQ.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                       dadj=dadj, dq=dq), q.device)
+                       dadj=dadj, rowterm=rowterm, dq=dq), q.device, _body(q))
     return dq
 
 
 def flash_bwd_rowterm(o, do, dadj):
-    """dK/dV's pre-pass: ``dadj - rowsum(dO * O)`` as (B, H, T) float32
-    for (B, T, H, D) ``o`` and ``do``; ``dadj`` may be None."""
+    """The backward's pre-pass: ``dadj - rowsum(dO * O)`` as (B, H, T)
+    float32 for (B, T, H, D) ``o`` and ``do``; ``dadj`` may be None."""
     if o.device.type == "cpu":
         return plain_bwd_rowterm(o, do, dadj)
     if o.shape != do.shape or o.dim() != 4 or o.shape[-1] not in _HEAD_DIMS:
@@ -320,24 +339,27 @@ def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None
     caller passes its result as ``rowterm``; the CUDA-core body computes
     it in the kernel."""
     _check_qkv(q, k, v)
-    o, do, lse, dadj = _bwd_inputs(q, o, do, lse, dadj)
+    o, do, lse, dadj, rowterm = _bwd_inputs(q, o, do, lse, dadj, rowterm)
     if q.device.type == "cpu":
-        return plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window)
-    body = _body(q)
-    if body != "wgmma":
-        rowterm = None
-    else:
-        _check_tma(q=q, k=k, v=v, do=do)
-        if rowterm is None:
-            rowterm = flash_bwd_rowterm(o, do, dadj)
-        elif rowterm.shape != lse.shape or rowterm.dtype != torch.float32:
-            raise ValueError("rowterm must be (B, H, T) float32")
-        rowterm = rowterm.contiguous()
+        return plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _DKV.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                        dadj=dadj, rowterm=rowterm, dk=dk, dv=dv), q.device, body)
+                        dadj=dadj, rowterm=rowterm, dk=dk, dv=dv), q.device, _body(q))
     return dk, dv
+
+
+def _layer_backward(q, k, v, o, do, lse, dadj, scale, causal, window):
+    """``(dq, dk, dv)`` of one attention call: the pre-pass runs once (on
+    the CPU its plain version; on the CUDA-core body not at all) and both
+    backward kernels read its row term."""
+    rowterm = None
+    if q.device.type == "cpu" or _body(q) == "wgmma":
+        rowterm = flash_bwd_rowterm(o, do, dadj)
+    dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
+    dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------------- #
@@ -358,8 +380,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         scale, causal, window = ctx.cfg
-        dq = flash_bwd_dq(q, k, v, o, do, lse, None, scale, causal, window)
-        dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, None, scale, causal, window)
+        dq, dk, dv = _layer_backward(q, k, v, o, do, lse, None, scale, causal, window)
         return dq, dk, dv, None, None, None
 
 
@@ -379,8 +400,7 @@ class _FlashLse(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         scale, causal = ctx.cfg
         dadj = dlse.to(torch.float32)
-        dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, None)
-        dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, None)
+        dq, dk, dv = _layer_backward(q, k, v, o, do, lse, dadj, scale, causal, None)
         return dq, dk, dv, None, None
 
 

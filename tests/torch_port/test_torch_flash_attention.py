@@ -146,8 +146,9 @@ def test_attention_reference_matches_jax():
     (torch.float32, 128, False),
 ])
 def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
-    """bf16 with D 64 or 128 takes the wgmma/TMA body; float32 (no
-    float32-exact wgmma) and D 32 the CUDA-core body."""
+    """bf16 with D 64 or 128 takes the wgmma/TMA body of all three
+    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) and
+    D 32 the CUDA-core bodies."""
     assert fa.wgmma_body(dtype, D) is wgmma
 
 
@@ -182,6 +183,63 @@ def test_plain_rowterm_is_dadj_minus_rowsum_of_do_times_o(with_dadj):
     same = fa.flash_bwd_rowterm(torch.tensor(o), torch.tensor(do),
                                 None if dadj is None else torch.tensor(dadj))
     assert torch.equal(same, got)
+
+
+def _bwd_case(dtype, with_dadj, seed=13):
+    rng = np.random.default_rng(seed)
+    B, T, H, D = 2, 48, 2, 32
+    q, k, v, do = (torch.tensor(rng.normal(size=(B, T, H, D)).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    dadj = (torch.tensor(rng.normal(size=(B, H, T)).astype(np.float32))
+            if with_dadj else None)
+    scale = D ** -0.5
+    o, lse = fa.plain_fwd(q, k, v, scale, True, None, with_lse=True)
+    return q, k, v, o, do, lse, dadj, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dadj", [False, True])
+def test_backward_kernels_given_the_row_term_match_their_own(dtype, with_dadj):
+    """dQ and dK/dV handed the pre-pass's row term give the same bits as
+    the calls that form it themselves."""
+    q, k, v, o, do, lse, dadj, scale = _bwd_case(dtype, with_dadj)
+    rowterm = fa.plain_bwd_rowterm(o, do, dadj)
+    args = (q, k, v, o, do, lse, dadj, scale, True, None)
+    assert torch.equal(fa.flash_bwd_dq(*args, rowterm=rowterm), fa.flash_bwd_dq(*args))
+    for a, b in zip(fa.flash_bwd_dkv(*args, rowterm=rowterm), fa.flash_bwd_dkv(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_layer_backward_runs_the_pre_pass_once_with_the_same_grads(dtype, with_lse):
+    """On the CPU the autograd backward (``_Flash`` and ``_FlashLse``)
+    forms the row term once for both backward kernels, and its dQ, dK and
+    dV are the plain kernels' own, bit for bit."""
+    q, k, v, o, do, lse, dadj, scale = _bwd_case(dtype, with_lse)
+    calls = []
+    real = fa.flash_bwd_rowterm
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_bwd_rowterm = counted
+    try:
+        if with_lse:
+            outs = fa.flash_attention_with_lse(*leaves, causal=True)
+            grads = torch.autograd.grad(outs, leaves, (do, dadj))
+        else:
+            out = fa.flash_attention(*leaves, causal=True)
+            grads = torch.autograd.grad(out, leaves, do)
+    finally:
+        fa.flash_bwd_rowterm = real
+    assert len(calls) == 1
+    args = (q, k, v, o, do, lse, dadj, scale, True, None)
+    want = (fa.plain_bwd_dq(*args), *fa.plain_bwd_dkv(*args))
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 def test_cpu_path_counts_no_launch_and_checks_inputs():

@@ -123,9 +123,8 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
         "flash_bwd_rowterm": 2 if wgmma else 0,
     }
     assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
-    assert fa.KERNELS["flash_bwd_dkv"].by_body == {"wgmma": 2 * wgmma,
-                                                   "cuda_core": 2 * (not wgmma)}
-    assert fa.KERNELS["flash_bwd_dq"].by_body == {"cuda_core": 2}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
 
 
 @pytest.mark.gpu
@@ -133,11 +132,34 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
     from distributed_learning_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    for which in (0, 2):  # forward, dK/dV
+    for which in (0, 1, 2):  # forward, dQ, dK/dV
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             for D in (32, 64, 128):
                 assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D)
-    assert not any(lib.dlt_flash_uses_wgmma(1, 1, D) for D in (32, 64, 128))  # dQ
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,with_dadj", [(128, False), (64, True)])
+def test_dq_given_the_row_term_equals_dq_that_runs_the_pre_pass(card, D, with_dadj):
+    """The wgmma dQ reads the row term it is handed exactly as the one it
+    computes itself: the same bits, and one pre-pass launch fewer."""
+    g = torch.Generator(device=card).manual_seed(2)
+    B, T, H = 2, 320, 2
+    qkv = torch.randn(B, T, 3, H, D, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(B, T, H, D, generator=g, device=card).to(torch.bfloat16)
+    dadj = torch.randn(B, H, T, generator=g, device=card) if with_dadj else None
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, True, None, with_lse=True)
+    rowterm = fa.flash_bwd_rowterm(o, do, dadj)
+    fa.reset_launch_counts()
+    given = fa.flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, True, None, rowterm=rowterm)
+    assert fa.KERNELS["flash_bwd_rowterm"].launches == 0
+    own = fa.flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, True, None)
+    assert fa.KERNELS["flash_bwd_rowterm"].launches == 1
+    assert fa.KERNELS["flash_bwd_dq"].by_body == {"wgmma": 2, "cuda_core": 0}
+    torch.cuda.synchronize()
+    assert torch.equal(given, own)
 
 
 @pytest.mark.gpu
