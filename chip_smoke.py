@@ -38,6 +38,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
+6. conv_layout — every WRN-28-10 convolution, forward and both backward
+             products at 4 agents x B 256 in bf16, as one cuDNN call per
+             agent (the layout models/vision.py keeps) and as one grouped
+             call with groups=4, timed in turns.
+7. vision_slice — the paper's own path at full depth and width:
+             ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
+             WRN-28-10 (bf16 over float32 weights, dropout 0.3, SGD lr 0.1,
+             momentum 0.9, weight decay 5e-4, augmentation on) on
+             normalized synthetic CIFAR-10, B 256 per agent, 3 epochs of 4
+             steps with one gossip round and an eval of 1024 images per
+             epoch; the loss must fall, the running statistics must differ
+             across agents after the first epoch, every gossip round must
+             lower the deviation, and no flash kernel may launch.
+   vision_profile — with ``--profile``: one profiled epoch of it, device
+             time split into convolutions, optimizer, gossip, augmentation,
+             BatchNorm/elementwise/the rest, and idle; the table is written
+             to ``--out``.
+8. vision_plain — one WRN-16-4 step (4 agents x B 8, float32) on the card
+             and on the CPU from the same weights and batch: loss, every
+             leaf's gradient and the new running statistics per agent; a
+             control in which agent 1 is normalised with agent 0's batch
+             statistics must fail the same limits.
+9. zoo     — LeNet, VGG-16, ResNet-20 and the MLP for one epoch of 2 steps
+             each, ``prefetch_to_device`` streaming 4 batches to the card,
+             and 200 iterations of the Titanic K4 consensus GD
+             (``examples/titanic_consensus_gd.py``'s loop); finite, falling.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -598,6 +624,447 @@ def phase_times(fa):
     return times
 
 
+# ---------------------------------------------------------------------- #
+# Titanic consensus GD                                                   #
+# ---------------------------------------------------------------------- #
+TITANIC_ALPHA, TITANIC_TAU = 0.1, 1e-4  # examples/titanic_consensus_gd.py
+
+
+def titanic_consensus_gd(iters: int, eps: float = 1e-10, agents: int = 4,
+                         max_rounds: int = 300, device=None):
+    """The K``agents`` consensus-GD loop of ``examples/titanic_consensus_gd.py``
+    on the port: each iteration one logreg GD step per agent on its
+    contiguous shard (lr ``0.1 / sqrt(it + 1)``), then gossip on the
+    complete graph until the agents' max deviation is under ``eps`` (at
+    most ``max_rounds`` rounds).  Returns ``(w (agents, d), losses before
+    each step (iters, agents), per-agent test accuracy, max |w - mean|)``."""
+    from distributed_learning_tpu_torch.data import load_titanic, split_data
+    from distributed_learning_tpu_torch.models.logreg import accuracy, grad_step
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+
+    device = DEVICE if device is None else device
+    X, y, X_te, y_te = load_titanic()
+    shards = split_data(X, y, agents)
+    m = min(len(s[0]) for s in shards.values())
+    Xs = torch.tensor(np.stack([shards[a][0][:m] for a in range(agents)]), device=device)
+    ys = torch.tensor(np.stack([shards[a][1][:m] for a in range(agents)]),
+                      dtype=torch.float32, device=device)
+    engine = ConsensusEngine(Topology.complete(agents).metropolis_weights(), device=device)
+    state = {"w": torch.zeros(agents, Xs.shape[-1], device=device)}
+    losses = []
+    for it in range(iters):
+        lr = TITANIC_ALPHA * np.float32(it + 1.0) ** np.float32(-0.5)
+        state["w"], loss = grad_step(state["w"], Xs, ys, lr=float(lr), tau=TITANIC_TAU)
+        engine.mix_until_(state, eps=eps, max_rounds=max_rounds)
+        losses.append(loss)
+    w = state["w"]
+    X_te = torch.tensor(X_te, device=device)
+    y_te = torch.tensor(y_te, dtype=torch.float32, device=device)
+    accs = [float(accuracy(w[a], X_te, y_te)) for a in range(agents)]
+    spread = float((w - w.mean(0)).abs().max())
+    return w, torch.stack(losses), accs, spread
+
+
+# ---------------------------------------------------------------------- #
+# The WRN slice's convolution layout                                     #
+# ---------------------------------------------------------------------- #
+def wrn_conv_shapes(depth: int, widen: int, size: int = 32):
+    """Every convolution of a WideResNet-depth-widen on ``size``-pixel
+    images, in order: ``(c_in, c_out, kernel, stride, padding, H_in)``."""
+    n = (depth - 4) // 6
+    shapes = [(3, 16, 3, 1, 1, size)]
+    c_in, h = 16, size
+    for stage, width in enumerate((16 * widen, 32 * widen, 64 * widen)):
+        for b in range(n):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            if c_in != width or stride != 1:
+                shapes.append((c_in, width, 1, stride, 0, h))  # shortcut
+            shapes.append((c_in, width, 3, 1, 1, h))
+            shapes.append((width, width, 3, stride, 1, h))
+            c_in, h = width, h // stride
+    return shapes
+
+
+def wrn_conv_flops(images: int, depth: int, widen: int) -> int:
+    """Operations of the forward and both backward products of every
+    convolution (3 x 2 x MACs) for ``images`` 32 x 32 images."""
+    return sum(6 * images * c_out * ((h + 2 * p - k) // s + 1) ** 2 * c_in * k * k
+               for c_in, c_out, k, s, p, h in wrn_conv_shapes(depth, widen))
+
+
+def phase_conv_layout(agents=AGENTS, batch=256, depth=28, widen=10, iters=3):
+    """Forward + both backward products of every WRN convolution at the
+    slice's shape, bf16, channels_last, in the two agent layouts:
+    (a) one cuDNN call per agent on (B, C, H, W), (b) one grouped call with
+    ``groups=agents`` on (B, agents*C, H, W).  Times are CUDA-event means
+    over ``iters`` passes over all layers, the two layouts in turns."""
+    import torch.nn.functional as F
+
+    bf16, cl = torch.bfloat16, torch.channels_last
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    layers = []
+    for c_in, c_out, k, s, p, h in wrn_conv_shapes(depth, widen):
+        x = torch.randn(batch, agents * c_in, h, h, generator=g, device=DEVICE).to(bf16)
+        x = x.contiguous(memory_format=cl).requires_grad_(True)
+        w = (torch.randn(agents * c_out, c_in, k, k, generator=g, device=DEVICE) * 0.05)
+        w = w.to(bf16).contiguous(memory_format=cl).requires_grad_(True)
+        ho = (h + 2 * p - k) // s + 1
+        dy = torch.randn(batch, agents * c_out, ho, ho, generator=g, device=DEVICE).to(bf16)
+        layers.append((x, w, dy.contiguous(memory_format=cl), s, p, c_in, c_out))
+
+    def per_agent():
+        for x, w, dy, s, p, c_in, c_out in layers:
+            for a in range(agents):
+                xa = x[:, a * c_in:(a + 1) * c_in]
+                wa = w[a * c_out:(a + 1) * c_out]
+                y = F.conv2d(xa, wa, stride=s, padding=p)
+                torch.autograd.grad(y, (xa, wa), dy[:, a * c_out:(a + 1) * c_out])
+
+    def grouped():
+        for x, w, dy, s, p, _, _ in layers:
+            y = F.conv2d(x, w, stride=s, padding=p, groups=agents)
+            torch.autograd.grad(y, (x, w), dy)
+
+    # Per agent the slices are strided views of the stacked tensors; each
+    # agent's activations in the model are their own tensors, so give the
+    # per-agent run contiguous copies of its own.
+    per = []
+    for x, w, dy, s, p, c_in, c_out in layers:
+        for a in range(agents):
+            xa = x[:, a * c_in:(a + 1) * c_in].detach().contiguous(memory_format=cl)
+            wa = w[a * c_out:(a + 1) * c_out].detach().contiguous(memory_format=cl)
+            dya = dy[:, a * c_out:(a + 1) * c_out].contiguous(memory_format=cl)
+            per.append((xa.requires_grad_(True), wa.requires_grad_(True), dya, s, p))
+
+    def per_agent_own():
+        for xa, wa, dya, s, p in per:
+            y = F.conv2d(xa, wa, stride=s, padding=p)
+            torch.autograd.grad(y, (xa, wa), dya)
+
+    flops = wrn_conv_flops(agents * batch, depth, widen)
+    res = {"per_agent": [], "grouped": []}
+    for _ in range(2):  # (a), (b), (a), (b)
+        res["per_agent"].append(cuda_ms(per_agent_own, iters))
+        res["grouped"].append(cuda_ms(grouped, iters))
+    emit({"phase": "conv_layout", "model": f"wrn-{depth}-{widen}", "agents": agents,
+          "batch_per_agent": batch, "dtype": "bfloat16", "convs": len(layers),
+          "tflop_per_pass": round(flops / 1e12, 3),
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "ms_per_pass": {k: [round(v, 3) for v in t] for k, t in res.items()},
+          "strided_per_agent_ms": round(cuda_ms(per_agent, iters), 3)})
+    del layers, per
+    torch.cuda.empty_cache()
+    return {k: min(t) for k, t in res.items()}
+
+
+# ---------------------------------------------------------------------- #
+# The WRN slice: the paper's own path                                    #
+# ---------------------------------------------------------------------- #
+# bench.py:699-733's configuration: WRN-28-10, dropout 0.3, bf16 compute
+# over float32 parameters, SGD lr 0.1, momentum 0.9, weight decay 5e-4,
+# 4 agents on a Metropolis ring, B 256 per agent, augmentation on.
+WRN_AGENTS, WRN_BATCH, WRN_EPOCHS, WRN_STEPS, WRN_EVAL = 4, 256, 3, 4, 1024
+WRN_SGD = {"lr": 0.1, "momentum": 0.9, "weight_decay": 5e-4}
+# vision_plain: WRN-16-4, 4 agents x B 8, float32, one step on the card
+# against the same step on the CPU.  Limits: the loss and the running
+# statistics depend on the forward only (float32 sums in another order,
+# ~1e-6); a gradient also moves where a ReLU input lies within float32
+# rounding of 0 and takes the other branch on one side, which moved a
+# leaf by up to 0.5% in norm between two float32 implementations
+# (tests/torch_port/test_torch_vision.py).  The control, one agent
+# normalised with another agent's batch statistics, moves that agent's
+# loss and gradients by far more.
+PLAIN_LOSS_RTOL, PLAIN_GRAD_RTOL, PLAIN_STAT_RTOL = 1e-4, 2e-2, 1e-4
+
+
+def _cifar(n_train, n_test, seed=0):
+    from distributed_learning_tpu_torch.data import normalize, synthetic_cifar
+
+    (x, y), (xt, yt) = synthetic_cifar(n_train=n_train, n_test=n_test, seed=seed)
+    return (normalize(x).numpy(), y), (normalize(xt).numpy(), yt)
+
+
+def make_vision_master(model, agents, batch, steps, epochs, n_test, *, device=DEVICE,
+                       optimizer_kwargs=None, augment=False, dropout=True, **model_kwargs):
+    """``MasterNode`` over ``agents`` nodes on a Metropolis ring, on
+    normalized synthetic CIFAR-10 dealt by ``shard_dataset``."""
+    from distributed_learning_tpu_torch.data import normalized_pad_value, shard_dataset
+    from distributed_learning_tpu_torch.parallel import Topology
+    from distributed_learning_tpu_torch.training.trainer import MasterNode
+
+    (x, y), test = _cifar(agents * batch * steps, n_test)
+    nodes = list(range(agents))
+    master = MasterNode(
+        nodes, model, model_args=(10,), optimizer="sgd",
+        optimizer_kwargs=dict(optimizer_kwargs or WRN_SGD),
+        weights=Topology.ring(agents), train_loaders=shard_dataset(x, y, nodes, batch_size=batch),
+        test_loader=test, stat_step=1, epoch=epochs, epoch_len=steps, batch_size=batch,
+        mix_times=1, eval_batch_size=WRN_EVAL, seed=0, device=device, augment=augment,
+        augment_pad_value=normalized_pad_value(), dropout=dropout, model_kwargs=model_kwargs,
+    )
+    master.initialize_nodes()
+    return master
+
+
+def _record_gossip(master):
+    """Wrap ``master._gossip`` so each round's deviation before and after
+    is kept, and mark it for the profiler."""
+    real, seen = master._gossip, []
+
+    def gossip():
+        before = master.parameter_deviation()
+        with torch.profiler.record_function("gossip"):
+            rounds = real()
+        seen.append((before, master.parameter_deviation()))
+        return rounds
+
+    master._gossip = gossip
+    return seen
+
+
+def phase_vision_slice(fa):
+    """WRN-28-10 at full depth and width through ``MasterNode``: 4 agents,
+    3 epochs of 4 steps, one gossip round and an eval of 1024 test images
+    per epoch."""
+    master = make_vision_master(
+        "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, WRN_EPOCHS, WRN_EVAL, augment=True,
+        depth=28, widen_factor=10, dropout_rate=0.3, dtype=torch.bfloat16)
+    mixes = _record_gossip(master)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    samples = WRN_AGENTS * WRN_BATCH * WRN_STEPS  # per epoch, as bench.py:341 counts them
+    losses, rates = [], []
+    stats_differ = None
+    for _ in range(WRN_EPOCHS):
+        t0 = time.perf_counter()
+        p = master.train_epoch()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(np.mean(p["train_loss"])))
+        rates.append(samples / dt)
+        if stats_differ is None:
+            # After the first epoch every agent's running statistics come
+            # from its own batches: no two agents may share them.
+            flat = master.model.flat_stats
+            stats_differ = all(not torch.equal(flat[a], flat[b])
+                               for a in range(WRN_AGENTS) for b in range(a))
+        emit({"phase": "vision_slice", "epoch": p["epoch"],
+              "train_loss": p["train_loss"].tolist(), "test_acc": p["test_acc"].tolist(),
+              "deviation_before_mix": mixes[-1][0], "deviation": p["deviation"],
+              "epoch_seconds": round(dt, 4),
+              "train_samples_per_s_incl_eval_and_mix": round(samples / dt, 1),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    flash_launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    emit({"phase": "vision_summary", "model": "wrn-28-10", "agents": WRN_AGENTS,
+          "batch_per_agent": WRN_BATCH, "params_per_agent": master.model.param_count(),
+          "epoch_losses": losses, "samples_per_s": rates,
+          "running_stats_differ_across_agents": stats_differ,
+          "gossip_deviation_before_after": mixes, "flash_launches": flash_launches,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"WRN loss did not fall: {losses}")
+    if not stats_differ:
+        raise AssertionError("running statistics are shared between agents after epoch 0")
+    if not all(after < before for before, after in mixes):
+        raise AssertionError(f"a gossip round did not lower the deviation: {mixes}")
+    if any(flash_launches.values()):
+        raise AssertionError(f"the WRN path launched a flash kernel: {flash_launches}")
+    return master
+
+
+def phase_vision_profile(master, out_dir):
+    """One profiled epoch of the WRN slice: device time split into the
+    convolutions (cuDNN), the optimizer, the gossip round, the
+    augmentation, BatchNorm with the elementwise work and the rest, and
+    idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real_aug = master._augment
+
+    def augment(x):
+        with torch.profiler.record_function("augment"):
+            return real_aug(x)
+
+    master._augment = augment
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        master.train_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    master._augment = real_aug
+
+    def dev_us(ev):
+        v = getattr(ev, "device_time_total", None)
+        return ev.cuda_time_total if v is None else v
+
+    kernels, annotated = [], {}
+    for ev in prof.key_averages():
+        if ev.key in ("gossip", "augment") or ev.key.startswith("Optimizer.step#"):
+            name = "optimizer" if ev.key.startswith("Optimizer") else ev.key
+            annotated[name] = max(annotated.get(name, 0.0), dev_us(ev))
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False) or "#" in ev.key:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if us > 0:
+            kernels.append((us, ev.key, ev.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    conv = sum(us for us, key, _ in kernels
+               if re.search(r"conv|cudnn|xmma|implicit|fprop|dgrad|wgrad|winograd", key, re.I))
+    groups = {"convolutions (cuDNN)": conv,
+              "optimizer (SGD)": annotated.get("optimizer", 0.0),
+              "gossip round": annotated.get("gossip", 0.0),
+              "augmentation": annotated.get("augment", 0.0)}
+    groups["BatchNorm, elementwise, head GEMM, rest"] = busy - sum(groups.values())
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_wrn_epoch.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
+    emit({"phase": "vision_profile", "epoch_wall_ms": round(wall * 1e3, 3),
+          "device_busy_ms": round(busy / 1e3, 3),
+          "device_idle_ms": round(wall * 1e3 - busy / 1e3, 3),
+          "device_idle_share": round(max(0.0, 1 - busy / 1e3 / (wall * 1e3)), 4),
+          "groups_ms": {k: round(v / 1e3, 3) for k, v in groups.items()},
+          "conv_bound_ms": round(wrn_conv_flops(WRN_AGENTS * WRN_BATCH, 28, 10) * WRN_STEPS
+                                 / PEAK_BF16_FLOPS * 1e3, 3),
+          "top": [{"kernel": k[:90], "ms": round(us / 1e3, 3), "count": c,
+                   "share": round(us / busy, 4)} for us, k, c in kernels[:14]]})
+
+
+def floored_rel_errs(a: dict, b: dict, floor: float = 1e-4) -> dict:
+    """Per leaf, the max over agents of ||a - b|| / max(||b||, floor x the
+    agent's norm over all leaves).  The floor is for leaves whose value is
+    0 up to rounding: a conv bias that feeds a train-mode BatchNorm has a
+    gradient of exactly 0, which float32 leaves at ~1e-7 of the others."""
+    total = torch.stack([v.reshape(v.shape[0], -1).norm(dim=1) for v in b.values()]).norm(dim=0)
+    out = {}
+    for name, vb in b.items():
+        d = (a[name] - vb).reshape(vb.shape[0], -1).norm(dim=1)
+        ref = torch.maximum(vb.reshape(vb.shape[0], -1).norm(dim=1), floor * total)
+        out[name] = float((d / ref).max())
+    return out
+
+
+def _cross_agent_batch_norm(vision):
+    """The control of vision_plain: a BatchNorm that normalises agent 1's
+    batch with agent 0's batch statistics (its running statistics are
+    still its own)."""
+    real = vision.BatchNorm.forward
+
+    def forward(self, xs):
+        ys = real(self, xs)
+        if self.training:
+            x0, x1 = xs[0].float(), xs[1].float()
+            mean = x0.mean((0, 2, 3), keepdim=True)
+            var = x0.var((0, 2, 3), unbiased=False, keepdim=True)
+            scale, bias = self.scale[1][None, :, None, None], self.bias[1][None, :, None, None]
+            ys[1] = ((x1 - mean) * torch.rsqrt(var + vision.BN_EPS) * scale + bias).to(xs[1].dtype)
+        return ys
+
+    return real, forward
+
+
+def phase_vision_plain():
+    """One WRN-16-4 training step (4 agents x B 8, float32, dropout and
+    augmentation off) on the card and on the CPU from the same weights,
+    statistics and batch: loss, every leaf's gradient and the new running
+    statistics per agent.  The control must fail the same limits."""
+    from distributed_learning_tpu_torch.models import vision
+
+    kw = dict(depth=16, widen_factor=4, dropout_rate=0.3)
+    out, weights = {}, None
+    real, broken = _cross_agent_batch_norm(vision)
+    for run, device in (("card", DEVICE), ("cpu", "cpu"), ("control", DEVICE)):
+        master = make_vision_master("wide-resnet", 4, 8, 1, 1, 16, device=device,
+                                    dropout=False, **kw)
+        if weights is None:
+            weights = {k: v.detach().cpu().clone() for k, v in
+                       master.model.stacked_parameters().items()}
+        master.initialize_nodes(params=weights)
+        vision.BatchNorm.forward = broken if run == "control" else real
+        try:
+            p = master.train_epoch()
+        finally:
+            vision.BatchNorm.forward = real
+        grads = {name: master.model.flat_grads[:, off: off + size].detach().cpu().clone()
+                 for name, (off, size) in master.model.param_slices.items()}
+        stats = {k: v.detach().cpu().clone() for k, v in master.model.stacked_stats().items()}
+        out[run] = (p["train_loss"], grads, stats)
+        del master
+    loss_ref, grads_ref, stats_ref = out["cpu"]
+    verdict = {}
+    for run in ("card", "control"):
+        loss, grads, stats = out[run]
+        g_err, s_err = floored_rel_errs(grads, grads_ref), floored_rel_errs(stats, stats_ref)
+        verdict[run] = {
+            "loss_rel_err": float(np.max(np.abs(loss - loss_ref) / np.abs(loss_ref))),
+            "worst_grad_leaf": max(g_err, key=g_err.get), "grad_rel_err": max(g_err.values()),
+            "worst_stat": max(s_err, key=s_err.get), "stat_rel_err": max(s_err.values()),
+        }
+        v = verdict[run]
+        v["ok"] = (v["loss_rel_err"] <= PLAIN_LOSS_RTOL and v["grad_rel_err"] <= PLAIN_GRAD_RTOL
+                   and v["stat_rel_err"] <= PLAIN_STAT_RTOL)
+    ok = verdict["card"]["ok"] and not verdict["control"]["ok"]
+    emit({"phase": "vision_plain", "model": "wrn-16-4", "agents": 4, "batch_per_agent": 8,
+          "loss": {k: v[0].tolist() for k, v in out.items()},
+          "limits": {"loss_rtol": PLAIN_LOSS_RTOL, "grad_rtol": PLAIN_GRAD_RTOL,
+                     "stat_rtol": PLAIN_STAT_RTOL},
+          **verdict, "ok": ok})
+    if not ok:
+        raise AssertionError("the WRN step on the card and on the CPU disagree, or the "
+                             "control was not rejected")
+
+
+def phase_zoo():
+    """Every other registry model for one epoch of 2 steps at its
+    published width (4 agents x B 128, float32), and 200 iterations of
+    the Titanic K4 consensus GD."""
+    runs = {"lenet": {}, "vggnet": {"depth": 16}, "resnet": {"depth": 20},
+            "ann": {"hidden_dim": 150}}
+    for name, kw in runs.items():
+        master = make_vision_master(name, 4, 128, 2, 1, 256,
+                                    optimizer_kwargs={"lr": 0.05, "momentum": 0.9}, **kw)
+        t0 = time.perf_counter()
+        p = master.train_epoch()
+        torch.cuda.synchronize()
+        ok = bool(np.isfinite(p["train_loss"]).all() and np.isfinite(p["test_acc"]).all())
+        emit({"phase": "zoo", "model": name, **kw, "params_per_agent": master.model.param_count(),
+              "train_loss": p["train_loss"].tolist(), "test_acc": p["test_acc"].tolist(),
+              "epoch_seconds": round(time.perf_counter() - t0, 4), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name}: non-finite loss or accuracy")
+        del master
+    # The input pipeline for data that does not stay on the card: pinned
+    # host batches copied on a side stream must arrive intact.
+    from distributed_learning_tpu_torch.data import epoch_batches, prefetch_to_device
+
+    (x, y), _ = _cifar(1024, 1)
+    got = list(prefetch_to_device(epoch_batches(x, y, 256, seed=0), size=2))
+    want = list(epoch_batches(x, y, 256, seed=0))
+    ok = len(got) == len(want) == 4 and all(
+        gx.device.type == "cuda" and np.array_equal(gx.cpu().numpy(), wx)
+        and np.array_equal(gy.cpu().numpy(), wy) for (gx, gy), (wx, wy) in zip(got, want))
+    emit({"phase": "zoo", "model": "prefetch_to_device", "batches": len(got), "ok": ok})
+    if not ok:
+        raise AssertionError("prefetch_to_device changed or lost a batch")
+    w, losses, accs, spread = titanic_consensus_gd(200)
+    mean_loss = losses.mean(dim=1).cpu().numpy()
+    ok = bool(np.isfinite(mean_loss).all() and mean_loss[-1] < mean_loss[0])
+    emit({"phase": "zoo", "model": "titanic_logreg_k4_consensus_gd", "iterations": 200,
+          "eps": 1e-10, "loss_first_last": [float(mean_loss[0]), float(mean_loss[-1])],
+          "test_acc": accs, "spread": spread, "ok": ok})
+    if not ok:
+        raise AssertionError(f"Titanic consensus GD: loss did not fall ({mean_loss[[0, -1]]})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -626,6 +1093,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_plain(fa)
     times = phase_times(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The paper's own path: no hand-written kernel on it.
+    phase_conv_layout()
+    master = phase_vision_slice(fa)
+    if args.profile:
+        phase_vision_profile(master, args.out)
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_vision_plain()
+    phase_zoo()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]

@@ -1,7 +1,19 @@
-"""Carry weights across from the JAX package's ``TransformerLM``.
+"""Carry weights (and BatchNorm statistics) across from the JAX package's
+models, both ways, per agent or stacked with a leading agent axis.  This
+module works on numpy arrays only and imports nothing of the JAX
+package.
 
-The flax tree, as nested dicts of numpy arrays (per agent, or stacked
-with a leading agent axis):
+**Vision zoo, MLP** (``models/vision.py``, ``models/mlp.py``): the port's
+names ARE flax's paths joined with dots (``_WideBasic_0.Conv_1.kernel``),
+because the port's modules take flax's automatic names as they are built
+(``models/_stacked.add_child``), so the map needs no table.  The one
+change of layout: conv kernels are HWIO in flax and OIHW in the port,
+transposed here and nowhere else (a kernel of 4 axes per agent is a conv
+kernel; dense kernels keep flax's ``(in, out)``).  A ``batch_stats`` tree
+(``.../BatchNorm_0/{mean, var}``) maps the same way, with nothing to
+transpose.
+
+**TransformerLM**: the flax tree, as nested dicts of numpy arrays:
 
 * top level: ``Embed_0/embedding (V, d)``, ``Embed_1/embedding
   (max_len, d)``, ``_Block_i/...``, ``LayerNorm_0/{scale, bias}``,
@@ -12,8 +24,7 @@ with a leading agent axis):
   and ``Dense_1 (4d, d)`` with biases.
 
 The port keeps flax's per-agent shapes (kernels ``(in, out)``), so the
-mapping is a renaming; nothing is transposed.  This module works on numpy
-arrays only and imports nothing of the JAX package.
+mapping is a renaming by the tables below; nothing is transposed.
 """
 
 from __future__ import annotations
@@ -57,25 +68,55 @@ def _walk(tree: Mapping[str, Any], prefix=()):
             yield path, val
 
 
+def _is_lm(tree: Mapping[str, Any]) -> bool:
+    return "Embed_0" in tree or any(_BLOCK_RE.fullmatch(str(k)) for k in tree)
+
+
+def _lm_name(path) -> Optional[str]:
+    m = _BLOCK_RE.fullmatch(path[0])
+    if m:
+        name = _BLOCK.get(path[1:])
+        return None if name is None else f"blocks.{m.group(1)}.{name}"
+    return _TOP.get(path)
+
+
+def _conv_axes(arr: np.ndarray, stacked: bool, to_torch: bool):
+    """The transpose between flax's HWIO and the port's OIHW conv kernel,
+    or None for any other leaf."""
+    if arr.ndim not in (2 + stacked, 4 + stacked):
+        raise ValueError(
+            f"a kernel of shape {arr.shape} is neither a dense nor a conv kernel "
+            f"{'with' if stacked else 'without'} a leading agent axis (n_agents)")
+    if arr.ndim != 4 + stacked:
+        return None
+    axes = (3, 2, 0, 1) if to_torch else (2, 3, 1, 0)
+    return (0,) + tuple(a + 1 for a in axes) if stacked else axes
+
+
 def flax_to_torch(params: Mapping[str, Any], n_agents: Optional[int] = None) -> Dict[str, np.ndarray]:
-    """Map a flax ``TransformerLM`` params tree (a ``{"params": ...}``
-    wrapper is accepted) to the port's ``{name: array}``.
+    """Map a flax params tree, or a ``batch_stats`` tree, of a model of
+    the zoo (a ``{"params": ...}`` or ``{"batch_stats": ...}`` wrapper is
+    accepted) to the port's ``{name: array}``.
 
     With ``n_agents``, every leaf is taken as stacked ``(n_agents, ...)``
     and must carry that leading axis; without it the leaves are one
     agent's and the caller's model broadcasts them."""
-    if "params" in params and len(params) == 1:
-        params = params["params"]
+    if len(params) == 1 and next(iter(params)) in ("params", "batch_stats"):
+        params = next(iter(params.values()))
+    lm = _is_lm(params)
     out: Dict[str, np.ndarray] = {}
     for path, leaf in _walk(params):
-        arr = np.asarray(leaf, dtype=np.float32)
-        m = _BLOCK_RE.fullmatch(path[0])
-        if m:
-            name = _BLOCK.get(path[1:])
-            if name is not None:
-                name = f"blocks.{m.group(1)}.{name}"
+        arr = np.asarray(leaf)
+        if arr.dtype != np.float64:  # float64 stays (a float64 oracle's grads)
+            arr = arr.astype(np.float32)
+        if lm:
+            name = _lm_name(path)
         else:
-            name = _TOP.get(path)
+            name = ".".join(path)
+            if path[-1] == "kernel":
+                axes = _conv_axes(arr, n_agents is not None, to_torch=True)
+                if axes is not None:
+                    arr = np.ascontiguousarray(arr.transpose(axes))
         if name is None:
             raise KeyError(f"no port parameter for flax path {'/'.join(path)}")
         if n_agents is not None and (arr.ndim == 0 or arr.shape[0] != n_agents):
@@ -87,14 +128,23 @@ def flax_to_torch(params: Mapping[str, Any], n_agents: Optional[int] = None) -> 
     return out
 
 
-def torch_to_flax(params: Mapping[str, Any]) -> Dict[str, Any]:
+def torch_to_flax(params: Mapping[str, Any], n_agents: Optional[int] = None) -> Dict[str, Any]:
     """Inverse of :func:`flax_to_torch`: ``{name: array}`` back to the
-    nested flax tree (arrays as given, stacked or not)."""
+    nested flax tree, stacked when ``n_agents`` is given (the leaves must
+    then carry that leading axis) and per agent otherwise."""
     inv_top = {v: k for k, v in _TOP.items()}
     inv_block = {v: k for k, v in _BLOCK.items()}
+    lm = "embed" in params
     tree: Dict[str, Any] = {}
     for name, arr in params.items():
-        if name.startswith("blocks."):
+        arr = np.asarray(arr)
+        if not lm:
+            path = tuple(name.split("."))
+            if path[-1] == "kernel":
+                axes = _conv_axes(arr, n_agents is not None, to_torch=False)
+                if axes is not None:
+                    arr = np.ascontiguousarray(arr.transpose(axes))
+        elif name.startswith("blocks."):
             _, idx, rest = name.split(".", 2)
             path = (f"_Block_{idx}",) + inv_block[rest]
         else:
@@ -102,5 +152,5 @@ def torch_to_flax(params: Mapping[str, Any]) -> Dict[str, Any]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.asarray(arr)
+        node[path[-1]] = arr
     return tree

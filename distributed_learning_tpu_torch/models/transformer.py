@@ -9,11 +9,8 @@ matrix products over it, and attention sees ``(N*B, T, H, Dh)`` — each
 flash kernel launches once per layer for all agents.
 
 Every parameter is a view into ONE contiguous ``(N, P)`` float32 buffer
-(:attr:`TransformerLM.flat_params`), and every gradient a view into a
-twin buffer (:attr:`TransformerLM.flat_grads`): a gossip round is then one
-``W @ X`` GEMM on the buffer, the optimizer steps one tensor, and the
-per-agent gradient norm is one reduction — none of them flattens or
-unflattens anything.
+and every gradient a view into a twin buffer (``models/_stacked.py``,
+shared with the vision models).
 
 Parameter names and per-agent shapes follow the flax tree (kernels are
 ``(in, out)``, the QKV kernel ``(d, 3, H, Dh)``), so ``convert.py`` maps
@@ -29,29 +26,20 @@ and the sequence-parallel attentions wait (ROADMAP.md).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from distributed_learning_tpu_torch.device import resolve_device
+from distributed_learning_tpu_torch.models._stacked import Dense, StackedModel, dense
 from distributed_learning_tpu_torch.ops.flash_attention import flash_attention
 from distributed_learning_tpu_torch.ops.ring_attention import attention_reference
 
 __all__ = ["TransformerLM"]
 
 _LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
-
-
-def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
-    """Per-agent ``x @ w (+ b)`` in ``dtype``: x (N, ..., in), w (N, in, out)."""
-    N = x.shape[0]
-    y = torch.bmm(x.reshape(N, -1, x.shape[-1]), w.to(dtype))
-    if b is not None:
-        y = y + b.to(dtype)[:, None, :]
-    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 class _LayerNorm(nn.Module):
@@ -71,16 +59,6 @@ class _LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class _Dense(nn.Module):
-    def __init__(self, n: int, d_in: int, d_out: int, bias: bool = True):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(n, d_in, d_out))
-        self.bias = nn.Parameter(torch.zeros(n, d_out)) if bias else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(x, self.kernel, self.bias, x.dtype)
-
-
 class _Attention(nn.Module):
     def __init__(self, n, d, num_heads, head_dim, attn_impl, window):
         super().__init__()
@@ -93,7 +71,7 @@ class _Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         N, B, T, d = x.shape
         H, Dh = self.num_heads, self.head_dim
-        qkv = _dense(x, self.qkv.reshape(N, d, 3 * H * Dh), None, x.dtype)
+        qkv = dense(x, self.qkv.reshape(N, d, 3 * H * Dh), None, x.dtype)
         qkv = qkv.reshape(N * B, T, 3, H, Dh)
         # Strided views: the kernels read them in place.
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -102,7 +80,7 @@ class _Attention(nn.Module):
         else:
             out = flash_attention(q, k, v, causal=True, window=self.window)
         out = out.reshape(N, B, T, H * Dh)
-        return _dense(out, self.out.reshape(N, H * Dh, d), None, x.dtype)
+        return dense(out, self.out.reshape(N, H * Dh, d), None, x.dtype)
 
 
 class _Block(nn.Module):
@@ -111,8 +89,8 @@ class _Block(nn.Module):
         self.ln1 = _LayerNorm(n, d)
         self.attn = _Attention(n, d, num_heads, head_dim, attn_impl, window)
         self.ln2 = _LayerNorm(n, d)
-        self.fc1 = _Dense(n, d, mlp_ratio * d)
-        self.fc2 = _Dense(n, mlp_ratio * d, d)
+        self.fc1 = Dense(n, d, mlp_ratio * d)
+        self.fc2 = Dense(n, mlp_ratio * d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -120,7 +98,7 @@ class _Block(nn.Module):
         return x + self.fc2(h)
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(StackedModel):
     """Causal LM for ``n_agents`` stacked replicas: token embedding +
     learned positions + ``num_layers`` blocks.
 
@@ -166,75 +144,18 @@ class TransformerLM(nn.Module):
             for _ in range(num_layers)
         )
         self.ln_f = _LayerNorm(n, d)                                  # LayerNorm_0
-        self.head = _Dense(n, d, vocab_size)                          # Dense_0
+        self.head = Dense(n, d, vocab_size)                          # Dense_0
         self.reset_parameters(seed)
         self._bind_flat(resolve_device(device))
 
-    # -- parameters ---------------------------------------------------- #
-    def reset_parameters(self, seed: int) -> None:
-        """One init (flax's families: normal embeddings, LeCun-normal
-        kernels, zero biases, unit LayerNorm scales) broadcast to every
-        agent.  Values differ from flax's draws; tests load converted flax
-        weights when they compare."""
-        gen = torch.Generator().manual_seed(int(seed))
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                shape = p.shape[1:]
-                if name.endswith("scale"):
-                    p.fill_(1.0)
-                    continue
-                if name.endswith("bias"):
-                    p.fill_(0.0)
-                    continue
-                if name in ("embed", "pos_embed"):
-                    std = 1.0 / math.sqrt(shape[-1])
-                else:
-                    # Kernels are (in..., out); the out-projection contracts
-                    # (H, Dh), every other kernel its first axis.
-                    fan_in = math.prod(shape[:-1]) if name.endswith("attn.out") else shape[0]
-                    std = 1.0 / math.sqrt(fan_in)
-                p.copy_((torch.randn(shape, generator=gen) * std).expand_as(p))
-
-    def _bind_flat(self, device: torch.device) -> None:
-        """Move every parameter into one (N, P) float32 buffer (and every
-        gradient into a twin buffer) and re-register it as a view."""
-        named = list(self.named_parameters())
-        n = self.n_agents
-        total = sum(p[0].numel() for _, p in named)
-        self.flat_params = torch.empty(n, total, dtype=torch.float32, device=device)
-        self.flat_grads = torch.zeros(n, total, dtype=torch.float32, device=device)
-        self.param_slices: Dict[str, Tuple[int, int]] = {}
-        off = 0
-        for name, p in named:
-            size = p[0].numel()
-            view = self.flat_params[:, off: off + size].view(p.shape)
-            view.copy_(p.detach())
-            new = nn.Parameter(view)
-            new.grad = self.flat_grads[:, off: off + size].view(p.shape)
-            owner, _, leaf = name.rpartition(".")
-            setattr(self.get_submodule(owner) if owner else self, leaf, new)
-            self.param_slices[name] = (off, size)
-            off += size
-
-    def stacked_parameters(self) -> Dict[str, torch.Tensor]:
-        """``{name: (N, ...)}`` views of the parameters, in layout order."""
-        return {name: p for name, p in self.named_parameters()}
-
-    def load_stacked(self, params: Dict[str, torch.Tensor]) -> None:
-        """Copy ``{name: (N, ...) or (...)}`` values into the parameters
-        (an unstacked value is broadcast to every agent)."""
-        own = self.stacked_parameters()
-        missing = set(own) - set(params)
-        extra = set(params) - set(own)
-        if missing or extra:
-            raise KeyError(f"parameter names differ: missing {sorted(missing)}, "
-                           f"unexpected {sorted(extra)}")
-        with torch.no_grad():
-            for name, p in own.items():
-                v = params[name]
-                if not isinstance(v, torch.Tensor):
-                    v = torch.from_numpy(np.array(v, dtype=np.float32))
-                p.copy_(v.expand_as(p) if v.shape != p.shape else v)
+    def _init_std(self, name, shape):
+        """Normal embeddings (std ``1/sqrt(d)``), LeCun-normal kernels;
+        kernels are (in..., out): the out-projection contracts (H, Dh),
+        every other kernel its first axis."""
+        if name in ("embed", "pos_embed"):
+            return 1.0 / math.sqrt(shape[-1])
+        fan_in = math.prod(shape[:-1]) if name.endswith("attn.out") else shape[0]
+        return 1.0 / math.sqrt(fan_in)
 
     # -- forward ------------------------------------------------------- #
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -254,8 +175,3 @@ class TransformerLM(nn.Module):
             x = blk(x)
         logits = self.head(self.ln_f(x))
         return logits.to(torch.float32)
-
-    def param_count(self) -> int:
-        """Parameters of ONE agent."""
-        return self.flat_params.shape[1]
-

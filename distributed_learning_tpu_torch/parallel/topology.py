@@ -2,8 +2,8 @@
 
 Port of ``distributed_learning_tpu/parallel/topology.py`` (numpy only, so
 the port keeps its own copy rather than importing the JAX package).  The
-subset here is what the dense gossip trainer needs: the edge-list, ring
-and neighbor-dict constructors and the Metropolis mixing matrix.
+subset here is what the dense gossip trainer needs: the edge-list, ring,
+complete and neighbor-dict constructors and the Metropolis mixing matrix.
 
 Agents are arbitrary hashable *tokens*, indexed ``0..n-1`` in first-seen
 order of the edge list; ``edges`` are stored canonically as
@@ -93,6 +93,11 @@ class Topology:
         if n < 2:
             raise ValueError("ring needs n >= 2")
         return Topology.from_edges([(i, (i + 1) % n) for i in range(n)])
+
+    @staticmethod
+    def complete(n: int) -> "Topology":
+        """Every pair of the ``n`` agents connected (the Titanic K4 run)."""
+        return Topology.from_edges([(i, j) for i in range(n) for j in range(i + 1, n)])
 
     def adjacency(self) -> np.ndarray:
         A = np.zeros((self.n_agents, self.n_agents), dtype=np.float64)

@@ -6,10 +6,11 @@ topology from epoch ``epoch_cons_num`` on; record per-node statistics
 every ``stat_step`` batches; evaluate every node on the common test set.
 
 All N node replicas live on a leading *agent* axis of one agent-stacked
-model (``models/transformer.py``): one forward/backward serves every
-agent, and a gossip round is one ``W @ X`` GEMM on the model's fused
-``(N, P)`` float32 parameter buffer.  Only *parameters* mix; optimizer
-moments stay per node.  All nodes start from one shared init.
+model (``models/_stacked.py``: the transformer, the vision zoo, the
+MLP): one forward/backward serves every agent, and a gossip round is one
+``W @ X`` GEMM on the model's fused ``(N, P)`` float32 parameter buffer.
+Only *parameters* mix; optimizer moments and BatchNorm running
+statistics stay per node.  All nodes start from one shared init.
 
 Adam and SGD are elementwise, so ONE torch optimizer over the stacked
 ``(N, P)`` buffer takes exactly the step that N per-agent optimizers
@@ -18,8 +19,13 @@ gradient with respect to agent ``a``'s slice is agent ``a``'s own
 gradient, since agents share no parameter.
 
 Ported: fixed ``mix_times`` or ``mix_eps`` gossip, per-node stats, the
-per-epoch eval, telemetry, ``node_parameters`` / ``parameter_deviation``.  Options that are not
-ported raise ``NotImplementedError`` naming their ROADMAP.md item.
+per-epoch eval, telemetry, ``node_parameters`` / ``parameter_deviation``,
+train and eval modes (BatchNorm, dropout), ``dropout``, and device-side
+CIFAR augmentation (``augment``, ``augment_pad_value``).  Dropout masks,
+crops and flips come from explicit ``torch.Generator``s, one per agent,
+seeded from ``seed``; their bits cannot follow the reference's
+``jax.random`` streams.  Options that are not ported raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_learning_tpu_torch.data.cifar import augment_batch, draw_augment
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models import get_model
 from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
@@ -206,7 +213,6 @@ _UNPORTED = {
     "obs": ((None, False), "queue 1, item 8 (obs/)"),
     "profile_costs": ((False,), "queue 1, item 8 (obs/)"),
     "timer_every_n": ((0,), "queue 1, item 8 (obs/)"),
-    "augment": ((False,), "queue 1, item 1 (WRN/Titanic path, data/)"),
     "remat": ((False,), "queue 1, item 9 (LM extras)"),
 }
 
@@ -328,7 +334,9 @@ class GossipTrainer:
         obs: Any = None,
         profile_costs: bool = False,
         timer_every_n: int = 0,
+        dropout: bool = True,
         augment: bool = False,
+        augment_pad_value: Any = 0.0,
         remat: bool = False,
     ):
         _reject_unported(dict(
@@ -338,7 +346,7 @@ class GossipTrainer:
             robust_mixing=robust_mixing, topology_schedule=topology_schedule,
             chebyshev=chebyshev, global_avg_every=global_avg_every, mesh=mesh,
             obs=obs, profile_costs=profile_costs, timer_every_n=timer_every_n,
-            augment=augment, remat=remat,
+            remat=remat,
         ))
         self.device = resolve_device(device)
         self.eval_batch_size = int(eval_batch_size)
@@ -355,10 +363,19 @@ class GossipTrainer:
         if missing:
             raise ValueError(f"train_data missing for nodes: {missing}")
 
+        self._Xs, self._ys = self._stack_data(train_data, batch_size)
+        self.augment = bool(augment)
+        self.augment_pad_value = augment_pad_value
+        if self.augment and tuple(self._Xs.shape[2:]) != (32, 32, 3):
+            raise ValueError(
+                "augment=True needs (32, 32, 3) image inputs; got per-sample "
+                f"shape {tuple(self._Xs.shape[2:])}"
+            )
         if isinstance(model, str):
             model = get_model(
                 model, *model_args, n_agents=n, device=self.device,
-                seed=seed, **dict(model_kwargs or {}),
+                seed=seed, input_shape=tuple(self._Xs.shape[2:]),
+                **dict(model_kwargs or {}),
             )
         if getattr(model, "n_agents", None) != n:
             raise ValueError(
@@ -370,6 +387,13 @@ class GossipTrainer:
                 f"model lives on {model.flat_params.device}, trainer on {self.device}"
             )
         self.model = model
+        self.dropout = bool(dropout)
+        if hasattr(model, "set_dropout"):
+            # The reference passes no dropout PRNG when dropout=False, so
+            # its dropout layers cannot run; here they are switched off.
+            model.set_dropout(self.dropout)
+        # One generator per agent for the crops and flips.
+        self._aug_gens = [torch.Generator(self.device) for _ in range(n)]
         self.loss_fn = get_loss(error)
         self.metric_fn = get_metric(error)
         self._make_opt = make_optimizer(optimizer, optimizer_kwargs, learning_rate)
@@ -393,7 +417,6 @@ class GossipTrainer:
             )
         self.engine = ConsensusEngine(W, device=self.device)
 
-        self._Xs, self._ys = self._stack_data(train_data, batch_size)
         max_len = self._Xs.shape[1] // batch_size
         self.epoch_len = min(epoch_len or max_len, max_len)
         if self.epoch_len < 1:
@@ -445,18 +468,35 @@ class GossipTrainer:
 
     @property
     def _buffers(self) -> Dict[str, torch.Tensor]:
-        """The parameters as the engine's fused ``{dtype: (N, P)}`` state."""
+        """The parameters as the engine's fused ``{dtype: (N, P)}`` state:
+        parameters only, so the gossip never touches the running
+        statistics (``model.flat_stats``) or the optimizer's moments."""
         return {"float32": self.model.flat_params}
 
     # ------------------------------------------------------------------ #
-    def initialize_nodes(self, params: Optional[Mapping[str, Any]] = None):
+    def initialize_nodes(
+        self,
+        params: Optional[Mapping[str, Any]] = None,
+        batch_stats: Optional[Mapping[str, Any]] = None,
+    ):
         """Shared init (from ``seed``, or ``params`` — ``{name: array}`` as
-        ``convert.flax_to_torch`` gives, stacked or per agent) and fresh
-        per-node optimizer state (parity: ``master.initialize_nodes()``)."""
+        ``convert.flax_to_torch`` gives, stacked or per agent), BatchNorm
+        running statistics at mean 0 and variance 1 for every agent (or
+        ``batch_stats``, in the same form), fresh per-node optimizer state
+        and reseeded dropout and augmentation streams (parity:
+        ``master.initialize_nodes()``)."""
         if params is None:
             self.model.reset_parameters(self.seed)
         else:
             self.model.load_stacked(params)
+        if batch_stats is None:
+            self.model.reset_stats()
+        else:
+            self.model.load_stats(batch_stats)
+        if hasattr(self.model, "seed_dropout"):
+            self.model.seed_dropout(self.seed)
+        for a, g in enumerate(self._aug_gens):
+            g.manual_seed(int(np.random.SeedSequence([int(self.seed), 1, a]).generate_state(1)[0]))
         self.model.flat_grads.zero_()
         flat = self.model.flat_params
         flat.grad = self.model.flat_grads
@@ -475,10 +515,26 @@ class GossipTrainer:
         ).astype(np.int32)
         return idx.reshape(n, steps, self.batch_size).swapaxes(0, 1)
 
+    def _augment(self, x: torch.Tensor) -> torch.Tensor:
+        """RandomCrop(32, pad 4) + flip of every agent's batch, in ONE
+        gather over the (N*B) images, each agent's crops and flips drawn
+        from its own generator."""
+        n, B = x.shape[:2]
+        draws = [draw_augment(g, B, self.device) for g in self._aug_gens]
+        offsets = torch.cat([d[0] for d in draws])
+        flips = torch.cat([d[1] for d in draws])
+        out = augment_batch(x.reshape(n * B, *x.shape[2:]), offsets, flips,
+                            pad_value=self.augment_pad_value)
+        return out.reshape(x.shape)
+
     def _train_step(self, x, y):
-        """One fwd/bwd/update for every agent; returns (N,) loss, acc and
-        gradient norm, left on the device."""
+        """One fwd/bwd/update for every agent (train mode: batch
+        statistics, running statistics updated, dropout on); returns (N,)
+        loss, acc and gradient norm, left on the device."""
         model = self.model
+        model.train()
+        if self.augment:
+            x = self._augment(x)
         model.flat_grads.zero_()
         logits = model(x)
         loss = self.loss_fn(logits, y)
@@ -513,6 +569,7 @@ class GossipTrainer:
         eagerly the tail simply runs at its own size."""
         X, y = self.test_data
         n = len(self.node_names)
+        self.model.eval()  # running statistics, no dropout
         total = torch.zeros(n, dtype=torch.float64, device=self.device)
         for s in range(0, len(X), self.eval_batch_size):
             xb = X[s: s + self.eval_batch_size]
@@ -598,6 +655,15 @@ class GossipTrainer:
     def node_parameters(self) -> Dict[Hashable, Dict[str, torch.Tensor]]:
         """``{node: {param name: tensor}}`` — views of each node's slice."""
         stacked = self.model.stacked_parameters()
+        return {
+            name: {k: v[a] for k, v in stacked.items()}
+            for a, name in enumerate(self.node_names)
+        }
+
+    def node_batch_stats(self) -> Dict[Hashable, Dict[str, torch.Tensor]]:
+        """``{node: {statistic name: tensor}}`` — views of each node's
+        BatchNorm running statistics (empty for models without any)."""
+        stacked = self.model.stacked_stats()
         return {
             name: {k: v[a] for k, v in stacked.items()}
             for a, name in enumerate(self.node_names)

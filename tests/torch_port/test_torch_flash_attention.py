@@ -30,6 +30,19 @@ F32_ATOL = 5e-5
 BF16_TOL = 0.05
 
 
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """Pin torch's intra-op thread count for these comparisons: its CPU
+    GEMMs block their sums by thread count, and a worker process of a
+    parallel test run starts with whatever count its affinity gives it,
+    so the plain versions' float32 sums would otherwise be ordered by the
+    machine's load.  Restored afterwards."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     q, k, v, co = (rng.normal(size=shape).astype(np.float32) for _ in range(4))

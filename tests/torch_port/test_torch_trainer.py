@@ -161,5 +161,6 @@ def test_master_node_surface_trains_and_reports():
     assert results[-1]["train_loss"].mean() < results[0]["train_loss"].mean()
     assert len(tel.by_token()[0]) == 3
     assert len(master.network[0].stats.steps) == 3 * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("wide-resnet", 10)
+    # The vision zoo is ported: the positional argument is num_classes.
+    wrn = get_model("wide-resnet", 10, depth=10, widen_factor=1, device="cpu")
+    assert wrn.Dense_0.kernel.shape == (1, 64, 10)

@@ -1,0 +1,184 @@
+"""The port's gossip trainer on the vision path against the JAX package's,
+and the Titanic consensus-GD loop against the example's.
+
+WRN-10-1 (dropout 0, augmentation off: their masks come from generators
+whose bits cannot follow ``jax.random``), 4 agents on a Metropolis ring,
+SGD with momentum 0.9 and weight decay 5e-4, 2 epochs of 2 steps, from
+the JAX trainer's own init and batch statistics carried across by
+``convert.py``; the same shards and shuffle streams.  Compared per
+epoch: train losses and accuracies, test accuracy, the post-mix
+deviation; at the end, every agent's parameters and BatchNorm running
+statistics.  Float32 on the CPU.
+
+Tolerances: losses 2e-5 absolute, deviation 1e-3 relative, parameters
+and running statistics 5e-4 absolute; accuracies are counts of argmax
+hits and must agree exactly.  Measured (CPU): parameters 2.7e-5 apart
+after epoch 1 and 1.0e-4 after epoch 2, running statistics 1.1e-4,
+losses 3.8e-6, deviation 1.5e-4 relative.  One training step is exact
+in float64 (``test_torch_vision.py``, 1e-9); in float32 the two
+implementations round convolutions differently, and a ReLU whose input
+lies within that rounding of 0 takes the other branch in one of them,
+which moves upstream gradients by up to 0.5% for that step (measured on
+ResNet-20 there).  The JAX trainer against itself from a one-ulp
+perturbed init stays within 5e-7, so the gap is not chaos of the
+training dynamics; the branch flips are the cause found so far.
+"""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_learning_tpu.data import normalize as jax_normalize
+from distributed_learning_tpu.data import shard_dataset, synthetic_cifar
+from distributed_learning_tpu.models.logreg import loss_fn as jax_logreg_loss
+from distributed_learning_tpu.models.vision import WideResNet as JaxWRN
+from distributed_learning_tpu.parallel import Topology as JaxTopology
+from distributed_learning_tpu.parallel.consensus import ConsensusEngine as JaxEngine
+from distributed_learning_tpu.training.trainer import GossipTrainer as JaxTrainer
+from distributed_learning_tpu_torch.convert import flax_to_torch
+from distributed_learning_tpu_torch.parallel import Topology
+from distributed_learning_tpu_torch.training.trainer import GossipTrainer, MasterNode
+
+import chip_smoke
+
+NODES = list(range(4))
+B, STEPS = 8, 2
+WRN = dict(depth=10, widen_factor=1, dropout_rate=0.0)
+SGD = dict(momentum=0.9, weight_decay=5e-4)
+
+
+def _data():
+    (x, y), (xt, yt) = synthetic_cifar(n_train=4 * B * STEPS, n_test=24, seed=1)
+    x = np.asarray(jax_normalize(jnp.asarray(x)))
+    xt = np.asarray(jax_normalize(jnp.asarray(xt)))
+    return shard_dataset(x, y, NODES, batch_size=B, seed=0), (xt, yt)
+
+
+def _common():
+    train, test = _data()
+    return dict(node_names=NODES, optimizer="sgd", optimizer_kwargs=dict(SGD),
+                learning_rate=0.05, train_data=train, test_data=test, epoch=2,
+                batch_size=B, epoch_len=STEPS, mix_times=1, stat_step=1,
+                eval_batch_size=16, seed=0)
+
+
+def _pair():
+    jt = JaxTrainer(model=JaxWRN(**WRN), weights=JaxTopology.ring(4), **_common())
+    jt.initialize_nodes()
+    tt = GossipTrainer(model="wide-resnet", model_kwargs=WRN, weights=Topology.ring(4),
+                       device="cpu", **_common())
+    tt.initialize_nodes(
+        params=flax_to_torch(jax.tree.map(np.asarray, jt.state[0]), n_agents=4),
+        batch_stats=flax_to_torch(jax.tree.map(np.asarray, jt.state[1]), n_agents=4))
+    return jt, tt
+
+
+def test_wide_resnet_gossip_trainer_matches_jax():
+    jt, tt = _pair()
+    for _ in range(2):
+        pj, pt = jt.train_epoch(), tt.train_epoch()
+        assert pt["mixed"] and pt["mix_rounds"] == pj["mix_rounds"] == 1
+        np.testing.assert_allclose(pt["train_loss"], np.asarray(pj["train_loss"]), atol=2e-5)
+        np.testing.assert_array_equal(pt["train_acc"], np.asarray(pj["train_acc"]))
+        np.testing.assert_array_equal(pt["test_acc"], np.asarray(pj["test_acc"]))
+        assert pt["deviation"] == pytest.approx(pj["deviation"], rel=1e-3)
+    for a in NODES:  # per-step losses (stat_step=1)
+        np.testing.assert_allclose(tt.network[a].stats.train_loss,
+                                   jt.network[a].stats.train_loss, atol=2e-5)
+    want = flax_to_torch(jax.tree.map(np.asarray, jt.state[0]), n_agents=4)
+    for name, p in tt.model.stacked_parameters().items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name], atol=5e-4, err_msg=name)
+    want = flax_to_torch(jax.tree.map(np.asarray, jt.state[1]), n_agents=4)
+    got = tt.model.stacked_stats()
+    assert set(got) == set(want) and len(got) == 2 * (1 + 2 * 3)
+    for name, s in got.items():
+        np.testing.assert_allclose(s.numpy(), want[name], atol=5e-4, err_msg=name)
+    # The agents' statistics were never mixed: they differ across agents.
+    assert not torch.allclose(got["BatchNorm_0.mean"][0], got["BatchNorm_0.mean"][1])
+    node1 = tt.node_batch_stats()[1]
+    assert torch.equal(node1["BatchNorm_0.var"], got["BatchNorm_0.var"][1])
+
+
+def test_gossip_round_leaves_batch_stats_untouched():
+    _, tt = _pair()
+    tt.train_epoch()
+    stats, params = tt.model.flat_stats.clone(), tt.model.flat_params.clone()
+    assert tt._gossip() == 1
+    assert torch.equal(tt.model.flat_stats, stats)
+    assert not torch.equal(tt.model.flat_params, params)
+
+
+def test_augment_and_dropout_options():
+    """augment draws per-agent crops and flips (reproducibly under the
+    seed); dropout=False switches the model's dropout off; a non-image
+    input with augment=True is rejected."""
+    train, test = _data()
+    kw = dict(node_names=NODES, train_data=train, test_data=test, epoch=1, batch_size=B,
+              epoch_len=1, device="cpu", weights=Topology.ring(4), seed=3,
+              model_kwargs=dict(depth=10, widen_factor=1, dropout_rate=0.3))
+    a = MasterNode(NODES, "wide-resnet", train_loaders=train, test_loader=test, epoch=1,
+                   batch_size=B, epoch_len=1, device="cpu", weights=Topology.ring(4), seed=3,
+                   augment=True, model_kwargs=kw["model_kwargs"])
+    x = a._Xs[:, :B]
+    a.initialize_nodes()
+    first = a._augment(x)
+    assert first.shape == x.shape and not torch.equal(first, x)
+    assert not torch.equal(first[0], first[1]) or not torch.equal(x[0], x[1])
+    a.initialize_nodes()
+    assert torch.equal(a._augment(x), first)
+    b = GossipTrainer(model="wide-resnet", dropout=False, **kw)
+    assert all(not m.enabled for m in b.model.modules() if type(m).__name__ == "Dropout")
+    b.initialize_nodes()
+    b.model.train()
+    with torch.no_grad():
+        assert torch.equal(b.model(x), b.model(x))
+    with pytest.raises(ValueError, match="augment=True needs"):
+        flat = {n: (np.zeros((B, 7), np.float32), np.zeros(B, np.int32)) for n in NODES}
+        GossipTrainer(model="ann", augment=True, **dict(kw, train_data=flat, model_kwargs={}))
+
+
+def _example_module():
+    path = os.path.join(os.path.dirname(__file__), "..", "..", "examples",
+                        "titanic_consensus_gd.py")
+    spec = importlib.util.spec_from_file_location("titanic_consensus_gd_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_titanic_k4_consensus_gd_matches_the_example():
+    """50 iterations of K4 consensus GD (eps 1e-10): per-agent test
+    accuracy and spread as the example's ``consensus`` reports them, and
+    the final weights and per-step losses against the example's loop run
+    step by step in JAX (float32; 1e-6 relative)."""
+    ex = _example_module()
+    from distributed_learning_tpu.data import load_titanic, split_data
+
+    iters = 50
+    X, y, X_te, y_te = load_titanic()
+    want_accs, want_spread = ex.consensus(
+        JaxTopology.complete(4), X, y, jnp.asarray(X_te), jnp.asarray(y_te, jnp.float32),
+        iters, eps=1e-10)
+    w, losses, accs, spread = chip_smoke.titanic_consensus_gd(iters, device="cpu")
+    assert accs == want_accs
+    assert spread == pytest.approx(want_spread, abs=1e-7)
+    # The example's loop, unrolled on the host so each step's loss is seen.
+    shards = split_data(X, y, 4)
+    m = min(len(s[0]) for s in shards.values())
+    Xs = jnp.stack([jnp.asarray(shards[i][0][:m]) for i in range(4)])
+    ys = jnp.stack([jnp.asarray(shards[i][1][:m], jnp.float32) for i in range(4)])
+    engine = JaxEngine(JaxTopology.complete(4).metropolis_weights())
+    wj = jnp.zeros((4, Xs.shape[-1]))
+    for it in range(iters):
+        lr = ex.ALPHA * (jnp.float32(it) + 1.0) ** -0.5
+        loss, g = jax.vmap(jax.value_and_grad(jax_logreg_loss), in_axes=(0, 0, 0, None))(
+            wj, Xs, ys, ex.TAU)
+        np.testing.assert_allclose(losses[it].numpy(), np.asarray(loss), rtol=1e-6)
+        wj, _, _ = engine.mix_until(wj - lr * g, eps=1e-10, max_rounds=300)
+    np.testing.assert_allclose(w.numpy(), np.asarray(wj), rtol=1e-6, atol=1e-7)
+    assert float(losses[-1].mean()) < float(losses[0].mean())
