@@ -65,6 +65,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
              and 200 iterations of the Titanic K4 consensus GD
              (``examples/titanic_consensus_gd.py``'s loop); finite, falling.
 
+10. superstep — WRN-28-10 as in vision_slice: ``train_epochs(3)`` as CUDA-graph
+             replays against 3 eager ``train_epoch()`` calls from the same
+             init and seeds, under deterministic algorithms: parameters,
+             running statistics, optimizer state, traces, round counts and
+             deviations must be equal bit for bit (or within the spread of
+             two eager runs, which is reported); a control superstep whose
+             index buffer is not refreshed after epoch 0 must be rejected;
+             no host sync inside the replays.  Then the eager and superstep
+             epoch times, capture time, replays per epoch and peak memory
+             (``superstep_timing``), and with ``--profile`` one profiled
+             superstep (table in ``--out``/profile_wrn_superstep.txt).
+11. lm_superstep — the same for the LM slice, and the replay-aware launch
+             counts: layers x steps x 3 for every kernel (plus the boundary
+             eval's forwards), all on the wgmma body.
+12. superstep_routes — plain, ``mix_times_schedule``, Chebyshev, Gossip-PGA,
+             ``topology_schedule`` (also with Chebyshev), an Adam
+             learning-rate schedule, ``adaptive_comm`` and ``mix_eps`` on
+             the MLP (784 -> 150, 4 agents x B 64): graph against eager, and
+             the host syncs per superstep (0 for every fixed-count one).
+
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -82,6 +102,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -811,10 +832,10 @@ def _record_gossip(master):
     is kept, and mark it for the profiler."""
     real, seen = master._gossip, []
 
-    def gossip():
+    def gossip(*args):
         before = master.parameter_deviation()
         with torch.profiler.record_function("gossip"):
-            rounds = real()
+            rounds = real(*args)
         seen.append((before, master.parameter_deviation()))
         return rounds
 
@@ -1065,6 +1086,339 @@ def phase_zoo():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------- #
+# The epoch superstep: CUDA-graph replays against the eager epochs       #
+# ---------------------------------------------------------------------- #
+SUPERSTEP_K = 3
+
+
+def trainer_record(master, payloads) -> dict:
+    """Every value a run leaves behind, as tensors: parameters, running
+    statistics, optimizer state, and the payloads' per-epoch traces,
+    round counts, deviations and the last test accuracy."""
+    # On the host: four runs of the LM's state would not fit the card
+    # beside a live trainer.
+    rec = {"params": master.model.flat_params.to("cpu", copy=True),
+           "stats": master.model.flat_stats.to("cpu", copy=True)}
+    for st in master._opt.state.values():
+        for key, v in st.items():
+            if isinstance(v, torch.Tensor):
+                rec[f"opt.{key}"] = v.detach().to("cpu", copy=True)
+    for key in ("train_loss", "train_acc", "grad_norm"):
+        rec[key] = torch.tensor(np.stack([p[key] for p in payloads]))
+    rec["deviation"] = torch.tensor([p["deviation"] for p in payloads], dtype=torch.float64)
+    rec["mix_rounds"] = torch.tensor([float(p["mix_rounds"]) for p in payloads])
+    rec["test_acc_last"] = torch.tensor(np.asarray(payloads[-1]["test_acc"], dtype=np.float64))
+    return rec
+
+
+def max_diffs(a: dict, b: dict) -> dict:
+    """Per key, max |a - b| (host tensors, in their own dtype)."""
+    return {k: 0.0 if torch.equal(a[k], b[k]) else float((a[k] - b[k]).abs().max())
+            for k in b}
+
+
+def _stale_indices(master):
+    """The control of the superstep phases: from epoch 1 on, a replay
+    whose fixed-address index buffer is not refreshed, so the training
+    graph runs epoch 0's batches again."""
+    real = master._stage_inputs
+
+    def stage(j, idx, lr):
+        if j == 0:
+            real(j, idx, lr)
+        elif lr is not None:
+            master._static.lr.copy_(lr[j])
+
+    master._stage_inputs = stage
+
+
+def superstep_equality(make, k=SUPERSTEP_K, control=True):
+    """``make()`` builds a fresh initialised trainer on the card (same
+    init and seeds each time).  Under deterministic algorithms: two eager
+    runs of ``k`` ``train_epoch()`` calls (their spread is the limit; it
+    is 0 when they agree bit for bit), the superstep ``train_epochs(k)``
+    as graph replays, and (``control``) a superstep with stale indices,
+    which must exceed the limit.  Returns the verdict and the graph run's
+    trainer facts."""
+    runs, facts, nondet = {}, {}, set()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in ("eager_a", "eager_b", "graph") + (("control",) if control else ()):
+            master = make()
+            if run == "control":
+                _stale_indices(master)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if run.startswith("eager"):
+                    payloads = [master.train_epoch() for _ in range(k)]
+                else:
+                    payloads = master.train_epochs(k)
+                torch.cuda.synchronize()
+            nondet.update(str(w.message).split(" does not have a deterministic")[0][:80]
+                          for w in caught if "deterministic" in str(w.message))
+            runs[run] = trainer_record(master, payloads)
+            if run == "graph":
+                facts = {"mix_rounds": [p["mix_rounds"] for p in payloads]}
+                g = master._graphs
+                if g is not None:  # None only in a rehearsal on the CPU
+                    facts.update(
+                        host_syncs_per_superstep=master.superstep_host_syncs[-1],
+                        replays={"/".join(map(str, key)): n for key, n in g.replays.items()},
+                        replays_per_epoch=sum(g.replays.values()) / k,
+                        capture_seconds=g.capture_seconds)
+            del master
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    spread = max_diffs(runs["eager_b"], runs["eager_a"])
+    graph = max_diffs(runs["graph"], runs["eager_a"])
+    verdict = {"eager_vs_eager_max_abs": spread, "graph_vs_eager_max_abs": graph,
+               "bitwise_eager_vs_eager": not any(spread.values()),
+               "bitwise_graph_vs_eager": not any(graph.values()),
+               "graph_within_eager_spread": all(graph[key] <= spread[key] for key in graph),
+               "nondeterministic_ops_warned": sorted(nondet)}
+    if control:
+        ctl = max_diffs(runs["control"], runs["eager_a"])
+        verdict["control_params_max_abs"] = ctl["params"]
+        verdict["control_rejected"] = ctl["params"] > spread["params"]
+    verdict["ok"] = verdict["graph_within_eager_spread"] and verdict.get("control_rejected", True)
+    return verdict, facts
+
+
+def superstep_timing(make, samples_per_epoch, unit, k=SUPERSTEP_K, profile_to=None):
+    """Epoch wall times of the eager loop and of the superstep on one
+    fresh trainer (default, non-deterministic algorithms): ``k`` eager
+    epochs, then two supersteps of ``k`` (the first captures its graphs);
+    the steady rates come from the last eager epoch and the second
+    superstep.  With ``profile_to`` a third superstep runs under
+    ``torch.profiler``."""
+    master = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager, eager_spans = [], None
+    for i in range(k):
+        if i == k - 1:
+            eager_spans = _time_device_spans(master, eager=True)
+        t0 = time.perf_counter()
+        master.train_epoch()
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+    for name in ("_run_steps", "_gossip", "_eval_accuracy"):
+        del master.__dict__[name]
+    eager_peak = torch.cuda.max_memory_allocated()
+    sup = []
+    for i in range(2):
+        spans = _time_device_spans(master) if i == 1 else None
+        t0 = time.perf_counter()
+        master.train_epochs(k)
+        torch.cuda.synchronize()
+        sup.append(time.perf_counter() - t0)
+    g = master._graphs
+    device_ms = {name: sum(a.elapsed_time(b) for a, b in pairs) for name, pairs in spans.items()}
+    out = {"eager_epoch_s": eager, "superstep_s": sup,
+           "eager_epoch_spans_ms_by_events": {
+               name: sum(a.elapsed_time(b) for a, b in pairs) for name, pairs in eager_spans.items()},
+           "superstep_device_ms_by_events": device_ms,
+           "superstep_idle_share_by_events": 1 - sum(device_ms.values()) / (sup[-1] * 1e3),
+           "capture_seconds": g.capture_seconds,
+           "steady_eager_epoch_s": eager[-1], "steady_superstep_epoch_s": sup[-1] / k,
+           f"eager_{unit}_per_s": samples_per_epoch / eager[-1],
+           f"superstep_{unit}_per_s": samples_per_epoch * k / sup[-1],
+           "host_syncs_per_superstep": master.superstep_host_syncs,
+           "replays_per_epoch": sum(g.replays.values()) / (2 * k),
+           "peak_memory_bytes_eager": eager_peak,
+           "peak_memory_bytes_with_graphs": torch.cuda.max_memory_allocated()}
+    if profile_to is not None:
+        out["profile"] = profile_superstep(master, k, *profile_to)
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_device_spans(master, eager=False) -> dict:
+    """CUDA events around the trainer's phases from now on:
+    ``{"train"|"gossip"|"eval": [(start, end), ...]}``.  Superstep: around
+    each graph replay (device time with no host in it: one launch) and
+    the eval.  ``eager``: around each epoch's steps, gossip and eval
+    (device time with the host's launch gaps in it)."""
+    spans = {"train": [], "gossip": [], "eval": []}
+
+    def timed(name, fn):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            spans[name].append((a, b))
+            return out
+        return run
+
+    master._eval_accuracy = timed("eval", master._eval_accuracy)
+    if eager:
+        master._run_steps = timed("train", master._run_steps)
+        master._gossip = timed("gossip", master._gossip)
+    else:
+        replay = master._graphs.replay
+        master._graphs.replay = lambda key: timed(key[0], replay)(key)
+    return spans
+
+
+def profile_superstep(master, k, out_dir, name):
+    """One profiled superstep of ``k`` epochs: device busy time from the
+    kernel rows (graph-replayed kernels included), idle share of the
+    wall; the table goes to ``out_dir/name``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        master.train_epochs(k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False) or "#" in ev.key:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return {"epochs": k, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "top": [{"kernel": key[:80], "ms": us / 1e3, "count": c} for us, key, c in rows[:8]]}
+
+
+def _wrn_master():
+    """The vision_slice's WRN-28-10 trainer, freshly initialised."""
+    return make_vision_master(
+        "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, WRN_EPOCHS, WRN_EVAL, augment=True,
+        depth=28, widen_factor=10, dropout_rate=0.3, dtype=torch.bfloat16)
+
+
+def phase_superstep(out_dir=None):
+    """WRN-28-10 as vision_slice runs it (4 agents x B 256, bf16, dropout
+    0.3, augmentation, SGD): the graph superstep of 3 epochs against 3
+    eager epochs, bit for bit (or within two eager runs' spread), the
+    stale-index control, then the eager and superstep epoch times."""
+    verdict, facts = superstep_equality(_wrn_master)
+    emit({"phase": "superstep", "model": "wrn-28-10", "k": SUPERSTEP_K, **facts, **verdict})
+    if not verdict["ok"]:
+        raise AssertionError("WRN superstep disagrees with the eager epochs, or the "
+                             "stale-index control was not rejected")
+    if facts["host_syncs_per_superstep"] != 0:
+        raise AssertionError(f"WRN superstep synchronised: {facts}")
+    timing = superstep_timing(_wrn_master, WRN_AGENTS * WRN_BATCH * WRN_STEPS, "samples",
+                              profile_to=None if out_dir is None
+                              else (out_dir, "profile_wrn_superstep.txt"))
+    emit({"phase": "superstep_timing", "model": "wrn-28-10", **timing})
+
+
+def phase_lm_superstep(fa, out_dir=None):
+    """The full-width LM slice as a superstep of 3 epochs against 3 eager
+    epochs (bit for bit, or within two eager runs' spread, with the
+    stale-index control), its replay-aware launch counts (layers x steps
+    x k for every kernel, plus the boundary eval's forwards, all on the
+    wgmma body), then the eager and superstep epoch times."""
+    make = lambda: make_trainer("flash", LAYERS, AGENTS, EPOCHS, STEPS)  # noqa: E731
+    verdict, facts = superstep_equality(make)
+    master = make()
+    fa.reset_launch_counts()
+    master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    n_eval = math.ceil(len(master.test_data[0]) / master.eval_batch_size)
+    per = LAYERS * STEPS * SUPERSTEP_K
+    expect = {"flash_fwd": per + LAYERS * n_eval, "flash_bwd_dq": per,
+              "flash_bwd_dkv": per, "flash_bwd_rowterm": per}
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    on_wgmma = all(bodies[n]["wgmma"] == launches[n]
+                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    emit({"phase": "lm_superstep", "k": SUPERSTEP_K, **facts, **verdict, "launches": launches,
+          "launches_by_body": bodies, "expected_launches": expect})
+    if not verdict["ok"]:
+        raise AssertionError("LM superstep disagrees with the eager epochs, or the "
+                             "stale-index control was not rejected")
+    if launches != expect or not on_wgmma:
+        raise AssertionError(f"LM superstep launches {launches} != {expect} or off wgmma")
+    if facts["host_syncs_per_superstep"] != 0:
+        raise AssertionError(f"LM superstep synchronised: {facts}")
+    timing = superstep_timing(make, AGENTS * BATCH * SEQ * STEPS, "tokens",
+                              profile_to=None if out_dir is None
+                              else (out_dir, "profile_lm_superstep.txt"))
+    emit({"phase": "lm_superstep_timing", **timing})
+    return launches
+
+
+def _route_trainer(**over):
+    """The MLP of the CPU superstep oracles at MNIST width (784 -> 150)
+    on 4 agents, B 64, 2 steps an epoch, on the card."""
+    from distributed_learning_tpu_torch.parallel import Topology
+    from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+
+    rng = np.random.default_rng(0)
+    nodes = list(range(4))
+    train = {a: (rng.normal(size=(128, 784)).astype(np.float32),
+                 rng.integers(0, 10, size=(128,)).astype(np.int32)) for a in nodes}
+    test = (rng.normal(size=(64, 784)).astype(np.float32),
+            rng.integers(0, 10, size=(64,)).astype(np.int32))
+    kw = dict(node_names=nodes, model="mlp", model_kwargs={"hidden_dim": 150},
+              weights=Topology.ring(4), train_data=train, test_data=test, batch_size=64,
+              epoch_len=2, stat_step=1, learning_rate=0.05, optimizer="sgd",
+              optimizer_kwargs={"momentum": 0.9}, seed=3, device=DEVICE)
+    kw.update(over)
+    master = GossipTrainer(**kw)
+    master.initialize_nodes()
+    return master
+
+
+def route_configs():
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    ring, complete = Topology.ring(4), Topology.complete(4)
+    alternating = lambda e: ring if e % 2 == 0 else complete  # noqa: E731
+    return {
+        "plain": dict(mix_times=2),
+        "mix_times_schedule": dict(mix_times_schedule=lambda e: 1 + e % 3),
+        "chebyshev": dict(chebyshev=True, mix_times=3),
+        "global_avg_every": dict(global_avg_every=2, epoch_cons_num=2),
+        "topology_schedule": dict(topology_schedule=alternating, mix_times=2),
+        "topology_schedule_chebyshev": dict(topology_schedule=alternating, chebyshev=True,
+                                            mix_times=3),
+        "lr_schedule_adam": dict(optimizer="adam", optimizer_kwargs={},
+                                 learning_rate=lambda c: 1e-3 / (1 + c)),
+        "adaptive_comm": dict(mix_times=2, adaptive_comm={"target": 0.05, "gain": 1.0}),
+        "mix_eps": dict(mix_eps=1e-3),
+    }
+
+
+def phase_superstep_routes():
+    """Each gossip configuration the superstep carries, graph against
+    eager on the MLP; the host syncs inside each superstep (0 for the
+    fixed-count configurations; eps and adaptive read the residual)."""
+    bad = []
+    for name, cfg in route_configs().items():
+        verdict, facts = superstep_equality(lambda: _route_trainer(**cfg), control=False)
+        emit({"phase": "superstep_routes", "config": name, **facts, **verdict})
+        fixed = "eps" not in name and "adaptive" not in name
+        if not verdict["ok"] or (fixed and facts.get("host_syncs_per_superstep", 0) != 0):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"superstep routes failed: {bad}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1079,6 +1433,9 @@ def main(argv=None) -> int:
     from distributed_learning_tpu_torch.ops import flash_attention as fa
 
     t_start = time.perf_counter()
+    # cuBLAS's deterministic workspace, read when its first handle is made;
+    # the superstep phases compare runs bit for bit under it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1105,12 +1462,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_vision_plain()
     phase_zoo()
+    # The epoch superstep: graph replays against the eager epochs.
+    out = args.out if args.profile else None
+    phase_superstep(out)
+    ss_launches = phase_lm_superstep(fa, out)
+    phase_superstep_routes()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
         kernels.append({
             "name": k.name, "route": "cuda", "source": SOURCES[k.name],
             "replaces": k.replaces, "launches": launches[k.name],
+            "launches_by_path": {"slice": launches[k.name],
+                                 "lm_superstep": ss_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

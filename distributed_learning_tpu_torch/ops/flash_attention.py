@@ -44,9 +44,11 @@ is an output, its cotangent enters both backward kernels as ``dadj``).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -66,6 +68,8 @@ __all__ = [
     "wgmma_body",
     "KERNELS",
     "reset_launch_counts",
+    "record_launches",
+    "count_replays",
 ]
 
 _NEG_INF = -1e30  # large-but-finite, as the TPU kernels
@@ -211,10 +215,39 @@ def _params(q, k, v, scale, causal, window, **ptrs) -> _build.FlashParams:
     return p
 
 
+# Open launch records, innermost last (see record_launches).
+_RECORDING: List[collections.Counter] = []
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[collections.Counter]:
+    """Inside the block, each kernel launch is added to the yielded
+    ``Counter`` (keyed ``(kernel name, body)``) instead of the kernels'
+    counters.  A CUDA graph capture records its launches so, and adds the
+    record once per replay (:func:`count_replays`), since a captured
+    launch runs only when the graph is replayed; a warm-up whose work is
+    undone records into a record it throws away."""
+    rec: collections.Counter = collections.Counter()
+    _RECORDING.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.pop()  # blocks nest, so this one is the innermost
+
+
+def count_replays(record: collections.Counter, times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture recorded ``record``:
+    each recorded launch counts ``times`` on its kernel and body."""
+    for (name, body), n in record.items():
+        KERNELS[name].add(body, n * times)
+
+
 class _Kernel:
     """One CUDA entry point with its launch counters.  ``launches`` counts
-    calls that launched the kernel, ``by_body`` the same per body;
-    plain-version calls do not count."""
+    launches that ran the kernel, ``by_body`` the same per body;
+    plain-version calls do not count, a launch captured into a CUDA graph
+    counts once per replay (:func:`record_launches`), and one captured
+    outside a record not at all."""
 
     def __init__(self, name: str, entry: str, replaces: str, bodies=("cuda_core",)):
         self.name = name
@@ -229,8 +262,14 @@ class _Kernel:
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, self.entry)(ctypes.byref(params), ctypes.c_void_p(stream))
         _build.check(code, self.name)
-        self.launches += 1
-        self.by_body[body] += 1
+        if _RECORDING:
+            _RECORDING[-1][(self.name, body)] += 1
+        elif not torch.cuda.is_current_stream_capturing():
+            self.add(body, 1)
+
+    def add(self, body: str, n: int) -> None:
+        self.launches += n
+        self.by_body[body] += n
 
     def reset(self) -> None:
         self.launches = 0

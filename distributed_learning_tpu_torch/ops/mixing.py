@@ -25,6 +25,7 @@ __all__ = [
     "flatten_stacked",
     "unflatten_stacked",
     "dense_mix",
+    "global_average",
     "agent_deviations",
     "max_deviation",
 ]
@@ -143,6 +144,16 @@ def dense_mix(stacked: Stacked, W: torch.Tensor, out: Stacked) -> Stacked:
                 torch.matmul(Wf, xf, out=dst.view(dst.shape[0], -1))
             else:
                 dst.copy_(torch.matmul(Wf, xf.to(torch.float32)).reshape(dst.shape))
+    return out
+
+
+def global_average(stacked: Stacked, out: Stacked) -> Stacked:
+    """Exact averaging, the ``gamma = 0`` case of a gossip round: each
+    tensor's float32 mean over the agent axis, written back to every
+    agent of ``out`` (which may be ``stacked`` itself), which it returns."""
+    for key, x in stacked.items():
+        mean = x.to(torch.float32).mean(dim=0, keepdim=True)
+        out[key].copy_(mean.expand(x.shape))
     return out
 
 

@@ -18,13 +18,26 @@ would (the reference's ``jax.vmap(tx.update)``), and the summed loss's
 gradient with respect to agent ``a``'s slice is agent ``a``'s own
 gradient, since agents share no parameter.
 
-Ported: fixed ``mix_times`` or ``mix_eps`` gossip, per-node stats, the
-per-epoch eval, telemetry, ``node_parameters`` / ``parameter_deviation``,
-train and eval modes (BatchNorm, dropout), ``dropout``, and device-side
-CIFAR augmentation (``augment``, ``augment_pad_value``).  Dropout masks,
-crops and flips come from explicit ``torch.Generator``s, one per agent,
-seeded from ``seed``; their bits cannot follow the reference's
-``jax.random`` streams.  Options that are not ported raise
+Gossip per epoch: fixed ``mix_times`` or a ``mix_times_schedule``, eps
+stopping (``mix_eps``), Chebyshev acceleration (``chebyshev``),
+Gossip-PGA's exact average every ``global_avg_every`` consensus epochs,
+a time-varying graph (``topology_schedule``, also with Chebyshev or eps)
+and the residual-adaptive round budget (``adaptive_comm``).  Learning
+rates may be optax-style schedules ``count -> lr``.
+
+``train_epochs(k)`` is the reference's epoch superstep: the indices of
+all k epochs go to the device at once, the per-step traces and each
+epoch's post-mix deviation stay on the device until one flush at the
+end, and the test set is evaluated once, at the boundary.  On the card
+the k epochs are CUDA-graph replays (``training/graphs.py``) with no host
+synchronisation in between; a configuration whose round count depends
+on a device value (``mix_eps``, ``adaptive_comm``) runs its gossip
+eagerly between the replays.  On the CPU the same ops run eagerly.  The
+trajectory equals k calls of ``train_epoch``.
+
+Dropout masks, crops and flips come from explicit ``torch.Generator``s,
+one per agent, seeded from ``seed``; their bits cannot follow the
+reference's ``jax.random`` streams.  Options that are not ported raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -32,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, Dict, Hashable, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +55,17 @@ from distributed_learning_tpu_torch.data.cifar import augment_batch, draw_augmen
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models import get_model
 from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
+from distributed_learning_tpu_torch.parallel.schedule import chebyshev_omegas
 from distributed_learning_tpu_torch.parallel.topology import Topology
+from distributed_learning_tpu_torch.parallel.topology import gamma as mixing_gamma
+from distributed_learning_tpu_torch.training.graphs import GraphSet, StateSnapshot, count_host_syncs
 from distributed_learning_tpu_torch.utils.telemetry import TelemetryProcessor
 
 __all__ = [
     "MasterNode",
     "ConsensusNode",
     "GossipTrainer",
+    "SGD",
     "make_optimizer",
     "get_loss",
     "get_metric",
@@ -108,30 +125,86 @@ def get_metric(error: Any) -> Callable[[torch.Tensor, torch.Tensor], torch.Tenso
     return lambda out, y: sign_acc(out, y) if out.shape[-1] == 1 else argmax_acc(out, y)
 
 
+class SGD(torch.optim.Optimizer):
+    """optax's ``sgd`` on the stacked buffer, with ``add_decayed_weights``
+    in front for ``weight_decay`` (torch's L2 semantics): ``g += wd p``;
+    ``m <- momentum m + g``; ``p -= lr (g + momentum m)`` with Nesterov,
+    ``p -= lr m`` without.  The momentum starts at zero (optax's
+    ``trace``) and exists from construction on, so the first step runs
+    the same ops as every later one, eager or captured in a CUDA graph.
+    ``lr`` is a float, or a 0-dim tensor on the parameters' device that
+    each step reads (a learning-rate schedule on the card)."""
+
+    def __init__(self, params, lr, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=float(momentum), nesterov=bool(nesterov),
+                                      weight_decay=float(weight_decay)))
+        for group in self.param_groups:
+            if group["momentum"]:
+                for p in group["params"]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise NotImplementedError("SGD.step takes no closure")
+        for group in self.param_groups:
+            lr, m, wd = group["lr"], group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                d = p.grad
+                if wd:
+                    d = d.add(p, alpha=wd)
+                if m:
+                    buf = self.state[p]["momentum_buffer"]
+                    buf.mul_(m).add_(d)
+                    d = d.add(buf, alpha=m) if group["nesterov"] else buf
+                if isinstance(lr, torch.Tensor):
+                    p.addcmul_(d, lr, value=-1.0)
+                else:
+                    p.add_(d, alpha=-lr)
+
+
+class _OptimizerFactory(NamedTuple):
+    """``build(flat_params, lr=None)`` and the learning-rate ``schedule``
+    (``None`` for a constant rate)."""
+
+    build: Callable[..., torch.optim.Optimizer]
+    schedule: Optional[Callable[[int], Any]]
+    lr: float
+
+    def __call__(self, p: torch.Tensor, lr=None) -> torch.optim.Optimizer:
+        return self.build(p, self.lr if lr is None else lr)
+
+
 def make_optimizer(
     optimizer: Any = "sgd",
     optimizer_kwargs: Optional[Mapping[str, Any]] = None,
-    learning_rate: float = 0.02,
-) -> Callable[[torch.Tensor], torch.optim.Optimizer]:
+    learning_rate: Any = 0.02,
+) -> _OptimizerFactory:
     """Resolve the reference's ``optimizer`` / ``optimizer_kwargs`` pair to
-    a factory ``build(flat_params) -> torch.optim.Optimizer``.
+    a factory ``build(flat_params, lr=None) -> torch.optim.Optimizer``.
 
     Names ``'sgd'`` / ``'adam'`` / ``'adamw'`` take torch-style kwargs
     (``momentum``, ``nesterov``, ``weight_decay``) with the reference's
     semantics: for sgd and adam, ``weight_decay`` is L2 added to the
     gradient before the update (``optax.add_decayed_weights`` chained in
     front); for adamw it is decoupled.  Adam's defaults are optax's (eps
-    1e-8; ``eps_root`` must be 0, as torch has no such term).  A
-    ``torch.optim.Optimizer`` subclass or factory is called as
+    1e-8; ``eps_root`` must be 0, as torch has no such term); on the card
+    Adam is built ``capturable`` (its step count and bias correction on
+    the device), in eager steps too, so eager and captured steps compute
+    alike.  A ``torch.optim.Optimizer`` subclass or factory is called as
     ``optimizer([flat_params], lr=..., **kwargs)``.
+
+    The learning rate may be an optax-style schedule ``count -> lr``,
+    read at the update count *before* the update, as optax does: the
+    factory's ``schedule`` holds it, and the trainer sets each step's
+    rate (a float on the CPU; on the card a 0-dim device tensor passed
+    as ``lr``, which a captured step reads).
     """
     kw = dict(optimizer_kwargs or {})
     lr = kw.pop("lr", kw.pop("learning_rate", learning_rate))
-    if callable(lr):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet (ROADMAP.md queue 1, item 2)"
-        )
-    lr = float(lr)
+    schedule = lr if callable(lr) else None
+    lr0 = float(schedule(0)) if schedule is not None else float(lr)
     if isinstance(optimizer, str):
         wd = float(kw.pop("weight_decay", 0.0))
         name = optimizer.lower()
@@ -140,9 +213,9 @@ def make_optimizer(
             nesterov = bool(kw.pop("nesterov", False))
             if kw:
                 raise ValueError(f"unknown sgd kwargs {sorted(kw)}")
-            return lambda p: torch.optim.SGD(
-                [p], lr=lr, momentum=momentum, nesterov=nesterov, weight_decay=wd
-            )
+            return _OptimizerFactory(
+                lambda p, lr: SGD([p], lr=lr, momentum=momentum, nesterov=nesterov,
+                                  weight_decay=wd), schedule, lr0)
         if name in ("adam", "adamw"):
             betas = (float(kw.pop("b1", 0.9)), float(kw.pop("b2", 0.999)))
             eps = float(kw.pop("eps", 1e-8))
@@ -151,10 +224,12 @@ def make_optimizer(
             if kw:
                 raise ValueError(f"unknown {name} kwargs {sorted(kw)}")
             cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
-            return lambda p: cls([p], lr=lr, betas=betas, eps=eps, weight_decay=wd)
+            return _OptimizerFactory(
+                lambda p, lr: cls([p], lr=lr, betas=betas, eps=eps, weight_decay=wd,
+                                  capturable=p.device.type == "cuda"), schedule, lr0)
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if callable(optimizer):
-        return lambda p: optimizer([p], lr=lr, **kw)
+        return _OptimizerFactory(lambda p, lr: optimizer([p], lr=lr, **kw), schedule, lr0)
     raise ValueError(f"cannot interpret optimizer {optimizer!r}")
 
 
@@ -200,15 +275,9 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # Constructor options of the reference that this port does not run yet:
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "superstep": ((1,), "queue 1, item 2 (superstep train_epochs)"),
-    "mix_times_schedule": ((None,), "queue 1, item 2 (per-epoch schedules)"),
-    "adaptive_comm": ((None, False), "queue 1, item 2 (superstep + adaptive_comm)"),
     "compression": ((None, "none", "identity"), "queue 1, item 3 (compression / CHOCO)"),
     "async_gossip": ((None, False), "queue 1, item 4 (async and robust gossip)"),
     "robust_mixing": ((None, False), "queue 1, item 4 (async and robust gossip)"),
-    "topology_schedule": ((None,), "queue 1, item 5 (engine routes)"),
-    "chebyshev": ((False,), "queue 1, item 5 (engine routes)"),
-    "global_avg_every": ((None,), "queue 1, item 5 (engine routes)"),
     "mesh": ((None,), "queue 1, item 6 (sharded engine on torch.distributed)"),
     "obs": ((None, False), "queue 1, item 8 (obs/)"),
     "profile_costs": ((False,), "queue 1, item 8 (obs/)"),
@@ -286,6 +355,29 @@ class ConsensusNode:
 # ---------------------------------------------------------------------- #
 # Trainer                                                                #
 # ---------------------------------------------------------------------- #
+class _Plan(NamedTuple):
+    """One epoch's gossip, resolved on the host: ``mode`` 0 (none), 1
+    (this configuration's mixing) or 2 (the Gossip-PGA exact average);
+    the round count (the floor for eps stopping); the epoch's matrix
+    under a ``topology_schedule`` and its Chebyshev weights (float32)."""
+
+    mode: int
+    times: int
+    W: Optional[np.ndarray] = None
+    omegas: Optional[np.ndarray] = None
+
+
+class _Static(NamedTuple):
+    """The captured graphs' fixed-address inputs and outputs."""
+
+    idx: torch.Tensor                  # (steps, n, B) batch indices
+    lr: Optional[torch.Tensor]         # (steps,) learning rates, with a schedule
+    trace: torch.Tensor                # (steps, 3, n) loss, accuracy, gradient norm
+    W: torch.Tensor                    # (n, n) the epoch's matrix (topology_schedule)
+    omegas: Dict[int, torch.Tensor]    # rounds -> (rounds,) Chebyshev weights
+    dev: torch.Tensor                  # () post-mix max deviation
+
+
 class GossipTrainer:
     """Stacked-replica gossip-SGD trainer.
 
@@ -294,6 +386,8 @@ class GossipTrainer:
     is a registry name (built with ``n_agents`` = number of nodes) or an
     agent-stacked model whose ``n_agents`` equals the number of nodes.
     ``device`` defaults to the card; pass ``"cpu"`` for the plain path.
+    ``superstep=k`` makes :meth:`start_consensus` run k epochs per
+    :meth:`train_epochs` call.
     """
 
     def __init__(
@@ -305,7 +399,7 @@ class GossipTrainer:
         model_kwargs: Optional[Mapping[str, Any]] = None,
         optimizer: Any = "sgd",
         optimizer_kwargs: Optional[Mapping[str, Any]] = None,
-        learning_rate: float = 0.02,
+        learning_rate: Any = 0.02,
         error: Any = "cross_entropy",
         weights: Any = None,
         train_data: Mapping[Hashable, Tuple[np.ndarray, np.ndarray]],
@@ -340,13 +434,9 @@ class GossipTrainer:
         remat: bool = False,
     ):
         _reject_unported(dict(
-            superstep=superstep, mix_times_schedule=mix_times_schedule,
-            adaptive_comm=adaptive_comm,
             compression=compression, async_gossip=async_gossip,
-            robust_mixing=robust_mixing, topology_schedule=topology_schedule,
-            chebyshev=chebyshev, global_avg_every=global_avg_every, mesh=mesh,
-            obs=obs, profile_costs=profile_costs, timer_every_n=timer_every_n,
-            remat=remat,
+            robust_mixing=robust_mixing, mesh=mesh, obs=obs,
+            profile_costs=profile_costs, timer_every_n=timer_every_n, remat=remat,
         ))
         self.device = resolve_device(device)
         self.eval_batch_size = int(eval_batch_size)
@@ -362,6 +452,7 @@ class GossipTrainer:
         missing = [t for t in self.node_names if t not in train_data]
         if missing:
             raise ValueError(f"train_data missing for nodes: {missing}")
+        self._check_gossip_options(mix_eps, chebyshev, global_avg_every, superstep, adaptive_comm)
 
         self._Xs, self._ys = self._stack_data(train_data, batch_size)
         self.augment = bool(augment)
@@ -371,6 +462,8 @@ class GossipTrainer:
                 "augment=True needs (32, 32, 3) image inputs; got per-sample "
                 f"shape {tuple(self._Xs.shape[2:])}"
             )
+        # On the device once, so an augmentation step copies nothing from the host.
+        self._pad_value = torch.as_tensor(np.asarray(augment_pad_value), device=self.device)
         if isinstance(model, str):
             model = get_model(
                 model, *model_args, n_agents=n, device=self.device,
@@ -405,9 +498,18 @@ class GossipTrainer:
         self.mix_times = int(mix_times)
         self.mix_eps = mix_eps
         self.seed = seed
+        self.superstep = int(superstep)
+        self.mix_times_schedule = mix_times_schedule
+        self.topology_schedule = topology_schedule
+        self.chebyshev = bool(chebyshev)
+        self.global_avg_every = global_avg_every
 
+        # With a topology_schedule, epoch e mixes with its own graph and
+        # ``weights`` only seeds the engine (its residual and gamma).
+        if weights is None and topology_schedule is not None:
+            weights = topology_schedule(0)
         W = resolve_mixing_matrix(weights, self.node_names)
-        if n > 1 and np.allclose(W, np.eye(n)):
+        if n > 1 and topology_schedule is None and np.allclose(W, np.eye(n)):
             warnings.warn(
                 "GossipTrainer: mixing matrix is the identity (weights=None"
                 " or an edgeless topology) — nodes will train in isolation"
@@ -416,6 +518,13 @@ class GossipTrainer:
                 stacklevel=2,
             )
         self.engine = ConsensusEngine(W, device=self.device)
+        if (self.chebyshev and topology_schedule is None and n > 1
+                and not (0.0 <= self.engine.gamma < 1.0)):
+            raise ValueError(
+                "chebyshev=True needs a connected mixing graph with "
+                f"gamma < 1; got gamma={self.engine.gamma} (weights="
+                f"{'None (isolated nodes)' if weights is None else 'given'})"
+            )
 
         max_len = self._Xs.shape[1] // batch_size
         self.epoch_len = min(epoch_len or max_len, max_len)
@@ -433,9 +542,66 @@ class GossipTrainer:
         self.network: Dict[Hashable, ConsensusNode] = {
             name: ConsensusNode(name) for name in self.node_names
         }
+        self._agent = torch.arange(n, device=self.device)[:, None]
         self._opt: Optional[torch.optim.Optimizer] = None
+        # A learning-rate schedule on the card: the 0-dim rate every step reads.
+        self._lr: Optional[torch.Tensor] = None
+        self._opt_steps = 0
+        self._spare = None
+        self._graphs: Optional[GraphSet] = None
+        self._static: Optional[_Static] = None
+        # Synchronising CUDA calls inside each superstep's replays.
+        self.superstep_host_syncs: List[int] = []
         self._global_step = 0
         self._epochs_done = 0
+
+    def _check_gossip_options(self, mix_eps, chebyshev, global_avg_every, superstep,
+                              adaptive_comm) -> None:
+        """The reference's constructor checks of the gossip options, with
+        its messages' meaning; sets the adaptive controller's config."""
+        if chebyshev and mix_eps is not None:
+            raise ValueError(
+                "mix_eps (eps-stopping) and chebyshev (fixed accelerated "
+                "schedule) are mutually exclusive; pick one stopping rule"
+            )
+        if global_avg_every is not None and global_avg_every < 1:
+            raise ValueError("global_avg_every must be >= 1")
+        if int(superstep) < 1:
+            raise ValueError(f"superstep must be >= 1, got {superstep}")
+        self._adaptive_cfg = None
+        self._adaptive_res = None
+        if adaptive_comm is None or adaptive_comm is False:
+            return
+        if not isinstance(adaptive_comm, Mapping):
+            raise ValueError(
+                "adaptive_comm must be a mapping with 'target' and optional "
+                f"'gain'/'min_times'/'max_times', got {adaptive_comm!r}"
+            )
+        unknown = set(adaptive_comm) - {"target", "gain", "min_times", "max_times"}
+        if unknown:
+            raise ValueError(f"unknown adaptive_comm keys: {sorted(unknown)}")
+        if "target" not in adaptive_comm:
+            raise ValueError(
+                "adaptive_comm needs 'target': the consensus residual the "
+                "controller steers toward"
+            )
+        target = float(adaptive_comm["target"])
+        if not target > 0.0:
+            raise ValueError(f"adaptive_comm target must be > 0, got {target}")
+        lo = int(adaptive_comm.get("min_times", 1))
+        hi = int(adaptive_comm.get("max_times", 10_000))
+        if lo < 1 or hi < lo:
+            raise ValueError(f"adaptive_comm needs 1 <= min_times <= max_times, got [{lo}, {hi}]")
+        if chebyshev:
+            raise ValueError(
+                "adaptive_comm is mutually exclusive with chebyshev: the "
+                "accelerated omega schedule is derived for a fixed round "
+                "count, not a residual-modulated one"
+            )
+        self._adaptive_cfg = {"target": target, "gain": float(adaptive_comm.get("gain", 1.0)),
+                              "min_times": lo, "max_times": hi}
+        # Seeded at the target: the first epoch runs the unmodified count.
+        self._adaptive_res = np.float32(target)
 
     # ------------------------------------------------------------------ #
     def _stack_data(self, train_data, batch_size):
@@ -473,6 +639,11 @@ class GossipTrainer:
         statistics (``model.flat_stats``) or the optimizer's moments."""
         return {"float32": self.model.flat_params}
 
+    @property
+    def _generators(self) -> List[torch.Generator]:
+        """Every generator a training step draws from: dropout, augmentation."""
+        return list(getattr(self.model, "generators", [])) + self._aug_gens
+
     # ------------------------------------------------------------------ #
     def initialize_nodes(
         self,
@@ -500,7 +671,17 @@ class GossipTrainer:
         self.model.flat_grads.zero_()
         flat = self.model.flat_params
         flat.grad = self.model.flat_grads
-        self._opt = self._make_opt(flat)
+        if self._make_opt.schedule is not None and self.device.type == "cuda":
+            if self._lr is None:
+                self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+            self._opt = self._make_opt(flat, lr=self._lr)
+        else:
+            self._opt = self._make_opt(flat)
+        # New optimizer state tensors: graphs captured against the old ones are stale.
+        self._graphs, self._static = None, None
+        self._opt_steps = 0
+        if self._adaptive_cfg is not None:
+            self._adaptive_res = np.float32(self._adaptive_cfg["target"])
         return self
 
     def _epoch_perm(self, epoch_idx: int) -> np.ndarray:
@@ -515,6 +696,22 @@ class GossipTrainer:
         ).astype(np.int32)
         return idx.reshape(n, steps, self.batch_size).swapaxes(0, 1)
 
+    def _indices(self, epoch0: int, k: int) -> torch.Tensor:
+        """(k, steps, n, B) indices of ``k`` epochs, one host-to-device copy."""
+        idx = np.stack([self._epoch_perm(epoch0 + j) for j in range(k)]).astype(np.int64)
+        return torch.as_tensor(idx, device=self.device)
+
+    def _lr_slots(self, k: int) -> Optional[torch.Tensor]:
+        """(k, steps) float32 rates of the next ``k`` epochs' updates under
+        the schedule (``None`` without one): the schedule at each update's
+        count before the update, one host-to-device copy."""
+        schedule = self._make_opt.schedule
+        if schedule is None:
+            return None
+        count = self._opt_steps + np.arange(k * self.epoch_len)
+        rates = np.asarray([float(schedule(int(c))) for c in count], dtype=np.float32)
+        return torch.as_tensor(rates.reshape(k, self.epoch_len), device=self.device)
+
     def _augment(self, x: torch.Tensor) -> torch.Tensor:
         """RandomCrop(32, pad 4) + flip of every agent's batch, in ONE
         gather over the (N*B) images, each agent's crops and flips drawn
@@ -524,7 +721,7 @@ class GossipTrainer:
         offsets = torch.cat([d[0] for d in draws])
         flips = torch.cat([d[1] for d in draws])
         out = augment_batch(x.reshape(n * B, *x.shape[2:]), offsets, flips,
-                            pad_value=self.augment_pad_value)
+                            pad_value=self._pad_value)
         return out.reshape(x.shape)
 
     def _train_step(self, x, y):
@@ -548,17 +745,122 @@ class GossipTrainer:
         acc = self.metric_fn(logits.detach(), y).mean(dim=1)
         return loss.detach(), acc, gnorm
 
-    def _gossip(self) -> int:
-        """One epoch's consensus phase, in place on the fused buffer;
-        returns the number of rounds run."""
-        with torch.no_grad():
-            if self.mix_eps is None:
-                self.engine.mix_(self._buffers, times=self.mix_times)
-                return self.mix_times
-            rounds, _ = self.engine.mix_until_(
-                self._buffers, eps=self.mix_eps, min_times=self.mix_times
-            )
-        return rounds
+    def _run_steps(self, idx: torch.Tensor, lr: Optional[torch.Tensor],
+                   trace: torch.Tensor) -> None:
+        """One epoch's training steps on the (steps, n, B) indices ``idx``
+        at the (steps,) rates ``lr`` (with a schedule), writing each step's
+        (N,) loss, accuracy and gradient norm into ``trace`` (steps, 3, N).
+        The same ops eagerly and inside the captured training graph."""
+        for t in range(idx.shape[0]):
+            if lr is not None:
+                if self._lr is not None:
+                    self._lr.copy_(lr[t])
+                else:
+                    for group in self._opt.param_groups:
+                        group["lr"] = float(lr[t])
+            i = idx[t]
+            out = self._train_step(self._Xs[self._agent, i], self._ys[self._agent, i])
+            for c, v in enumerate(out):
+                trace[t, c].copy_(v)
+
+    # -- gossip ---------------------------------------------------------- #
+    def _epoch_mode(self, epoch_idx: int) -> int:
+        """0 = no gossip (before ``epoch_cons_num``, or a single node),
+        1 = this configuration's mixing, 2 = the Gossip-PGA exact average
+        (every ``global_avg_every``-th consensus epoch)."""
+        if len(self.node_names) <= 1 or epoch_idx + 1 < self.epoch_cons_num:
+            return 0
+        consensus_epochs = epoch_idx + 1 - self.epoch_cons_num
+        if (self.global_avg_every is not None
+                and consensus_epochs % self.global_avg_every == self.global_avg_every - 1):
+            return 2
+        return 1
+
+    def _adaptive_times_host(self, t: int) -> int:
+        """The residual-adaptive round budget ``clip(round(t * (1 + gain
+        * (res / target - 1))), min_times, max_times)`` in float32, fed by
+        the previous epoch's post-mix residual; the reference's float32
+        order of operations.  gain=0 returns ``t`` exactly."""
+        c = self._adaptive_cfg
+        mult = np.float32(1.0) + np.float32(c["gain"]) * (
+            np.float32(self._adaptive_res) / np.float32(c["target"]) - np.float32(1.0)
+        )
+        te = np.floor(np.float32(t) * mult + np.float32(0.5))
+        return int(np.clip(te, c["min_times"], c["max_times"]))
+
+    def _plan(self, epoch_idx: int) -> _Plan:
+        """Resolve epoch ``epoch_idx``'s gossip on the host (the
+        reference's ``_gossip`` and ``_superstep_sched``): its mode, its
+        round count (scheduled, then adapted), and under a
+        ``topology_schedule`` its matrix and Chebyshev weights."""
+        mode = self._epoch_mode(epoch_idx)
+        if mode != 1:
+            return _Plan(mode, 0 if mode == 0 else 1)
+        times = self.mix_times
+        if self.mix_times_schedule is not None:
+            times = int(self.mix_times_schedule(epoch_idx))
+            if times < 1:
+                raise ValueError(
+                    f"mix_times_schedule({epoch_idx}) returned {times}; must "
+                    "be >= 1 (0 would silently skip gossip while reporting a "
+                    "mixed epoch)"
+                )
+        if self._adaptive_cfg is not None:
+            # For eps configurations this moves the round floor (min_times).
+            times = self._adaptive_times_host(times)
+        W = omegas = None
+        if self.topology_schedule is not None:
+            W_e = resolve_mixing_matrix(self.topology_schedule(epoch_idx), self.node_names)
+            W = np.asarray(W_e, dtype=np.float32)
+            if self.chebyshev:
+                g_e = mixing_gamma(W_e)
+                if not (0.0 <= g_e < 1.0):
+                    raise ValueError(
+                        f"topology_schedule({epoch_idx}) produced a graph with "
+                        f"gamma={g_e}; Chebyshev acceleration needs a connected "
+                        "graph with gamma < 1"
+                    )
+                omegas = chebyshev_omegas(g_e, times).astype(np.float32)
+        elif self.chebyshev:
+            omegas = chebyshev_omegas(self.engine.gamma, times).astype(np.float32)
+        return _Plan(1, times, W, omegas)
+
+    def _spare_sets(self):
+        """The gossip's spare buffer sets, drawn once (two for Chebyshev)."""
+        if self._spare is None:
+            self._spare = self.engine.spare_for(self._buffers, 2 if self.chebyshev else 1)
+        return self._spare
+
+    @torch.no_grad()
+    def _run_gossip(self, mode: int, times: int, W: Optional[torch.Tensor],
+                    omegas: Optional[torch.Tensor]) -> int:
+        """One epoch's consensus phase in place on the fused buffer, with
+        the epoch's matrix and Chebyshev weights as device tensors;
+        returns the rounds run.  Reads nothing back to the host unless
+        eps stopping decides the count."""
+        buffers, spare, eng = self._buffers, self._spare_sets(), self.engine
+        if mode == 0:
+            return 0
+        if mode == 2:
+            eng.global_average_(buffers)
+            return 1
+        if self.chebyshev:
+            eng.mix_chebyshev_(buffers, times, W=W, omegas=omegas, spare=spare)
+        elif self.mix_eps is not None:
+            rounds, _ = eng.mix_until_with_(buffers, W, eps=self.mix_eps, min_times=times,
+                                            spare=spare)
+            return rounds
+        else:
+            eng.mix_with_(buffers, W, times, spare=spare)
+        return times
+
+    def _gossip(self, epoch_idx: Optional[int] = None) -> int:
+        """One epoch's consensus phase (epoch ``epoch_idx``, by default the
+        next one), in place on the fused buffer; returns the rounds run."""
+        plan = self._plan(self._epochs_done if epoch_idx is None else epoch_idx)
+        W = None if plan.W is None else torch.as_tensor(plan.W, device=self.device)
+        om = None if plan.omegas is None else torch.as_tensor(plan.omegas, device=self.device)
+        return self._run_gossip(plan.mode, plan.times, W, om)
 
     @torch.no_grad()
     def _eval_accuracy(self) -> np.ndarray:
@@ -580,26 +882,33 @@ class GossipTrainer:
             total += per.sum(dim=1).to(torch.float64)
         return (total / max(len(X), 1)).cpu().numpy()
 
+    # -- epochs ----------------------------------------------------------- #
     def train_epoch(self) -> Dict[str, Any]:
         """One epoch: local SGD on every node, then (maybe) gossip."""
         if self._opt is None:
             self.initialize_nodes()
         epoch_idx = self._epochs_done
-        idx = torch.as_tensor(self._epoch_perm(epoch_idx), device=self.device).long()
         n = len(self.node_names)
-        agent = torch.arange(n, device=self.device)[:, None]
-        traces = []
-        for t in range(idx.shape[0]):
-            traces.append(self._train_step(self._Xs[agent, idx[t]], self._ys[agent, idx[t]]))
-        mixed, mix_rounds = False, 0
-        if epoch_idx + 1 >= self.epoch_cons_num and n > 1:
-            mix_rounds = self._gossip()
-            mixed = True
-        # One host sync for the epoch's (steps, n) traces.
-        losses, accs, gnorms = (
-            torch.stack(col).cpu().numpy() for col in zip(*traces)
-        )
+        lr = self._lr_slots(1)
+        trace = torch.empty(self.epoch_len, 3, n, device=self.device)
+        self._run_steps(self._indices(epoch_idx, 1)[0], None if lr is None else lr[0], trace)
+        self._opt_steps += self.epoch_len
+        mode = self._epoch_mode(epoch_idx)
+        mix_rounds = self._gossip(epoch_idx) if mode else 0
+        # One host sync for the epoch's (steps, 3, n) traces.
+        losses, accs, gnorms = trace.cpu().numpy().transpose(1, 0, 2)
+        self._record_stats(losses, accs)
+        test_accs = self._eval_and_record()
+        payload = self._payload(epoch_idx, mode, losses, accs, gnorms, test_accs,
+                                mix_rounds, self.parameter_deviation())
+        if self._adaptive_cfg is not None:
+            self._adaptive_res = np.float32(payload["deviation"])
+        self._telemetry([payload])
+        return payload
 
+    def _record_stats(self, losses: np.ndarray, accs: np.ndarray) -> None:
+        """Per-node curves every ``stat_step`` batches of one epoch's
+        (steps, n) traces."""
         for s in range(0, losses.shape[0], self.stat_step):
             chunk = slice(s, min(s + self.stat_step, losses.shape[0]))
             for a, name in enumerate(self.node_names):
@@ -610,45 +919,222 @@ class GossipTrainer:
         self._global_step += losses.shape[0]
         self._epochs_done += 1
 
-        test_accs = None
-        if self.test_data is not None:
-            test_accs = self._eval_accuracy()
-            for a, name in enumerate(self.node_names):
-                node = self.network[name]
-                node.stats.test_acc.append(float(test_accs[a]))
-                node.stats.test_epochs.append(self._global_step)
+    def _eval_and_record(self) -> Optional[np.ndarray]:
+        if self.test_data is None:
+            return None
+        test_accs = self._eval_accuracy()
+        for a, name in enumerate(self.node_names):
+            node = self.network[name]
+            node.stats.test_acc.append(float(test_accs[a]))
+            node.stats.test_epochs.append(self._global_step)
+        return test_accs
 
-        payload = {
+    @staticmethod
+    def _payload(epoch_idx, mode, losses, accs, gnorms, test_accs, mix_rounds, deviation):
+        return {
             "epoch": epoch_idx,
-            "mixed": mixed,
+            "mixed": mode != 0,
             "train_loss": losses.mean(axis=0),
             "train_acc": accs.mean(axis=0),
             "grad_norm": gnorms.mean(axis=0),
             "test_acc": test_accs,
-            "mix_rounds": mix_rounds,
-            "deviation": self.parameter_deviation(),
+            "mix_rounds": int(mix_rounds),
+            "deviation": float(deviation),
         }
-        if self.telemetry is not None:
+
+    def _telemetry(self, payloads: List[Dict[str, Any]]) -> None:
+        if self.telemetry is None:
+            return
+        for p in payloads:
             for a, name in enumerate(self.node_names):
                 self.telemetry.process(
                     name,
                     {
-                        "epoch": epoch_idx,
-                        "train_loss": float(payload["train_loss"][a]),
-                        "train_acc": float(payload["train_acc"][a]),
-                        "grad_norm": float(payload["grad_norm"][a]),
-                        "test_acc": None if test_accs is None else float(test_accs[a]),
-                        "mix_rounds": mix_rounds,
-                        "deviation": payload["deviation"],
+                        "epoch": p["epoch"],
+                        "train_loss": float(p["train_loss"][a]),
+                        "train_acc": float(p["train_acc"][a]),
+                        "grad_norm": float(p["grad_norm"][a]),
+                        "test_acc": None if p["test_acc"] is None else float(p["test_acc"][a]),
+                        "mix_rounds": p["mix_rounds"],
+                        "deviation": p["deviation"],
                     },
                 )
-        return payload
+
+    # -- the epoch superstep ---------------------------------------------- #
+    @property
+    def _cut(self) -> bool:
+        """Whether a superstep's gossip round count depends on a device
+        value (eps stopping, the adaptive controller): then the gossip runs
+        eagerly between the training replays, with host reads."""
+        return self.mix_eps is not None or self._adaptive_cfg is not None
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a training step or a gossip program writes that
+        outlives it: what a warm-up must give back."""
+        out = [self.model.flat_params, self.model.flat_grads, self.model.flat_stats]
+        for st in self._opt.state.values():
+            out.extend(v for v in st.values() if isinstance(v, torch.Tensor))
+        if self._lr is not None:
+            out.append(self._lr)
+        return out
+
+    def _capture(self, keys: Sequence[Tuple]) -> None:
+        """Capture the graphs in ``keys`` that do not exist yet: the
+        training epoch ``("train",)`` and the gossip programs ``("gossip",
+        mode, rounds)`` (each ending with the post-mix deviation).  The
+        warm-ups run against the real state, which is restored after."""
+        if self._graphs is None:
+            n, steps, dev = len(self.node_names), self.epoch_len, self.device
+            self._graphs = GraphSet(dev, self._generators)
+            self._static = _Static(
+                idx=torch.zeros(steps, n, self.batch_size, dtype=torch.long, device=dev),
+                lr=(torch.zeros(steps, dtype=torch.float32, device=dev)
+                    if self._make_opt.schedule is not None else None),
+                trace=torch.zeros(steps, 3, n, device=dev),
+                W=torch.as_tensor(self.engine.W, dtype=torch.float32, device=dev).clone(),
+                omegas={}, dev=torch.zeros((), device=dev))
+        todo = [k for k in keys if k not in self._graphs]
+        if not todo:
+            return
+        st, graphs = self._static, self._graphs
+        self._spare_sets()
+        snap = StateSnapshot(self._state_tensors, graphs.generators)
+        try:
+            for key in todo:
+                if key[0] == "train":
+                    graphs.capture(key, lambda: self._run_steps(st.idx, st.lr, st.trace))
+                    continue
+                _, mode, times = key
+                if self.chebyshev and mode == 1 and times not in st.omegas:
+                    st.omegas[times] = torch.zeros(times, device=self.device)
+                W = st.W if self.topology_schedule is not None else None
+                om = st.omegas.get(times) if self.chebyshev and mode == 1 else None
+
+                def gossip(mode=mode, times=times, W=W, om=om):
+                    self._run_gossip(mode, times, W, om)
+                    self.engine.max_deviation_(self._buffers, st.dev)
+
+                graphs.capture(key, gossip)
+        except Exception as err:
+            raise RuntimeError(
+                f"CUDA graph capture of the superstep failed ({err}); "
+                "train_epochs does not fall back to the eager loop"
+            ) from err
+        finally:
+            snap.restore()
+
+    def _stage_inputs(self, j: int, idx: torch.Tensor, lr: Optional[torch.Tensor]) -> None:
+        """Copy epoch ``j``'s indices and rates into the training graph's
+        fixed-address inputs (device to device)."""
+        self._static.idx.copy_(idx[j])
+        if lr is not None:
+            self._static.lr.copy_(lr[j])
+
+    def train_epochs(self, k: int) -> List[Dict[str, Any]]:
+        """Run ``k`` epochs as one superstep; returns the per-epoch
+        payloads (the schema of :meth:`train_epoch`).
+
+        The trajectory equals ``k`` calls of :meth:`train_epoch`: the same
+        shuffle streams, random streams, steps and gossip.  The indices of
+        all ``k`` epochs go to the device in one copy and the schedules
+        are resolved on the host first; the per-step traces and each
+        epoch's post-mix deviation stay on the device until one flush at
+        the end.  The test set is evaluated once, at the boundary: earlier
+        payloads carry ``test_acc=None``.  On the card each epoch is one
+        replay of the captured training graph and one of the gossip
+        program's graph for its round count, with no host synchronisation
+        (``superstep_host_syncs`` records the count); ``mix_eps`` and
+        ``adaptive_comm`` run their gossip eagerly between the replays,
+        reading the residual back.  A capture that fails raises.
+        """
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"train_epochs needs k >= 1, got {k}")
+        if k == 1:
+            return [self.train_epoch()]
+        if self._opt is None:
+            self.initialize_nodes()
+        epoch0, n, steps = self._epochs_done, len(self.node_names), self.epoch_len
+        modes = [self._epoch_mode(epoch0 + j) for j in range(k)]
+        plans = None if self._cut else [self._plan(epoch0 + j) for j in range(k)]
+        idx = self._indices(epoch0, k)
+        lr = self._lr_slots(k)
+        W_all = om_all = None
+        if plans is not None and self.topology_schedule is not None:
+            W_all = torch.as_tensor(np.stack(
+                [p.W if p.W is not None else np.eye(n, dtype=np.float32) for p in plans]),
+                device=self.device)
+        if plans is not None and self.chebyshev:
+            om = np.zeros((k, max(p.times for p in plans)), dtype=np.float32)
+            for j, p in enumerate(plans):
+                if p.omegas is not None:
+                    om[j, : len(p.omegas)] = p.omegas
+            om_all = torch.as_tensor(om, device=self.device)
+        # Everything the host reads at the end, in one buffer: the
+        # (k, steps, 3, n) traces and the (k,) post-mix deviations.
+        flush = torch.zeros(k, steps * 3 * n + 1, device=self.device)
+        traces = flush[:, :-1].view(k, steps, 3, n)
+        devs = flush[:, -1]
+        graphs = self.device.type == "cuda"
+        if graphs:
+            keys = [("train",)]
+            if plans is not None:
+                keys += sorted({("gossip", p.mode, p.times) for p in plans})
+            self._capture(keys)
+        rounds = [0] * k
+        with count_host_syncs(self.device) as syncs:
+            for j in range(k):
+                if graphs:
+                    self._stage_inputs(j, idx, lr)
+                    self._graphs.replay(("train",))
+                    traces[j].copy_(self._static.trace)
+                else:
+                    self._run_steps(idx[j], None if lr is None else lr[j], traces[j])
+                self._opt_steps += steps
+                if plans is None:  # eps / adaptive: the count needs the residual
+                    if j > 0 and self._adaptive_cfg is not None:
+                        self._adaptive_res = np.float32(float(devs[j - 1]))
+                    rounds[j] = self._gossip(epoch0 + j) if modes[j] else 0
+                    self.engine.max_deviation_(self._buffers, devs[j])
+                    continue
+                p = plans[j]
+                rounds[j] = p.times if p.mode else 0
+                W = None if W_all is None else W_all[j]
+                om = None if om_all is None else om_all[j, : p.times]
+                if graphs:
+                    st = self._static
+                    if W is not None:
+                        st.W.copy_(W)
+                    if om is not None and p.mode == 1:
+                        st.omegas[p.times].copy_(om)
+                    self._graphs.replay(("gossip", p.mode, p.times))
+                    devs[j].copy_(st.dev)
+                else:
+                    self._run_gossip(p.mode, p.times, W, om)
+                    self.engine.max_deviation_(self._buffers, devs[j])
+        host = flush.cpu().numpy()
+        if graphs:
+            self.superstep_host_syncs.append(syncs[0])
+        tr = host[:, :-1].reshape(k, steps, 3, n)
+        devs_host = host[:, -1]
+        if self._adaptive_cfg is not None:
+            self._adaptive_res = np.float32(devs_host[-1])
+        payloads = []
+        for j in range(k):
+            self._record_stats(tr[j, :, 0], tr[j, :, 1])
+            test_accs = self._eval_and_record() if j == k - 1 else None
+            payloads.append(self._payload(epoch0 + j, modes[j], tr[j, :, 0], tr[j, :, 1],
+                                          tr[j, :, 2], test_accs, rounds[j], devs_host[j]))
+        self._telemetry(payloads)
+        return payloads
 
     def start_consensus(self) -> List[Dict[str, Any]]:
-        """Run the full training schedule (parity: ``master.start_consensus()``)."""
+        """Run the full training schedule (parity: ``master.start_consensus()``),
+        in :meth:`train_epochs` chunks of ``superstep`` epochs."""
         results: List[Dict[str, Any]] = []
         while self._epochs_done < self.num_epochs:
-            results.append(self.train_epoch())
+            k = min(self.superstep, self.num_epochs - self._epochs_done)
+            results.extend(self.train_epochs(k))
         return results
 
     # ------------------------------------------------------------------ #

@@ -264,3 +264,39 @@ def test_cpu_path_counts_no_launch_and_checks_inputs():
         fa.flash_attention(q, q, q.to(torch.bfloat16))
     with pytest.raises(ValueError, match="window requires causal"):
         fa.flash_attention(q, q, q, causal=False, window=4)
+
+
+def test_launch_counts_see_graph_replays(monkeypatch):
+    """A launch counts once when it runs eagerly; inside a launch record
+    (a CUDA graph capture) it counts nothing until the record is counted
+    once per replay, on the same kernel and body; a launch captured
+    outside a record counts nothing.  The library and the stream are
+    stand-ins: only the counting is under test."""
+    import types
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(fa._build, "load_library", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    fwd, dq = fa.KERNELS["flash_fwd"], fa.KERNELS["flash_bwd_dq"]
+    fa.reset_launch_counts()
+    params = fa._build.FlashParams()
+    fwd.launch(params, "cuda", "wgmma")
+    with fa.record_launches() as record:
+        for _ in range(3):
+            fwd.launch(params, "cuda", "wgmma")
+        dq.launch(params, "cuda", "cuda_core")
+    assert fwd.launches == 1 and dq.launches == 0
+    assert record == {("flash_fwd", "wgmma"): 3, ("flash_bwd_dq", "cuda_core"): 1}
+    fa.count_replays(record, times=2)
+    assert (fwd.launches, fwd.by_body["wgmma"]) == (7, 7)
+    assert (dq.launches, dq.by_body) == (2, {"wgmma": 0, "cuda_core": 2})
+    capturing[0] = True
+    fwd.launch(params, "cuda", "wgmma")  # captured outside a record
+    assert fwd.launches == 7
+    fa.reset_launch_counts()

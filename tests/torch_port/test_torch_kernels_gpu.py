@@ -168,3 +168,57 @@ def test_wgmma_body_rejects_a_view_tma_cannot_read(card):
     q = buf.as_strided((1, 8, 2, 64), (8 * 132, 132, 64, 1))  # 264-byte rows
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         fa.flash_fwd(q, q, q, 0.125, True, None, with_lse=False)
+
+
+@pytest.mark.gpu
+def test_graph_replays_count_and_match_eager(card):
+    """A 2-layer flash LM trained as a superstep of 3 epochs (each epoch's
+    steps one graph replay): every captured launch counts once per
+    replay on its kernel and body (the warm-up counts nothing), so the
+    counts are layers x steps x epochs (plus the boundary eval's
+    forwards for A), and the run ends where 3 eager epochs do, bit for
+    bit (the kernels are deterministic)."""
+    import numpy as np
+
+    from distributed_learning_tpu_torch.models import TransformerLM
+    from distributed_learning_tpu_torch.parallel import Topology
+    from distributed_learning_tpu_torch.training import GossipTrainer
+
+    layers, steps, T, V = 2, 2, 256, 512
+    rng = np.random.default_rng(0)
+
+    def tokens(n):
+        seq = (rng.integers(0, V, size=(n, 1)) + np.arange(T + 1)) % V
+        return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+    train, test = {a: tokens(2 * steps) for a in range(4)}, tokens(4)
+
+    def trainer():
+        model = TransformerLM(vocab_size=V, num_layers=layers, num_heads=2, head_dim=128,
+                              max_len=T, attn_impl="flash", dtype=torch.bfloat16,
+                              n_agents=4, device=card, seed=0)
+        t = GossipTrainer(node_names=range(4), model=model, optimizer="adam",
+                          learning_rate=1e-3, weights=Topology.ring(4), train_data=train,
+                          test_data=test, batch_size=2, epoch_len=steps, eval_batch_size=2,
+                          device=card)
+        return t.initialize_nodes()
+
+    eager = trainer()
+    for _ in range(3):
+        eager.train_epoch()
+    graph = trainer()
+    fa.reset_launch_counts()
+    out = graph.train_epochs(3)
+    torch.cuda.synchronize()
+    per = layers * steps * 3
+    evals = layers * len(test[0]) // 2
+    assert {kn.name: kn.launches for kn in fa.KERNELS.values()} == {
+        "flash_fwd": per + evals, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+        "flash_bwd_rowterm": per}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body["cuda_core"] == 0, name
+    assert graph._graphs.replays[("train",)] == 3
+    assert graph.superstep_host_syncs == [0]
+    assert torch.equal(graph.model.flat_params, eager.model.flat_params)
+    assert [p["mix_rounds"] for p in out] == [1, 1, 1]
+    fa.reset_launch_counts()

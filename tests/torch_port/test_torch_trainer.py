@@ -127,11 +127,9 @@ def test_optimizers_match_optax(name, kwargs):
 @pytest.mark.parametrize(
     "option,value",
     [
-        ("superstep", 2),
         ("compression", "top_k:0.1"),
         ("async_gossip", {"staleness_bound": 1}),
         ("robust_mixing", "clip"),
-        ("chebyshev", True),
         ("mesh", object()),
         ("obs", True),
         ("remat", True),
@@ -141,6 +139,64 @@ def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GossipTrainer(model="transformer", model_kwargs=LM, device="cpu",
                       weights=Topology.ring(4), **_common(**{option: value}))
+
+
+@pytest.mark.parametrize(
+    "option,value,rounds",
+    [
+        ("superstep", 2, [2, 2]),
+        ("chebyshev", True, [2, 2]),
+        ("mix_times_schedule", lambda e: 3 - e, [3, 2]),
+        ("adaptive_comm", {"target": 1.0, "gain": 0.0}, [2, 2]),
+        ("topology_schedule", lambda e: Topology.complete(4), [2, 2]),
+        ("global_avg_every", 2, [2, 1]),
+        ("learning_rate", lambda count: 3e-3 / (1 + count), [2, 2]),
+    ],
+)
+def test_ported_options_run(option, value, rounds):
+    """The options this port once rejected now train: two epochs through
+    start_consensus, with the expected gossip rounds per epoch."""
+    t = GossipTrainer(model="transformer", model_kwargs=LM, device="cpu",
+                      weights=Topology.ring(4), **_common(**{option: value}))
+    out = t.start_consensus()
+    assert [p["mix_rounds"] for p in out] == rounds
+    assert all(np.isfinite(p["train_loss"]).all() for p in out)
+
+
+def _small(**over):
+    return dict(model="transformer", model_kwargs=LM, device="cpu", **_common(**over))
+
+
+@pytest.mark.parametrize(
+    "over,match",
+    [
+        (dict(chebyshev=True, mix_eps=1e-3), "mutually exclusive"),
+        (dict(chebyshev=True, weights=None), "gamma"),  # isolated nodes
+        (dict(adaptive_comm={"target": 1e-2}, chebyshev=True), "mutually exclusive with chebyshev"),
+        (dict(global_avg_every=0), "global_avg_every must be >= 1"),
+        (dict(superstep=0), "superstep must be >= 1"),
+        (dict(adaptive_comm={"target": 1e-2, "speed": 2}), "unknown adaptive_comm keys"),
+        (dict(adaptive_comm={"gain": 1.0}), "needs 'target'"),
+        (dict(adaptive_comm={"target": 0.0}), "target must be > 0"),
+        (dict(adaptive_comm={"target": 1.0, "min_times": 3, "max_times": 2}), "min_times"),
+        (dict(adaptive_comm=0.5), "must be a mapping"),
+    ],
+)
+@pytest.mark.filterwarnings("ignore:GossipTrainer. mixing matrix is the identity")
+def test_gossip_option_validation(over, match):
+    """The JAX trainer's constructor checks, with its messages' meaning."""
+    with pytest.raises(ValueError, match=match):
+        GossipTrainer(**_small(**{"weights": Topology.ring(4), **over}))
+
+
+def test_zero_rounds_from_schedule_raise():
+    t = GossipTrainer(weights=Topology.ring(4), **_small(mix_times_schedule=lambda e: 0))
+    with pytest.raises(ValueError, match="mix_times_schedule\\(0\\) returned 0"):
+        t.train_epoch()
+    t = GossipTrainer(weights=Topology.ring(4), **_small(mix_times_schedule=lambda e: 1 - e))
+    with pytest.raises(ValueError, match="must be >= 1"):
+        t.train_epochs(2)  # resolved on the host before the superstep runs
+    assert t._epochs_done == 0
 
 
 def test_master_node_surface_trains_and_reports():
