@@ -84,6 +84,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
              learning-rate schedule, ``adaptive_comm`` and ``mix_eps`` on
              the MLP (784 -> 150, 4 agents x B 64): graph against eager, and
              the host syncs per superstep (0 for every fixed-count one).
+             The WRN superstep also compares eval-mode logits of 256 test
+             images, and reports what sets the test accuracy (eval-mode
+             accuracy and top-class share against per-batch statistics).
+13. choco_slice — WRN-28-10 as vision_slice with top-k CHOCO (10% per leaf,
+             gamma 0.2): two supersteps of 3 epochs as graph replays; per
+             epoch the loss, post-mix deviation, rate and each replay's
+             device time; the round's parts timed alone, the nominal wire
+             bytes against the dense round's, peak memory, and the dense
+             superstep epoch of phase 10 beside it.
+14. choco_routes — the card's top-k keeps the CPU's entries (NaN, ties),
+             then top-k per leaf, top-k global with error feedback,
+             random-k, sign, int8, approximate top-k, Gossip-PGA resets
+             (top-k and random-k), ``mix_times_schedule`` and
+             ``adaptive_comm`` on the MLP: graph replays against eager
+             epochs bit for bit, estimates and generator included.
+15. checkpoint — the WRN-28-10 CHOCO run saves after 2 epochs and trains
+             one more; a fresh trainer restores and trains that epoch: equal
+             bit for bit; the checkpoint's bytes, save and restore seconds.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -622,8 +640,14 @@ def phase_times(fa):
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 5)
     out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_h, (qh, kh, vh), doh, retain_graph=True), 5)
+    # The pre-pass's yardstick: rowsum(dO * O) as one float32 vecdot (from
+    # float32 copies made outside the timing; it leaves out the dadj
+    # subtraction).
+    o32, do32 = o.float(), do.float()
+    lib_row = cuda_ms(lambda: torch.linalg.vecdot(do32, o32, dim=-1), 5)
+    del o32, do32
     library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd,
-               "flash_bwd_rowterm": None}
+               "flash_bwd_rowterm": lib_row}
     times = {}
     for name in kernel_fn:
         flops, nbytes = work[name]
@@ -806,9 +830,11 @@ def _cifar(n_train, n_test, seed=0):
 
 
 def make_vision_master(model, agents, batch, steps, epochs, n_test, *, device=DEVICE,
-                       optimizer_kwargs=None, augment=False, dropout=True, **model_kwargs):
+                       optimizer_kwargs=None, augment=False, dropout=True, trainer_kwargs=None,
+                       **model_kwargs):
     """``MasterNode`` over ``agents`` nodes on a Metropolis ring, on
-    normalized synthetic CIFAR-10 dealt by ``shard_dataset``."""
+    normalized synthetic CIFAR-10 dealt by ``shard_dataset``;
+    ``trainer_kwargs`` go to the trainer (the gossip options)."""
     from distributed_learning_tpu_torch.data import normalized_pad_value, shard_dataset
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
@@ -822,6 +848,7 @@ def make_vision_master(model, agents, batch, steps, epochs, n_test, *, device=DE
         test_loader=test, stat_step=1, epoch=epochs, epoch_len=steps, batch_size=batch,
         mix_times=1, eval_batch_size=WRN_EVAL, seed=0, device=device, augment=augment,
         augment_pad_value=normalized_pad_value(), dropout=dropout, model_kwargs=model_kwargs,
+        **dict(trainer_kwargs or {}),
     )
     master.initialize_nodes()
     return master
@@ -1092,14 +1119,23 @@ def phase_zoo():
 SUPERSTEP_K = 3
 
 
-def trainer_record(master, payloads) -> dict:
+def trainer_record(master, payloads, logits=False) -> dict:
     """Every value a run leaves behind, as tensors: parameters, running
-    statistics, optimizer state, and the payloads' per-epoch traces,
-    round counts, deviations and the last test accuracy."""
+    statistics, optimizer state, CHOCO's estimates, error-feedback bank
+    and generator, the payloads' per-epoch traces, round counts,
+    deviations and the last test accuracy, and (``logits``) the eval-mode
+    logits of the first test images."""
     # On the host: four runs of the LM's state would not fit the card
     # beside a live trainer.
     rec = {"params": master.model.flat_params.to("cpu", copy=True),
            "stats": master.model.flat_stats.to("cpu", copy=True)}
+    if master._choco is not None:
+        rec["choco.xhat"] = master._choco_xhat.to("cpu", copy=True)
+        if master._choco_ef is not None:
+            rec["choco.ef"] = master._choco_ef.to("cpu", copy=True)
+        rec["choco.generator"] = master._choco_gen.get_state().to(torch.int64)
+    if logits:
+        rec["eval_logits"] = eval_logits(master)
     for st in master._opt.state.values():
         for key, v in st.items():
             if isinstance(v, torch.Tensor):
@@ -1110,6 +1146,15 @@ def trainer_record(master, payloads) -> dict:
     rec["mix_rounds"] = torch.tensor([float(p["mix_rounds"]) for p in payloads])
     rec["test_acc_last"] = torch.tensor(np.asarray(payloads[-1]["test_acc"], dtype=np.float64))
     return rec
+
+
+def eval_logits(master, n: int = 256) -> torch.Tensor:
+    """Eval-mode logits (running statistics, no dropout) of every agent on
+    the first ``n`` test inputs, on the host."""
+    X = master.test_data[0][:n]
+    master.model.eval()
+    with torch.no_grad():
+        return master.model(X.unsqueeze(0).expand(len(master.node_names), *X.shape)).float().cpu()
 
 
 def max_diffs(a: dict, b: dict) -> dict:
@@ -1133,14 +1178,16 @@ def _stale_indices(master):
     master._stage_inputs = stage
 
 
-def superstep_equality(make, k=SUPERSTEP_K, control=True):
+def superstep_equality(make, k=SUPERSTEP_K, control=True, logits=False, inspect=None):
     """``make()`` builds a fresh initialised trainer on the card (same
     init and seeds each time).  Under deterministic algorithms: two eager
     runs of ``k`` ``train_epoch()`` calls (their spread is the limit; it
     is 0 when they agree bit for bit), the superstep ``train_epochs(k)``
     as graph replays, and (``control``) a superstep with stale indices,
-    which must exceed the limit.  Returns the verdict and the graph run's
-    trainer facts."""
+    which must exceed the limit.  With ``logits`` the records hold the
+    eval-mode logits after the last epoch too; ``inspect(master)`` adds
+    its dict on the graph run to the facts.  Returns the verdict and the
+    graph run's trainer facts."""
     runs, facts, nondet = {}, {}, set()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1157,9 +1204,11 @@ def superstep_equality(make, k=SUPERSTEP_K, control=True):
                 torch.cuda.synchronize()
             nondet.update(str(w.message).split(" does not have a deterministic")[0][:80]
                           for w in caught if "deterministic" in str(w.message))
-            runs[run] = trainer_record(master, payloads)
+            runs[run] = trainer_record(master, payloads, logits)
             if run == "graph":
                 facts = {"mix_rounds": [p["mix_rounds"] for p in payloads]}
+                if inspect is not None:
+                    facts["inspect"] = inspect(master)
                 g = master._graphs
                 if g is not None:  # None only in a rehearsal on the CPU
                     facts.update(
@@ -1187,13 +1236,14 @@ def superstep_equality(make, k=SUPERSTEP_K, control=True):
     return verdict, facts
 
 
-def superstep_timing(make, samples_per_epoch, unit, k=SUPERSTEP_K, profile_to=None):
+def superstep_timing(make, samples_per_epoch, unit, k=SUPERSTEP_K, profile_to=None,
+                     inspect=None):
     """Epoch wall times of the eager loop and of the superstep on one
     fresh trainer (default, non-deterministic algorithms): ``k`` eager
     epochs, then two supersteps of ``k`` (the first captures its graphs);
     the steady rates come from the last eager epoch and the second
     superstep.  With ``profile_to`` a third superstep runs under
-    ``torch.profiler``."""
+    ``torch.profiler``; ``inspect(master)`` adds its dict at the end."""
     master = make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1232,6 +1282,8 @@ def superstep_timing(make, samples_per_epoch, unit, k=SUPERSTEP_K, profile_to=No
            "peak_memory_bytes_with_graphs": torch.cuda.max_memory_allocated()}
     if profile_to is not None:
         out["profile"] = profile_superstep(master, k, *profile_to)
+    if inspect is not None:
+        out["inspect"] = inspect(master)
     del master
     gc.collect()
     torch.cuda.empty_cache()
@@ -1305,12 +1357,41 @@ def _wrn_master():
         depth=28, widen_factor=10, dropout_rate=0.3, dtype=torch.bfloat16)
 
 
+def eval_diagnosis(master) -> dict:
+    """Why a trained vision trainer's test accuracy is what it is: per
+    agent, the eval-mode accuracy (running statistics) and the share of
+    test images its argmax puts in its most common class, against the
+    accuracy of the same weights normalising each batch with its own
+    statistics (train-mode BatchNorm, dropout off; the running statistics
+    are put back after), and the test labels' most common class share."""
+    X, y = master.test_data
+    model, n = master.model, len(master.node_names)
+    xs = X.unsqueeze(0).expand(n, *X.shape)
+    stats = model.flat_stats.clone()
+    with torch.no_grad():
+        model.eval()
+        pred = model(xs).argmax(-1)
+        model.set_dropout(False)
+        model.train()
+        batch_pred = model(xs).argmax(-1)
+        model.flat_stats.copy_(stats)
+        model.set_dropout(master.dropout)
+        model.eval()
+    counts = torch.stack([torch.bincount(p, minlength=10) for p in pred])
+    return {"eval_mode_acc": (pred == y).float().mean(1).tolist(),
+            "eval_mode_top_class_share": (counts.max(1).values / len(y)).tolist(),
+            "batch_stats_acc": (batch_pred == y).float().mean(1).tolist(),
+            "test_labels_top_class_share": float(torch.bincount(y.long()).max() / len(y))}
+
+
 def phase_superstep(out_dir=None):
     """WRN-28-10 as vision_slice runs it (4 agents x B 256, bf16, dropout
     0.3, augmentation, SGD): the graph superstep of 3 epochs against 3
-    eager epochs, bit for bit (or within two eager runs' spread), the
-    stale-index control, then the eager and superstep epoch times."""
-    verdict, facts = superstep_equality(_wrn_master)
+    eager epochs, bit for bit (or within two eager runs' spread; eval-mode
+    logits of 256 test images included), the stale-index control, then
+    the eager and superstep epoch times; what sets the test accuracy
+    (:func:`eval_diagnosis`) after the 3 epochs and after the timing's 9."""
+    verdict, facts = superstep_equality(_wrn_master, logits=True, inspect=eval_diagnosis)
     emit({"phase": "superstep", "model": "wrn-28-10", "k": SUPERSTEP_K, **facts, **verdict})
     if not verdict["ok"]:
         raise AssertionError("WRN superstep disagrees with the eager epochs, or the "
@@ -1319,8 +1400,9 @@ def phase_superstep(out_dir=None):
         raise AssertionError(f"WRN superstep synchronised: {facts}")
     timing = superstep_timing(_wrn_master, WRN_AGENTS * WRN_BATCH * WRN_STEPS, "samples",
                               profile_to=None if out_dir is None
-                              else (out_dir, "profile_wrn_superstep.txt"))
+                              else (out_dir, "profile_wrn_superstep.txt"), inspect=eval_diagnosis)
     emit({"phase": "superstep_timing", "model": "wrn-28-10", **timing})
+    return timing
 
 
 def phase_lm_superstep(fa, out_dir=None):
@@ -1419,6 +1501,247 @@ def phase_superstep_routes():
         raise AssertionError(f"superstep routes failed: {bad}")
 
 
+# ---------------------------------------------------------------------- #
+# CHOCO compressed gossip and checkpoints                                #
+# ---------------------------------------------------------------------- #
+# Top-k CHOCO at 10% per leaf with the reference's default step size.
+CHOCO = {"compression": "topk:0.1", "compression_gamma": 0.2}
+
+
+def _wrn_choco_master():
+    """The WRN slice's trainer (as :func:`_wrn_master`) gossiping with
+    top-k CHOCO."""
+    return make_vision_master(
+        "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, WRN_EPOCHS, WRN_EVAL, augment=True,
+        trainer_kwargs=CHOCO, depth=28, widen_factor=10, dropout_rate=0.3,
+        dtype=torch.bfloat16)
+
+
+def choco_round_parts(master) -> dict:
+    """The CHOCO round's parts timed alone (CUDA events, mean of 3 after a
+    warm-up) on copies of the trainer's buffers: the per-leaf top-k
+    selection with its scatter (``FusedCompressor.compress``), the mixing
+    GEMM on the estimates, and the whole in-place round; with the bytes
+    the round must move (x and xhat read and written, once each) over
+    the card's memory rate."""
+    from distributed_learning_tpu_torch.ops import mixing as ops
+
+    eng, layout = master._choco, master._choco_layout
+    x = {"float32": master.model.flat_params.clone()}
+    xhat = {"float32": master._choco_xhat.clone()}
+    gen = torch.Generator(DEVICE)
+    gen.set_state(master._choco_gen.get_state())
+    delta = {"float32": x["float32"] - xhat["float32"]}
+    out = {"float32": torch.empty_like(xhat["float32"])}
+    W = eng.engine._W_dev
+    parts = {
+        "selection_ms": cuda_ms(lambda: eng.fused_compressor.compress(delta, layout, gen,
+                                                                      n=eng.n), 3),
+        "mix_gemm_ms": cuda_ms(lambda: ops.dense_mix(xhat, W, out=out), 3),
+        "round_ms": cuda_ms(lambda: eng.round_(x, xhat, None, layout, gen), 3),
+    }
+    nbytes = 4 * x["float32"].numel() * 4
+    parts.update(round_bytes=nbytes, round_bytes_bound_ms=nbytes / PEAK_HBM_BYTES * 1e3)
+    del x, xhat, delta, out
+    torch.cuda.empty_cache()
+    return parts
+
+
+def phase_choco_slice(dense_timing):
+    """WRN-28-10 as vision_slice runs it, gossiping with top-k CHOCO (10%
+    per leaf, gamma 0.2): two supersteps of 3 epochs as graph replays (the
+    first captures), the second timed; per epoch the loss, the post-mix
+    deviation, the training and gossip replays' device time (CUDA
+    events) and the rate; then the round's parts alone, the nominal wire
+    bytes against the dense round's, and peak memory, beside the dense
+    superstep epoch of the same run."""
+    master = _wrn_choco_master()
+    layout = master._choco_layout
+    wire = master._choco.fused_compressor.wire_bytes_per_round(layout, WRN_AGENTS)
+    dense_bytes = layout.bytes_per_round(WRN_AGENTS)
+    samples = WRN_AGENTS * WRN_BATCH * WRN_STEPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    spans = _time_device_spans(master)
+    t0 = time.perf_counter()
+    payloads = master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = {name: [a.elapsed_time(b) for a, b in pairs] for name, pairs in spans.items()}
+    for j, p in enumerate(payloads):
+        emit({"phase": "choco_slice", "epoch": p["epoch"],
+              "train_loss": p["train_loss"].tolist(), "deviation": p["deviation"],
+              "mix_rounds": p["mix_rounds"], "train_replay_ms": ms["train"][j],
+              "choco_round_replay_ms": ms["gossip"][j],
+              "superstep_samples_per_s": samples * SUPERSTEP_K / wall,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    g = master._graphs
+    losses = [float(np.mean(p["train_loss"])) for p in first + payloads]
+    epoch_s = wall / SUPERSTEP_K
+    dense_epoch_s = dense_timing["steady_superstep_epoch_s"]
+    summary = {
+        "phase": "choco_summary", "model": "wrn-28-10", "compression": CHOCO,
+        "params_per_agent": master.model.param_count(),
+        "largest_leaf": max(size for _o, size in layout.bucket_spans("float32")),
+        "epoch_losses": losses, "first_superstep_s": first_s,
+        "choco_superstep_epoch_s": epoch_s, "dense_superstep_epoch_s_same_run": dense_epoch_s,
+        "choco_over_dense_epoch": epoch_s / dense_epoch_s,
+        "choco_round_replay_ms_mean": float(np.mean(ms["gossip"])),
+        # The dense superstep's gossip replays (round + deviation), per epoch.
+        "dense_round_replay_ms_same_run":
+            dense_timing["superstep_device_ms_by_events"]["gossip"] / SUPERSTEP_K,
+        "choco_round_share_of_epoch": float(np.mean(ms["gossip"])) / (epoch_s * 1e3),
+        "wire_bytes_per_round": wire, "dense_bytes_per_round": dense_bytes,
+        "wire_over_dense": wire / dense_bytes,
+        "host_syncs_per_superstep": master.superstep_host_syncs,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "round_parts": choco_round_parts(master),
+    }
+    if g is not None:  # None only in a rehearsal on the CPU
+        summary.update(replays={"/".join(map(str, key)): n for key, n in g.replays.items()},
+                       capture_seconds=g.capture_seconds)
+    emit(summary)
+    xhat_live = bool(master._choco_present and master._choco_xhat.abs().sum() > 0)
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"CHOCO WRN loss did not fall: {losses}")
+    if not all(math.isfinite(p["deviation"]) for p in payloads) or not xhat_live:
+        raise AssertionError("CHOCO WRN: non-finite deviation or no live estimates")
+    if g is not None and (any(summary["host_syncs_per_superstep"])
+                          or summary["replays"].get("gossip/1/1") != 2 * SUPERSTEP_K):
+        raise AssertionError(f"CHOCO WRN superstep synchronised or skipped a replay: {summary}")
+
+
+def selection_order_check() -> dict:
+    """The card's top-k keeps the CPU's entries (``lax.top_k``'s order:
+    NaN first, ties to the lowest index) on a (4, P) buffer shaped like
+    WRN-28-10's largest leaves, whose magnitudes take 8 values so that
+    ties straddle every k boundary, with NaNs, bitwise, per leaf and
+    over the whole buffer; and random-k keeps exactly k per agent on
+    both (their generators differ, so their draws do)."""
+    from distributed_learning_tpu_torch.ops import mixing as ops
+    from distributed_learning_tpu_torch.parallel import compression as tc
+
+    g = torch.Generator().manual_seed(0)
+    sizes = {"conv": 640 * 640 * 9, "shortcut": 320 * 640, "bn": 640}
+    x = {k: (torch.randint(1, 9, (WRN_AGENTS, n), generator=g).float() / 8
+             * (torch.randint(0, 2, (WRN_AGENTS, n), generator=g) * 2 - 1))
+         for k, n in sizes.items()}
+    x["conv"][0, ::100_003] = float("nan")
+    buffers, layout = ops.flatten_stacked(x)
+    out = {}
+    for name, comp, budget in (("topk_per_leaf", tc.top_k(0.1), "per-leaf"),
+                               ("topk_global", tc.top_k(0.1), "global"),
+                               ("randk_global", tc.random_k(0.1), "global")):
+        fc = tc.FusedCompressor(comp, budget)
+        cpu = fc.compress(buffers, layout, torch.Generator().manual_seed(1), n=WRN_AGENTS)
+        card = fc.compress({k: v.to(DEVICE) for k, v in buffers.items()}, layout,
+                           torch.Generator(DEVICE).manual_seed(1), n=WRN_AGENTS)
+        a, b = card["float32"].cpu(), cpu["float32"]
+        if name == "randk_global":
+            k = (b != 0).sum(1)
+            out[name + "_keeps_k"] = bool(((a != 0).sum(1) == k).all() and (k == k[0]).all())
+        else:
+            out[name] = bool(torch.equal(a.isnan(), b.isnan())
+                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    return out
+
+
+def choco_route_configs():
+    return {
+        "topk_per_leaf": dict(compression="topk:0.1", mix_times=2),
+        "topk_global_error_feedback": dict(compression="topk:0.1", compression_budget="global",
+                                           compression_error_feedback=True,
+                                           compression_gamma=0.1),
+        "randk_per_leaf": dict(compression="randk:0.1", mix_times=2),
+        "sign": dict(compression="sign", compression_gamma=0.1),
+        "int8": dict(compression="int8"),
+        "atopk": dict(compression="atopk:0.1"),
+        "topk_global_avg_every": dict(compression="topk:0.1", global_avg_every=2),
+        "randk_global_avg_every": dict(compression="randk:0.1", global_avg_every=2),
+        "topk_mix_times_schedule": dict(compression="topk:0.1",
+                                        mix_times_schedule=lambda e: 1 + e % 3),
+        "topk_adaptive_comm": dict(compression="topk:0.1", mix_times=2,
+                                   adaptive_comm={"target": 0.05, "gain": 1.0}),
+    }
+
+
+def phase_choco_routes():
+    """Each CHOCO configuration, graph replays against eager epochs on the
+    MLP of superstep_routes, bit for bit (CHOCO's estimates, bank and
+    generator included); host syncs per superstep (0 but for
+    adaptive_comm)."""
+    order = selection_order_check()
+    emit({"phase": "choco_routes", "check": "selection_order_card_vs_cpu", **order})
+    bad = [k for k, v in order.items() if not v]
+    for name, cfg in choco_route_configs().items():
+        verdict, facts = superstep_equality(lambda: _route_trainer(**cfg), control=False)
+        emit({"phase": "choco_routes", "config": name, **facts, **verdict})
+        fixed = "adaptive" not in name
+        if not (verdict["bitwise_eager_vs_eager"] and verdict["bitwise_graph_vs_eager"]) or (
+                fixed and facts.get("host_syncs_per_superstep", 0) != 0):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"CHOCO routes failed: {bad}")
+
+
+def phase_checkpoint():
+    """The WRN-28-10 CHOCO run trains 2 epochs (graph replays), saves a
+    checkpoint and trains 1 more; a fresh trainer restores it and trains
+    that epoch: parameters, statistics, optimizer state, CHOCO's
+    estimates and generator, and the payloads must be equal bit for bit
+    (deterministic algorithms).  Prints the checkpoint's bytes and its
+    save and restore seconds."""
+    import shutil
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_ckpt")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "wrn_choco.pt")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            a = _wrn_choco_master()
+            a.train_epochs(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.save_checkpoint(path)
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(path)
+            want = trainer_record(a, [a.train_epoch()])
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+            b = _wrn_choco_master()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.restore_checkpoint(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            epochs_done = b._epochs_done
+            got = trainer_record(b, [b.train_epoch()])
+            del b
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(folder, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    diffs = max_diffs(got, want)
+    ok = not any(diffs.values()) and "choco.xhat" in want and epochs_done == 2
+    emit({"phase": "checkpoint", "model": "wrn-28-10", "compression": CHOCO,
+          "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+          "resumed_vs_uninterrupted_max_abs": diffs, "ok": ok})
+    if not ok:
+        raise AssertionError("the resumed WRN CHOCO run differs from the uninterrupted one")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1464,9 +1787,13 @@ def main(argv=None) -> int:
     phase_zoo()
     # The epoch superstep: graph replays against the eager epochs.
     out = args.out if args.profile else None
-    phase_superstep(out)
+    dense_timing = phase_superstep(out)
     ss_launches = phase_lm_superstep(fa, out)
     phase_superstep_routes()
+    # CHOCO compressed gossip, its routes, and checkpoint/resume.
+    phase_choco_slice(dense_timing)
+    phase_choco_routes()
+    phase_checkpoint()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]

@@ -51,6 +51,24 @@ class FusedLayout(NamedTuple):
     slots: Tuple[_LeafSlot, ...]
     buckets: Tuple[Tuple[str, int], ...]  # (dtype name, width P), sorted
 
+    def bytes_per_round(self, n: int) -> int:
+        """Bytes of state one gossip round touches for ``n`` agents."""
+        return sum(n * width * itemsize(name) for name, width in self.buckets)
+
+    def bucket_spans(self, bucket: str) -> Tuple[Tuple[int, int], ...]:
+        """``(offset, size)`` leaf spans of one dtype bucket, ascending:
+        they tile the bucket's ``[0, P)`` columns, one span per leaf (the
+        segments a per-leaf compression budget selects against)."""
+        spans = tuple((s.offset, s.size) for s in self.slots if s.bucket == bucket)
+        if not spans:
+            raise KeyError(bucket)
+        return spans
+
+
+def itemsize(bucket: str) -> int:
+    """Bytes per element of a bucket's storage dtype (``"bfloat16"`` -> 2)."""
+    return torch.empty((), dtype=getattr(torch, bucket)).element_size()
+
 
 def _bucket_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")

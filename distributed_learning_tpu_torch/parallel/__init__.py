@@ -1,5 +1,20 @@
-"""Topology, mixing-matrix checks and the dense consensus engine."""
+"""Topology, mixing-matrix checks, the dense consensus engine and CHOCO
+compressed gossip."""
 
+from distributed_learning_tpu_torch.parallel.compression import (
+    ChocoGossipEngine,
+    ChocoState,
+    Compressor,
+    FusedCompressor,
+    approx_top_k,
+    compressor_delta,
+    compressor_from_spec,
+    identity,
+    int8_quant,
+    random_k,
+    scaled_sign,
+    top_k,
+)
 from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
 from distributed_learning_tpu_torch.parallel.schedule import (
     chebyshev_omegas,
@@ -8,7 +23,19 @@ from distributed_learning_tpu_torch.parallel.schedule import (
 from distributed_learning_tpu_torch.parallel.topology import Topology, gamma
 
 __all__ = [
+    "ChocoGossipEngine",
+    "ChocoState",
+    "Compressor",
     "ConsensusEngine",
+    "FusedCompressor",
+    "approx_top_k",
+    "compressor_delta",
+    "compressor_from_spec",
+    "identity",
+    "int8_quant",
+    "random_k",
+    "scaled_sign",
+    "top_k",
     "Topology",
     "chebyshev_omegas",
     "gamma",

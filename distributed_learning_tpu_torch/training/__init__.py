@@ -1,5 +1,9 @@
-"""Gossip training loop of the port."""
+"""Gossip training loop of the port, and its checkpoint files."""
 
+from distributed_learning_tpu_torch.training.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+)
 from distributed_learning_tpu_torch.training.trainer import (
     ConsensusNode,
     GossipTrainer,
@@ -18,4 +22,6 @@ __all__ = [
     "get_metric",
     "make_optimizer",
     "resolve_mixing_matrix",
+    "restore_checkpoint",
+    "save_checkpoint",
 ]

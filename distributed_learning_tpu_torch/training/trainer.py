@@ -21,9 +21,13 @@ gradient, since agents share no parameter.
 Gossip per epoch: fixed ``mix_times`` or a ``mix_times_schedule``, eps
 stopping (``mix_eps``), Chebyshev acceleration (``chebyshev``),
 Gossip-PGA's exact average every ``global_avg_every`` consensus epochs,
-a time-varying graph (``topology_schedule``, also with Chebyshev or eps)
-and the residual-adaptive round budget (``adaptive_comm``).  Learning
-rates may be optax-style schedules ``count -> lr``.
+a time-varying graph (``topology_schedule``, also with Chebyshev or eps),
+the residual-adaptive round budget (``adaptive_comm``) and CHOCO
+compressed gossip (``compression``, ``parallel/compression.py``), whose
+estimates persist across epochs until a Gossip-PGA epoch or a fresh
+``initialize_nodes`` resets them.  Learning rates may be optax-style
+schedules ``count -> lr``.  ``save_checkpoint`` / ``restore_checkpoint``
+write and read everything a resumed run needs.
 
 ``train_epochs(k)`` is the reference's epoch superstep: the indices of
 all k epochs go to the device at once, the per-step traces and each
@@ -54,10 +58,16 @@ import torch.nn.functional as F
 from distributed_learning_tpu_torch.data.cifar import augment_batch, draw_augment
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models import get_model
+from distributed_learning_tpu_torch.ops import mixing as mixing_ops
+from distributed_learning_tpu_torch.parallel.compression import (
+    ChocoGossipEngine,
+    compressor_from_spec,
+)
 from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
 from distributed_learning_tpu_torch.parallel.schedule import chebyshev_omegas
 from distributed_learning_tpu_torch.parallel.topology import Topology
 from distributed_learning_tpu_torch.parallel.topology import gamma as mixing_gamma
+from distributed_learning_tpu_torch.training import checkpoint as ckpt
 from distributed_learning_tpu_torch.training.graphs import GraphSet, StateSnapshot, count_host_syncs
 from distributed_learning_tpu_torch.utils.telemetry import TelemetryProcessor
 
@@ -275,14 +285,13 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # Constructor options of the reference that this port does not run yet:
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "compression": ((None, "none", "identity"), "queue 1, item 3 (compression / CHOCO)"),
-    "async_gossip": ((None, False), "queue 1, item 4 (async and robust gossip)"),
-    "robust_mixing": ((None, False), "queue 1, item 4 (async and robust gossip)"),
-    "mesh": ((None,), "queue 1, item 6 (sharded engine on torch.distributed)"),
-    "obs": ((None, False), "queue 1, item 8 (obs/)"),
-    "profile_costs": ((False,), "queue 1, item 8 (obs/)"),
-    "timer_every_n": ((0,), "queue 1, item 8 (obs/)"),
-    "remat": ((False,), "queue 1, item 9 (LM extras)"),
+    "async_gossip": ((None, False), "queue 1, item 5 (async and robust gossip)"),
+    "robust_mixing": ((None, False), "queue 1, item 5 (async and robust gossip)"),
+    "mesh": ((None,), "queue 1, item 9 (sharded engine on torch.distributed)"),
+    "obs": ((None, False), "queue 1, item 7 (obs/)"),
+    "profile_costs": ((False,), "queue 1, item 7 (obs/)"),
+    "timer_every_n": ((0,), "queue 1, item 7 (obs/)"),
+    "remat": ((False,), "queue 1, item 11 (LM extras)"),
 }
 
 
@@ -294,6 +303,11 @@ def _reject_unported(options: Mapping[str, Any]) -> None:
                 f"GossipTrainer option {name}={value!r} is not ported yet: "
                 f"ROADMAP.md {item}"
             )
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of ``t``, for a checkpoint."""
+    return t.detach().to("cpu", copy=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -419,6 +433,10 @@ class GossipTrainer:
         mix_times_schedule: Optional[Callable[[int], int]] = None,
         adaptive_comm: Any = None,
         compression: Any = None,
+        compression_gamma: float = 0.2,
+        compression_budget: str = "per-leaf",
+        compression_error_feedback: bool = False,
+        fused_consensus: bool = True,
         async_gossip: Any = None,
         robust_mixing: Any = None,
         topology_schedule: Optional[Callable[[int], Any]] = None,
@@ -434,8 +452,7 @@ class GossipTrainer:
         remat: bool = False,
     ):
         _reject_unported(dict(
-            compression=compression, async_gossip=async_gossip,
-            robust_mixing=robust_mixing, mesh=mesh, obs=obs,
+            async_gossip=async_gossip, robust_mixing=robust_mixing, mesh=mesh, obs=obs,
             profile_costs=profile_costs, timer_every_n=timer_every_n, remat=remat,
         ))
         self.device = resolve_device(device)
@@ -453,6 +470,8 @@ class GossipTrainer:
         if missing:
             raise ValueError(f"train_data missing for nodes: {missing}")
         self._check_gossip_options(mix_eps, chebyshev, global_avg_every, superstep, adaptive_comm)
+        compression = self._check_compression(compression, compression_error_feedback, mix_eps,
+                                              chebyshev, topology_schedule)
 
         self._Xs, self._ys = self._stack_data(train_data, batch_size)
         self.augment = bool(augment)
@@ -518,6 +537,30 @@ class GossipTrainer:
                 stacklevel=2,
             )
         self.engine = ConsensusEngine(W, device=self.device)
+        # Fused flat-buffer consensus; False runs CHOCO's per-leaf oracle
+        # (every other route mixes the fused buffer either way).
+        self.fused_consensus = bool(fused_consensus)
+        self._choco: Optional[ChocoGossipEngine] = None
+        if compression is not None:
+            self._choco = ChocoGossipEngine(
+                self.engine.W, compression, gamma=compression_gamma, fused=self.fused_consensus,
+                budget=str(compression_budget), error_feedback=bool(compression_error_feedback),
+                device=self.device)
+            flat = model.flat_params
+            named = model.stacked_parameters()
+            # The per-leaf spans of the (N, P) parameter buffer.
+            self._choco_layout = mixing_ops.FusedLayout(
+                tuple(mixing_ops._LeafSlot(name, "float32", off, tuple(named[name].shape[1:]),
+                                           size)
+                      for name, (off, size) in model.param_slices.items()),
+                (("float32", flat.shape[1]),))
+            # The estimates, the error-feedback bank and the random kinds'
+            # generator: fixed-address state that the gossip graphs write.
+            self._choco_xhat = torch.zeros_like(flat)
+            self._choco_ef = torch.zeros_like(flat) if self._choco.error_feedback else None
+            self._choco_gen = torch.Generator(self.device)
+            self._reset_choco()
+            self._choco.fused_compressor.prepare(self._choco_layout, self.device)
         if (self.chebyshev and topology_schedule is None and n > 1
                 and not (0.0 <= self.engine.gamma < 1.0)):
             raise ValueError(
@@ -554,6 +597,32 @@ class GossipTrainer:
         self.superstep_host_syncs: List[int] = []
         self._global_step = 0
         self._epochs_done = 0
+
+    @staticmethod
+    def _check_compression(compression, error_feedback, mix_eps, chebyshev, topology_schedule):
+        """The reference's checks of the CHOCO options; returns the
+        compressor, or ``None`` when compression is off (``None``,
+        ``"none"`` or ``"identity"``: the plain dense gossip, not CHOCO
+        with an identity compressor)."""
+        if isinstance(compression, str):
+            if compression.partition(":")[0].strip().lower() in ("none", "identity"):
+                compression = None
+            elif not compression.strip():
+                raise ValueError("empty compression spec; use None or 'none' to disable")
+        if compression is not None:
+            if chebyshev or topology_schedule is not None or mix_eps is not None:
+                raise ValueError(
+                    "compression is mutually exclusive with chebyshev, topology_schedule, "
+                    "and mix_eps"
+                )
+            if isinstance(compression, str):
+                compression = compressor_from_spec(compression)
+        if error_feedback and compression is None:
+            raise ValueError(
+                "compression_error_feedback=True needs a compression config (it banks "
+                "the mass the compressor drops)"
+            )
+        return compression
 
     def _check_gossip_options(self, mix_eps, chebyshev, global_avg_every, superstep,
                               adaptive_comm) -> None:
@@ -640,9 +709,26 @@ class GossipTrainer:
         return {"float32": self.model.flat_params}
 
     @property
-    def _generators(self) -> List[torch.Generator]:
+    def _train_generators(self) -> List[torch.Generator]:
         """Every generator a training step draws from: dropout, augmentation."""
         return list(getattr(self.model, "generators", [])) + self._aug_gens
+
+    @property
+    def _generators(self) -> List[torch.Generator]:
+        """Every generator the training steps and the gossip draw from
+        (the CHOCO one for ``random_k``)."""
+        return self._train_generators + ([self._choco_gen] if self._choco is not None else [])
+
+    @torch.no_grad()
+    def _reset_choco(self) -> None:
+        """CHOCO's fresh state: estimates and error-feedback bank at zero,
+        the generator at ``seed + 2`` (the reference's lazy init); no
+        estimates are ``present`` until a CHOCO round runs."""
+        self._choco_xhat.zero_()
+        if self._choco_ef is not None:
+            self._choco_ef.zero_()
+        self._choco_gen.manual_seed(int(self.seed) + 2)
+        self._choco_present = False
 
     # ------------------------------------------------------------------ #
     def initialize_nodes(
@@ -654,8 +740,8 @@ class GossipTrainer:
         ``convert.flax_to_torch`` gives, stacked or per agent), BatchNorm
         running statistics at mean 0 and variance 1 for every agent (or
         ``batch_stats``, in the same form), fresh per-node optimizer state
-        and reseeded dropout and augmentation streams (parity:
-        ``master.initialize_nodes()``)."""
+        reseeded dropout and augmentation streams, and fresh CHOCO
+        estimates (parity: ``master.initialize_nodes()``)."""
         if params is None:
             self.model.reset_parameters(self.seed)
         else:
@@ -682,6 +768,8 @@ class GossipTrainer:
         self._opt_steps = 0
         if self._adaptive_cfg is not None:
             self._adaptive_res = np.float32(self._adaptive_cfg["target"])
+        if self._choco is not None:
+            self._reset_choco()  # a fresh run: the estimates restart at 0
         return self
 
     def _epoch_perm(self, epoch_idx: int) -> np.ndarray:
@@ -791,11 +879,15 @@ class GossipTrainer:
     def _plan(self, epoch_idx: int) -> _Plan:
         """Resolve epoch ``epoch_idx``'s gossip on the host (the
         reference's ``_gossip`` and ``_superstep_sched``): its mode, its
-        round count (scheduled, then adapted), and under a
-        ``topology_schedule`` its matrix and Chebyshev weights."""
+        scheduled round count, and under a ``topology_schedule`` its
+        matrix and Chebyshev weights.  Every consensus epoch calls and
+        validates ``mix_times_schedule`` once, a Gossip-PGA epoch too
+        (it then runs its one exact average); the adaptive controller
+        modulates the count later, when the previous residual is known
+        (:meth:`_times`)."""
         mode = self._epoch_mode(epoch_idx)
-        if mode != 1:
-            return _Plan(mode, 0 if mode == 0 else 1)
+        if mode == 0:
+            return _Plan(0, 0)
         times = self.mix_times
         if self.mix_times_schedule is not None:
             times = int(self.mix_times_schedule(epoch_idx))
@@ -805,9 +897,8 @@ class GossipTrainer:
                     "be >= 1 (0 would silently skip gossip while reporting a "
                     "mixed epoch)"
                 )
-        if self._adaptive_cfg is not None:
-            # For eps configurations this moves the round floor (min_times).
-            times = self._adaptive_times_host(times)
+        if mode == 2:
+            return _Plan(2, 1)
         W = omegas = None
         if self.topology_schedule is not None:
             W_e = resolve_mixing_matrix(self.topology_schedule(epoch_idx), self.node_names)
@@ -825,6 +916,14 @@ class GossipTrainer:
             omegas = chebyshev_omegas(self.engine.gamma, times).astype(np.float32)
         return _Plan(1, times, W, omegas)
 
+    def _times(self, plan: _Plan) -> int:
+        """The plan's round count, modulated by the adaptive controller
+        from the previous epoch's residual (for eps configurations, the
+        round floor)."""
+        if plan.mode == 1 and self._adaptive_cfg is not None:
+            return self._adaptive_times_host(plan.times)
+        return plan.times
+
     def _spare_sets(self):
         """The gossip's spare buffer sets, drawn once (two for Chebyshev)."""
         if self._spare is None:
@@ -835,15 +934,32 @@ class GossipTrainer:
     def _run_gossip(self, mode: int, times: int, W: Optional[torch.Tensor],
                     omegas: Optional[torch.Tensor]) -> int:
         """One epoch's consensus phase in place on the fused buffer, with
-        the epoch's matrix and Chebyshev weights as device tensors;
-        returns the rounds run.  Reads nothing back to the host unless
-        eps stopping decides the count."""
-        buffers, spare, eng = self._buffers, self._spare_sets(), self.engine
+        the epoch's matrix and Chebyshev weights as device tensors (with
+        compression: ``times`` CHOCO rounds on the fixed-address
+        estimates; a Gossip-PGA epoch zeroes them); returns the rounds
+        run.  Reads nothing back to the host unless eps stopping decides
+        the count."""
+        buffers, eng = self._buffers, self.engine
         if mode == 0:
             return 0
         if mode == 2:
             eng.global_average_(buffers)
+            if self._choco is not None:
+                # The estimates tracked the iterates before the exact
+                # average; kept, they would push the now-equal iterates
+                # apart again.  The generator is reset on the host
+                # (_gossip_done), outside any captured graph.
+                self._choco_xhat.zero_()
+                if self._choco_ef is not None:
+                    self._choco_ef.zero_()
             return 1
+        if self._choco is not None:
+            ef = None if self._choco_ef is None else {"float32": self._choco_ef}
+            for _ in range(times):
+                self._choco.round_(buffers, {"float32": self._choco_xhat}, ef,
+                                   self._choco_layout, self._choco_gen)
+            return times
+        spare = self._spare_sets()
         if self.chebyshev:
             eng.mix_chebyshev_(buffers, times, W=W, omegas=omegas, spare=spare)
         elif self.mix_eps is not None:
@@ -854,13 +970,28 @@ class GossipTrainer:
             eng.mix_with_(buffers, W, times, spare=spare)
         return times
 
-    def _gossip(self, epoch_idx: Optional[int] = None) -> int:
+    def _gossip_done(self, mode: int) -> None:
+        """The host's part of an epoch's gossip, after it ran (eagerly or
+        as a replay): a Gossip-PGA epoch resets the CHOCO generator to
+        ``seed + 2`` (a registered generator cannot be re-seeded inside a
+        capture) and leaves no estimates; a CHOCO epoch leaves some."""
+        if self._choco is None or mode == 0:
+            return
+        if mode == 2:
+            self._choco_gen.manual_seed(int(self.seed) + 2)
+        self._choco_present = mode == 1
+
+    def _gossip(self, epoch_idx: Optional[int] = None, plan: Optional[_Plan] = None) -> int:
         """One epoch's consensus phase (epoch ``epoch_idx``, by default the
-        next one), in place on the fused buffer; returns the rounds run."""
-        plan = self._plan(self._epochs_done if epoch_idx is None else epoch_idx)
+        next one; ``plan`` if it was resolved already), in place on the
+        fused buffer; returns the rounds run."""
+        if plan is None:
+            plan = self._plan(self._epochs_done if epoch_idx is None else epoch_idx)
         W = None if plan.W is None else torch.as_tensor(plan.W, device=self.device)
         om = None if plan.omegas is None else torch.as_tensor(plan.omegas, device=self.device)
-        return self._run_gossip(plan.mode, plan.times, W, om)
+        rounds = self._run_gossip(plan.mode, self._times(plan), W, om)
+        self._gossip_done(plan.mode)
+        return rounds
 
     @torch.no_grad()
     def _eval_accuracy(self) -> np.ndarray:
@@ -889,12 +1020,13 @@ class GossipTrainer:
             self.initialize_nodes()
         epoch_idx = self._epochs_done
         n = len(self.node_names)
+        plan = self._plan(epoch_idx)  # a schedule that raises leaves the state as it was
+        mode = plan.mode
         lr = self._lr_slots(1)
         trace = torch.empty(self.epoch_len, 3, n, device=self.device)
         self._run_steps(self._indices(epoch_idx, 1)[0], None if lr is None else lr[0], trace)
         self._opt_steps += self.epoch_len
-        mode = self._epoch_mode(epoch_idx)
-        mix_rounds = self._gossip(epoch_idx) if mode else 0
+        mix_rounds = self._gossip(epoch_idx, plan) if mode else 0
         # One host sync for the epoch's (steps, 3, n) traces.
         losses, accs, gnorms = trace.cpu().numpy().transpose(1, 0, 2)
         self._record_stats(losses, accs)
@@ -972,6 +1104,8 @@ class GossipTrainer:
         """Every tensor a training step or a gossip program writes that
         outlives it: what a warm-up must give back."""
         out = [self.model.flat_params, self.model.flat_grads, self.model.flat_stats]
+        if self._choco is not None:
+            out += [self._choco_xhat] + ([self._choco_ef] if self._choco_ef is not None else [])
         for st in self._opt.state.values():
             out.extend(v for v in st.values() if isinstance(v, torch.Tensor))
         if self._lr is not None:
@@ -997,7 +1131,8 @@ class GossipTrainer:
         if not todo:
             return
         st, graphs = self._static, self._graphs
-        self._spare_sets()
+        if self._choco is None:
+            self._spare_sets()  # outside the graphs' pool
         snap = StateSnapshot(self._state_tensors, graphs.generators)
         try:
             for key in todo:
@@ -1055,16 +1190,18 @@ class GossipTrainer:
         if self._opt is None:
             self.initialize_nodes()
         epoch0, n, steps = self._epochs_done, len(self.node_names), self.epoch_len
-        modes = [self._epoch_mode(epoch0 + j) for j in range(k)]
-        plans = None if self._cut else [self._plan(epoch0 + j) for j in range(k)]
+        # Every epoch's schedule is called and validated before anything
+        # trains: one that raises leaves the state as it was.
+        plans = [self._plan(epoch0 + j) for j in range(k)]
+        cut = self._cut
         idx = self._indices(epoch0, k)
         lr = self._lr_slots(k)
         W_all = om_all = None
-        if plans is not None and self.topology_schedule is not None:
+        if self.topology_schedule is not None:
             W_all = torch.as_tensor(np.stack(
                 [p.W if p.W is not None else np.eye(n, dtype=np.float32) for p in plans]),
                 device=self.device)
-        if plans is not None and self.chebyshev:
+        if self.chebyshev:
             om = np.zeros((k, max(p.times for p in plans)), dtype=np.float32)
             for j, p in enumerate(plans):
                 if p.omegas is not None:
@@ -1078,7 +1215,7 @@ class GossipTrainer:
         graphs = self.device.type == "cuda"
         if graphs:
             keys = [("train",)]
-            if plans is not None:
+            if not cut:
                 keys += sorted({("gossip", p.mode, p.times) for p in plans})
             self._capture(keys)
         rounds = [0] * k
@@ -1091,16 +1228,17 @@ class GossipTrainer:
                 else:
                     self._run_steps(idx[j], None if lr is None else lr[j], traces[j])
                 self._opt_steps += steps
-                if plans is None:  # eps / adaptive: the count needs the residual
-                    if j > 0 and self._adaptive_cfg is not None:
-                        self._adaptive_res = np.float32(float(devs[j - 1]))
-                    rounds[j] = self._gossip(epoch0 + j) if modes[j] else 0
-                    self.engine.max_deviation_(self._buffers, devs[j])
-                    continue
                 p = plans[j]
-                rounds[j] = p.times if p.mode else 0
                 W = None if W_all is None else W_all[j]
                 om = None if om_all is None else om_all[j, : p.times]
+                if cut:  # eps / adaptive: the count needs the residual
+                    if j > 0 and self._adaptive_cfg is not None:
+                        self._adaptive_res = np.float32(float(devs[j - 1]))
+                    rounds[j] = self._run_gossip(p.mode, self._times(p), W, om)
+                    self._gossip_done(p.mode)
+                    self.engine.max_deviation_(self._buffers, devs[j])
+                    continue
+                rounds[j] = p.times if p.mode else 0
                 if graphs:
                     st = self._static
                     if W is not None:
@@ -1112,6 +1250,7 @@ class GossipTrainer:
                 else:
                     self._run_gossip(p.mode, p.times, W, om)
                     self.engine.max_deviation_(self._buffers, devs[j])
+                self._gossip_done(p.mode)
         host = flush.cpu().numpy()
         if graphs:
             self.superstep_host_syncs.append(syncs[0])
@@ -1123,7 +1262,7 @@ class GossipTrainer:
         for j in range(k):
             self._record_stats(tr[j, :, 0], tr[j, :, 1])
             test_accs = self._eval_and_record() if j == k - 1 else None
-            payloads.append(self._payload(epoch0 + j, modes[j], tr[j, :, 0], tr[j, :, 1],
+            payloads.append(self._payload(epoch0 + j, plans[j].mode, tr[j, :, 0], tr[j, :, 1],
                                           tr[j, :, 2], test_accs, rounds[j], devs_host[j]))
         self._telemetry(payloads)
         return payloads
@@ -1157,6 +1296,103 @@ class GossipTrainer:
 
     def parameter_deviation(self) -> float:
         return float(self.engine.max_deviation(self._buffers))
+
+    # -- checkpointing ------------------------------------------------- #
+    def save_checkpoint(self, path: str) -> None:
+        """Write what a resumed run needs to the file ``path``
+        (``training/checkpoint.py``): the parameters, the running
+        statistics, the optimizer state, every training generator's state
+        (the reference's ``rng``), ``epochs_done`` and the step counters,
+        and with compression a ``choco`` subtree.  Like the reference, no
+        adaptive-controller residual: a resumed adaptive run starts its
+        controller at the target."""
+        if self._opt is None:
+            self.initialize_nodes()
+        tree = {
+            "params": _host(self.model.flat_params),
+            "batch_stats": _host(self.model.flat_stats),
+            "opt_state": {k: _host(v) if isinstance(v, torch.Tensor) else v
+                          for k, v in self._opt.state[self.model.flat_params].items()},
+            "generators": [g.get_state() for g in self._train_generators],
+            "epochs_done": self._epochs_done,
+            "global_step": self._global_step,
+            "opt_steps": self._opt_steps,
+        }
+        if self._choco is not None:
+            # Resuming with fresh estimates would re-converge, but the
+            # trajectory would silently leave the uninterrupted one.
+            tree["choco"] = self._choco_tree()
+        ckpt.save_checkpoint(path, tree)
+
+    def _choco_tree(self) -> Dict[str, Any]:
+        """CHOCO state as a checkpoint subtree, as the reference builds
+        it: ``present`` says whether estimates exist yet (no CHOCO round
+        has run since the last reset); without them the subtree holds the
+        fresh state (zeros, the generator at ``seed + 2``)."""
+        zeros = torch.zeros(self._choco_xhat.shape, dtype=self._choco_xhat.dtype)
+        present = self._choco_present
+        gen = self._choco_gen if present else torch.Generator(self.device).manual_seed(
+            int(self.seed) + 2)
+        tree = {"present": int(present),
+                "xhat": _host(self._choco_xhat) if present else zeros,
+                "generator": gen.get_state()}
+        if self._choco_ef is not None:
+            tree["ef"] = _host(self._choco_ef) if present else zeros.clone()
+        return tree
+
+    @torch.no_grad()
+    def restore_checkpoint(self, path: str) -> None:
+        """Read a :meth:`save_checkpoint` file back into this trainer's
+        own tensors with ``copy_``, so captured graphs stay valid.  A
+        compressed trainer reading a checkpoint without CHOCO state resets
+        its estimates; a dense trainer ignores a ``choco`` subtree; both
+        warn, with the reference's texts."""
+        if self._opt is None:
+            self.initialize_nodes()
+        tree = ckpt.restore_checkpoint(path)
+        choco = tree.pop("choco", None)
+        flat, stats = self.model.flat_params, self.model.flat_stats
+        ckpt.check_structure(
+            {k: tree.get(k) for k in ("params", "batch_stats")},
+            {"params": torch.empty_like(flat, device="meta"),
+             "batch_stats": torch.empty_like(stats, device="meta")})
+        gens = self._train_generators
+        if len(tree["generators"]) != len(gens):
+            raise ValueError(f"checkpoint has {len(tree['generators'])} generator states, "
+                             f"this trainer {len(gens)}")
+        flat.copy_(tree["params"])
+        stats.copy_(tree["batch_stats"])
+        state = self._opt.state[flat]
+        for key, v in tree["opt_state"].items():
+            cur = state.get(key)
+            if isinstance(cur, torch.Tensor):
+                if cur.shape != v.shape:
+                    raise ValueError(f"optimizer state {key!r}: checkpoint {tuple(v.shape)}, "
+                                     f"trainer {tuple(cur.shape)}")
+                cur.copy_(v)
+            else:
+                state[key] = v.to(flat.device) if isinstance(v, torch.Tensor) else v
+        for g, st in zip(gens, tree["generators"]):
+            g.set_state(st)
+        self._epochs_done = int(tree["epochs_done"])
+        self._global_step = int(tree["global_step"])
+        self._opt_steps = int(tree["opt_steps"])
+        if self._choco is not None:
+            if choco is None or ("ef" in choco) != (self._choco_ef is not None):
+                warnings.warn(
+                    "checkpoint has no CHOCO state (saved by an older version or a dense "
+                    "trainer); estimates reset to zero and error feedback re-converges "
+                    "over the next few epochs", stacklevel=2)
+                self._reset_choco()
+            else:
+                self._choco_xhat.copy_(choco["xhat"])
+                if self._choco_ef is not None:
+                    self._choco_ef.copy_(choco["ef"])
+                self._choco_gen.set_state(choco["generator"])
+                self._choco_present = bool(int(choco["present"]))
+        elif choco is not None:
+            warnings.warn("checkpoint contains CHOCO state but this trainer has no "
+                          "compression; the estimates are ignored", stacklevel=2)
 
 
 class MasterNode(GossipTrainer):

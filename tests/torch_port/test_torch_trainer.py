@@ -127,7 +127,7 @@ def test_optimizers_match_optax(name, kwargs):
 @pytest.mark.parametrize(
     "option,value",
     [
-        ("compression", "top_k:0.1"),
+        ("timer_every_n", 5),
         ("async_gossip", {"staleness_bound": 1}),
         ("robust_mixing", "clip"),
         ("mesh", object()),
