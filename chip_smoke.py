@@ -102,6 +102,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
 15. checkpoint — the WRN-28-10 CHOCO run saves after 2 epochs and trains
              one more; a fresh trainer restores and trains that epoch: equal
              bit for bit; the checkpoint's bytes, save and restore seconds.
+16. async_slice — WRN-28-10 as vision_slice with asynchronous gossip on the
+             Metropolis ring, two rounds an epoch, agent 3 a straggler that
+             publishes every third round (``staleness_bound`` 1, so its
+             pull is halved, then dropped): graph against eager bit for bit,
+             the carry (published buffer, ages, round counter) included,
+             0 host syncs; two supersteps of 3 epochs with the per-epoch
+             loss and deviation, the ages and round counter after each
+             superstep, each replay's device time, the superstep epoch
+             beside phase 10's dense one, the async round alone against its
+             byte bound, and peak memory.
+17. robust_slice — the same for (a) the straggler's async gossip through
+             the trimmed mean (trim 1) on ``Topology.complete(4)`` and (b)
+             clipped gossip with an adaptive radius (2x the median
+             neighbour distance) on the ring: the redirected mass per epoch
+             (> 0 for (a)) included in the bitwise check, each round alone
+             against its byte bound, peak memory, and for (b) the Gram
+             form's cancellation (``pairwise_sq_dists`` against float64
+             direct distances on the trainer's buffers).
+18. robust_routes — async (neutral, straggler, a ``staleness_bound``
+             schedule, with ``mix_times_schedule``, with ``adaptive_comm``),
+             clip, adaptive clip, trim and median on ``complete(4)``, async
+             clip and async trim on the MLP of superstep_routes: graph
+             against eager bit for bit, host syncs (0 but for
+             ``adaptive_comm``); async tau 0, clip radius inf and trim 0
+             bitwise the plain route; the persistent-liar attack (8 agents,
+             ``complete(8)``, 2 liars at 1e3, 6 rounds): plain spread > 50,
+             clip 2.0, trim 2, median and async clip < 5, the async clip's
+             mass > 0 every round, and each card round equal to the CPU's
+             round from the same input and carry (2e-6 relative, one
+             float32 step at 1e3 absolute).
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -832,23 +862,27 @@ def _cifar(n_train, n_test, seed=0):
 def make_vision_master(model, agents, batch, steps, epochs, n_test, *, device=DEVICE,
                        optimizer_kwargs=None, augment=False, dropout=True, trainer_kwargs=None,
                        **model_kwargs):
-    """``MasterNode`` over ``agents`` nodes on a Metropolis ring, on
-    normalized synthetic CIFAR-10 dealt by ``shard_dataset``;
-    ``trainer_kwargs`` go to the trainer (the gossip options)."""
+    """``MasterNode`` over ``agents`` nodes on a Metropolis ring with one
+    gossip round an epoch, on normalized synthetic CIFAR-10 dealt by
+    ``shard_dataset``; ``trainer_kwargs`` go to the trainer (the gossip
+    options; ``weights`` and ``mix_times`` there replace the ring and the
+    one round)."""
     from distributed_learning_tpu_torch.data import normalized_pad_value, shard_dataset
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
 
     (x, y), test = _cifar(agents * batch * steps, n_test)
     nodes = list(range(agents))
+    kw = dict(weights=Topology.ring(agents), mix_times=1)
+    kw.update(trainer_kwargs or {})
     master = MasterNode(
         nodes, model, model_args=(10,), optimizer="sgd",
         optimizer_kwargs=dict(optimizer_kwargs or WRN_SGD),
-        weights=Topology.ring(agents), train_loaders=shard_dataset(x, y, nodes, batch_size=batch),
+        train_loaders=shard_dataset(x, y, nodes, batch_size=batch),
         test_loader=test, stat_step=1, epoch=epochs, epoch_len=steps, batch_size=batch,
-        mix_times=1, eval_batch_size=WRN_EVAL, seed=0, device=device, augment=augment,
+        eval_batch_size=WRN_EVAL, seed=0, device=device, augment=augment,
         augment_pad_value=normalized_pad_value(), dropout=dropout, model_kwargs=model_kwargs,
-        **dict(trainer_kwargs or {}),
+        **kw,
     )
     master.initialize_nodes()
     return master
@@ -1122,9 +1156,10 @@ SUPERSTEP_K = 3
 def trainer_record(master, payloads, logits=False) -> dict:
     """Every value a run leaves behind, as tensors: parameters, running
     statistics, optimizer state, CHOCO's estimates, error-feedback bank
-    and generator, the payloads' per-epoch traces, round counts,
-    deviations and the last test accuracy, and (``logits``) the eval-mode
-    logits of the first test images."""
+    and generator, the async carry (published buffer, ages, round
+    counter), each robust epoch's redirected mass, the payloads' per-epoch
+    traces, round counts, deviations and the last test accuracy, and
+    (``logits``) the eval-mode logits of the first test images."""
     # On the host: four runs of the LM's state would not fit the card
     # beside a live trainer.
     rec = {"params": master.model.flat_params.to("cpu", copy=True),
@@ -1134,6 +1169,13 @@ def trainer_record(master, payloads, logits=False) -> dict:
         if master._choco_ef is not None:
             rec["choco.ef"] = master._choco_ef.to("cpu", copy=True)
         rec["choco.generator"] = master._choco_gen.get_state().to(torch.int64)
+    if master._async_state is not None:
+        st = master._async_state
+        rec["async.pub"] = st.pub["float32"].to("cpu", copy=True)
+        rec["async.age"] = st.age.to("cpu", copy=True)
+        rec["async.rnd"] = st.rnd.to("cpu", copy=True)
+    if master._robust_mass is not None:
+        rec["robust.masses"] = torch.tensor(master._robust_masses, dtype=torch.float64)
     if logits:
         rec["eval_logits"] = eval_logits(master)
     for st in master._opt.state.values():
@@ -1742,6 +1784,379 @@ def phase_checkpoint():
         raise AssertionError("the resumed WRN CHOCO run differs from the uninterrupted one")
 
 
+# ---------------------------------------------------------------------- #
+# Async (stale-weighted) and Byzantine-robust gossip                     #
+# ---------------------------------------------------------------------- #
+# Agent 3 publishes every third round; a contribution older than one round
+# is dropped.  Two rounds an epoch: over 3 epochs its age runs 0, 1, 2, 0,
+# 1, 2, so its pull is halved, then dropped.
+STRAGGLER = {"staleness_bound": 1, "publish_period": [1, 1, 1, 3]}
+ASYNC = {"async_gossip": STRAGGLER, "mix_times": 2}
+
+
+def _robust_configs():
+    """Phase 17's two WRN gossip configurations."""
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    return {
+        "async_trim_complete": dict(ASYNC, weights=Topology.complete(WRN_AGENTS),
+                                    robust_mixing={"kind": "trim", "trim": 1}),
+        "clip_adaptive_ring": dict(robust_mixing={"kind": "clip", "radius": 2.0,
+                                                  "adaptive": True}),
+    }
+
+
+def _wrn_gossip_master(trainer_kwargs):
+    """The WRN slice's trainer (as :func:`_wrn_master`) with these gossip
+    options."""
+    return make_vision_master(
+        "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, WRN_EPOCHS, WRN_EVAL, augment=True,
+        trainer_kwargs=trainer_kwargs, depth=28, widen_factor=10, dropout_rate=0.3,
+        dtype=torch.bfloat16)
+
+
+def _carry(master) -> dict:
+    st = master._async_state
+    return {"age": st.age.tolist(), "rnd": int(st.rnd)} if st is not None else {}
+
+
+def gossip_round_alone(master) -> dict:
+    """The trainer's gossip round timed alone (CUDA events, mean of 3 after
+    a warm-up) on copies of its buffers, carry and mass, with the dense
+    round on the same buffers beside it; the bytes the round must move
+    (x read and written once, and with the async carry its published
+    buffer read once) over the card's memory rate; the memory the round
+    takes above what it starts from."""
+    from distributed_learning_tpu_torch.parallel import AsyncGossipState
+
+    eng, st = master.engine, master._async_state
+    x = {"float32": master.model.flat_params.clone()}
+    spare = eng.spare_for(x, 1)
+    mass = torch.zeros((), device=DEVICE)
+    cfg = master._robust_cfg
+    if st is not None:
+        carry = AsyncGossipState({"float32": st.pub["float32"].clone()}, st.age.clone(),
+                                 st.rnd.clone())
+        tau, periods = master._async_tau(master._epochs_done), master._async_sim["periods"]
+
+    def run():
+        if st is None:
+            eng.mix_robust_(x, cfg, 1, mass=mass, spare=spare)
+        elif cfg is None:
+            eng.mix_async_(x, carry, tau, 1, periods=periods, spare=spare)
+        else:
+            eng.mix_async_robust_(x, carry, cfg, tau, 1, periods=periods, mass=mass, spare=spare)
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, 3, warmup=0)
+    extra = torch.cuda.max_memory_allocated() - base
+    dense_ms = cuda_ms(lambda: eng.mix_(x, 1, spare=spare), 3)
+    nbytes = x["float32"].numel() * 4 * (3 if st is not None else 2)
+    out = {"round_ms": ms, "dense_round_ms_same_buffers": dense_ms, "round_bytes": nbytes,
+           "round_bytes_bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+           "round_over_bound": ms / (nbytes / PEAK_HBM_BYTES * 1e3),
+           "round_peak_extra_bytes": extra}
+    del x, spare
+    torch.cuda.empty_cache()
+    return out
+
+
+def gram_cancellation(master) -> dict:
+    """``pairwise_sq_dists`` (the reference's Gram form ``sx + sy - 2 x.y``
+    in float32) on the trainer's buffers (live against published with
+    the async carry) against the float64 direct distance ``sum (x_i -
+    y_j)^2``, over pairs of distinct agents: the largest relative and
+    absolute gaps, the smallest direct distance and the largest squared
+    norm (the scale the cancellation works at)."""
+    from distributed_learning_tpu_torch.ops import mixing as ops
+
+    x = master.model.flat_params
+    y = x if master._async_state is None else master._async_state.pub["float32"]
+    gram = ops.pairwise_sq_dists({"float32": x}, None if y is x else {"float32": y}).double()
+    n, rel, abs_gap, direct_min = x.shape[0], 0.0, 0.0, math.inf
+    for i in range(n):
+        for j in range(n):
+            if i != j:
+                direct = float((x[i].double() - y[j].double()).square().sum())
+                gap = abs(float(gram[i, j]) - direct)
+                rel, abs_gap = max(rel, gap / direct), max(abs_gap, gap)
+                direct_min = min(direct_min, direct)
+    return {"gram_vs_float64_max_rel_gap": rel, "gram_vs_float64_max_abs_gap": abs_gap,
+            "float64_min_sq_dist": direct_min,
+            "max_sq_norm": float(x.double().square().sum(1).max())}
+
+
+def gossip_slice(phase, make, dense_timing) -> dict:
+    """A WRN gossip configuration ``make()`` builds: its graph superstep
+    against eager epochs bit for bit (carry and masses included) with the
+    host syncs, then two supersteps of 3 epochs (the first captures) with
+    the per-epoch loss, deviation and mass, the carry after each superstep,
+    each replay's device time, the superstep epoch beside phase 10's
+    dense one, the round alone against its bound, peak memory and the
+    Gram form's cancellation.  Returns the summary."""
+    verdict, facts = superstep_equality(make, control=False)
+    emit({"phase": phase, "check": "graph_vs_eager", **facts, **verdict})
+    if not (verdict["bitwise_eager_vs_eager"] and verdict["bitwise_graph_vs_eager"]):
+        raise AssertionError(f"{phase}: the graph superstep differs from the eager epochs")
+    if facts.get("host_syncs_per_superstep", 0) != 0:
+        raise AssertionError(f"{phase}: the superstep synchronised: {facts}")
+    master = make()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    carries = [_carry(master)]
+    spans = _time_device_spans(master)
+    t0 = time.perf_counter()
+    payloads = master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    carries.append(_carry(master))
+    peak = torch.cuda.max_memory_allocated()
+    ms = {name: [a.elapsed_time(b) for a, b in pairs] for name, pairs in spans.items()}
+    masses = master._robust_masses[-SUPERSTEP_K:] if master._robust_mass is not None else None
+    for j, p in enumerate(payloads):
+        emit({"phase": phase, "epoch": p["epoch"], "train_loss": p["train_loss"].tolist(),
+              "deviation": p["deviation"], "mix_rounds": p["mix_rounds"],
+              "robust_mass": None if masses is None else masses[j],
+              "train_replay_ms": ms["train"][j], "gossip_replay_ms": ms["gossip"][j]})
+    epoch_s = wall / SUPERSTEP_K
+    dense_epoch_s = dense_timing["steady_superstep_epoch_s"]
+    losses = [float(np.mean(p["train_loss"])) for p in first + payloads]
+    summary = {
+        "phase": phase + "_summary", "model": "wrn-28-10",
+        "params_per_agent": master.model.param_count(), "epoch_losses": losses,
+        "deviations": [p["deviation"] for p in first + payloads],
+        "robust_masses": list(master._robust_masses) if masses is not None else None,
+        "carry_after_each_superstep": carries, "first_superstep_s": first_s,
+        "superstep_epoch_s": epoch_s, "dense_superstep_epoch_s_phase10": dense_epoch_s,
+        "over_dense_epoch": epoch_s / dense_epoch_s,
+        "gossip_replay_ms_mean": float(np.mean(ms["gossip"])),
+        "dense_gossip_replay_ms_phase10":
+            dense_timing["superstep_device_ms_by_events"]["gossip"] / SUPERSTEP_K,
+        "host_syncs_per_superstep": master.superstep_host_syncs,
+        "peak_memory_bytes": peak,
+        "round_alone": gossip_round_alone(master),
+    }
+    if master._robust_cfg is not None and master._robust_cfg.kind == "clip":
+        summary["gram_form"] = gram_cancellation(master)
+    g = master._graphs
+    if g is not None:  # None only in a rehearsal on the CPU
+        summary.update(replays={"/".join(map(str, key)): n for key, n in g.replays.items()},
+                       capture_seconds=g.capture_seconds)
+    emit(summary)
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the WRN loss did not fall: {losses}")
+    if not all(math.isfinite(d) for d in summary["deviations"]):
+        raise AssertionError(f"{phase}: a deviation is not finite")
+    if g is not None and any(summary["host_syncs_per_superstep"]):
+        raise AssertionError(f"{phase}: the superstep synchronised: {summary}")
+    return summary
+
+
+def phase_async_slice(dense_timing):
+    """WRN-28-10 as vision_slice runs it, gossiping asynchronously on the
+    Metropolis ring with the straggler (two rounds an epoch): agent 3's
+    age after epoch 0, 1, 2 of a superstep must be 1, 0, 2 (its round
+    ages 0, 1, 2, 0, 1, 2)."""
+    summary = gossip_slice("async_slice", lambda: _wrn_gossip_master(ASYNC), dense_timing)
+    ages = [c["age"][3] for c in summary["carry_after_each_superstep"]]
+    if ages != [2, 2] or [c["rnd"] for c in summary["carry_after_each_superstep"]] != [6, 12]:
+        raise AssertionError(f"async_slice: straggler ages / rounds off: {summary}")
+
+
+def phase_robust_slice(dense_timing):
+    """Two WRN-28-10 configurations as phase 16 runs them: (a) the
+    straggler's async gossip on ``Topology.complete(4)`` (Metropolis)
+    through the trimmed mean (trim 1), whose mass must be > 0 every
+    epoch; (b) clipped gossip on the ring with an adaptive radius, 2x the
+    median neighbour distance, synchronous."""
+    for name, cfg in _robust_configs().items():
+        summary = gossip_slice(f"robust_slice/{name}", lambda cfg=cfg: _wrn_gossip_master(cfg),
+                               dense_timing)
+        if name.startswith("async_trim") and not all(m > 0 for m in summary["robust_masses"]):
+            raise AssertionError(f"robust_slice/{name}: the trim redirected no mass: {summary}")
+
+
+def robust_route_configs():
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    complete = Topology.complete(4)
+    clip = {"kind": "clip", "radius": 0.05}
+    return {
+        "async_neutral": dict(async_gossip={"staleness_bound": 0, "publish_period": 1},
+                              mix_times=2),
+        "async_straggler": dict(ASYNC),
+        "async_tau_schedule": dict(async_gossip={"staleness_bound": lambda e: e % 3,
+                                                 "publish_period": [1, 1, 1, 3]}, mix_times=2),
+        "async_mix_times_schedule": dict(async_gossip=STRAGGLER,
+                                         mix_times_schedule=lambda e: 1 + e % 3),
+        "async_adaptive_comm": dict(ASYNC, adaptive_comm={"target": 0.05, "gain": 1.0}),
+        "clip": dict(robust_mixing=clip, mix_times=2),
+        "clip_adaptive": dict(robust_mixing={"kind": "clip", "radius": 0.5, "adaptive": True},
+                              mix_times=2),
+        "trim_complete": dict(robust_mixing={"kind": "trim", "trim": 1}, weights=complete,
+                              mix_times=2),
+        "median_complete": dict(robust_mixing="median", weights=complete, mix_times=2),
+        "async_clip": dict(ASYNC, robust_mixing=clip),
+        "async_trim_complete": dict(ASYNC, robust_mixing={"kind": "trim", "trim": 1},
+                                    weights=complete),
+    }
+
+
+def neutral_knobs_check() -> dict:
+    """On the card, under deterministic algorithms: the MLP route's
+    superstep with async tau 0 and periods 1, with clip radius inf and
+    with trim 0 equals the plain route bit for bit (parameters and
+    deviations)."""
+    plain = dict(mix_times=2)
+    knobs = {"async_tau0": dict(plain, async_gossip={"staleness_bound": 0, "publish_period": 1}),
+             "clip_inf": dict(plain, robust_mixing={"kind": "clip", "radius": math.inf}),
+             "trim0": dict(plain, robust_mixing={"kind": "trim", "trim": 0})}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            ref = _route_trainer(**plain)
+            ref_dev = [p["deviation"] for p in ref.train_epochs(SUPERSTEP_K)]
+            for name, cfg in knobs.items():
+                t = _route_trainer(**cfg)
+                dev = [p["deviation"] for p in t.train_epochs(SUPERSTEP_K)]
+                out[name] = bool(torch.equal(t.model.flat_params, ref.model.flat_params)
+                                 and dev == ref_dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+# The persistent-liar attack of tests/test_robust.py: 8 agents on the
+# complete graph, agents 2 and 5 re-inject 1e3 before every round.
+LIAR_AGENTS, LIARS, POISON, LIAR_ROUNDS = 8, (2, 5), 1e3, 6
+LIAR_DEFENSES = {"plain": None, "clip": {"kind": "clip", "radius": 2.0},
+                 "trim": {"kind": "trim", "trim": 2}, "median": "median",
+                 "async_plain": None, "async_clip": {"kind": "clip", "radius": 2.0}}
+# A card round against the CPU round from the same input and carry: 2e-6
+# relative (the liars' rows sit at 1e3) and one float32 step at the
+# poison's scale absolute (6.1e-5): an honest agent's trimmed round adds
+# ~W * 1e3 in the GEMM and takes it back in the correction.
+LIAR_RTOL, LIAR_ATOL = 2e-6, float(np.spacing(np.float32(POISON)))
+
+
+def _liar_engine(device):
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+
+    return ConsensusEngine(Topology.complete(LIAR_AGENTS).metropolis_weights(), device=device)
+
+
+def _liar_round(eng, name, x, st):
+    """One round of defense ``name`` on the poisoned state ``x`` (the
+    async ones with the carry ``st``): ``(mixed, carry, mass or None)``."""
+    spec, inp = LIAR_DEFENSES[name], {"w": x}
+    if name == "plain":
+        return eng.mix(inp, times=1)["w"], None, None
+    if name == "async_plain":
+        y, st = eng.mix_async(inp, st, tau=1, periods=1)
+        return y["w"], st, None
+    if name.startswith("async"):
+        y, st, m = eng.mix_async_robust(inp, st, spec=spec, tau=1, periods=1)
+        return y["w"], st, float(m)
+    y, m = eng.mix_robust(inp, spec, times=1)
+    return y["w"], None, float(m)
+
+
+def _to_cpu(st):
+    from distributed_learning_tpu_torch.parallel import AsyncGossipState
+
+    if st is None:
+        return None
+    return AsyncGossipState({k: v.cpu() for k, v in st.pub.items()}, st.age.cpu(), st.rnd.cpu())
+
+
+def liar_attack(device) -> dict:
+    """The attack on ``device``: per defense the honest agents' largest
+    distance from their initial mean after 6 rounds, the mass per round,
+    and each round's poisoned input, carry and output (host copies)."""
+    eng = _liar_engine(device)
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.normal(size=(LIAR_AGENTS, 6)).astype(np.float32), device=device)
+    honest = [i for i in range(LIAR_AGENTS) if i not in LIARS]
+    mean = x0[honest].double().mean(0)
+    out = {}
+    for name in LIAR_DEFENSES:
+        x, st, masses, rounds = x0, None, [], []
+        for _ in range(LIAR_ROUNDS):
+            inp = x.clone()
+            inp[list(LIARS)] = POISON
+            carry = _to_cpu(st)
+            x, st, m = _liar_round(eng, name, inp, st)
+            masses += [] if m is None else [m]
+            rounds.append((inp.cpu(), carry, x.cpu()))
+        out[name] = {"honest_spread": float((x[honest].double() - mean).abs().max()),
+                     "masses": masses, "rounds": rounds}
+    return out
+
+
+def liar_rounds_vs_cpu(attack) -> tuple:
+    """Each round of ``attack`` run again on the CPU from the same input
+    and carry: per defense the largest gap, and whether every round is
+    within the limits."""
+    eng = _liar_engine("cpu")
+    gaps, held = {}, {}
+    for name, r in attack.items():
+        gaps[name], held[name] = 0.0, True
+        for inp, carry, got in r["rounds"]:
+            want = _liar_round(eng, name, inp, carry)[0]
+            gaps[name] = max(gaps[name], float((got - want).abs().max()))
+            held[name] &= bool(((got - want).abs() <= LIAR_ATOL + LIAR_RTOL * want.abs()).all())
+    return gaps, held
+
+
+def phase_robust_routes():
+    """Each async and robust configuration on the MLP of superstep_routes:
+    graph replays against eager epochs bit for bit (carry and masses
+    included), host syncs per superstep (0 but for adaptive_comm); then
+    the neutral knobs against the plain route, and the persistent-liar
+    attack on the card: plain mixing dragged past 50, every defense held
+    under 5, the async clip's mass positive every round, and every round
+    equal to the CPU's round from the same input and carry."""
+    bad = []
+    for name, cfg in robust_route_configs().items():
+        verdict, facts = superstep_equality(lambda: _route_trainer(**cfg), control=False)
+        emit({"phase": "robust_routes", "config": name, **facts, **verdict})
+        fixed = "adaptive_comm" not in name
+        if not (verdict["bitwise_eager_vs_eager"] and verdict["bitwise_graph_vs_eager"]) or (
+                fixed and facts.get("host_syncs_per_superstep", 0) != 0):
+            bad.append(name)
+    neutral = neutral_knobs_check()
+    emit({"phase": "robust_routes", "check": "neutral_knobs_bitwise_plain", **neutral})
+    bad += [f"neutral/{k}" for k, v in neutral.items() if not v]
+    card = liar_attack(DEVICE)
+    gaps, held = liar_rounds_vs_cpu(card)
+    emit({"phase": "robust_routes", "check": "persistent_liars",
+          "honest_spread": {k: r["honest_spread"] for k, r in card.items()},
+          "masses": {k: r["masses"] for k, r in card.items() if r["masses"]},
+          "card_vs_cpu_max_abs": gaps, "card_equals_cpu": held})
+    if not (card["plain"]["honest_spread"] > 50 and card["async_plain"]["honest_spread"] > 50):
+        bad.append("liars/plain_not_dragged")
+    bad += [f"liars/{k}" for k in ("clip", "trim", "median", "async_clip")
+            if not card[k]["honest_spread"] < 5]
+    if not all(m > 0 for m in card["async_clip"]["masses"]):
+        bad.append("liars/async_clip_mass")
+    bad += [f"liars/card_vs_cpu/{k}" for k, ok in held.items() if not ok]
+    if bad:
+        raise AssertionError(f"robust routes failed: {bad}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1794,6 +2209,10 @@ def main(argv=None) -> int:
     phase_choco_slice(dense_timing)
     phase_choco_routes()
     phase_checkpoint()
+    # Async and Byzantine-robust gossip: WRN slices and the routes.
+    phase_async_slice(dense_timing)
+    phase_robust_slice(dense_timing)
+    phase_robust_routes()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]

@@ -1,5 +1,5 @@
-"""Topology, mixing-matrix checks, the dense consensus engine and CHOCO
-compressed gossip."""
+"""Topology, mixing-matrix checks, the dense consensus engine (plain,
+async and Byzantine-robust rounds) and CHOCO compressed gossip."""
 
 from distributed_learning_tpu_torch.parallel.compression import (
     ChocoGossipEngine,
@@ -15,7 +15,8 @@ from distributed_learning_tpu_torch.parallel.compression import (
     scaled_sign,
     top_k,
 )
-from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
+from distributed_learning_tpu_torch.parallel.consensus import AsyncGossipState, ConsensusEngine
+from distributed_learning_tpu_torch.parallel.robust import RobustConfig, as_robust_config
 from distributed_learning_tpu_torch.parallel.schedule import (
     chebyshev_omegas,
     validate_mixing_matrix,
@@ -23,6 +24,7 @@ from distributed_learning_tpu_torch.parallel.schedule import (
 from distributed_learning_tpu_torch.parallel.topology import Topology, gamma
 
 __all__ = [
+    "AsyncGossipState",
     "ChocoGossipEngine",
     "ChocoState",
     "Compressor",
@@ -34,6 +36,8 @@ __all__ = [
     "identity",
     "int8_quant",
     "random_k",
+    "RobustConfig",
+    "as_robust_config",
     "scaled_sign",
     "top_k",
     "Topology",

@@ -19,13 +19,26 @@ either, so a CUDA graph can capture them (``training/graphs.py``), with
 :meth:`ConsensusEngine.max_deviation_` writing the residual into a device
 scalar.  The
 eps-stopping forms read the residual back once per round, which exact
-stopping needs.  The sharded ``torch.distributed`` route and the async
-programs of the reference are not ported yet (ROADMAP.md).
+stopping needs.
+
+Asynchronous (stale-weighted, double-buffered) gossip models the
+straggler-tolerant runtime on one device: agent ``j`` publishes its
+parameters every ``periods[j]`` rounds into the carry's ``pub`` buffer,
+and its neighbours mix against that publication, decayed by
+``1/(1+age)`` and dropped beyond the staleness bound ``tau``
+(:meth:`ConsensusEngine.mix_async_`).  The carry
+(:class:`AsyncGossipState`) is fixed-address state the rounds update in
+place, and the publish test runs on the device, so a captured graph
+replays the straggler's cadence.  The Byzantine-robust rounds (clipped,
+trimmed-mean, coordinate-median; ``parallel/robust.py``) run through
+:meth:`ConsensusEngine.mix_robust_` and
+:meth:`ConsensusEngine.mix_async_robust_`.  The sharded
+``torch.distributed`` route is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +50,26 @@ from distributed_learning_tpu_torch.parallel.schedule import (
 )
 from distributed_learning_tpu_torch.parallel.topology import gamma as exact_gamma
 
-__all__ = ["ConsensusEngine"]
+__all__ = ["AsyncGossipState", "ConsensusEngine"]
 
 Stacked = Dict[str, torch.Tensor]
 Spare = Sequence[Stacked]
+Step = Callable[[Stacked, Stacked], Stacked]
+
+
+class AsyncGossipState(NamedTuple):
+    """The carry of simulated asynchronous gossip (the double-buffer
+    model on one device), updated in place by the async rounds.
+
+    ``pub`` is buffer B, the state each agent last *published* (what its
+    neighbours mix against), with the live state's keys, shapes and
+    dtypes; ``age[j]`` counts rounds since agent ``j`` last published;
+    ``rnd`` is the async round counter that drives the publish periods.
+    """
+
+    pub: Stacked
+    age: torch.Tensor  # (n,) int32
+    rnd: torch.Tensor  # () int32
 
 
 def _cheby_step(wx: torch.Tensor, prev: torch.Tensor, omega: torch.Tensor) -> None:
@@ -66,6 +95,7 @@ class ConsensusEngine:
         self.gamma = exact_gamma(self.W)
         self.device = torch.device(device)
         self._W_dev = torch.as_tensor(self.W, dtype=torch.float32, device=self.device)
+        self._periods_dev: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     # ------------------------------------------------------------------ #
     def spare_for(self, buffers: Stacked, sets: int = 2) -> Tuple[Stacked, ...]:
@@ -89,20 +119,24 @@ class ConsensusEngine:
             return W.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(W, dtype=np.float32), device=self.device)
 
+    @staticmethod
+    def _plain(W: torch.Tensor) -> Step:
+        return lambda x, out: ops.dense_mix(x, W, out=out)
+
     def _rounds(self, buffers: Stacked, more: Callable[[int, Stacked], bool],
-                W: torch.Tensor, spare: Optional[Spare]) -> int:
-        """Gossip rounds in place on ``buffers`` while ``more(rounds done,
-        current state)``; returns the rounds run.  Rounds ping-pong
-        between the buffers and a spare set of their shape, so a round
-        only writes its GEMM's output; one copy brings the state home
-        when the last round landed in the spare.  Without ``spare`` the
-        spare set comes from the caching allocator at the call, when the
-        training step's activations are free."""
+                step: Step, spare: Optional[Spare]) -> int:
+        """Gossip rounds ``step(state, out) -> out`` in place on
+        ``buffers`` while ``more(rounds done, current state)``; returns
+        the rounds run.  Rounds ping-pong between the buffers and a spare
+        set of their shape, so a round only writes its output; one copy
+        brings the state home when the last round landed in the spare.
+        Without ``spare`` the spare set comes from the caching allocator
+        at the call, when the training step's activations are free."""
         cur = buffers
         other = spare[0] if spare is not None else self.spare_for(buffers, 1)[0]
         t = 0
         while more(t, cur):
-            cur, other = ops.dense_mix(cur, W, out=other), cur
+            cur, other = step(cur, other), cur
             t += 1
         if cur is not buffers:
             for key, x in cur.items():
@@ -112,14 +146,14 @@ class ConsensusEngine:
     # -- fixed round counts: no host reads ----------------------------- #
     def mix_(self, buffers: Stacked, times: int = 1, *, spare: Optional[Spare] = None) -> None:
         """Run exactly ``times`` gossip rounds in place on fused buffers."""
-        self._rounds(buffers, lambda t, _: t < times, self._W_dev, spare)
+        self._rounds(buffers, lambda t, _: t < times, self._plain(self._W_dev), spare)
 
     def mix_with_(self, buffers: Stacked, W, times: int = 1, *,
                   spare: Optional[Spare] = None) -> None:
         """``times`` rounds in place against the per-call matrix ``W``
         (the reference's traced-W ``mix_with``: a time-varying graph
         costs an (n, n) copy, nothing more)."""
-        self._rounds(buffers, lambda t, _: t < times, self._matrix(W), spare)
+        self._rounds(buffers, lambda t, _: t < times, self._plain(self._matrix(W)), spare)
 
     def mix_chebyshev_(self, buffers: Stacked, times: Optional[int] = None, *, W=None,
                        omegas=None, spare: Optional[Spare] = None) -> None:
@@ -166,7 +200,7 @@ class ConsensusEngine:
             res = float(ops.max_deviation(state))
             return t < min_times or (res >= eps and t < max_rounds)
 
-        return self._rounds(buffers, more, W, spare), res
+        return self._rounds(buffers, more, self._plain(W), spare), res
 
     def mix_until_(
         self,
@@ -199,6 +233,102 @@ class ConsensusEngine:
         """:meth:`mix_until_` against the per-call matrix ``W``."""
         return self._until(buffers, self._matrix(W), eps, min_times, max_rounds, spare)
 
+    # -- asynchronous (stale-weighted) gossip ----------------------------- #
+    def _normalize_periods(self, periods) -> Tuple[int, ...]:
+        """Per-agent publish periods: agent ``j`` publishes every
+        ``periods[j]``-th async round (1 = every round; a ``k``-slow
+        straggler has ``periods[j] = k``)."""
+        if np.isscalar(periods):
+            periods = (int(periods),) * self.n
+        periods = tuple(int(p) for p in periods)
+        if len(periods) != self.n:
+            raise ValueError(f"periods must have length {self.n}, got {len(periods)}")
+        if any(p < 1 for p in periods):
+            raise ValueError(f"publish periods must be >= 1, got {periods}")
+        return periods
+
+    def _periods_tensor(self, periods) -> torch.Tensor:
+        """The periods as an (n,) int32 device tensor, copied to the
+        device once per distinct value (a warm-up makes it before a
+        capture, which must not copy from the host)."""
+        key = self._normalize_periods(periods)
+        if key not in self._periods_dev:
+            self._periods_dev[key] = torch.tensor(key, dtype=torch.int32, device=self.device)
+        return self._periods_dev[key]
+
+    def init_async_state(self, stacked: Stacked) -> AsyncGossipState:
+        """Fresh carry: ``pub`` a copy of ``stacked``, ages and round 0.
+        Round 0 publishes every agent (0 is a multiple of every period),
+        so the initial ``pub`` contents never survive a mix: zeros serve
+        as well (the trainer's fresh carry)."""
+        return AsyncGossipState(
+            pub={k: v.detach().clone() for k, v in stacked.items()},
+            age=torch.zeros(self.n, dtype=torch.int32, device=self.device),
+            rnd=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    @staticmethod
+    def _publish_(x: Stacked, state: AsyncGossipState, periods: torch.Tensor) -> None:
+        """The start of an async round, on the device: agents whose period
+        divides the round copy their live value into ``pub`` and reset
+        their age; every other age grows by one."""
+        publish = torch.remainder(state.rnd, periods) == 0
+        for key, v in x.items():
+            pv = state.pub[key]
+            torch.where(publish.view((-1,) + (1,) * (v.dim() - 1)), v, pv, out=pv)
+        state.age.add_(1).masked_fill_(publish, 0)
+
+    def _async_round_body(self, periods: torch.Tensor):
+        """``(x, out, state, tau) -> out``: one async round, publish ->
+        age -> stale-weighted mix (:func:`ops.stale_weight_matrix`), the
+        round counter advanced.  ``tau`` is an int or a 0-dim device
+        tensor."""
+        W = self._W_dev
+
+        def round_once(x: Stacked, out: Stacked, state: AsyncGossipState, tau) -> Stacked:
+            self._publish_(x, state, periods)
+            W_eff = ops.stale_weight_matrix(W, state.age, tau=tau)
+            state.rnd.add_(1)
+            return ops.stale_weighted_mix(x, state.pub, W_eff, out)
+
+        return round_once
+
+    def mix_async_(self, buffers: Stacked, state: AsyncGossipState, tau, times: int = 1, *,
+                   periods, spare: Optional[Spare] = None) -> None:
+        """``times`` asynchronous (stale-weighted, double-buffered) rounds
+        in place on fused buffers, the carry ``state`` (its ``pub`` in the
+        buffers' layout) updated in place: the reference's ``mix_async``
+        with the carry threaded through.  ``tau`` is the staleness bound,
+        an int or a 0-dim int32 device tensor (one captured graph then
+        serves every epoch's bound).  ``tau=0`` with every period 1 is
+        bitwise :meth:`mix_`.  Reads nothing back to the host."""
+        round_once = self._async_round_body(self._periods_tensor(periods))
+        self._rounds(buffers, lambda t, _: t < times,
+                     lambda x, out: round_once(x, out, state, tau), spare)
+
+    # -- Byzantine-robust gossip (parallel/robust.py) --------------------- #
+    def mix_robust_(self, buffers: Stacked, spec, times: int = 1, *, mass: torch.Tensor,
+                    spare: Optional[Spare] = None) -> None:
+        """``times`` robust rounds (clipped, trimmed-mean or
+        coordinate-median) in place on fused buffers, adding the edge
+        weight the defense redirected onto self edges to the 0-dim float32
+        device tensor ``mass`` (0.0 at the neutral knobs, where the rounds
+        are bitwise :meth:`mix_`)."""
+        from distributed_learning_tpu_torch.parallel import robust
+
+        robust.robust_mix_times_program(self, spec)(buffers, times, mass, spare)
+
+    def mix_async_robust_(self, buffers: Stacked, state: AsyncGossipState, spec, tau,
+                          times: int = 1, *, periods, mass: torch.Tensor,
+                          spare: Optional[Spare] = None) -> None:
+        """Robust :meth:`mix_async_`: the robust estimator on top of the
+        stale-decayed matrix, each delta measured from the receiver's live
+        value to the neighbour's publication; the redirected mass is added
+        to ``mass``.  At the neutral knobs bitwise :meth:`mix_async_`."""
+        from distributed_learning_tpu_torch.parallel import robust
+
+        robust.robust_async_gossip_times_program(self, spec, periods=periods)(
+            buffers, state, times, tau, mass, spare)
+
     # -- copies ---------------------------------------------------------- #
     def mix(self, stacked: Stacked, times: int = 1) -> Stacked:
         """Run exactly ``times`` gossip rounds; ``stacked`` is left as it was."""
@@ -218,6 +348,44 @@ class ConsensusEngine:
         buffers, layout = ops.flatten_stacked(stacked)
         t, res = self.mix_until_(buffers, eps=eps, min_times=min_times, max_rounds=max_rounds)
         return ops.unflatten_stacked(buffers, layout), t, res
+
+    def _fused_carry(self, state: Optional[AsyncGossipState], stacked: Stacked,
+                     layout) -> AsyncGossipState:
+        """A fresh fused copy of a caller-layout carry (``None``: a new one)."""
+        if state is None:
+            state = self.init_async_state(stacked)
+        return AsyncGossipState(ops.flatten_stacked(state.pub, layout)[0],
+                                state.age.clone(), state.rnd.clone())
+
+    def mix_async(self, stacked: Stacked, state: Optional[AsyncGossipState] = None, *,
+                  tau: int, periods, times: int = 1) -> Tuple[Stacked, AsyncGossipState]:
+        """:meth:`mix_async_` on copies: returns ``(mixed, carry)`` in the
+        caller's layout; thread the carry into the next call so ages and
+        the round counter persist.  ``state=None`` starts a fresh carry."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        st = self._fused_carry(state, stacked, layout)
+        self.mix_async_(buffers, st, tau, times, periods=periods)
+        return (ops.unflatten_stacked(buffers, layout),
+                AsyncGossipState(ops.unflatten_stacked(st.pub, layout), st.age, st.rnd))
+
+    def mix_robust(self, stacked: Stacked, spec, times: int = 1) -> Tuple[Stacked, torch.Tensor]:
+        """:meth:`mix_robust_` on a copy: ``(mixed, mass)``, the mass a
+        0-dim device tensor."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        mass = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.mix_robust_(buffers, spec, times, mass=mass)
+        return ops.unflatten_stacked(buffers, layout), mass
+
+    def mix_async_robust(self, stacked: Stacked, state: Optional[AsyncGossipState] = None, *,
+                         spec, tau: int, periods,
+                         times: int = 1) -> Tuple[Stacked, AsyncGossipState, torch.Tensor]:
+        """:meth:`mix_async_robust_` on copies: ``(mixed, carry, mass)``."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        st = self._fused_carry(state, stacked, layout)
+        mass = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.mix_async_robust_(buffers, st, spec, tau, times, periods=periods, mass=mass)
+        return (ops.unflatten_stacked(buffers, layout),
+                AsyncGossipState(ops.unflatten_stacked(st.pub, layout), st.age, st.rnd), mass)
 
     def deviations(self, stacked: Stacked) -> torch.Tensor:
         """(n,) per-agent L2 distance from the mean parameter vector."""

@@ -22,12 +22,17 @@ Gossip per epoch: fixed ``mix_times`` or a ``mix_times_schedule``, eps
 stopping (``mix_eps``), Chebyshev acceleration (``chebyshev``),
 Gossip-PGA's exact average every ``global_avg_every`` consensus epochs,
 a time-varying graph (``topology_schedule``, also with Chebyshev or eps),
-the residual-adaptive round budget (``adaptive_comm``) and CHOCO
+the residual-adaptive round budget (``adaptive_comm``), CHOCO
 compressed gossip (``compression``, ``parallel/compression.py``), whose
 estimates persist across epochs until a Gossip-PGA epoch or a fresh
-``initialize_nodes`` resets them.  Learning rates may be optax-style
-schedules ``count -> lr``.  ``save_checkpoint`` / ``restore_checkpoint``
-write and read everything a resumed run needs.
+``initialize_nodes`` resets them, asynchronous stale-weighted gossip
+(``async_gossip``: per-agent publish periods, a staleness bound or a
+schedule of bounds), whose double-buffer carry persists across epochs
+until a fresh ``initialize_nodes``, and Byzantine-robust gossip
+(``robust_mixing``: clipped, trimmed-mean or coordinate-median,
+``parallel/robust.py``), alone or with ``async_gossip``.  Learning
+rates may be optax-style schedules ``count -> lr``.  ``save_checkpoint``
+/ ``restore_checkpoint`` write and read everything a resumed run needs.
 
 ``train_epochs(k)`` is the reference's epoch superstep: the indices of
 all k epochs go to the device at once, the per-step traces and each
@@ -63,7 +68,8 @@ from distributed_learning_tpu_torch.parallel.compression import (
     ChocoGossipEngine,
     compressor_from_spec,
 )
-from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
+from distributed_learning_tpu_torch.parallel.consensus import AsyncGossipState, ConsensusEngine
+from distributed_learning_tpu_torch.parallel.robust import as_robust_config
 from distributed_learning_tpu_torch.parallel.schedule import chebyshev_omegas
 from distributed_learning_tpu_torch.parallel.topology import Topology
 from distributed_learning_tpu_torch.parallel.topology import gamma as mixing_gamma
@@ -285,8 +291,6 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # Constructor options of the reference that this port does not run yet:
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "async_gossip": ((None, False), "queue 1, item 5 (async and robust gossip)"),
-    "robust_mixing": ((None, False), "queue 1, item 5 (async and robust gossip)"),
     "mesh": ((None,), "queue 1, item 9 (sharded engine on torch.distributed)"),
     "obs": ((None, False), "queue 1, item 7 (obs/)"),
     "profile_costs": ((False,), "queue 1, item 7 (obs/)"),
@@ -373,12 +377,14 @@ class _Plan(NamedTuple):
     """One epoch's gossip, resolved on the host: ``mode`` 0 (none), 1
     (this configuration's mixing) or 2 (the Gossip-PGA exact average);
     the round count (the floor for eps stopping); the epoch's matrix
-    under a ``topology_schedule`` and its Chebyshev weights (float32)."""
+    under a ``topology_schedule`` and its Chebyshev weights (float32);
+    with ``async_gossip`` the epoch's staleness bound."""
 
     mode: int
     times: int
     W: Optional[np.ndarray] = None
     omegas: Optional[np.ndarray] = None
+    tau: int = 0
 
 
 class _Static(NamedTuple):
@@ -389,6 +395,7 @@ class _Static(NamedTuple):
     trace: torch.Tensor                # (steps, 3, n) loss, accuracy, gradient norm
     W: torch.Tensor                    # (n, n) the epoch's matrix (topology_schedule)
     omegas: Dict[int, torch.Tensor]    # rounds -> (rounds,) Chebyshev weights
+    tau: torch.Tensor                  # () int32 the epoch's staleness bound (async_gossip)
     dev: torch.Tensor                  # () post-mix max deviation
 
 
@@ -452,7 +459,7 @@ class GossipTrainer:
         remat: bool = False,
     ):
         _reject_unported(dict(
-            async_gossip=async_gossip, robust_mixing=robust_mixing, mesh=mesh, obs=obs,
+            mesh=mesh, obs=obs,
             profile_costs=profile_costs, timer_every_n=timer_every_n, remat=remat,
         ))
         self.device = resolve_device(device)
@@ -472,6 +479,9 @@ class GossipTrainer:
         self._check_gossip_options(mix_eps, chebyshev, global_avg_every, superstep, adaptive_comm)
         compression = self._check_compression(compression, compression_error_feedback, mix_eps,
                                               chebyshev, topology_schedule)
+        self._check_async_robust(async_gossip, robust_mixing, chebyshev=chebyshev,
+                                 mix_eps=mix_eps, topology_schedule=topology_schedule,
+                                 global_avg_every=global_avg_every, compression=compression)
 
         self._Xs, self._ys = self._stack_data(train_data, batch_size)
         self.augment = bool(augment)
@@ -537,6 +547,23 @@ class GossipTrainer:
                 stacklevel=2,
             )
         self.engine = ConsensusEngine(W, device=self.device)
+        # The async carry and the robust mass: fixed-address state that the
+        # gossip graphs write; the checkpoint holds neither.
+        self._async_state: Optional[AsyncGossipState] = None
+        if self._async_sim is not None:
+            self._async_sim["periods"] = self.engine._normalize_periods(
+                self._async_sim["periods"])
+            self.engine._periods_tensor(self._async_sim["periods"])  # copied before any capture
+            self._async_state = AsyncGossipState(
+                pub={"float32": torch.zeros_like(model.flat_params)},
+                age=torch.zeros(n, dtype=torch.int32, device=self.device),
+                rnd=torch.zeros((), dtype=torch.int32, device=self.device))
+        self._robust_mass: Optional[torch.Tensor] = None
+        if self._robust_cfg is not None:
+            self._robust_mass = torch.zeros((), dtype=torch.float32, device=self.device)
+        # Each robust epoch's redirected mass on the host, in epoch order
+        # (the reference's consensus.robust.clipped_mass increments).
+        self._robust_masses: List[float] = []
         # Fused flat-buffer consensus; False runs CHOCO's per-leaf oracle
         # (every other route mixes the fused buffer either way).
         self.fused_consensus = bool(fused_consensus)
@@ -623,6 +650,45 @@ class GossipTrainer:
                 "the mass the compressor drops)"
             )
         return compression
+
+    def _check_async_robust(self, async_gossip, robust_mixing, *, chebyshev, mix_eps,
+                            topology_schedule, global_avg_every, compression) -> None:
+        """The reference's checks of ``async_gossip`` and
+        ``robust_mixing``, with its texts; sets ``_async_sim`` (the bound:
+        an int or a callable ``epoch -> tau``, and the raw periods) and
+        ``_robust_cfg``.  ``mix_times_schedule`` and ``adaptive_comm``
+        compose with both, and the two with each other."""
+        others = (chebyshev or mix_eps is not None or topology_schedule is not None
+                  or global_avg_every is not None or compression is not None)
+        self._async_sim = None
+        if async_gossip is not None and async_gossip is not False:
+            if not isinstance(async_gossip, Mapping):
+                raise ValueError(
+                    "async_gossip must be a mapping with keys 'staleness_bound' and/or "
+                    f"'publish_period', got {async_gossip!r}"
+                )
+            unknown = set(async_gossip) - {"staleness_bound", "publish_period"}
+            if unknown:
+                raise ValueError(f"unknown async_gossip keys: {sorted(unknown)}")
+            if others:
+                raise ValueError(
+                    "async_gossip applies to the plain-mix config only; it is mutually "
+                    "exclusive with chebyshev, mix_eps, topology_schedule, global_avg_every, "
+                    "and compression (mix_times_schedule composes: it sets the per-epoch "
+                    "async round budget)"
+                )
+            tau = async_gossip.get("staleness_bound", 0)
+            self._async_sim = {"tau": tau if callable(tau) else int(tau),
+                               "periods": async_gossip.get("publish_period", 1)}
+        self._robust_cfg = None
+        if robust_mixing is not None and robust_mixing is not False:
+            self._robust_cfg = as_robust_config(robust_mixing)
+            if others:
+                raise ValueError(
+                    "robust_mixing applies to the plain-mix (optionally async_gossip) config "
+                    "only; it is mutually exclusive with chebyshev, mix_eps, "
+                    "topology_schedule, global_avg_every, and compression"
+                )
 
     def _check_gossip_options(self, mix_eps, chebyshev, global_avg_every, superstep,
                               adaptive_comm) -> None:
@@ -740,8 +806,9 @@ class GossipTrainer:
         ``convert.flax_to_torch`` gives, stacked or per agent), BatchNorm
         running statistics at mean 0 and variance 1 for every agent (or
         ``batch_stats``, in the same form), fresh per-node optimizer state
-        reseeded dropout and augmentation streams, and fresh CHOCO
-        estimates (parity: ``master.initialize_nodes()``)."""
+        reseeded dropout and augmentation streams, fresh CHOCO
+        estimates and a fresh async carry (parity:
+        ``master.initialize_nodes()``)."""
         if params is None:
             self.model.reset_parameters(self.seed)
         else:
@@ -770,6 +837,15 @@ class GossipTrainer:
             self._adaptive_res = np.float32(self._adaptive_cfg["target"])
         if self._choco is not None:
             self._reset_choco()  # a fresh run: the estimates restart at 0
+        if self._async_state is not None:
+            # A fresh run: round 0 publishes every agent (0 is a multiple of
+            # every period) before any read, so zeros equal the reference's
+            # init_async_state.
+            st = self._async_state
+            for t in (st.pub["float32"], st.age, st.rnd):
+                t.zero_()
+        if self._robust_mass is not None:
+            self._robust_mass.zero_()
         return self
 
     def _epoch_perm(self, epoch_idx: int) -> np.ndarray:
@@ -899,6 +975,8 @@ class GossipTrainer:
                 )
         if mode == 2:
             return _Plan(2, 1)
+        if self._async_sim is not None:
+            return _Plan(1, times, tau=self._async_tau(epoch_idx))
         W = omegas = None
         if self.topology_schedule is not None:
             W_e = resolve_mixing_matrix(self.topology_schedule(epoch_idx), self.node_names)
@@ -916,6 +994,16 @@ class GossipTrainer:
             omegas = chebyshev_omegas(self.engine.gamma, times).astype(np.float32)
         return _Plan(1, times, W, omegas)
 
+    def _async_tau(self, epoch_idx: int) -> int:
+        """This epoch's staleness bound: the static int, or the schedule
+        resolved at ``epoch_idx`` and validated (>= 0)."""
+        tau = self._async_sim["tau"]
+        if callable(tau):
+            tau = int(tau(epoch_idx))
+            if tau < 0:
+                raise ValueError(f"staleness_bound({epoch_idx}) returned {tau}; must be >= 0")
+        return int(tau)
+
     def _times(self, plan: _Plan) -> int:
         """The plan's round count, modulated by the adaptive controller
         from the previous epoch's residual (for eps configurations, the
@@ -932,16 +1020,33 @@ class GossipTrainer:
 
     @torch.no_grad()
     def _run_gossip(self, mode: int, times: int, W: Optional[torch.Tensor],
-                    omegas: Optional[torch.Tensor]) -> int:
+                    omegas: Optional[torch.Tensor], tau=0) -> int:
         """One epoch's consensus phase in place on the fused buffer, with
         the epoch's matrix and Chebyshev weights as device tensors (with
         compression: ``times`` CHOCO rounds on the fixed-address
-        estimates; a Gossip-PGA epoch zeroes them); returns the rounds
-        run.  Reads nothing back to the host unless eps stopping decides
-        the count."""
+        estimates; a Gossip-PGA epoch zeroes them; with ``async_gossip``:
+        async rounds on the fixed-address carry under the staleness bound
+        ``tau``, an int or a 0-dim device tensor; with ``robust_mixing``:
+        the robust rounds, their redirected mass written into
+        ``_robust_mass``); returns the rounds run.  Reads nothing back to
+        the host unless eps stopping decides the count."""
         buffers, eng = self._buffers, self.engine
         if mode == 0:
             return 0
+        if self._async_sim is not None or self._robust_cfg is not None:
+            spare = self._spare_sets()
+            mass = self._robust_mass
+            if mass is not None:
+                mass.zero_()
+            if self._async_sim is None:
+                eng.mix_robust_(buffers, self._robust_cfg, times, mass=mass, spare=spare)
+            elif self._robust_cfg is None:
+                eng.mix_async_(buffers, self._async_state, tau, times,
+                               periods=self._async_sim["periods"], spare=spare)
+            else:
+                eng.mix_async_robust_(buffers, self._async_state, self._robust_cfg, tau, times,
+                                      periods=self._async_sim["periods"], mass=mass, spare=spare)
+            return times
         if mode == 2:
             eng.global_average_(buffers)
             if self._choco is not None:
@@ -989,7 +1094,7 @@ class GossipTrainer:
             plan = self._plan(self._epochs_done if epoch_idx is None else epoch_idx)
         W = None if plan.W is None else torch.as_tensor(plan.W, device=self.device)
         om = None if plan.omegas is None else torch.as_tensor(plan.omegas, device=self.device)
-        rounds = self._run_gossip(plan.mode, self._times(plan), W, om)
+        rounds = self._run_gossip(plan.mode, self._times(plan), W, om, plan.tau)
         self._gossip_done(plan.mode)
         return rounds
 
@@ -1029,6 +1134,8 @@ class GossipTrainer:
         mix_rounds = self._gossip(epoch_idx, plan) if mode else 0
         # One host sync for the epoch's (steps, 3, n) traces.
         losses, accs, gnorms = trace.cpu().numpy().transpose(1, 0, 2)
+        if mode and self._robust_mass is not None:
+            self._robust_masses.append(float(self._robust_mass))
         self._record_stats(losses, accs)
         test_accs = self._eval_and_record()
         payload = self._payload(epoch_idx, mode, losses, accs, gnorms, test_accs,
@@ -1110,6 +1217,11 @@ class GossipTrainer:
             out.extend(v for v in st.values() if isinstance(v, torch.Tensor))
         if self._lr is not None:
             out.append(self._lr)
+        if self._async_state is not None:
+            out += [self._async_state.pub["float32"], self._async_state.age,
+                    self._async_state.rnd]
+        if self._robust_mass is not None:
+            out.append(self._robust_mass)
         return out
 
     def _capture(self, keys: Sequence[Tuple]) -> None:
@@ -1126,7 +1238,8 @@ class GossipTrainer:
                     if self._make_opt.schedule is not None else None),
                 trace=torch.zeros(steps, 3, n, device=dev),
                 W=torch.as_tensor(self.engine.W, dtype=torch.float32, device=dev).clone(),
-                omegas={}, dev=torch.zeros((), device=dev))
+                omegas={}, tau=torch.zeros((), dtype=torch.int32, device=dev),
+                dev=torch.zeros((), device=dev))
         todo = [k for k in keys if k not in self._graphs]
         if not todo:
             return
@@ -1146,7 +1259,7 @@ class GossipTrainer:
                 om = st.omegas.get(times) if self.chebyshev and mode == 1 else None
 
                 def gossip(mode=mode, times=times, W=W, om=om):
-                    self._run_gossip(mode, times, W, om)
+                    self._run_gossip(mode, times, W, om, st.tau)
                     self.engine.max_deviation_(self._buffers, st.dev)
 
                 graphs.capture(key, gossip)
@@ -1207,11 +1320,15 @@ class GossipTrainer:
                 if p.omegas is not None:
                     om[j, : len(p.omegas)] = p.omegas
             om_all = torch.as_tensor(om, device=self.device)
+        # Each epoch's staleness bound (0 on an epoch without gossip).
+        tau_all = torch.as_tensor(np.asarray([p.tau for p in plans], dtype=np.int32),
+                                  device=self.device)
         # Everything the host reads at the end, in one buffer: the
-        # (k, steps, 3, n) traces and the (k,) post-mix deviations.
-        flush = torch.zeros(k, steps * 3 * n + 1, device=self.device)
-        traces = flush[:, :-1].view(k, steps, 3, n)
-        devs = flush[:, -1]
+        # (k, steps, 3, n) traces, the (k,) post-mix deviations and the
+        # (k,) robust masses.
+        flush = torch.zeros(k, steps * 3 * n + 2, device=self.device)
+        traces = flush[:, :-2].view(k, steps, 3, n)
+        devs, masses = flush[:, -2], flush[:, -1]
         graphs = self.device.type == "cuda"
         if graphs:
             keys = [("train",)]
@@ -1234,28 +1351,33 @@ class GossipTrainer:
                 if cut:  # eps / adaptive: the count needs the residual
                     if j > 0 and self._adaptive_cfg is not None:
                         self._adaptive_res = np.float32(float(devs[j - 1]))
-                    rounds[j] = self._run_gossip(p.mode, self._times(p), W, om)
+                    rounds[j] = self._run_gossip(p.mode, self._times(p), W, om, tau_all[j])
                     self._gossip_done(p.mode)
                     self.engine.max_deviation_(self._buffers, devs[j])
-                    continue
-                rounds[j] = p.times if p.mode else 0
-                if graphs:
-                    st = self._static
-                    if W is not None:
-                        st.W.copy_(W)
-                    if om is not None and p.mode == 1:
-                        st.omegas[p.times].copy_(om)
-                    self._graphs.replay(("gossip", p.mode, p.times))
-                    devs[j].copy_(st.dev)
                 else:
-                    self._run_gossip(p.mode, p.times, W, om)
-                    self.engine.max_deviation_(self._buffers, devs[j])
-                self._gossip_done(p.mode)
+                    rounds[j] = p.times if p.mode else 0
+                    if graphs:
+                        st = self._static
+                        if W is not None:
+                            st.W.copy_(W)
+                        if om is not None and p.mode == 1:
+                            st.omegas[p.times].copy_(om)
+                        st.tau.copy_(tau_all[j])
+                        self._graphs.replay(("gossip", p.mode, p.times))
+                        devs[j].copy_(st.dev)
+                    else:
+                        self._run_gossip(p.mode, p.times, W, om, tau_all[j])
+                        self.engine.max_deviation_(self._buffers, devs[j])
+                    self._gossip_done(p.mode)
+                if p.mode and self._robust_mass is not None:
+                    masses[j].copy_(self._robust_mass)
         host = flush.cpu().numpy()
         if graphs:
             self.superstep_host_syncs.append(syncs[0])
-        tr = host[:, :-1].reshape(k, steps, 3, n)
-        devs_host = host[:, -1]
+        tr = host[:, :-2].reshape(k, steps, 3, n)
+        devs_host = host[:, -2]
+        if self._robust_mass is not None:
+            self._robust_masses.extend(float(host[j, -1]) for j in range(k) if plans[j].mode)
         if self._adaptive_cfg is not None:
             self._adaptive_res = np.float32(devs_host[-1])
         payloads = []
@@ -1304,8 +1426,9 @@ class GossipTrainer:
         statistics, the optimizer state, every training generator's state
         (the reference's ``rng``), ``epochs_done`` and the step counters,
         and with compression a ``choco`` subtree.  Like the reference, no
-        adaptive-controller residual: a resumed adaptive run starts its
-        controller at the target."""
+        adaptive-controller residual (a resumed adaptive run starts its
+        controller at the target) and no async carry (``pub``, ages,
+        round counter)."""
         if self._opt is None:
             self.initialize_nodes()
         tree = {
@@ -1346,7 +1469,8 @@ class GossipTrainer:
         own tensors with ``copy_``, so captured graphs stay valid.  A
         compressed trainer reading a checkpoint without CHOCO state resets
         its estimates; a dense trainer ignores a ``choco`` subtree; both
-        warn, with the reference's texts."""
+        warn, with the reference's texts.  As in the reference, the async
+        carry is left as it is: the checkpoint holds none."""
         if self._opt is None:
             self.initialize_nodes()
         tree = ckpt.restore_checkpoint(path)

@@ -222,3 +222,46 @@ def test_graph_replays_count_and_match_eager(card):
     assert torch.equal(graph.model.flat_params, eager.model.flat_params)
     assert [p["mix_rounds"] for p in out] == [1, 1, 1]
     fa.reset_launch_counts()
+
+
+def _robust_inputs():
+    """A (5, 4099) float32 state and published buffer on a quarter grid
+    (many coordinates tie across agents), agent 1 NaN at every 97th
+    coordinate, and irregular Metropolis weights (unequal, so the tie
+    order decides which neighbour a trim cuts)."""
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    g = torch.Generator().manual_seed(0)
+    x, pub = (torch.randint(-4, 5, (5, 4099), generator=g).float() / 4 for _ in range(2))
+    x[1, ::97] = float("nan")
+    pub[1, ::97] = float("nan")
+    W = Topology.from_edges([(0, 1), (0, 2), (0, 3), (0, 4), (1, 2), (2, 3)]).metropolis_weights()
+    return {"float32": x}, {"float32": pub}, torch.tensor(W, dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("published", [False, True])
+@pytest.mark.parametrize("kind", ["trim", "median", "clip_adaptive"])
+def test_robust_rounds_on_card_equal_cpu(card, kind, published):
+    """The trimmed-mean, median and adaptive-clip rounds (plain PyTorch,
+    no kernel of their own) on the card equal the CPU's within 2e-6, NaN
+    where the CPU has NaN, with the same redirected mass."""
+    from distributed_learning_tpu_torch.ops import mixing as ops
+
+    x, pub, W = _robust_inputs()
+
+    def run(device):
+        xs = {k: v.to(device) for k, v in x.items()}
+        ps = {k: v.to(device) for k, v in pub.items()} if published else None
+        Wd, out = W.to(device), {k: torch.empty_like(v) for k, v in xs.items()}
+        if kind == "clip_adaptive":
+            out, mass = ops.clipped_mix(xs, Wd, 0.8, out, adaptive=True, published=ps)
+        else:
+            trim = ops.trim_counts(Wd, 1 if kind == "trim" else "median")
+            out, mass = ops.trimmed_mix(xs, Wd, trim, out, published=ps)
+        return out["float32"].cpu(), float(mass)
+
+    (cpu, cpu_mass), (got, mass) = run("cpu"), run(card)
+    torch.testing.assert_close(got, cpu, rtol=0, atol=2e-6, equal_nan=True)
+    assert cpu.isnan().any() and not cpu.isnan().all()
+    assert mass == pytest.approx(cpu_mass, rel=1e-6) and cpu_mass > 0.0

@@ -128,8 +128,8 @@ def test_optimizers_match_optax(name, kwargs):
     "option,value",
     [
         ("timer_every_n", 5),
-        ("async_gossip", {"staleness_bound": 1}),
-        ("robust_mixing", "clip"),
+        ("profile_costs", True),
+        ("mesh", "agents"),
         ("mesh", object()),
         ("obs", True),
         ("remat", True),
