@@ -132,6 +132,39 @@ Phases, each printing one JSON line (any failure exits non-zero):
              mass > 0 every round, and each card round equal to the CPU's
              round from the same input and carry (2e-6 relative, one
              float32 step at 1e3 absolute).
+19. tracking_slice — DSGT and EXTRA (``project_every`` 2) train the LM
+             slice's model at full depth and width: 4 agents on the
+             Metropolis ring, B 2 per agent on each agent's own token
+             stream, step 0.5, ``init`` and 3 steps each through the
+             stacked gradient oracle (one forward/backward of the
+             agent-stacked LM into ``flat_grads``).  Per step: CUDA-event
+             ms split into gradients and gossip/update beside the update's
+             byte bound, the loss, the residual, host syncs (0), peak
+             memory, DSGT's tracker sum gap; the flash launches (counted
+             under ``lm_tracking``: layers x 8 oracle calls, all on the
+             wgmma body).  Then both engines at 2 layers through the
+             kernels and through plain attention: the plain model's loss
+             at every state the kernel path's oracle saw (2e-4), the
+             trajectories' displacement and tracker or difference (5e-2
+             relative), the tracking invariant (1e-5 of max |sum_i g_i|),
+             and a control step whose tracker update forgets ``- g_old``,
+             which must break it.
+20. tracking_routes — DSGT, EXTRA and gossip GD (grad step, one round)
+             for 200 steps on the label-skewed synthetic Titanic logreg:
+             the card against the port on the CPU (1e-4), 0 host syncs in
+             a run on the card.
+21. pushsum_pairwise — push-sum on a directed ring of 4 over 4 x
+             36,489,290 float32 (WRN-28-10's parameter count, normal from
+             a seed): numerator and weight totals kept (1e-5 relative),
+             estimates at the mean of x0 after 40 rounds, ms a round
+             against its byte bound; 64 pairwise rounds on the same
+             buffers: the mean kept (1e-6), ms a round; both against the
+             CPU on fed draws at width 4096 (2e-6).
+22. mixer_interop — ``TorchModelMixer`` over 4 port WRN-28-10 replicas
+             (``n_agents=1``, each its own init) on the ring: equal to
+             ``ConsensusEngine.mix_`` on the stacked buffers (2e-6), the
+             running statistics untouched, ms a mix against the bound of
+             reading and writing every parameter once.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -2157,6 +2190,451 @@ def phase_robust_routes():
         raise AssertionError(f"robust routes failed: {bad}")
 
 
+# ---------------------------------------------------------------------- #
+# Phases 19-22: gradient tracking, EXTRA, push-sum, pairwise, interop     #
+# ---------------------------------------------------------------------- #
+# tracking_slice: DSGT and EXTRA train the LM slice's model (4 agents on
+# the Metropolis ring, B 2 per agent, each agent its own token stream)
+# for 3 steps after init, EXTRA guarding every 2nd step.  Limits against
+# the same steps through plain attention (2 layers, where the plain
+# path's scores fit the card): the LM slice's (loss 2e-4, 5e-2 relative
+# on the state's displacement from init and on the tracker or
+# difference).  The tracking invariant: |sum_i y_i - sum_i g_i| within
+# 1e-5 of max |sum_i g_i| (float32 round-off of 4-term sums over 3
+# steps); the control, a tracker update without "- g_old", leaves a gap
+# of the size of sum_i g_old, which must exceed it.
+TRACK_STEPS, TRACK_ALPHA, TRACK_PROJECT_EVERY, TRACK_PLAIN_LAYERS = 3, 0.5, 2, 2
+SUM_GAP_RTOL = 1e-5
+# tracking_routes: card against the port on the CPU, 200 steps of the
+# Titanic logreg; float32 sums in another order over contracting steps.
+ROUTES_STEPS, ROUTES_ATOL = 200, 1e-4
+# pushsum_pairwise / mixer_interop: WRN-28-10's parameter count per agent.
+WRN_PARAMS = 36_489_290
+PUSHSUM_ROUNDS, PAIRWISE_ROUNDS, NARROW = 40, 64, 4096
+PUSHSUM_SUM_RTOL, PUSHSUM_MEAN_ATOL, PAIRWISE_MEAN_ATOL, INTEROP_ATOL = 1e-5, 1e-4, 1e-6, 2e-6
+
+
+def _lm_batches(steps: int, seed: int = 0):
+    """(steps, N, B, T) inputs and next-token labels on the card: agent
+    ``a`` reads cyclic windows from its own quarter of start phases."""
+    rng = np.random.default_rng(seed)
+    quarter = VOCAB // AGENTS
+    xs, ys = [], []
+    for _ in range(steps):
+        per = [pattern_batch(BATCH, range(quarter * a, quarter * (a + 1)), rng)
+               for a in range(AGENTS)]
+        xs.append(np.stack([p[0] for p in per]))
+        ys.append(np.stack([p[1] for p in per]))
+    return (torch.as_tensor(np.stack(xs), device=DEVICE),
+            torch.as_tensor(np.stack(ys), device=DEVICE))
+
+
+class LMOracle:
+    """The stacked gradient oracle of the LM: ``(x (N, P), step) ->
+    flat_grads`` by one forward/backward of the agent-stacked model on
+    batch ``step``, each agent on its own stream.  It records each call's
+    (N,) loss into a device tensor and CUDA events around the call, and
+    with ``keep_inputs`` a copy of each call's ``(x, step)``."""
+
+    def __init__(self, model, xs, ys, keep_inputs=False):
+        from distributed_learning_tpu_torch.training.trainer import get_loss
+
+        self.model, self.xs, self.ys = model, xs, ys
+        self.loss_fn = get_loss("cross_entropy")
+        self.losses = torch.zeros(xs.shape[0], AGENTS, device=DEVICE)
+        self.spans, self.inputs, self.keep_inputs = [], [], keep_inputs
+
+    def __call__(self, x, step):
+        if self.keep_inputs:
+            self.inputs.append((x.clone(), step))
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        model = self.model
+        model.flat_params.copy_(x)
+        model.flat_grads.zero_()
+        loss = self.loss_fn(model(self.xs[step]), self.ys[step])
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="grad and param do not obey")
+            loss.sum().backward()
+        self.losses[step] = loss.detach()
+        b.record()
+        self.spans.append((a, b))
+        return model.flat_grads
+
+
+def _lm_model(attn_impl, layers):
+    from distributed_learning_tpu_torch.models import TransformerLM
+
+    return TransformerLM(
+        vocab_size=VOCAB, num_layers=layers, num_heads=HEADS, head_dim=HEAD_DIM, max_len=SEQ,
+        attn_impl=attn_impl, dtype=torch.bfloat16, n_agents=AGENTS, device=DEVICE, seed=0)
+
+
+def _tracking_engine(kind, oracle):
+    from distributed_learning_tpu_torch.parallel import (
+        ExtraEngine, GradientTrackingEngine, Topology)
+
+    W = Topology.ring(AGENTS).metropolis_weights()
+    if kind == "dsgt":
+        return GradientTrackingEngine(W, oracle, learning_rate=TRACK_ALPHA, stacked_grads=True,
+                                      device=DEVICE)
+    return ExtraEngine(W, oracle, learning_rate=TRACK_ALPHA, stacked_grads=True,
+                       project_every=TRACK_PROJECT_EVERY, device=DEVICE)
+
+
+def _tracker_sum_gap_rel(state) -> tuple:
+    """(max |sum_i y_i - sum_i g_i|, that over max |sum_i g_i|)."""
+    gap = float((state.y.sum(0) - state.g.sum(0)).abs().max())
+    return gap, gap / float(state.g.sum(0).abs().max())
+
+
+def plain_losses(inputs) -> np.ndarray:
+    """The plain-attention model's (N,) loss at each (x, step) the kernel
+    path's oracle saw: forward only, same batches."""
+    from distributed_learning_tpu_torch.training.trainer import get_loss
+
+    model = _lm_model("full", TRACK_PLAIN_LAYERS)
+    xs, ys = _lm_batches(TRACK_STEPS + 2)
+    loss_fn = get_loss("cross_entropy")
+    out = []
+    with torch.no_grad():
+        for x, step in inputs:
+            model.flat_params.copy_(x)
+            out.append(loss_fn(model(xs[step]), ys[step]).cpu().numpy())
+    del model
+    return np.stack(out)
+
+
+def tracking_run(kind, attn_impl, layers, timed=False, control=False,
+                 keep_inputs=False) -> dict:
+    """``init`` and TRACK_STEPS steps of DSGT or EXTRA on the LM, each step
+    run alone between CUDA events (the oracle's own events split it into
+    gradients and gossip/update); returns the losses, the state and its
+    facts.  ``control`` (DSGT): one more step whose tracker update
+    forgets ``- g_old`` (the state's g zeroed before it).
+    ``keep_inputs``: also return a copy of every (x, step) the oracle
+    was given."""
+    from distributed_learning_tpu_torch.training.graphs import count_host_syncs
+
+    model = _lm_model(attn_impl, layers)
+    xs, ys = _lm_batches(TRACK_STEPS + 2)  # the last one for the control's step
+    oracle = LMOracle(model, xs, ys, keep_inputs)
+    eng = _tracking_engine(kind, oracle)
+    x0 = model.flat_params.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = eng.init(x0)
+    steps, trace = [], []
+    with count_host_syncs(eng.device) as syncs:
+        for _ in range(TRACK_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, tr = eng.run(state, 1)
+            b.record()
+            steps.append((a, b))
+            trace.append(tr)
+    torch.cuda.synchronize()
+    out = {"losses": oracle.losses[:TRACK_STEPS + 1].cpu().numpy(), "state": state, "x0": x0,
+           "residual_trace": torch.cat(trace).tolist(), "host_syncs_in_steps": syncs[0],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "params_per_agent": model.param_count()}
+    if keep_inputs:
+        out["inputs"] = oracle.inputs
+    if timed:
+        grad = [a.elapsed_time(b) for a, b in oracle.spans[1:]]
+        total = [a.elapsed_time(b) for a, b in steps]
+        out["step_ms"] = total
+        out["grad_ms"] = grad
+        out["gossip_update_ms"] = [t - g for t, g in zip(total, grad)]
+    if kind == "dsgt":
+        out["tracker_sum_gap"], out["tracker_sum_gap_rel"] = _tracker_sum_gap_rel(state)
+    if control:
+        bad, _ = eng.run(state._replace(g=torch.zeros_like(state.g)), 1)
+        out["control_sum_gap"], out["control_sum_gap_rel"] = _tracker_sum_gap_rel(bad)
+        del bad
+    del model, oracle, eng
+    return out
+
+
+def _update_bound_ms(kind, P) -> tuple:
+    """The byte bound of one step's gossip/update: each (N, P) float32
+    input read once and each output written once (a fused step that
+    mixes in the same pass).  DSGT reads x, y, g_old, g_new and writes x,
+    y (g_new is kept as g); EXTRA reads x, c, d, r, g_prev, g_new and
+    writes x, c, d, r."""
+    passes = 6 if kind == "dsgt" else 10
+    nbytes = passes * AGENTS * P * 4
+    return nbytes, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def _rel(a, b) -> float:
+    """Max over agents of ||a - b|| / ||b|| for (N, ...) tensors."""
+    d = (a.float() - b.float()).reshape(a.shape[0], -1).norm(dim=1)
+    return float((d / b.float().reshape(b.shape[0], -1).norm(dim=1)).max())
+
+
+def phase_tracking_slice(fa):
+    """DSGT and EXTRA on the LM slice's model at full depth and width,
+    the kernels launched by the stacked oracle counted under
+    ``lm_tracking``; then both at 2 layers through the kernels and through
+    plain attention from the same init and batches."""
+    fa.reset_launch_counts()
+    full = {}
+    for kind in ("dsgt", "extra"):
+        full[kind] = tracking_run(kind, "flash", LAYERS, timed=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    calls = 2 * (TRACK_STEPS + 1)  # oracle calls: init + the steps, per engine
+    expect = {name: LAYERS * calls for name in launches}
+    bad = []
+    for kind, r in full.items():
+        nbytes, bound = _update_bound_ms(kind, r["params_per_agent"])
+        st = r.pop("state")
+        finite = bool(torch.isfinite(st.x).all())
+        r.pop("x0")
+        losses = r.pop("losses")
+        emit({"phase": "tracking_slice", "engine": kind, "layers": LAYERS, "agents": AGENTS,
+              "params_per_agent": r["params_per_agent"], "alpha": TRACK_ALPHA,
+              "project_every": TRACK_PROJECT_EVERY if kind == "extra" else None,
+              "loss_per_call": losses.tolist(), "update_bytes_bound": nbytes,
+              "update_bound_ms": bound,
+              "update_over_bound": [t / bound for t in r["gossip_update_ms"]],
+              **r, "finite": finite})
+        if not (finite and np.isfinite(losses).all()):
+            bad.append(f"{kind}/not_finite")
+        if r["host_syncs_in_steps"] not in (0, None):
+            bad.append(f"{kind}/host_syncs")
+        del st
+    if not full["dsgt"]["tracker_sum_gap_rel"] <= SUM_GAP_RTOL:
+        bad.append("dsgt/sum_gap")
+    emit({"phase": "tracking_slice", "launches": launches, "expected_launches": expect,
+          "launches_by_body": bodies})
+    if launches != expect:
+        bad.append("launches")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if bodies[name].get("wgmma", 0) != launches[name]:
+            bad.append(f"{name}_left_wgmma")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Against plain attention, 2 layers: the plain model's loss at every
+    # state the kernel path's oracle saw, and the two trajectories; the
+    # DSGT run adds the control.
+    for kind in ("dsgt", "extra"):
+        runs = {impl: tracking_run(kind, impl, TRACK_PLAIN_LAYERS, keep_inputs=(impl == "flash"),
+                                   control=(kind == "dsgt" and impl == "flash"))
+                for impl in ("flash", "full")}
+        f, p = runs["flash"], runs["full"]
+        plain = plain_losses(f.pop("inputs")[:TRACK_STEPS + 1])
+        loss_err = float(np.max(np.abs(f["losses"] - plain) / np.abs(plain)))
+        disp = _rel(f["state"].x - f["x0"], p["state"].x - p["x0"])
+        second = "y" if kind == "dsgt" else "d"
+        sec = _rel(getattr(f["state"], second), getattr(p["state"], second))
+        ok = loss_err <= LOSS_RTOL and disp <= GRAD_RTOL and sec <= GRAD_RTOL
+        gaps = {k: f[k] for k in ("tracker_sum_gap_rel", "control_sum_gap_rel") if k in f}
+        if kind == "dsgt":
+            ok = ok and gaps["tracker_sum_gap_rel"] <= SUM_GAP_RTOL < gaps["control_sum_gap_rel"]
+        emit({"phase": "tracking_slice", "check": "flash_vs_plain", "engine": kind,
+              "layers": TRACK_PLAIN_LAYERS, "loss_rel_err_same_state": loss_err,
+              "trajectory_loss_rel_err": float(np.max(np.abs(f["losses"] - p["losses"])
+                                                      / np.abs(p["losses"]))),
+              "displacement_rel_err": disp, f"{second}_rel_err": sec, **gaps,
+              "limits": {"loss_rtol": LOSS_RTOL, "state_rtol": GRAD_RTOL,
+                         "sum_gap_rtol": SUM_GAP_RTOL}, "ok": ok})
+        if not ok:
+            bad.append(f"{kind}/flash_vs_plain")
+        del runs, f, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"tracking_slice failed: {bad}")
+    return launches
+
+
+def _titanic_routes(device):
+    """DSGT, EXTRA (guard every 2nd step) and the reference's gossip GD
+    recipe (grad step, then one round) for ROUTES_STEPS steps on the
+    label-skewed synthetic Titanic of examples/dsgt_titanic.py, on
+    ``device``: final states, residual traces, host syncs in the runs."""
+    from distributed_learning_tpu_torch.data import load_titanic, split_data
+    from distributed_learning_tpu_torch.models.logreg import loss_fn
+    from distributed_learning_tpu_torch.parallel import (
+        ConsensusEngine, ExtraEngine, GradientTrackingEngine, Topology)
+    from distributed_learning_tpu_torch.training.graphs import count_host_syncs
+
+    X_tr, y_tr, _, _ = load_titanic()
+    order = np.argsort(y_tr)
+    shards = split_data(X_tr[order], y_tr[order], AGENTS)
+    m = min(len(shards[i][0]) for i in range(AGENTS))
+    X = torch.as_tensor(np.stack([shards[i][0][:m] for i in range(AGENTS)]), dtype=torch.float32,
+                        device=device)
+    y = torch.as_tensor(np.stack([shards[i][1][:m] for i in range(AGENTS)]), dtype=torch.float32,
+                        device=device)
+
+    def grads(w, step):
+        with torch.enable_grad():
+            w = w.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(loss_fn(w, X, y, 1e-2).sum(), w)
+        return g
+
+    W = Topology.ring(AGENTS).metropolis_weights()
+    x0 = torch.zeros(AGENTS, X.shape[-1], device=device)
+    out = {}
+    for name, eng in (
+            ("dsgt", GradientTrackingEngine(W, grads, learning_rate=0.5, stacked_grads=True,
+                                            device=device)),
+            ("extra", ExtraEngine(W, grads, learning_rate=0.5, project_every=2,
+                                  stacked_grads=True, device=device))):
+        state = eng.init(x0)
+        with count_host_syncs(eng.device) as syncs:
+            state, trace = eng.run(state, ROUTES_STEPS)
+        out[name] = (state.x.cpu(), trace.cpu(), syncs[0])
+    engine = ConsensusEngine(W, device=device)
+    x = {"float32": x0.clone()}
+    trace = torch.empty(ROUTES_STEPS, device=device)
+    with count_host_syncs(engine.device) as syncs:
+        for t in range(ROUTES_STEPS):
+            x["float32"].sub_(grads(x["float32"], t), alpha=0.5)
+            engine.mix_(x, 1)
+            engine.max_deviation_(x, trace[t])
+    out["gossip"] = (x["float32"].cpu(), trace.cpu(), syncs[0])
+    return out
+
+
+def phase_tracking_routes():
+    """DSGT, EXTRA and gossip GD on the Titanic logreg: the card against
+    the port on the CPU, states and residual traces within ROUTES_ATOL,
+    and no host sync inside a run on the card."""
+    card, cpu = _titanic_routes(DEVICE), _titanic_routes("cpu")
+    bad = []
+    for name in card:
+        (x, tr, syncs), (cx, ctr, _) = card[name], cpu[name]
+        dx, dtr = float((x - cx).abs().max()), float((tr - ctr).abs().max())
+        ok = dx <= ROUTES_ATOL and dtr <= ROUTES_ATOL and syncs in (0, None)
+        emit({"phase": "tracking_routes", "route": name, "steps": ROUTES_STEPS,
+              "card_vs_cpu_state_max_abs": dx, "card_vs_cpu_trace_max_abs": dtr,
+              "final_residual": float(tr[-1]), "host_syncs_in_run": syncs,
+              "limit": ROUTES_ATOL, "ok": ok})
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"tracking_routes failed: {bad}")
+
+
+def phase_pushsum_pairwise():
+    """Push-sum on a directed ring of 4 over WRN-28-10-sized parameter
+    buffers (4 x 36,489,290 float32, normal from a seed): totals kept,
+    estimates at the mean of x0, each round's time against its byte
+    bound; 64 pairwise rounds: the mean kept, time per round; both
+    against the CPU on fed draws at a narrow width."""
+    from distributed_learning_tpu_torch.parallel import (
+        ConsensusEngine, PushSumEngine, Topology, push_sum_matrix)
+
+    P = push_sum_matrix({i: [(i + 1) % AGENTS] for i in range(AGENTS)})
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    x0 = torch.randn(AGENTS, WRN_PARAMS, generator=g, device=DEVICE)
+    eng = PushSumEngine(P, device=DEVICE)
+    num, den = eng.lift(x0)
+    s_num, s_den = num["float32"].double().sum(0), float(den.double().sum())
+    spare = {k: torch.empty_like(v) for k, v in num.items()}
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    den = eng.rounds_(num, den, PUSHSUM_ROUNDS, spare)
+    b.record()
+    torch.cuda.synchronize()
+    round_ms = a.elapsed_time(b) / PUSHSUM_ROUNDS
+    num_rel = float((num["float32"].double().sum(0) - s_num).norm() / s_num.norm())
+    den_rel = abs(float(den.double().sum()) - s_den) / s_den
+    est = num["float32"] / den[:, None]
+    mean_err = float((est - x0.mean(0, keepdim=True)).abs().max())
+    round_bytes = 2 * x0.numel() * 4  # the numerator read and written once
+    bound = round_bytes / PEAK_HBM_BYTES * 1e3
+    del num, spare, est
+    # Pairwise rounds on the same buffers, draws from a card generator.
+    ring = ConsensusEngine(Topology.ring(AGENTS).metropolis_weights(), device=DEVICE)
+    buf = {"float32": x0}
+    mean0 = x0.double().mean(0)
+    draws = torch.randint(0, len(ring.pairwise_edges()), (PAIRWISE_ROUNDS,), generator=g,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    a.record()
+    ring.pairwise_(buf, draws)
+    b.record()
+    torch.cuda.synchronize()
+    pair_ms = a.elapsed_time(b) / PAIRWISE_ROUNDS
+    pair_mean = float((x0.double().mean(0) - mean0).abs().max())
+    pair_bytes = 4 * WRN_PARAMS * 4  # two rows read, two rows written
+    del x0, buf
+    torch.cuda.empty_cache()
+    # The card against the CPU at a narrow width, draws fed.
+    xn = torch.from_numpy(np.random.default_rng(9).normal(size=(AGENTS, NARROW))
+                          .astype(np.float32))
+    fed = torch.from_numpy(np.random.default_rng(10).integers(0, AGENTS, PAIRWISE_ROUNDS))
+    cpu_ring = ConsensusEngine(Topology.ring(AGENTS).metropolis_weights(), device="cpu")
+    pw_gap = float((ring.mix_pairwise_edges({"x": xn.to(DEVICE)}, fed)["x"].cpu()
+                    - cpu_ring.mix_pairwise_edges({"x": xn}, fed)["x"]).abs().max())
+    w = [1.0, 2.0, 3.0, 4.0]
+    ps_gap = float((eng.mix(xn.to(DEVICE), 7, weights=w).cpu()
+                    - PushSumEngine(P, device="cpu").mix(xn, 7, weights=w)).abs().max())
+    ok = (num_rel <= PUSHSUM_SUM_RTOL and den_rel <= PUSHSUM_SUM_RTOL
+          and mean_err <= PUSHSUM_MEAN_ATOL and pair_mean <= PAIRWISE_MEAN_ATOL
+          and pw_gap <= INTEROP_ATOL and ps_gap <= INTEROP_ATOL)
+    emit({"phase": "pushsum_pairwise", "agents": AGENTS, "width": WRN_PARAMS,
+          "pushsum_rounds": PUSHSUM_ROUNDS, "pushsum_round_ms": round_ms,
+          "pushsum_round_bound_ms": bound, "pushsum_round_over_bound": round_ms / bound,
+          "numerator_sum_rel_err": num_rel, "weight_sum_rel_err": den_rel,
+          "estimate_vs_mean_max_abs": mean_err,
+          "pairwise_rounds": PAIRWISE_ROUNDS, "pairwise_round_ms": pair_ms,
+          "pairwise_round_bound_ms": pair_bytes / PEAK_HBM_BYTES * 1e3,
+          "pairwise_mean_drift_max_abs": pair_mean,
+          "narrow_card_vs_cpu_max_abs": {"pairwise_fed": pw_gap, "pushsum_weighted": ps_gap},
+          "limits": {"sum_rtol": PUSHSUM_SUM_RTOL, "mean_atol": PUSHSUM_MEAN_ATOL,
+                     "pairwise_mean_atol": PAIRWISE_MEAN_ATOL, "card_vs_cpu": INTEROP_ATOL},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("pushsum_pairwise failed")
+
+
+def phase_mixer_interop():
+    """``TorchModelMixer`` over 4 port WRN-28-10 replicas (``n_agents=1``,
+    each its own init) on the ring: the mixed parameters equal
+    ``ConsensusEngine.mix_`` on the stacked buffers, the running
+    statistics stay per replica, and the time per mix against the bound
+    of reading and writing every parameter once."""
+    from distributed_learning_tpu_torch.interop import TorchModelMixer
+    from distributed_learning_tpu_torch.models import WideResNet
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+
+    models = {a: WideResNet(28, 10, n_agents=1, device=DEVICE, seed=a) for a in range(AGENTS)}
+    for a, m in models.items():
+        m.flat_stats.fill_(float(a))
+    W = Topology.ring(AGENTS).metropolis_weights()
+    ref = {"float32": torch.cat([m.flat_params for m in models.values()]).clone()}
+    ConsensusEngine(W, device=DEVICE).mix_(ref, 1)
+    mixer = TorchModelMixer(models, W)
+    mixer.mix(1)
+    err = max(float((m.flat_params[0] - ref["float32"][a]).abs().max())
+              for a, m in models.items())
+    stats_kept = all(bool((m.flat_stats == float(a)).all()) for a, m in models.items())
+    n_tensors = len(list(models[0].parameters()))
+    ms = cuda_ms(lambda: mixer.mix(1), 5)
+    P = models[0].param_count()
+    nbytes = 2 * AGENTS * P * 4
+    bound = nbytes / PEAK_HBM_BYTES * 1e3
+    ok = err <= INTEROP_ATOL and stats_kept
+    emit({"phase": "mixer_interop", "replicas": AGENTS, "params_per_replica": P,
+          "parameter_tensors_per_replica": n_tensors, "max_abs_vs_engine": err,
+          "statistics_per_replica_kept": stats_kept, "mix_ms": ms, "mix_bound_ms": bound,
+          "mix_over_bound": ms / bound, "limit": INTEROP_ATOL, "ok": ok})
+    del models, mixer, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("mixer_interop failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2213,6 +2691,11 @@ def main(argv=None) -> int:
     phase_async_slice(dense_timing)
     phase_robust_slice(dense_timing)
     phase_robust_routes()
+    # Gradient tracking and EXTRA on the LM, push-sum, pairwise, interop.
+    tracking_launches = phase_tracking_slice(fa)
+    phase_tracking_routes()
+    phase_pushsum_pairwise()
+    phase_mixer_interop()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -2220,7 +2703,8 @@ def main(argv=None) -> int:
             "name": k.name, "route": "cuda", "source": SOURCES[k.name],
             "replaces": k.replaces, "launches": launches[k.name],
             "launches_by_path": {"slice": launches[k.name],
-                                 "lm_superstep": ss_launches[k.name]},
+                                 "lm_superstep": ss_launches[k.name],
+                                 "lm_tracking": tracking_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -24,12 +24,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = [
+    "stack_trees",
+    "unstack_tree",
     "FusedLayout",
     "fused_layout",
     "flatten_stacked",
@@ -38,6 +40,9 @@ __all__ = [
     "global_average",
     "agent_deviations",
     "max_deviation",
+    "max_std",
+    "weighted_lift",
+    "weighted_readout",
     "stale_weight_matrix",
     "presence_weight_matrix",
     "stale_weighted_mix",
@@ -50,6 +55,41 @@ __all__ = [
 ]
 
 Stacked = Dict[str, torch.Tensor]
+Tree = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def _leaf(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
+def stack_trees(trees: Sequence[Tree]) -> Tree:
+    """Stack N per-agent values (each a tensor, an array or a ``{name:
+    tensor}`` dict of one structure) into one with a leading agent axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: torch.stack([_leaf(t[k]) for t in trees], dim=0) for k in first}
+    return torch.stack([_leaf(t) for t in trees], dim=0)
+
+
+def unstack_tree(stacked: Tree, n: int) -> List[Tree]:
+    """Split the leading agent axis back into N per-agent values (views).
+
+    Every tensor must carry the leading agent axis of size ``n`` (the
+    :func:`stack_trees` invariant); one without it is rejected rather
+    than handed to every agent, which would alias one state n ways.
+    """
+    leaves = stacked.items() if isinstance(stacked, dict) else [("", stacked)]
+    for name, x in leaves:
+        shape = tuple(getattr(x, "shape", ()))
+        if len(shape) == 0 or shape[0] != n:
+            raise ValueError(
+                f"unstack_tree: {name!r} has shape {shape} — every tensor of a "
+                f"stacked state must have a leading agent axis of size {n} "
+                "(stack scalars with stack_trees first)"
+            )
+    if isinstance(stacked, dict):
+        return [{k: x[i] for k, x in stacked.items()} for i in range(n)]
+    return [stacked[i] for i in range(n)]
 
 
 class _LeafSlot(NamedTuple):
@@ -488,3 +528,34 @@ def max_deviation(stacked: Stacked) -> torch.Tensor:
     """Scalar: max over agents of :func:`agent_deviations` — the residual the
     eps-stopping rule compares against."""
     return agent_deviations(stacked).max()
+
+
+def max_std(stacked: Stacked) -> torch.Tensor:
+    """Max over parameters of the across-agent standard deviation: the
+    population std (``jnp.std``'s ddof 0, so ``correction=0``; torch's
+    default unbiased estimator would read sqrt(n/(n-1)) too high)."""
+    return torch.stack([
+        torch.std(x.to(torch.float32), dim=0, correction=0).max()
+        for x in stacked.values()
+    ]).max()
+
+
+def _agent_axis(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return w.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def weighted_lift(stacked: Stacked, weights: torch.Tensor) -> Stacked:
+    """Rescale each agent's value by ``w_i / mean(w)``, so that plain
+    average consensus computes the *weighted* average:
+    ``(1/n) sum y_i = (sum w_i x_i) / (sum w_i)``.  The scale is cast to
+    each tensor's dtype before the product, as in the reference."""
+    w = weights / weights.mean()
+    return {k: x * _agent_axis(w, x).to(x.dtype) for k, x in stacked.items()}
+
+
+def weighted_readout(stacked_num: Stacked, stacked_den: torch.Tensor) -> Stacked:
+    """Finish a push-sum style weighted consensus: the mixed numerator
+    divided by the mixed scalar weight channel (cast to each tensor's
+    dtype)."""
+    return {k: x / _agent_axis(stacked_den, x).to(x.dtype)
+            for k, x in stacked_num.items()}

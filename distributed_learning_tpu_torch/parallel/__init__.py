@@ -1,5 +1,7 @@
-"""Topology, mixing-matrix checks, the dense consensus engine (plain,
-async and Byzantine-robust rounds) and CHOCO compressed gossip."""
+"""Topology, fastest-mixing weights, mixing-matrix checks and schedules,
+the dense consensus engine (plain, pairwise, weighted, async and
+Byzantine-robust rounds, the ``Mixer`` surface), CHOCO compressed gossip,
+push-sum, gradient tracking and EXTRA."""
 
 from distributed_learning_tpu_torch.parallel.compression import (
     ChocoGossipEngine,
@@ -15,13 +17,34 @@ from distributed_learning_tpu_torch.parallel.compression import (
     scaled_sign,
     top_k,
 )
-from distributed_learning_tpu_torch.parallel.consensus import AsyncGossipState, ConsensusEngine
+from distributed_learning_tpu_torch.parallel.consensus import (
+    AsyncGossipState,
+    ConsensusEngine,
+    Mixer,
+)
+from distributed_learning_tpu_torch.parallel.extra import ExtraEngine, ExtraState
+from distributed_learning_tpu_torch.parallel.fast_averaging import (
+    FastAveragingResult,
+    find_optimal_weights,
+    solve_fastest_mixing,
+)
+from distributed_learning_tpu_torch.parallel.gradient_tracking import (
+    GradientTrackingEngine,
+    TrackingState,
+)
+from distributed_learning_tpu_torch.parallel.pushsum import PushSumEngine, push_sum_matrix
 from distributed_learning_tpu_torch.parallel.robust import RobustConfig, as_robust_config
 from distributed_learning_tpu_torch.parallel.schedule import (
+    MatchingSchedule,
     chebyshev_omegas,
     validate_mixing_matrix,
 )
-from distributed_learning_tpu_torch.parallel.topology import Topology, gamma
+from distributed_learning_tpu_torch.parallel.topology import (
+    Topology,
+    gamma,
+    is_connected,
+    spectral_gap,
+)
 
 __all__ = [
     "AsyncGossipState",
@@ -29,19 +52,32 @@ __all__ = [
     "ChocoState",
     "Compressor",
     "ConsensusEngine",
+    "ExtraEngine",
+    "ExtraState",
+    "FastAveragingResult",
     "FusedCompressor",
+    "GradientTrackingEngine",
+    "MatchingSchedule",
+    "Mixer",
+    "PushSumEngine",
+    "RobustConfig",
+    "Topology",
+    "TrackingState",
     "approx_top_k",
+    "as_robust_config",
+    "chebyshev_omegas",
     "compressor_delta",
     "compressor_from_spec",
+    "find_optimal_weights",
+    "gamma",
     "identity",
     "int8_quant",
+    "is_connected",
+    "push_sum_matrix",
     "random_k",
-    "RobustConfig",
-    "as_robust_config",
     "scaled_sign",
+    "solve_fastest_mixing",
+    "spectral_gap",
     "top_k",
-    "Topology",
-    "chebyshev_omegas",
-    "gamma",
     "validate_mixing_matrix",
 ]

@@ -463,12 +463,13 @@ class ChocoGossipEngine:
     per-leaf oracle, base compressor per leaf view and one GEMM per
     leaf); ``budget``: ``"per-leaf"`` or ``"global"`` (fused only);
     ``error_feedback``: bank the mass the compressor drops, ``delta - q``,
-    and offer it again next round (fused only).
+    and offer it again next round (fused only); ``device``: the card
+    unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, W: np.ndarray, compressor: Compressor, *, gamma: float = 0.3,
                  fused: bool = True, budget: str = "per-leaf", error_feedback: bool = False,
-                 device="cpu"):
+                 device=None):
         self.engine = ConsensusEngine(W, device=device)
         self.n = self.engine.n
         self.device = self.engine.device

@@ -32,25 +32,34 @@ place, and the publish test runs on the device, so a captured graph
 replays the straggler's cadence.  The Byzantine-robust rounds (clipped,
 trimmed-mean, coordinate-median; ``parallel/robust.py``) run through
 :meth:`ConsensusEngine.mix_robust_` and
-:meth:`ConsensusEngine.mix_async_robust_`.  The sharded
-``torch.distributed`` route is not ported yet (ROADMAP.md).
+:meth:`ConsensusEngine.mix_async_robust_`.
+
+Also here: randomized pairwise gossip (:meth:`ConsensusEngine.mix_pairwise`,
+one edge per round, the literal model), the weighted consensus round
+(:meth:`ConsensusEngine.run_round`), :meth:`ConsensusEngine.max_std`, and
+:class:`Mixer`, the reference's synchronous mixer surface over per-agent
+parameter dicts.  The sharded ``torch.distributed`` route is not ported
+yet (ROADMAP.md), nor are the reference's obs hooks (spans, round and
+layout counters), which wait for the port's obs layer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.ops import mixing as ops
 from distributed_learning_tpu_torch.parallel.schedule import (
     chebyshev_omegas,
     validate_mixing_matrix,
 )
+from distributed_learning_tpu_torch.parallel.topology import Topology
 from distributed_learning_tpu_torch.parallel.topology import gamma as exact_gamma
 
-__all__ = ["AsyncGossipState", "ConsensusEngine"]
+__all__ = ["AsyncGossipState", "ConsensusEngine", "Mixer"]
 
 Stacked = Dict[str, torch.Tensor]
 Spare = Sequence[Stacked]
@@ -86,16 +95,18 @@ class ConsensusEngine:
     """Executes gossip rounds on stacked per-agent state.
 
     ``W`` is the (n, n) symmetric row-stochastic mixing matrix; the state
-    passed to each method is a ``{name: (n, ...)}`` dict on ``device``.
+    passed to each method is a ``{name: (n, ...)}`` dict on ``device``
+    (the card unless ``device="cpu"`` is asked for).
     """
 
-    def __init__(self, W: np.ndarray, *, device="cpu"):
+    def __init__(self, W: np.ndarray, *, device=None):
         self.W = validate_mixing_matrix(W)
         self.n = self.W.shape[0]
         self.gamma = exact_gamma(self.W)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._W_dev = torch.as_tensor(self.W, dtype=torch.float32, device=self.device)
         self._periods_dev: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self._edges_dev: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------ #
     def spare_for(self, buffers: Stacked, sets: int = 2) -> Tuple[Stacked, ...]:
@@ -387,6 +398,75 @@ class ConsensusEngine:
         return (ops.unflatten_stacked(buffers, layout),
                 AsyncGossipState(ops.unflatten_stacked(st.pub, layout), st.age, st.rnd), mass)
 
+    # -- weighted consensus and randomized pairwise gossip ------------- #
+    def run_round(self, stacked: Stacked, weights, *, convergence_eps: float = 1e-4,
+                  max_rounds: int = 10_000) -> Stacked:
+        """Weighted average consensus: every agent contributes its value
+        with weight ``w_i`` (e.g. its sample count) and receives the
+        weighted average.  Values are lifted to ``x_i w_i / mean(w)``
+        (:func:`ops.weighted_lift`), then gossiped until the global
+        symmetric residual (the max agent deviation) drops below
+        ``convergence_eps``, at least one round.  The reference's
+        ``ConsensusAgent.run_round`` stops on a one-sided per-agent check,
+        a recorded defect this follows the JAX package in not keeping."""
+        w = torch.as_tensor(np.asarray(weights.cpu() if isinstance(weights, torch.Tensor)
+                                       else weights, dtype=np.float32), device=self.device)
+        if tuple(w.shape) != (self.n,):
+            raise ValueError(f"weights must have shape ({self.n},), got {tuple(w.shape)}")
+        total = float(w.sum())
+        if not np.isfinite(total) or total <= 0.0:
+            raise ValueError(f"agent weights must sum to a positive finite value, got {total}")
+        mixed, _, _ = self.mix_until(ops.weighted_lift(stacked, w), eps=convergence_eps,
+                                     min_times=1, max_rounds=max_rounds)
+        return mixed
+
+    def pairwise_edges(self) -> np.ndarray:
+        """(E, 2) edges ``i < j`` of W's support in row-major order, an edge
+        being a ``|W_ij| > 1e-12`` entry (SDP weights may be negative, and
+        round-off must not become a full-strength averaging edge)."""
+        return np.argwhere(np.abs(np.triu(self.W, 1)) > 1e-12)
+
+    def mix_pairwise(self, stacked: Stacked, generator: torch.Generator,
+                     rounds: int) -> Stacked:
+        """``rounds`` of randomized pairwise gossip (Boyd-Ghosh-Prabhakar-
+        Shah 2006): each round one edge of the mixing graph is drawn
+        uniformly from ``generator`` and its two endpoints average,
+        ``x_i, x_j <- (x_i + x_j) / 2``.  The mean is kept exactly every
+        round.  The draws are made up front on the generator's device
+        (``torch.Generator`` cannot replay the reference's ``jax.random``
+        stream; :meth:`mix_pairwise_edges` takes fed draws)."""
+        n_edges = len(self.pairwise_edges())
+        if n_edges == 0:
+            return stacked
+        draws = torch.randint(0, n_edges, (int(rounds),), generator=generator,
+                              device=generator.device)
+        return self.mix_pairwise_edges(stacked, draws)
+
+    def mix_pairwise_edges(self, stacked: Stacked, draws) -> Stacked:
+        """Pairwise gossip with the per-round edge indices ``draws`` (into
+        :meth:`pairwise_edges`) given: on a copy of ``stacked``."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        self.pairwise_(buffers, draws)
+        return ops.unflatten_stacked(buffers, layout)
+
+    def pairwise_(self, buffers: Stacked, draws) -> None:
+        """The pairwise rounds in place on fused buffers.  The two rows of
+        a round are gathered and written back through device index tensors
+        (``index_select`` / ``index_copy_``), so no round reads the device
+        from the host.  The average is taken in float32 and stored in
+        each buffer's dtype."""
+        if self._edges_dev is None:
+            self._edges_dev = torch.as_tensor(self.pairwise_edges(), dtype=torch.int64,
+                                              device=self.device)
+        draws = torch.as_tensor(draws, dtype=torch.int64).to(self.device)
+        pairs = self._edges_dev.index_select(0, draws)
+        for r in range(pairs.shape[0]):
+            ij = pairs[r]
+            for x in buffers.values():
+                rows = x.index_select(0, ij).to(torch.float32)
+                avg = ((rows[0] + rows[1]) * 0.5).to(x.dtype)
+                x.index_copy_(0, ij, avg.expand(2, *avg.shape))
+
     def deviations(self, stacked: Stacked) -> torch.Tensor:
         """(n,) per-agent L2 distance from the mean parameter vector."""
         return ops.agent_deviations(stacked)
@@ -394,7 +474,96 @@ class ConsensusEngine:
     def max_deviation(self, stacked: Stacked) -> torch.Tensor:
         return ops.max_deviation(stacked)
 
+    def max_std(self, stacked: Stacked) -> torch.Tensor:
+        """Max across-agent parameter std (population std), a 0-dim device
+        tensor."""
+        return ops.max_std(stacked)
+
     def max_deviation_(self, stacked: Stacked, out: torch.Tensor) -> None:
         """The residual written into the 0-dim device tensor ``out``, with
         no host read: what a captured gossip program reports."""
         out.copy_(ops.max_deviation(stacked))
+
+
+class Mixer:
+    """The reference's synchronous in-process mixer surface
+    (``utils/consensus_simple/mixer.py``), device-resident.
+
+    Takes per-agent parameters ``{token: {name: tensor}}`` (or ``{token:
+    tensor}``) and the reference's ``{agent: {neighbor: weight}}``
+    topology dict, or an (n, n) mixing matrix with ``tokens``; stacks them
+    into fused ``(n, P)`` buffers on ``device`` (the card unless
+    ``device="cpu"``) and gossips there with a :class:`ConsensusEngine`.
+    """
+
+    def __init__(self, params: Mapping[Hashable, object], topology, *,
+                 tokens: Optional[Sequence[Hashable]] = None, device=None, logger=None,
+                 max_rounds: int = 10_000):
+        if isinstance(topology, Mapping):
+            topo, W = Topology.from_neighbor_dict(topology)
+            self.tokens = topo.tokens
+        else:
+            W = np.asarray(topology)
+            self.tokens = tuple(tokens) if tokens is not None else tuple(range(W.shape[0]))
+            if len(self.tokens) != W.shape[0]:
+                raise ValueError(f"expected {W.shape[0]} tokens for a {W.shape} mixing "
+                                 f"matrix, got {len(self.tokens)}")
+        self.engine = ConsensusEngine(W, device=device)
+        self.device = self.engine.device
+        self._logger = logger
+        self._max_rounds = max_rounds
+        self.set_parameters(params)
+
+    def mix(self, times: int = 1, eps: Optional[float] = None) -> int:
+        """Gossip ``times`` rounds; with ``eps`` keep going until the max
+        deviation drops below it (at least ``times`` rounds).  Returns the
+        number of rounds run."""
+        if len(self.tokens) <= 1:
+            return 0
+        if self._logger is not None:
+            self._logger.debug(f"Mixer start with times= {times}, eps= {eps}")
+        if eps is None:
+            self.engine.mix_(self._buffers, times)
+            done = int(times)
+        else:
+            done, _ = self.engine.mix_until_(self._buffers, eps=eps, min_times=times,
+                                             max_rounds=self._max_rounds)
+        if self._logger is not None:
+            self._logger.debug(f"Mixer finished with {done} times")
+        return done
+
+    def stacked_parameters(self):
+        """The stacked state in the callers' structure (views of the fused
+        buffers)."""
+        stacked = ops.unflatten_stacked(self._buffers, self._layout)
+        return stacked[""] if self._bare else stacked
+
+    def parameters(self) -> Dict[Hashable, object]:
+        """Current per-agent parameters (views of the fused buffers)."""
+        return dict(zip(self.tokens, ops.unstack_tree(self.stacked_parameters(),
+                                                      len(self.tokens))))
+
+    def fused_state(self) -> Tuple[Stacked, ops.FusedLayout]:
+        """The fused ``(n, P)`` buffers (one per dtype) and their layout:
+        what an adapter such as ``interop.TorchModelMixer`` gathers into
+        and scatters from."""
+        return self._buffers, self._layout
+
+    def set_parameters(self, params: Mapping[Hashable, object]) -> None:
+        """Replace the device state from per-agent parameters."""
+        missing = [t for t in self.tokens if t not in params]
+        if missing:
+            raise ValueError(f"params missing for agents: {missing}")
+        stacked = ops.stack_trees([params[t] for t in self.tokens])
+        self._bare = not isinstance(stacked, dict)
+        if self._bare:
+            stacked = {"": stacked}
+        stacked = {k: v.to(self.device) for k, v in stacked.items()}
+        self._buffers, self._layout = ops.flatten_stacked(stacked)
+
+    def get_parameters_deviation(self) -> Dict[Hashable, float]:
+        devs = self.engine.deviations(self._buffers).cpu().numpy()
+        return {t: float(d) for t, d in zip(self.tokens, devs)}
+
+    def get_max_parameters_std(self) -> float:
+        return float(self.engine.max_std(self._buffers))

@@ -8,9 +8,9 @@ unchanged with either package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Hashable, List, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Tuple
 
-__all__ = ["TelemetryProcessor", "RecordingTelemetry"]
+__all__ = ["TelemetryProcessor", "RecordingTelemetry", "CallbackTelemetry"]
 
 
 class TelemetryProcessor:
@@ -34,3 +34,13 @@ class RecordingTelemetry(TelemetryProcessor):
         for tok, payload in self.records:
             out.setdefault(tok, []).append(payload)
         return out
+
+
+class CallbackTelemetry(TelemetryProcessor):
+    """Adapts a plain function ``f(token, payload)``."""
+
+    def __init__(self, fn: Callable[[Hashable, Any], None]) -> None:
+        self._fn = fn
+
+    def process(self, token: Hashable, payload: Any) -> None:
+        self._fn(token, payload)

@@ -155,9 +155,11 @@ def test_fused_compressor_rejects_bad_configs():
     with pytest.raises(ValueError, match="named compressor"):
         tc.FusedCompressor(lambda v, g: v, budget="global")
     with pytest.raises(ValueError, match="fused=True"):
-        tc.ChocoGossipEngine(RING, tc.top_k(0.1), fused=False, budget="global")
+        tc.ChocoGossipEngine(RING, tc.top_k(0.1), fused=False, budget="global",
+                            device="cpu")
     with pytest.raises(ValueError, match="fused=True"):
-        tc.ChocoGossipEngine(RING, tc.top_k(0.1), fused=False, error_feedback=True)
+        tc.ChocoGossipEngine(RING, tc.top_k(0.1), fused=False, error_feedback=True,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("budget", ["per-leaf", "global"])
@@ -226,7 +228,7 @@ def test_choco_engine_run_matches_reference(name):
     cfg = dict(ENGINES[name])
     spec = cfg.pop("spec")
     kw = dict(gamma=cfg.pop("gamma", 0.2), **cfg)
-    port = tc.ChocoGossipEngine(RING, tc.compressor_from_spec(spec), **kw)
+    port = tc.ChocoGossipEngine(RING, tc.compressor_from_spec(spec), device="cpu", **kw)
     ref = jc.ChocoGossipEngine(RING, jc.compressor_from_spec(spec), **kw)
     x0 = _x0()
     sp, tp = port.run(port.init({k: torch.tensor(v) for k, v in x0.items()}, seed=3), 20)
@@ -299,7 +301,7 @@ def test_choco_with_the_references_random_k_masks():
         flat = v.reshape(-1)
         return tc._keep(flat, torch.tensor(np.array(next(feed)), dtype=torch.long)).reshape(v.shape)
 
-    port = tc.ChocoGossipEngine(RING, tc.Compressor(fed), gamma=0.2)
+    port = tc.ChocoGossipEngine(RING, tc.Compressor(fed), gamma=0.2, device="cpu")
     sp, tp = port.run(port.init({k: torch.tensor(v) for k, v in sorted(x0.items())}), rounds)
     assert next(feed, None) is None
     np.testing.assert_allclose(tp.numpy(), np.asarray(tj), atol=2e-6, rtol=0)
@@ -313,7 +315,8 @@ def test_choco_round_is_in_place_and_random_k_reproducible():
     """``round_`` writes the caller's buffers and no others; two engines
     from one generator seed take the same random-k rounds."""
     x0 = {k: torch.tensor(v) for k, v in _x0().items()}
-    eng = tc.ChocoGossipEngine(RING, tc.random_k(0.3), gamma=0.2, error_feedback=True)
+    eng = tc.ChocoGossipEngine(RING, tc.random_k(0.3), gamma=0.2, error_feedback=True,
+                               device="cpu")
     buffers, layout = ops.flatten_stacked(x0)
     x, xhat, ef = buffers, {k: torch.zeros_like(v) for k, v in buffers.items()}, \
         {k: torch.zeros_like(v) for k, v in buffers.items()}

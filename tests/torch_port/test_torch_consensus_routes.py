@@ -72,7 +72,7 @@ def test_chebyshev_omegas_reject_gamma_one():
 def test_mix_chebyshev_matches_jax(times):
     state = _state()
     buffers, layout = _buffers(state)
-    ConsensusEngine(RING6).mix_chebyshev_(buffers, times)
+    ConsensusEngine(RING6, device="cpu").mix_chebyshev_(buffers, times)
     _compare(buffers, layout, JEngine(RING6).mix_chebyshev(_theirs(state), times))
 
 
@@ -82,7 +82,7 @@ def test_mix_chebyshev_with_matches_jax():
     state = _state(seed=1)
     om = chebyshev_omegas(jax_gamma(CHORDS), 5)
     theirs = JEngine(RING6).mix_chebyshev_with(_theirs(state), CHORDS, om)
-    engine = ConsensusEngine(RING6)
+    engine = ConsensusEngine(RING6, device="cpu")
     buffers, layout = _buffers(state)
     engine.mix_chebyshev_(buffers, 5, W=torch.tensor(CHORDS, dtype=torch.float32),
                           omegas=torch.tensor(om, dtype=torch.float32))
@@ -98,7 +98,7 @@ def test_mix_chebyshev_with_matches_jax():
 def test_global_average_matches_jax():
     state = _state(seed=2)
     buffers, layout = _buffers(state)
-    ConsensusEngine(RING6).global_average_(buffers)
+    ConsensusEngine(RING6, device="cpu").global_average_(buffers)
     _compare(buffers, layout, JEngine(RING6).global_average(_theirs(state)))
     for buf in buffers.values():  # every agent holds the same values
         assert all(torch.equal(buf[0], row) for row in buf)
@@ -108,7 +108,7 @@ def test_global_average_matches_jax():
 def test_mix_with_matches_jax(times):
     state = _state(seed=3)
     buffers, layout = _buffers(state)
-    engine = ConsensusEngine(RING6)
+    engine = ConsensusEngine(RING6, device="cpu")
     engine.mix_with_(buffers, CHORDS, times, spare=engine.spare_for(buffers, 1))
     _compare(buffers, layout, JEngine(RING6).mix_with(_theirs(state), CHORDS, times=times))
     with pytest.raises(ValueError, match="shape"):
@@ -118,7 +118,7 @@ def test_mix_with_matches_jax(times):
 def test_mix_until_with_matches_jax():
     state = _state(seed=4, bf16=False)  # eps stopping compares a float32 residual
     buffers, layout = _buffers(state)
-    t, res = ConsensusEngine(RING6).mix_until_with_(buffers, CHORDS, eps=1e-3, min_times=2)
+    t, res = ConsensusEngine(RING6, device="cpu").mix_until_with_(buffers, CHORDS, eps=1e-3, min_times=2)
     theirs, jt, jres = JEngine(RING6).mix_until_with(_theirs(state), CHORDS, eps=1e-3,
                                                      min_times=2)
     assert t == int(jt) > 2
@@ -132,7 +132,7 @@ def test_max_deviation_into_a_device_scalar_matches_jax():
     state = _state(seed=5, bf16=False)
     buffers, _ = _buffers(state)
     out = torch.zeros(())
-    ConsensusEngine(RING6).max_deviation_(buffers, out)
+    ConsensusEngine(RING6, device="cpu").max_deviation_(buffers, out)
     want = float(JEngine(RING6).max_deviation(_theirs(state)))
     assert float(out) == pytest.approx(want, abs=ATOL)
     assert torch.equal(out, ops.max_deviation(buffers))

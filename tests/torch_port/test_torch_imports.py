@@ -55,3 +55,39 @@ def test_entry_points_need_the_card_unless_cpu_is_asked_for():
             resolve_device(None)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device("cuda")
+
+
+_GRAPH_LAYER = [
+    "distributed_learning_tpu_torch.parallel._spmd",
+    "distributed_learning_tpu_torch.parallel.extra",
+    "distributed_learning_tpu_torch.parallel.fast_averaging",
+    "distributed_learning_tpu_torch.parallel.gradient_tracking",
+    "distributed_learning_tpu_torch.parallel.pushsum",
+    "distributed_learning_tpu_torch.parallel.schedule",
+    "distributed_learning_tpu_torch.parallel.topology",
+    "distributed_learning_tpu_torch.interop",
+    "distributed_learning_tpu_torch.utils.telemetry",
+]
+
+
+def test_graph_layer_modules_import_no_jax():
+    """The gossip variants and the graph layer, each imported on its own
+    (plus the reference's top-level names), load no JAX and nothing of
+    the JAX package."""
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"importlib.import_module({m!r})" for m in _GRAPH_LAYER]
+        + ["import distributed_learning_tpu_torch as d",
+           "[getattr(d, n) for n in ('Topology', 'gamma', 'spectral_gap', 'ConsensusEngine',"
+           " 'Mixer', 'find_optimal_weights', 'solve_fastest_mixing', 'PushSumEngine',"
+           " 'push_sum_matrix')]",
+           "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+           " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"
+           " or m.startswith('distributed_learning_tpu.'))",
+           "print('LOADED=' + ','.join(bad))"])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = [line for line in out.stdout.splitlines() if line.startswith("LOADED=")][0]
+    assert loaded == "LOADED=", f"port import loaded {loaded}"

@@ -96,7 +96,7 @@ def test_mix_matches_jax(form, times):
     W = Topology.ring(6).metropolis_weights()
     state = _state(6)
     theirs = JEngine(W).mix(_theirs(state), times=times)
-    engine = ConsensusEngine(W)
+    engine = ConsensusEngine(W, device="cpu")
     if form == "leaves":
         ours = _ours(state)
         before = {k: v.clone() for k, v in ours.items()}
@@ -114,7 +114,7 @@ def test_mix_until_matches_jax():
     W = Topology.ring(5).metropolis_weights()
     state = _state(5, seed=1)
     state.pop("h")  # eps-stopping compares a residual: float32 state only
-    ours, t, res = ConsensusEngine(W).mix_until(_ours_f32(state), eps=1e-3, min_times=2)
+    ours, t, res = ConsensusEngine(W, device="cpu").mix_until(_ours_f32(state), eps=1e-3, min_times=2)
     theirs, jt, jres = JEngine(W).mix_until(
         {k: jnp.asarray(v) for k, v in state.items()}, eps=1e-3, min_times=2
     )
@@ -130,7 +130,7 @@ def _ours_f32(state):
 def test_deviations_match_jax():
     state = _state(4, seed=2)
     state.pop("h")
-    eng, jeng = ConsensusEngine(Topology.ring(4).metropolis_weights()), JEngine(
+    eng, jeng = ConsensusEngine(Topology.ring(4).metropolis_weights(), device="cpu"), JEngine(
         Topology.ring(4).metropolis_weights())
     jstate = {k: jnp.asarray(v) for k, v in state.items()}
     np.testing.assert_allclose(eng.deviations(_ours_f32(state)).numpy(),
@@ -157,7 +157,7 @@ def test_mix_restores_the_callers_tf32_setting():
     try:
         for flag in (True, False):
             torch.backends.cuda.matmul.allow_tf32 = flag
-            ConsensusEngine(Topology.ring(3).metropolis_weights()).mix(
+            ConsensusEngine(Topology.ring(3).metropolis_weights(), device="cpu").mix(
                 _ours_f32(_state(3)), times=2)
             assert torch.backends.cuda.matmul.allow_tf32 is flag
     finally:

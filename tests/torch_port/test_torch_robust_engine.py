@@ -93,7 +93,7 @@ def _assert_carry(st, ref, tag=""):
 
 
 def _engines(W):
-    return JaxEngine(W), ConsensusEngine(W)
+    return JaxEngine(W), ConsensusEngine(W, device="cpu")
 
 
 @pytest.mark.parametrize("tau,periods", [(0, 1), (1, PERIODS), (2, PERIODS), (0, PERIODS)])
@@ -150,7 +150,7 @@ def test_in_place_routes_equal_the_copy_forms(spec, use_spare):
     scalar given, and the device tensor ``tau`` is the int ``tau``."""
     from distributed_learning_tpu_torch.ops import mixing as ops
 
-    te = ConsensusEngine(COMPLETE)
+    te = ConsensusEngine(COMPLETE, device="cpu")
     x = _t(_state())
     buffers, layout = _fused(x)
     spare = te.spare_for(buffers, 1) if use_spare else None
@@ -188,7 +188,7 @@ def test_static_programs_equal_the_engine_routes(spec):
     count and bound) run what the engine's in-place routes run."""
     from distributed_learning_tpu_torch.parallel import robust
 
-    te = ConsensusEngine(COMPLETE)
+    te = ConsensusEngine(COMPLETE, device="cpu")
     buffers, _ = _fused(_t(_state()))
     copies = [{k: v.clone() for k, v in buffers.items()} for _ in range(4)]
     masses = [torch.tensor(0.0) for _ in range(4)]
@@ -208,7 +208,7 @@ def test_static_programs_equal_the_engine_routes(spec):
 
 @pytest.mark.parametrize("spec", NEUTRAL_SPECS)
 def test_neutral_robust_mix_bit_identical_to_mix(spec):
-    te = ConsensusEngine(RING)
+    te = ConsensusEngine(RING, device="cpu")
     x = _t(_state())
     ref = te.mix(x, times=3)
     got, mass = te.mix_robust(x, spec, times=3)
@@ -218,7 +218,7 @@ def test_neutral_robust_mix_bit_identical_to_mix(spec):
 
 @pytest.mark.parametrize("spec", NEUTRAL_SPECS)
 def test_neutral_robust_async_bit_identical_to_mix_async(spec):
-    te = ConsensusEngine(RING)
+    te = ConsensusEngine(RING, device="cpu")
     x = _t(_state())
     ref, st_ref = te.mix_async(x, tau=2, periods=PERIODS, times=3)
     got, st_got, mass = te.mix_async_robust(x, spec=spec, tau=2, periods=PERIODS, times=3)
@@ -235,7 +235,7 @@ def test_neutral_robust_async_bit_identical_to_mix_async(spec):
 def test_neutral_async_bit_identical_to_mix():
     """tau 0 with every period 1: every agent publishes each round, so
     the stale-weighted round is the plain one bit for bit."""
-    te = ConsensusEngine(RING)
+    te = ConsensusEngine(RING, device="cpu")
     x = _t(_state())
     got, st = te.mix_async(x, tau=0, periods=1, times=3)
     _assert_bitwise(te.mix(x, times=3), got)
@@ -243,7 +243,7 @@ def test_neutral_async_bit_identical_to_mix():
 
 
 def test_async_straggler_ages_and_carry():
-    te = ConsensusEngine(RING)
+    te = ConsensusEngine(RING, device="cpu")
     x, st, ages = _t(_state()), None, []
     for _ in range(6):
         x, st = te.mix_async(x, st, tau=1, periods=(1, 1, 1, 3), times=1)
@@ -293,7 +293,7 @@ def _liar_start(seed):
 @pytest.mark.parametrize("spec", [{"kind": "clip", "radius": 2.0}, {"kind": "trim", "trim": 2},
                                   "median"])
 def test_robust_mixing_survives_persistent_liars(spec):
-    eng = ConsensusEngine(Topology.complete(NL).metropolis_weights())
+    eng = ConsensusEngine(Topology.complete(NL).metropolis_weights(), device="cpu")
     x0, honest_mean = _liar_start(0)
     x_plain, x_rob, total_mass = x0, x0, 0.0
     for _ in range(6):
@@ -309,7 +309,7 @@ def test_robust_mixing_survives_persistent_liars(spec):
 
 
 def test_async_robust_survives_liar_and_flags_mass():
-    eng = ConsensusEngine(Topology.complete(NL).metropolis_weights())
+    eng = ConsensusEngine(Topology.complete(NL).metropolis_weights(), device="cpu")
     x0, honest_mean = _liar_start(1)
     spec = {"kind": "clip", "radius": 2.0}
     x_plain, st_plain, x_rob, st_rob, masses = x0, None, x0, None, []

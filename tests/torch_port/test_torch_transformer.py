@@ -85,7 +85,7 @@ def test_parameters_and_grads_are_views_of_the_flat_buffers():
     with torch.no_grad():
         tm.flat_params[1].add_(1.0)
     before = tm.head.bias.detach().clone()
-    out = ConsensusEngine(Topology.ring(3).metropolis_weights()).mix(
+    out = ConsensusEngine(Topology.ring(3).metropolis_weights(), device="cpu").mix(
         {"float32": tm.flat_params})
     with torch.no_grad():
         tm.flat_params.copy_(out["float32"])
