@@ -166,6 +166,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
              running statistics untouched, ms a mix against the bound of
              reading and writing every parameter once.
 
+23. obs_superstep — WRN-28-10 as phase 10 runs it: ``train_epochs(3)``
+             with obs on (``obs=MetricsRegistry()``, ``profile_costs``,
+             ``timer_every_n=1``) against obs off, bit for bit under
+             deterministic algorithms, 0 host syncs inside either
+             superstep, the engines' counters (default registry) and the
+             trainer's round counter equal to those of 3 eager epochs;
+             the epoch-time delta of a second superstep, the step
+             profile's FLOPs against ``wrn_conv_flops``, the timer's step
+             time against phase 10's events, MFU; then one superstep
+             under ``utils/profiling.trace``: ``summarize_trace``'s top
+             rows and the share of the event-timed window its device
+             rows cover.  The obs-on registry is dumped to JSONL.
+24. obs_lm — the same checks on the full-width flash LM superstep; A,
+             B, C and the pre-pass launched by it (the profile step's
+             launches uncounted); the profile's FLOPs a step within 2%
+             of ``lm_step_flops``; MFU.
+25. lm_eval — ``training/eval.perplexity`` of that LM, trained to 12
+             epochs, on 8 x 4096 tokens through kernel A alone (no
+             backward launch): ms by CUDA events, tokens/s, perplexity
+             <= vocab; the 2-layer LM through kernel A against plain
+             attention from one seed (1e-3 relative).
+26. cli    — ``cli.main`` in process: WRN-28-10 on synthetic CIFAR, 4
+             nodes x B 256, 4096 images, supersteps of 2: 2 epochs and
+             ``--resume`` to 3 against an uninterrupted 3-epoch run, the
+             checkpoints equal bit for bit; ``--testOnly``; ``obs-report``
+             over phase 23's JSONL (exit 0).  Checkpoints removed after.
+
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -180,6 +207,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -445,7 +473,7 @@ def pattern_batch(n_seq: int, phases, rng: np.random.Generator):
     return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
 
 
-def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0):
+def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, **trainer_kwargs):
     from distributed_learning_tpu_torch.models import TransformerLM
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
@@ -465,7 +493,7 @@ def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0):
         nodes, model, optimizer="adam", optimizer_kwargs={"lr": 1e-3},
         weights=Topology.ring(agents), train_loaders=train, test_loader=test,
         stat_step=1, epoch=epochs, epoch_len=steps, batch_size=BATCH,
-        mix_times=1, eval_batch_size=2, seed=seed, device=DEVICE,
+        mix_times=1, eval_batch_size=2, seed=seed, device=DEVICE, **trainer_kwargs,
     )
     master.initialize_nodes()
     return master
@@ -2635,6 +2663,372 @@ def phase_mixer_interop():
         raise AssertionError("mixer_interop failed")
 
 
+# ---------------------------------------------------------------------- #
+# Phases 23-26: the observability layer, LM eval and the CLI             #
+# ---------------------------------------------------------------------- #
+SMOKE_OBS = "_smoke_obs"
+OBS_ON = dict(profile_costs=True, timer_every_n=1)
+# lm_eval: perplexity of the 2-layer LM through kernel A against plain
+# attention from the same weights.  The slice's plain-path check held
+# the loss to 1.3e-5-1.7e-5 relative (PR 8), i.e. ~1.5e-4 on a
+# perplexity; 1e-3 leaves room and still fails a forward that drops a
+# key tile (several percent there).
+EVAL_PPL_RTOL = 1e-3
+# The LM profile's FLOPs against the formula (obs_lm).
+LM_FLOPS_RTOL = 2e-2
+
+
+def _smoke_dir(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+
+
+def lm_step_flops(layers=None) -> float:
+    """One LM slice step's model FLOPs: 6 per multiply-add parameter of
+    the matrix products per token (forward, dX, dW; the embeddings are
+    gathers) and, per layer, 4 forward and 10 backward per live (query,
+    key) pair and head dimension of the causal attention."""
+    layers = LAYERS if layers is None else layers
+    d = HEADS * HEAD_DIM
+    tokens = AGENTS * BATCH * SEQ
+    mm_params = layers * (3 * d * d + d * d + 8 * d * d) + d * VOCAB
+    pairs = AGENTS * BATCH * HEADS * SEQ * (SEQ + 1) // 2
+    return 6.0 * mm_params * tokens + 14.0 * pairs * HEAD_DIM * layers
+
+
+def _obs_runs(make, k=SUPERSTEP_K, launches=None):
+    """Under deterministic algorithms: ``train_epochs(k)`` with obs off
+    and with ``obs=MetricsRegistry()``, ``profile_costs`` and
+    ``timer_every_n=1`` (each a fresh trainer from ``make(**kw)`` under a
+    default registry of its own), then ``k`` eager ``train_epoch()``
+    calls with obs on.  A second superstep of each superstep run is
+    timed (wall, synchronised).  Returns the records, registries, times,
+    host syncs and the obs-on trainer (kept for later phases, 2k epochs
+    trained); with
+    ``launches`` (the flash module) the kernel counts of the obs-on
+    superstep alone."""
+    from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
+    from distributed_learning_tpu_torch.obs import cost
+
+    cost.clear_profiles()
+    out = {"records": {}, "defaults": {}, "trainers": {}, "seconds": {}, "syncs": {}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in ("off", "eager", "on"):  # one trainer alive at a time
+            default = MetricsRegistry()
+            with use_registry(default), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                kw = {} if run == "off" else dict(obs=MetricsRegistry(), **OBS_ON)
+                master = make(**kw)
+                torch.cuda.synchronize()
+                if run == "eager":
+                    payloads = [master.train_epoch() for _ in range(k)]
+                else:
+                    if run == "on" and launches is not None:
+                        launches.reset_launch_counts()
+                    payloads = master.train_epochs(k)
+                    torch.cuda.synchronize()
+                    if run == "on" and launches is not None:
+                        out["launches"] = {kk.name: kk.launches for kk in launches.KERNELS.values()}
+                        out["bodies"] = {kk.name: dict(kk.by_body)
+                                         for kk in launches.KERNELS.values()}
+                    out["syncs"][run] = list(master.superstep_host_syncs)
+                out["records"][run] = trainer_record(master, payloads)
+                out["defaults"][run] = (dict(default.counters), dict(default.gauges))
+                if run != "off":
+                    out.setdefault("trainer_counters", {})[run] = dict(
+                        master._obs_registry.counters)
+                if run != "eager":
+                    t0 = time.perf_counter()
+                    master.train_epochs(k)
+                    torch.cuda.synchronize()
+                    out["seconds"][run] = time.perf_counter() - t0
+                    out["syncs"][run] += master.superstep_host_syncs[1:]
+            if run == "on":
+                out["trainers"][run] = master
+                out["registry"] = master._obs_registry
+            del master
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _obs_checks(phase, runs, k=SUPERSTEP_K) -> dict:
+    """The obs phases' common checks: obs-on == obs-off bit for bit, 0
+    host syncs inside every superstep, and the superstep's counters
+    (the engines' on the default registry, the trainer's rounds and
+    mass) equal to those of ``k`` eager epochs."""
+    diff = max_diffs(runs["records"]["on"], runs["records"]["off"])
+    reg = runs["registry"]
+    dflt_on, dflt_eager = runs["defaults"]["on"], runs["defaults"]["eager"]
+    con, ceager = runs["trainer_counters"]["on"], runs["trainer_counters"]["eager"]
+    trainer_counts = {key: (con.get(key), ceager.get(key))
+                      for key in ("consensus.rounds_run", "consensus.robust.clipped_mass")}
+    facts = {
+        "obs_on_vs_off_max_abs": diff,
+        "bitwise_obs_on_vs_off": not any(diff.values()),
+        "host_syncs_per_superstep": runs["syncs"],
+        "default_registry_superstep": dflt_on[0],
+        "default_registry_eager": dflt_eager[0],
+        "trainer_counters_superstep_vs_eager": trainer_counts,
+        "trainer_dispatches": {"superstep": con.get("trainer.dispatches"),
+                               "eager": ceager.get("trainer.dispatches")},
+        "superstep_s": runs["seconds"],
+        "epoch_ms": {r: s / k * 1e3 for r, s in runs["seconds"].items()},
+        "obs_epoch_delta_ms": (runs["seconds"]["on"] - runs["seconds"]["off"]) / k * 1e3,
+        "timer": {"samples": reg.counters.get("cost.timer.samples"),
+                  "step_time_s": reg.series.get("cost.step_time_s/trainer.superstep"),
+                  "mfu": reg.gauges.get("cost.mfu/trainer.superstep")},
+    }
+    if not facts["bitwise_obs_on_vs_off"]:
+        raise AssertionError(f"{phase}: obs-on run differs from obs-off: {diff}")
+    if any(n != 0 for s in runs["syncs"].values() for n in s):
+        raise AssertionError(f"{phase}: a superstep synchronised: {runs['syncs']}")
+    if dflt_on != dflt_eager or not dflt_on[0]:
+        raise AssertionError(f"{phase}: superstep counters {dflt_on} != eager {dflt_eager}")
+    if any(a != b for a, b in trainer_counts.values()):
+        raise AssertionError(f"{phase}: trainer counters differ: {trainer_counts}")
+    if facts["timer"]["mfu"] is None or not facts["timer"]["step_time_s"]:
+        raise AssertionError(f"{phase}: the timer recorded no step time or MFU: {facts['timer']}")
+    return facts
+
+
+def phase_obs_superstep(dense_timing):
+    """WRN-28-10 as the superstep phase runs it: ``train_epochs(3)`` with
+    obs on (``MetricsRegistry``, ``profile_costs``, ``timer_every_n=1``)
+    against obs off, bit for bit, 0 host syncs, counters equal to 3
+    eager epochs'; the epoch-time delta, the step profile's FLOPs against
+    ``wrn_conv_flops``, the timer's step time against superstep_timing's
+    events, MFU.  Then one more superstep under ``utils/profiling.trace``:
+    ``summarize_trace``'s top rows and its coverage of the event-timed
+    window.  Returns the obs-on trainer's registry dump path."""
+    from distributed_learning_tpu_torch.obs import cost
+    from distributed_learning_tpu_torch.utils import profiling
+
+    def make(**kw):
+        return make_vision_master(
+            "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, WRN_EPOCHS, WRN_EVAL,
+            augment=True, trainer_kwargs=kw, depth=28, widen_factor=10, dropout_rate=0.3,
+            dtype=torch.bfloat16)
+
+    runs = _obs_runs(make)
+    facts = _obs_checks("obs_superstep", runs)
+    prof = cost.get_profile(f"trainer.superstep{SUPERSTEP_K}")
+    conv = wrn_conv_flops(WRN_AGENTS * WRN_BATCH, 28, 10)
+    events_ms = dense_timing["superstep_device_ms_by_events"]
+    facts.update(profile_flops_per_step=prof.flops, wrn_conv_flops_per_step=conv,
+                 profile_over_conv=prof.flops / conv,
+                 superstep_timing_events_ms=sum(events_ms.values()),
+                 peak_flops=cost.device_peak_flops())
+    master = runs["trainers"]["on"]
+    out_dir = _smoke_dir(SMOKE_OBS)
+    os.makedirs(out_dir, exist_ok=True)
+    trace_dir = os.path.join(out_dir, "trace")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profiling.trace(trace_dir):
+        start.record()
+        master.train_epochs(SUPERSTEP_K)
+        end.record()
+        torch.cuda.synchronize()
+    window_s = start.elapsed_time(end) / 1e3
+    rows = profiling.summarize_trace(trace_dir, top=8)
+    coverage = profiling.trace_coverage(trace_dir, window_s)
+    print(profiling.format_trace_summary(rows, coverage), flush=True)
+    facts["trace"] = {"window_ms": window_s * 1e3, "device_rows_coverage": coverage,
+                      "top": [{k: r[k] for k in ("operation", "host_or_device", "occurrences",
+                                                 "total_self_us", "device_self_pct")}
+                              for r in rows]}
+    dump = os.path.join(out_dir, "obs_superstep.jsonl")
+    facts["jsonl_lines"] = master._obs_registry.dump_jsonl(dump)
+    shutil.rmtree(trace_dir)
+    del master, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "obs_superstep", "model": "wrn-28-10", "k": SUPERSTEP_K, **facts})
+    if coverage is None:
+        raise AssertionError("the trace of a WRN superstep holds no device row")
+    return dump
+
+
+def phase_obs_lm(fa):
+    """The full-width flash LM slice as obs_superstep: bit for bit, 0
+    host syncs, counters equal to 3 eager epochs'; A, B, C and the
+    pre-pass launched by the obs-on superstep (the profile step's own
+    launches uncounted); the profile's FLOPs a step within 2% of
+    :func:`lm_step_flops`; MFU.  Returns the superstep's launch counts
+    and the obs-on trainer (6 epochs trained) in a dict the eval phase
+    takes it from."""
+    from distributed_learning_tpu_torch.obs import cost
+
+    def make(**kw):
+        return make_trainer("flash", LAYERS, AGENTS, EPOCHS, STEPS, **kw)
+
+    runs = _obs_runs(make, launches=fa)
+    facts = _obs_checks("obs_lm", runs)
+    launches, bodies = runs["launches"], runs["bodies"]
+    n_eval = math.ceil(4 / 2)  # make_trainer's 4 test sequences, eval batch 2
+    per = LAYERS * STEPS * SUPERSTEP_K
+    expect = {"flash_fwd": per + LAYERS * n_eval, "flash_bwd_dq": per,
+              "flash_bwd_dkv": per, "flash_bwd_rowterm": per}
+    prof = cost.get_profile(f"trainer.superstep{SUPERSTEP_K}")
+    formula = lm_step_flops()
+    facts.update(launches=launches, launches_by_body=bodies, expected_launches=expect,
+                 profile_flops_per_step=prof.flops, formula_flops_per_step=formula,
+                 profile_over_formula=prof.flops / formula, peak_flops=cost.device_peak_flops())
+    emit({"phase": "obs_lm", "k": SUPERSTEP_K, **facts})
+    if launches != expect:
+        raise AssertionError(f"obs_lm launches {launches} != {expect}")
+    if abs(prof.flops / formula - 1.0) > LM_FLOPS_RTOL:
+        raise AssertionError(f"LM profile {prof.flops:.4e} FLOPs a step vs formula {formula:.4e}")
+    return {"launches": launches, "master": runs["trainers"]["on"]}
+
+
+EVAL_EPOCHS = 12  # the LM's epochs before lm_eval (obs_lm's 6 and 2 more supersteps)
+
+
+def phase_lm_eval(fa, obs_lm):
+    """``training/eval.perplexity`` of the trained full-width LM (the
+    obs_lm trainer, trained to ``EVAL_EPOCHS`` epochs: at init the
+    random head is not calibrated and its perplexity may exceed the
+    vocabulary) on 8 x 4096 tokens of the slice's test distribution,
+    every agent, through kernel A (no lse; no backward kernel may
+    launch): eval ms by CUDA events, tokens/s, perplexity <= vocab.  Then
+    the 2-layer LM from one seed (untrained) through kernel A and through
+    plain attention: perplexity within ``EVAL_PPL_RTOL``."""
+    from distributed_learning_tpu_torch.models import TransformerLM
+    from distributed_learning_tpu_torch.training.eval import perplexity
+
+    master = obs_lm.pop("master")
+    while master._epochs_done < EVAL_EPOCHS:
+        master.train_epochs(SUPERSTEP_K)
+    torch.cuda.synchronize()
+    tokens, _ = pattern_batch(8, range(VOCAB), np.random.default_rng(21))
+    perplexity(master.model, tokens[:2], batch_size=2)  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ppl = perplexity(master.model, tokens, batch_size=2)
+    end.record()
+    end.synchronize()
+    launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    ms = start.elapsed_time(end)
+    scored = AGENTS * tokens.shape[0] * tokens.shape[1]
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    pair = {}
+    for impl in ("flash", "full"):
+        model = TransformerLM(vocab_size=VOCAB, num_layers=2, num_heads=HEADS, head_dim=HEAD_DIM,
+                              max_len=SEQ, attn_impl=impl, dtype=torch.bfloat16, n_agents=1,
+                              device=DEVICE, seed=5)
+        pair[impl] = perplexity(model, tokens, batch_size=2)
+        del model
+        torch.cuda.empty_cache()
+    rel = abs(pair["flash"] / pair["full"] - 1.0)
+    emit({"phase": "lm_eval", "sequences": tokens.shape[0], "seq": tokens.shape[1],
+          "agents": AGENTS, "trained_epochs": EVAL_EPOCHS, "perplexity": ppl.tolist(),
+          "vocab": VOCAB, "eval_ms": ms,
+          "tokens_per_s": scored / (ms / 1e3), "launches": launches,
+          "two_layer_perplexity": pair, "two_layer_rel_diff": rel,
+          "two_layer_rtol": EVAL_PPL_RTOL})
+    if not (launches["flash_fwd"] > 0 and launches["flash_bwd_dq"] == 0
+            and launches["flash_bwd_dkv"] == 0 and launches["flash_bwd_rowterm"] == 0):
+        raise AssertionError(f"eval did not run forward-only through kernel A: {launches}")
+    if not (np.all(np.isfinite(ppl)) and np.max(ppl) <= VOCAB):
+        raise AssertionError(f"perplexity {ppl} not finite or above the vocabulary {VOCAB}")
+    if not rel <= EVAL_PPL_RTOL:
+        raise AssertionError(f"2-layer perplexity through kernel A vs plain: {pair}")
+    return launches
+
+
+def _checkpoint_tree(folder):
+    from distributed_learning_tpu_torch import cli
+
+    return torch.load(os.path.join(folder, cli.CHECKPOINT_FILE), weights_only=True)
+
+
+def _tree_diffs(a, b, where=""):
+    """Paths where two checkpoint trees differ (tensors bit for bit)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [where]
+        return [d for k in a for d in _tree_diffs(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _tree_diffs(x, y, f"{where}/{i}")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [where]
+    return [] if a == b else [where]
+
+
+# The CLI phase's model and data flags (the baseline notebook's WRN-28-10
+# at the WRN slice's batch), and flags every training run gets (none on
+# the card: the CLI's default device is the card).
+CLI_MODEL = ["--net_type", "wide-resnet", "--depth", "28", "--widen_factor", "10",
+             "--dropout", "0.3", "--dataset", "cifar10"]
+CLI_DATA = ["--nodes", "4", "--batch-size", "256", "--n-train", "4096"]
+CLI_EVERY_RUN: list = []
+
+
+def phase_cli(obs_jsonl):
+    """``cli.main`` in process, WRN-28-10 on synthetic CIFAR (4 nodes x B
+    256, 4096 training images, supersteps of 2): 2 epochs with a
+    checkpoint, ``--resume`` to 3, against an uninterrupted 3-epoch run
+    (the checkpoints equal bit for bit, under deterministic algorithms);
+    ``--testOnly`` on the resumed checkpoint; ``obs-report`` over
+    obs_superstep's JSONL.  The checkpoints are removed after."""
+    import contextlib
+    import io
+
+    from distributed_learning_tpu_torch import cli
+
+    root = _smoke_dir("_smoke_cli_ckpt")
+    a, b = os.path.join(root, "resumed"), os.path.join(root, "uninterrupted")
+    common = CLI_MODEL + CLI_DATA + ["--superstep", "2"] + CLI_EVERY_RUN
+    runs = {"first": common + ["--epochs", "2", "--checkpoint-dir", a],
+            "resume": ["--resume", "--epochs", "3", "--checkpoint-dir", a] + CLI_EVERY_RUN,
+            "uninterrupted": common + ["--epochs", "3", "--checkpoint-dir", b],
+            "test_only": ["--testOnly", "--checkpoint-dir", a] + CLI_EVERY_RUN,
+            "obs_report": ["obs-report", obs_jsonl]}
+    out, seconds, rcs = {}, {}, {}
+    os.makedirs(root, exist_ok=True)  # the configs are saved beside the checkpoint dirs
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, argv in runs.items():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rcs[name] = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            out[name] = buf.getvalue().splitlines()
+            gc.collect()
+            torch.cuda.empty_cache()
+        diffs = _tree_diffs(_checkpoint_tree(a), _checkpoint_tree(b))
+        epochs_done = _checkpoint_tree(a)["epochs_done"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+        for path in (a, b):
+            if os.path.exists(path + ".config.json"):
+                os.remove(path + ".config.json")
+    emit({"phase": "cli", "rcs": rcs, "seconds": seconds,
+          "epoch_lines": {n: [l for l in out[n] if l.startswith("| epoch")]
+                          for n in ("first", "resume", "uninterrupted")},
+          "test_only": [l for l in out["test_only"] if l.startswith("node ")],
+          "obs_report_head": out["obs_report"][:6], "resumed_epochs_done": epochs_done,
+          "resumed_vs_uninterrupted_diffs": diffs})
+    if any(rcs.values()):
+        raise AssertionError(f"a CLI run failed: {rcs}")
+    if diffs or epochs_done != 3:
+        raise AssertionError(f"resumed run differs from the uninterrupted one at {diffs}")
+    if len([l for l in out["test_only"] if l.startswith("node ")]) != 4:
+        raise AssertionError(f"--testOnly printed {out['test_only']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2696,6 +3090,12 @@ def main(argv=None) -> int:
     phase_tracking_routes()
     phase_pushsum_pairwise()
     phase_mixer_interop()
+    # The observability layer, LM eval and the training CLI.
+    obs_jsonl = phase_obs_superstep(dense_timing)
+    obs_lm = phase_obs_lm(fa)
+    eval_launches = phase_lm_eval(fa, obs_lm)
+    phase_cli(obs_jsonl)
+    shutil.rmtree(_smoke_dir(SMOKE_OBS), ignore_errors=True)
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -2704,7 +3104,9 @@ def main(argv=None) -> int:
             "replaces": k.replaces, "launches": launches[k.name],
             "launches_by_path": {"slice": launches[k.name],
                                  "lm_superstep": ss_launches[k.name],
-                                 "lm_tracking": tracking_launches[k.name]},
+                                 "lm_tracking": tracking_launches[k.name],
+                                 "lm_obs": obs_lm["launches"][k.name],
+                                 "lm_eval": eval_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

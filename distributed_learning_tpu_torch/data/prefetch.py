@@ -8,20 +8,24 @@ pinned host memory and starts a ``non_blocking`` copy to the card on a
 side CUDA stream, so the transfer runs under the current step instead of
 before it.  The consumer's stream waits on the copy's event before the
 batch is handed out.  The JAX version uses ``jax.device_put`` for the
-same purpose; its ``data.prefetch.*`` counters wait for the port's obs
-plane (ROADMAP.md).
+same purpose.  The consumer counts the reference's ``data.prefetch.*``
+metrics on the default registry: the ``depth`` gauge (batches staged
+when it asks for the next), the ``consumer_wait_s`` counter (seconds it
+waited for one) and the ``batches`` counter.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from distributed_learning_tpu_torch.device import resolve_device
+from distributed_learning_tpu_torch.obs.registry import get_registry
 
 __all__ = ["prefetch_to_device", "epoch_batches"]
 
@@ -92,13 +96,18 @@ def prefetch_to_device(
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()
+    reg = get_registry()
     try:
         while True:
+            reg.gauge("data.prefetch.depth", q.qsize())
+            t_wait = time.perf_counter()
             item, ready = q.get()
+            reg.inc("data.prefetch.consumer_wait_s", time.perf_counter() - t_wait)
             if item is _SENTINEL:
                 if ready is not None:
                     raise ready
                 return
+            reg.inc("data.prefetch.batches")
             if ready is not None:
                 current = torch.cuda.current_stream(dev)
                 current.wait_event(ready)

@@ -36,6 +36,14 @@ passes strided views of its fused QKV projection), and write O, dQ, dK,
 dV contiguous in (B, T, H, D); lse and its cotangent are (B, H, T)
 float32 — no 128-lane padding, unlike the TPU layout.
 
+Under an open operation counter (``obs/cost.py``, a step's cost
+profile) the forward counts as 4 and a layer's backward as 10 FLOPs per
+live (query, key) pair per head dimension — each product of the function
+once (QK^T and PV; S again, dP, dV, dQ and dK), over the causal (or
+windowed) half of the scores, whatever body runs it: aten never sees a
+kernel launch, and on the CPU the counter's count of the plain version's
+full-score products is replaced.
+
 Two ``torch.autograd.Function``s bind them, mirroring the reference's two
 custom VJPs: :class:`_Flash` (``_flash``: window, no lse consumer, so the
 backward passes no ``dadj``) and :class:`_FlashLse` (``_flash_lse``: lse
@@ -52,6 +60,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import torch
 
+from distributed_learning_tpu_torch.obs.cost import counted_as, counting
 from distributed_learning_tpu_torch.ops import _build
 
 __all__ = [
@@ -66,6 +75,7 @@ __all__ = [
     "plain_bwd_rowterm",
     "flash_bwd_rowterm",
     "wgmma_body",
+    "live_pairs",
     "KERNELS",
     "reset_launch_counts",
     "record_launches",
@@ -296,8 +306,32 @@ def _body(q) -> str:
     return "wgmma" if wgmma_body(q.dtype, q.shape[-1]) else "cuda_core"
 
 
+def live_pairs(B: int, H: int, Tq: int, Tk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask keeps, over ``B * H`` (batch, head)s:
+    the causal half with its diagonal, ``T (T + 1) / 2`` a head, or a
+    window's band."""
+    if not causal:
+        return B * H * Tq * Tk
+    w = Tq if window is None else min(int(window), Tq)
+    return B * H * (w * (w + 1) // 2 + (Tq - w) * w)
+
+
+def _flops(q, causal, window, per_pair: int) -> float:
+    """``per_pair`` FLOPs per live pair and head dimension (0 when no
+    operation counter is open, which is never asked then)."""
+    if not counting():
+        return 0.0
+    B, T, H, D = q.shape
+    return float(per_pair * live_pairs(B, H, T, T, causal, window) * D)
+
+
 def flash_fwd(q, k, v, scale, causal, window, with_lse):
     """Forward kernel A: ``(o, lse or None)`` for (B, T, H, D) inputs."""
+    with counted_as(_flops(q, causal, window, 4)):
+        return _flash_fwd(q, k, v, scale, causal, window, with_lse)
+
+
+def _flash_fwd(q, k, v, scale, causal, window, with_lse):
     _check_qkv(q, k, v)
     if q.device.type == "cpu":
         return plain_fwd(q, k, v, scale, causal, window, with_lse)
@@ -393,11 +427,13 @@ def _layer_backward(q, k, v, o, do, lse, dadj, scale, causal, window):
     """``(dq, dk, dv)`` of one attention call: the pre-pass runs once (on
     the CPU its plain version; on the CUDA-core body not at all) and both
     backward kernels read its row term."""
-    rowterm = None
-    if q.device.type == "cpu" or _body(q) == "wgmma":
-        rowterm = flash_bwd_rowterm(o, do, dadj)
-    dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
-    dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
+    with counted_as(_flops(q, causal, window, 10)):
+        rowterm = None
+        if q.device.type == "cpu" or _body(q) == "wgmma":
+            rowterm = flash_bwd_rowterm(o, do, dadj)
+        dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
+        dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window,
+                               rowterm=rowterm)
     return dq, dk, dv
 
 

@@ -110,6 +110,14 @@ class FusedLayout(NamedTuple):
     slots: Tuple[_LeafSlot, ...]
     buckets: Tuple[Tuple[str, int], ...]  # (dtype name, width P), sorted
 
+    @property
+    def leaf_count(self) -> int:
+        return len(self.slots)
+
+    @property
+    def bucket_count(self) -> int:
+        return len(self.buckets)
+
     def bytes_per_round(self, n: int) -> int:
         """Bytes of state one gossip round touches for ``n`` agents."""
         return sum(n * width * itemsize(name) for name, width in self.buckets)

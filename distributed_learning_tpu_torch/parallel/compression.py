@@ -33,6 +33,13 @@ place (:meth:`ChocoGossipEngine.round_`, what the trainer's graphs
 capture) or on a copy (:meth:`ChocoGossipEngine.run`).  Nothing here
 reads a device value back to the host or indexes with a boolean mask.
 The mesh-sharded route of the reference is not ported (ROADMAP.md).
+
+Each round counts the reference's compressed-gossip accounting on the
+default registry, host-side only: ``consensus.compressed_bytes`` (the
+nominal sparse-wire bytes, :meth:`FusedCompressor.wire_bytes_per_round`)
+and the ``consensus.compression_ratio`` gauge against the dense round's
+bytes (:meth:`FusedLayout.bytes_per_round`); custom compressors, whose
+k is unknowable, are skipped.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from distributed_learning_tpu_torch.obs.registry import get_registry
 from distributed_learning_tpu_torch.ops import mixing as ops
 from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
 
@@ -501,6 +509,18 @@ class ChocoGossipEngine:
         return ChocoState(x=x, xhat=zeros(), generator=gen,
                           ef=zeros() if self.error_feedback else None)
 
+    def _note_compression(self, layout: ops.FusedLayout, rounds: int) -> None:
+        """Compressed-gossip accounting for ``rounds`` rounds on
+        ``layout`` (the reference's ``_note_compression``)."""
+        wire = self.fused_compressor.wire_bytes_per_round(layout, self.n)
+        if wire is None:
+            return
+        reg = get_registry()
+        reg.inc("consensus.compressed_bytes", wire * int(rounds))
+        dense = layout.bytes_per_round(self.n)
+        if dense:
+            reg.gauge("consensus.compression_ratio", wire / dense)
+
     @torch.no_grad()
     def round_(self, x: Stacked, xhat: Stacked, ef: Optional[Stacked], layout: ops.FusedLayout,
                generator: Optional[torch.Generator]) -> None:
@@ -508,6 +528,7 @@ class ChocoGossipEngine:
         buffers ``x``, ``xhat`` and (with error feedback) ``ef``, whose
         addresses stay fixed; the temporaries are freed at the end, so a
         CUDA graph can capture the round."""
+        self._note_compression(layout, 1)
         delta = {k: x[k] - xhat[k] for k in x}
         if ef is not None:
             for k in delta:

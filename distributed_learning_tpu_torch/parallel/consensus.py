@@ -39,8 +39,19 @@ one edge per round, the literal model), the weighted consensus round
 (:meth:`ConsensusEngine.run_round`), :meth:`ConsensusEngine.max_std`, and
 :class:`Mixer`, the reference's synchronous mixer surface over per-agent
 parameter dicts.  The sharded ``torch.distributed`` route is not ported
-yet (ROADMAP.md), nor are the reference's obs hooks (spans, round and
-layout counters), which wait for the port's obs layer.
+yet (ROADMAP.md).
+
+Every mix route carries the reference's obs hooks, host-side only (no
+device read): a ``consensus.<route>`` span on the default tracer; the
+``consensus.rounds_run`` and ``consensus.bytes_mixed`` counters and the
+``consensus.leaf_count`` / ``consensus.fused_buckets`` gauges on the
+default registry (``consensus.mix_until.calls``,
+``consensus.global_averages`` and ``consensus.robust.rounds`` on their
+routes).  The in-place routes take the fused buffers' leaf ``layout``
+for the leaf count (one leaf per buffer without it).  Inside a CUDA-graph
+capture the hooks count into the capture's record, and each replay adds
+that record once (``training/graphs.py``), so a replayed round counts as
+an eager one.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ import numpy as np
 import torch
 
 from distributed_learning_tpu_torch.device import resolve_device
+from distributed_learning_tpu_torch.obs.registry import get_registry
+from distributed_learning_tpu_torch.obs.spans import get_tracer
 from distributed_learning_tpu_torch.ops import mixing as ops
 from distributed_learning_tpu_torch.parallel.schedule import (
     chebyshev_omegas,
@@ -108,6 +121,31 @@ class ConsensusEngine:
         self._periods_dev: Dict[Tuple[int, ...], torch.Tensor] = {}
         self._edges_dev: Optional[torch.Tensor] = None
 
+    # -- obs hooks (host-side only) -------------------------------------- #
+    def _note_layout(self, buffers: Stacked, rounds: Optional[int] = None,
+                     layout: Optional[ops.FusedLayout] = None) -> None:
+        """Fused-layout accounting: the leaf and bucket gauges and, for a
+        known round count, the bytes the rounds touched."""
+        if layout is None:  # one leaf per buffer
+            layout = ops.fused_layout(buffers)
+        reg = get_registry()
+        reg.gauge("consensus.leaf_count", layout.leaf_count)
+        reg.gauge("consensus.fused_buckets", layout.bucket_count)
+        if rounds is not None:
+            reg.inc("consensus.bytes_mixed", layout.bytes_per_round(self.n) * int(rounds))
+
+    @staticmethod
+    def _count_rounds(times: int) -> None:
+        get_registry().inc("consensus.rounds_run", int(times))
+
+    def _hooks(self, route: str, buffers: Stacked, rounds: Optional[int],
+               layout: Optional[ops.FusedLayout]):
+        """Round and layout accounting for a fixed-count route, then its span."""
+        if rounds is not None:
+            self._count_rounds(rounds)
+        self._note_layout(buffers, rounds, layout)
+        return get_tracer().span(f"consensus.{route}")
+
     # ------------------------------------------------------------------ #
     def spare_for(self, buffers: Stacked, sets: int = 2) -> Tuple[Stacked, ...]:
         """``sets`` fresh buffer sets of ``buffers``' keys, shapes and
@@ -155,19 +193,25 @@ class ConsensusEngine:
         return t
 
     # -- fixed round counts: no host reads ----------------------------- #
-    def mix_(self, buffers: Stacked, times: int = 1, *, spare: Optional[Spare] = None) -> None:
+    def mix_(self, buffers: Stacked, times: int = 1, *, spare: Optional[Spare] = None,
+             layout: Optional[ops.FusedLayout] = None) -> None:
         """Run exactly ``times`` gossip rounds in place on fused buffers."""
-        self._rounds(buffers, lambda t, _: t < times, self._plain(self._W_dev), spare)
+        with self._hooks("mix", buffers, times, layout):
+            self._rounds(buffers, lambda t, _: t < times, self._plain(self._W_dev), spare)
 
     def mix_with_(self, buffers: Stacked, W, times: int = 1, *,
-                  spare: Optional[Spare] = None) -> None:
+                  spare: Optional[Spare] = None,
+                  layout: Optional[ops.FusedLayout] = None) -> None:
         """``times`` rounds in place against the per-call matrix ``W``
         (the reference's traced-W ``mix_with``: a time-varying graph
-        costs an (n, n) copy, nothing more)."""
-        self._rounds(buffers, lambda t, _: t < times, self._plain(self._matrix(W)), spare)
+        costs an (n, n) copy, nothing more); ``W=None`` is the engine's
+        own matrix, :meth:`mix_`."""
+        with self._hooks("mix" if W is None else "mix_with", buffers, times, layout):
+            self._rounds(buffers, lambda t, _: t < times, self._plain(self._matrix(W)), spare)
 
     def mix_chebyshev_(self, buffers: Stacked, times: Optional[int] = None, *, W=None,
-                       omegas=None, spare: Optional[Spare] = None) -> None:
+                       omegas=None, spare: Optional[Spare] = None,
+                       layout: Optional[ops.FusedLayout] = None) -> None:
         """Chebyshev-accelerated gossip in place:
         ``x_{k+1} = omega_{k+1} (W x_k - x_{k-1}) + x_{k-1}``, the first
         round plain.  ``omegas`` (one per round; a device tensor keeps
@@ -183,27 +227,34 @@ class ConsensusEngine:
         k = omegas.shape[0]
         if times is not None and int(times) != k:
             raise ValueError(f"{k} omegas for {times} rounds")
-        if k == 0:
-            return
-        Wd = self._matrix(W)
-        one, two = spare if spare is not None else self.spare_for(buffers, 2)
-        prev, cur, free = buffers, ops.dense_mix(buffers, Wd, out=one), two
-        for r in range(1, k):
-            nxt = ops.dense_mix(cur, Wd, out=free)
-            for key, x in nxt.items():
-                _cheby_step(x, prev[key], omegas[r])
-            prev, cur, free = cur, nxt, prev
-        if cur is not buffers:
-            for key, x in cur.items():
-                buffers[key].copy_(x)
+        with self._hooks("mix_chebyshev" if W is None else "mix_chebyshev_with",
+                         buffers, k, layout):
+            if k == 0:
+                return
+            Wd = self._matrix(W)
+            one, two = spare if spare is not None else self.spare_for(buffers, 2)
+            prev, cur, free = buffers, ops.dense_mix(buffers, Wd, out=one), two
+            for r in range(1, k):
+                nxt = ops.dense_mix(cur, Wd, out=free)
+                for key, x in nxt.items():
+                    _cheby_step(x, prev[key], omegas[r])
+                prev, cur, free = cur, nxt, prev
+            if cur is not buffers:
+                for key, x in cur.items():
+                    buffers[key].copy_(x)
 
-    def global_average_(self, buffers: Stacked) -> None:
+    def global_average_(self, buffers: Stacked, *,
+                        layout: Optional[ops.FusedLayout] = None) -> None:
         """Exact averaging in place: every agent gets the float32 mean
         over agents (the Gossip-PGA epoch, ``gamma = 0``)."""
-        ops.global_average(buffers, out=buffers)
+        get_registry().inc("consensus.global_averages")
+        self._note_layout(buffers, 1, layout)
+        with get_tracer().span("consensus.global_average"):
+            ops.global_average(buffers, out=buffers)
 
     # -- eps-stopping: one residual read per round ---------------------- #
-    def _until(self, buffers, W, eps, min_times, max_rounds, spare) -> Tuple[int, float]:
+    def _until(self, route, buffers, W, eps, min_times, max_rounds, spare,
+               layout) -> Tuple[int, float]:
         res = 0.0
 
         def more(t, state):
@@ -211,7 +262,9 @@ class ConsensusEngine:
             res = float(ops.max_deviation(state))
             return t < min_times or (res >= eps and t < max_rounds)
 
-        return self._rounds(buffers, more, self._plain(W), spare), res
+        get_registry().inc("consensus.mix_until.calls")
+        with self._hooks(route, buffers, None, layout):
+            return self._rounds(buffers, more, self._plain(W), spare), res
 
     def mix_until_(
         self,
@@ -221,15 +274,18 @@ class ConsensusEngine:
         min_times: int = 0,
         max_rounds: int = 10_000,
         spare: Optional[Spare] = None,
+        layout: Optional[ops.FusedLayout] = None,
     ) -> Tuple[int, float]:
         """Gossip in place until ``max_deviation < eps`` (and at least
         ``min_times`` rounds); returns ``(rounds_done, final_residual)``.
 
         The reference runs this as a device ``while_loop``; eagerly the
         stopping test reads the residual back once per round, which exact
-        stopping needs.
+        stopping needs.  Like the reference's, it counts a call
+        (``consensus.mix_until.calls``), not rounds: its caller knows them.
         """
-        return self._until(buffers, self._W_dev, eps, min_times, max_rounds, spare)
+        return self._until("mix_until", buffers, self._W_dev, eps, min_times, max_rounds,
+                           spare, layout)
 
     def mix_until_with_(
         self,
@@ -240,9 +296,11 @@ class ConsensusEngine:
         min_times: int = 0,
         max_rounds: int = 10_000,
         spare: Optional[Spare] = None,
+        layout: Optional[ops.FusedLayout] = None,
     ) -> Tuple[int, float]:
         """:meth:`mix_until_` against the per-call matrix ``W``."""
-        return self._until(buffers, self._matrix(W), eps, min_times, max_rounds, spare)
+        return self._until("mix_until" if W is None else "mix_until_with", buffers,
+                           self._matrix(W), eps, min_times, max_rounds, spare, layout)
 
     # -- asynchronous (stale-weighted) gossip ----------------------------- #
     def _normalize_periods(self, periods) -> Tuple[int, ...]:
@@ -304,7 +362,8 @@ class ConsensusEngine:
         return round_once
 
     def mix_async_(self, buffers: Stacked, state: AsyncGossipState, tau, times: int = 1, *,
-                   periods, spare: Optional[Spare] = None) -> None:
+                   periods, spare: Optional[Spare] = None,
+                   layout: Optional[ops.FusedLayout] = None) -> None:
         """``times`` asynchronous (stale-weighted, double-buffered) rounds
         in place on fused buffers, the carry ``state`` (its ``pub`` in the
         buffers' layout) updated in place: the reference's ``mix_async``
@@ -313,12 +372,14 @@ class ConsensusEngine:
         serves every epoch's bound).  ``tau=0`` with every period 1 is
         bitwise :meth:`mix_`.  Reads nothing back to the host."""
         round_once = self._async_round_body(self._periods_tensor(periods))
-        self._rounds(buffers, lambda t, _: t < times,
-                     lambda x, out: round_once(x, out, state, tau), spare)
+        with self._hooks("mix_async", buffers, times, layout):
+            self._rounds(buffers, lambda t, _: t < times,
+                         lambda x, out: round_once(x, out, state, tau), spare)
 
     # -- Byzantine-robust gossip (parallel/robust.py) --------------------- #
     def mix_robust_(self, buffers: Stacked, spec, times: int = 1, *, mass: torch.Tensor,
-                    spare: Optional[Spare] = None) -> None:
+                    spare: Optional[Spare] = None,
+                    layout: Optional[ops.FusedLayout] = None) -> None:
         """``times`` robust rounds (clipped, trimmed-mean or
         coordinate-median) in place on fused buffers, adding the edge
         weight the defense redirected onto self edges to the 0-dim float32
@@ -326,25 +387,29 @@ class ConsensusEngine:
         are bitwise :meth:`mix_`)."""
         from distributed_learning_tpu_torch.parallel import robust
 
-        robust.robust_mix_times_program(self, spec)(buffers, times, mass, spare)
+        with self._hooks("mix_robust", buffers, times, layout):
+            robust.robust_mix_times_program(self, spec)(buffers, times, mass, spare)
+        get_registry().inc("consensus.robust.rounds", int(times))
 
     def mix_async_robust_(self, buffers: Stacked, state: AsyncGossipState, spec, tau,
                           times: int = 1, *, periods, mass: torch.Tensor,
-                          spare: Optional[Spare] = None) -> None:
+                          spare: Optional[Spare] = None,
+                          layout: Optional[ops.FusedLayout] = None) -> None:
         """Robust :meth:`mix_async_`: the robust estimator on top of the
         stale-decayed matrix, each delta measured from the receiver's live
         value to the neighbour's publication; the redirected mass is added
         to ``mass``.  At the neutral knobs bitwise :meth:`mix_async_`."""
         from distributed_learning_tpu_torch.parallel import robust
 
-        robust.robust_async_gossip_times_program(self, spec, periods=periods)(
-            buffers, state, times, tau, mass, spare)
+        with self._hooks("mix_async_robust", buffers, times, layout):
+            robust.robust_async_gossip_times_program(self, spec, periods=periods)(
+                buffers, state, times, tau, mass, spare)
 
     # -- copies ---------------------------------------------------------- #
     def mix(self, stacked: Stacked, times: int = 1) -> Stacked:
         """Run exactly ``times`` gossip rounds; ``stacked`` is left as it was."""
         buffers, layout = ops.flatten_stacked(stacked)
-        self.mix_(buffers, times)
+        self.mix_(buffers, times, layout=layout)
         return ops.unflatten_stacked(buffers, layout)
 
     def mix_until(
@@ -357,7 +422,8 @@ class ConsensusEngine:
     ) -> Tuple[Stacked, int, float]:
         """:meth:`mix_until_` on a copy: ``(state, rounds_done, residual)``."""
         buffers, layout = ops.flatten_stacked(stacked)
-        t, res = self.mix_until_(buffers, eps=eps, min_times=min_times, max_rounds=max_rounds)
+        t, res = self.mix_until_(buffers, eps=eps, min_times=min_times, max_rounds=max_rounds,
+                                 layout=layout)
         return ops.unflatten_stacked(buffers, layout), t, res
 
     def _fused_carry(self, state: Optional[AsyncGossipState], stacked: Stacked,
@@ -375,7 +441,7 @@ class ConsensusEngine:
         the round counter persist.  ``state=None`` starts a fresh carry."""
         buffers, layout = ops.flatten_stacked(stacked)
         st = self._fused_carry(state, stacked, layout)
-        self.mix_async_(buffers, st, tau, times, periods=periods)
+        self.mix_async_(buffers, st, tau, times, periods=periods, layout=layout)
         return (ops.unflatten_stacked(buffers, layout),
                 AsyncGossipState(ops.unflatten_stacked(st.pub, layout), st.age, st.rnd))
 
@@ -384,7 +450,7 @@ class ConsensusEngine:
         0-dim device tensor."""
         buffers, layout = ops.flatten_stacked(stacked)
         mass = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.mix_robust_(buffers, spec, times, mass=mass)
+        self.mix_robust_(buffers, spec, times, mass=mass, layout=layout)
         return ops.unflatten_stacked(buffers, layout), mass
 
     def mix_async_robust(self, stacked: Stacked, state: Optional[AsyncGossipState] = None, *,
@@ -394,7 +460,8 @@ class ConsensusEngine:
         buffers, layout = ops.flatten_stacked(stacked)
         st = self._fused_carry(state, stacked, layout)
         mass = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.mix_async_robust_(buffers, st, spec, tau, times, periods=periods, mass=mass)
+        self.mix_async_robust_(buffers, st, spec, tau, times, periods=periods, mass=mass,
+                               layout=layout)
         return (ops.unflatten_stacked(buffers, layout),
                 AsyncGossipState(ops.unflatten_stacked(st.pub, layout), st.age, st.rnd), mass)
 
@@ -446,10 +513,11 @@ class ConsensusEngine:
         """Pairwise gossip with the per-round edge indices ``draws`` (into
         :meth:`pairwise_edges`) given: on a copy of ``stacked``."""
         buffers, layout = ops.flatten_stacked(stacked)
-        self.pairwise_(buffers, draws)
+        self.pairwise_(buffers, draws, layout=layout)
         return ops.unflatten_stacked(buffers, layout)
 
-    def pairwise_(self, buffers: Stacked, draws) -> None:
+    def pairwise_(self, buffers: Stacked, draws, *,
+                  layout: Optional[ops.FusedLayout] = None) -> None:
         """The pairwise rounds in place on fused buffers.  The two rows of
         a round are gathered and written back through device index tensors
         (``index_select`` / ``index_copy_``), so no round reads the device
@@ -459,13 +527,14 @@ class ConsensusEngine:
             self._edges_dev = torch.as_tensor(self.pairwise_edges(), dtype=torch.int64,
                                               device=self.device)
         draws = torch.as_tensor(draws, dtype=torch.int64).to(self.device)
-        pairs = self._edges_dev.index_select(0, draws)
-        for r in range(pairs.shape[0]):
-            ij = pairs[r]
-            for x in buffers.values():
-                rows = x.index_select(0, ij).to(torch.float32)
-                avg = ((rows[0] + rows[1]) * 0.5).to(x.dtype)
-                x.index_copy_(0, ij, avg.expand(2, *avg.shape))
+        with self._hooks("mix_pairwise", buffers, draws.shape[0], layout):
+            pairs = self._edges_dev.index_select(0, draws)
+            for r in range(pairs.shape[0]):
+                ij = pairs[r]
+                for x in buffers.values():
+                    rows = x.index_select(0, ij).to(torch.float32)
+                    avg = ((rows[0] + rows[1]) * 0.5).to(x.dtype)
+                    x.index_copy_(0, ij, avg.expand(2, *avg.shape))
 
     def deviations(self, stacked: Stacked) -> torch.Tensor:
         """(n,) per-agent L2 distance from the mean parameter vector."""
@@ -483,6 +552,21 @@ class ConsensusEngine:
         """The residual written into the 0-dim device tensor ``out``, with
         no host read: what a captured gossip program reports."""
         out.copy_(ops.max_deviation(stacked))
+
+    def cost_profile(self, stacked: Stacked, *, times: int = 1,
+                     name: str = "consensus.mix"):
+        """:class:`~distributed_learning_tpu_torch.obs.cost.CostProfile` of
+        ``times`` plain rounds on ``stacked``'s shapes, registered
+        process-wide under ``name``: the mixing GEMMs' FLOPs.  The rounds
+        run once on a copy of ``stacked``, with the hooks muted, so the
+        caller's state and counters stay as they were."""
+        from distributed_learning_tpu_torch.obs.cost import profile_fn, register_profile
+        from distributed_learning_tpu_torch.obs.instrument import muted
+
+        buffers, _ = ops.flatten_stacked(stacked)
+        with muted():
+            profile = profile_fn(self.mix_, buffers, int(times), name=name, register=False)
+        return register_profile(profile)
 
 
 class Mixer:

@@ -1,5 +1,11 @@
-"""Gossip training loop of the port, and its checkpoint files."""
+"""Gossip training loop of the port, its experiment config and its
+checkpoint files."""
 
+from distributed_learning_tpu_torch.training.config import (
+    DATASET_DEFAULTS,
+    ExperimentConfig,
+    wrn_lr_schedule,
+)
 from distributed_learning_tpu_torch.training.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -15,6 +21,9 @@ from distributed_learning_tpu_torch.training.trainer import (
 )
 
 __all__ = [
+    "ExperimentConfig",
+    "DATASET_DEFAULTS",
+    "wrn_lr_schedule",
     "ConsensusNode",
     "GossipTrainer",
     "MasterNode",

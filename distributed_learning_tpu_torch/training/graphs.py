@@ -21,7 +21,13 @@ synchronisation in between (``GossipTrainer.train_epochs``).
 * a record of the flash-attention launches each capture made, counted
   once per replay on the kernels' counters
   (``ops/flash_attention.record_launches``), and a count of replays per
-  graph.
+  graph;
+* the same for the obs hooks (the engines' round, byte and layout
+  counters): a warm-up counts into a registry that is thrown away, a
+  capture into its own record (``obs/instrument.muted``), and each
+  replay adds that record to the default registry
+  (``obs/instrument.replay_counts``), so a replayed gossip program
+  counts what its eager run would have.
 
 A failed capture raises; nothing here falls back to the eager loop.
 """
@@ -36,6 +42,7 @@ from typing import Callable, Dict, Hashable, Iterator, List, Sequence
 
 import torch
 
+from distributed_learning_tpu_torch.obs.instrument import muted, replay_counts
 from distributed_learning_tpu_torch.ops import flash_attention as fa
 
 __all__ = ["GraphSet", "StateSnapshot", "count_host_syncs"]
@@ -122,22 +129,23 @@ class GraphSet:
         graph ``key``.  The warm-up RUNS ``fn``: the caller snapshots and
         restores the state it touches."""
         t0 = time.perf_counter()
-        with fa.record_launches():  # the warm-up's launches are undone
+        with fa.record_launches(), muted():  # the warm-up's work is undone
             self._on_side_stream(fn)
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with fa.record_launches() as record:
+        with fa.record_launches() as record, muted() as counted:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 fn()
         torch.cuda.synchronize(self.device)
-        self._graphs[key] = (graph, record)
+        self._graphs[key] = (graph, record, counted)
         self.capture_seconds += time.perf_counter() - t0
 
     def replay(self, key: Hashable) -> None:
         """Replay graph ``key`` on the current stream; its captured kernel
-        launches count once more."""
-        graph, record = self._graphs[key]
+        launches and obs counts count once more."""
+        graph, record, counted = self._graphs[key]
         graph.replay()
         fa.count_replays(record)
+        replay_counts(counted)
         self.replays[key] += 1

@@ -44,6 +44,16 @@ on a device value (``mix_eps``, ``adaptive_comm``) runs its gossip
 eagerly between the replays.  On the CPU the same ops run eagerly.  The
 trajectory equals k calls of ``train_epoch``.
 
+Observability (``obs/``): ``obs`` (a ``MetricsRegistry``, or ``True``
+for the process-wide one) records the per-step traces as series through
+``flush_chunk`` at the one host read of each chunk, the consensus
+counters and the ``trainer.*`` spans; ``profile_costs`` registers the
+cost profile of one training step (``cost_profile``), counted on a
+snapshot of the state; ``timer_every_n`` times one chunk in N with CUDA
+events (``SampledDispatchTimer``) and, with a profile, derives MFU.  All
+three are host-side and leave the run bit-identical to an obs-off run;
+inside a superstep they add no host sync.
+
 Dropout masks, crops and flips come from explicit ``torch.Generator``s,
 one per agent, seeded from ``seed``; their bits cannot follow the
 reference's ``jax.random`` streams.  Options that are not ported raise
@@ -52,6 +62,7 @@ reference's ``jax.random`` streams.  Options that are not ported raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable, Dict, Hashable, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -63,6 +74,11 @@ import torch.nn.functional as F
 from distributed_learning_tpu_torch.data.cifar import augment_batch, draw_augment
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models import get_model
+from distributed_learning_tpu_torch.obs.carry import flush_chunk, global_norm
+from distributed_learning_tpu_torch.obs.cost import SampledDispatchTimer, get_profile, profile_fn
+from distributed_learning_tpu_torch.obs.registry import MetricsRegistry, get_registry
+from distributed_learning_tpu_torch.obs.spans import SpanTracer, get_tracer
+from distributed_learning_tpu_torch.ops import flash_attention as fa
 from distributed_learning_tpu_torch.ops import mixing as mixing_ops
 from distributed_learning_tpu_torch.parallel.compression import (
     ChocoGossipEngine,
@@ -291,11 +307,8 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # Constructor options of the reference that this port does not run yet:
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "mesh": ((None,), "queue 1, item 9 (sharded engine on torch.distributed)"),
-    "obs": ((None, False), "queue 1, item 7 (obs/)"),
-    "profile_costs": ((False,), "queue 1, item 7 (obs/)"),
-    "timer_every_n": ((0,), "queue 1, item 7 (obs/)"),
-    "remat": ((False,), "queue 1, item 11 (LM extras)"),
+    "mesh": ((None,), "queue 1, item 1 (sharded engine on torch.distributed)"),
+    "remat": ((False,), "queue 1, item 3 (LM extras)"),
 }
 
 
@@ -458,10 +471,7 @@ class GossipTrainer:
         augment_pad_value: Any = 0.0,
         remat: bool = False,
     ):
-        _reject_unported(dict(
-            mesh=mesh, obs=obs,
-            profile_costs=profile_costs, timer_every_n=timer_every_n, remat=remat,
-        ))
+        _reject_unported(dict(mesh=mesh, remat=remat))
         self.device = resolve_device(device)
         self.eval_batch_size = int(eval_batch_size)
         self.node_names = list(node_names)
@@ -520,6 +530,27 @@ class GossipTrainer:
         self.metric_fn = get_metric(error)
         self._make_opt = make_optimizer(optimizer, optimizer_kwargs, learning_rate)
         self.telemetry = telemetry
+        # Observability: None/False off, True the process-wide registry and
+        # tracer, or a MetricsRegistry with a tracer of its own.
+        if obs is None or obs is False:
+            self._obs_registry, self._obs_tracer = None, None
+        elif obs is True:
+            self._obs_registry, self._obs_tracer = get_registry(), get_tracer()
+        elif isinstance(obs, MetricsRegistry):
+            self._obs_registry, self._obs_tracer = obs, SpanTracer(registry=obs)
+        else:
+            raise ValueError(
+                "obs must be None/False (off), True (default registry), "
+                f"or a MetricsRegistry; got {obs!r}"
+            )
+        # The cost profile of one step, registered once per program name;
+        # the sampled chunk timer (off at 0).
+        self.profile_costs = bool(profile_costs)
+        self._cost_profiled: set = set()
+        self._cost_timer: Optional[SampledDispatchTimer] = None
+        if int(timer_every_n) > 0:
+            self._cost_timer = SampledDispatchTimer(
+                int(timer_every_n), name="trainer.epoch", registry=self._obs_registry)
         self.stat_step = int(stat_step)
         self.num_epochs = int(epoch)
         self.epoch_cons_num = int(epoch_cons_num)
@@ -547,6 +578,13 @@ class GossipTrainer:
                 stacklevel=2,
             )
         self.engine = ConsensusEngine(W, device=self.device)
+        # The per-leaf spans of the (N, P) parameter buffer: CHOCO's
+        # per-leaf budget and the engine's layout gauges read them.
+        named = model.stacked_parameters()
+        self._param_layout = mixing_ops.FusedLayout(
+            tuple(mixing_ops._LeafSlot(name, "float32", off, tuple(named[name].shape[1:]), size)
+                  for name, (off, size) in model.param_slices.items()),
+            (("float32", model.flat_params.shape[1]),))
         # The async carry and the robust mass: fixed-address state that the
         # gossip graphs write; the checkpoint holds neither.
         self._async_state: Optional[AsyncGossipState] = None
@@ -574,13 +612,7 @@ class GossipTrainer:
                 budget=str(compression_budget), error_feedback=bool(compression_error_feedback),
                 device=self.device)
             flat = model.flat_params
-            named = model.stacked_parameters()
-            # The per-leaf spans of the (N, P) parameter buffer.
-            self._choco_layout = mixing_ops.FusedLayout(
-                tuple(mixing_ops._LeafSlot(name, "float32", off, tuple(named[name].shape[1:]),
-                                           size)
-                      for name, (off, size) in model.param_slices.items()),
-                (("float32", flat.shape[1]),))
+            self._choco_layout = self._param_layout
             # The estimates, the error-feedback bank and the random kinds'
             # generator: fixed-address state that the gossip graphs write.
             self._choco_xhat = torch.zeros_like(flat)
@@ -904,7 +936,7 @@ class GossipTrainer:
             # design; autograd accumulates into them in place.
             warnings.filterwarnings("ignore", message="grad and param do not obey")
             loss.sum().backward()
-        gnorm = torch.linalg.vector_norm(model.flat_grads, dim=1)
+        gnorm = global_norm(model.flat_grads, dim=1)
         self._opt.step()
         acc = self.metric_fn(logits.detach(), y).mean(dim=1)
         return loss.detach(), acc, gnorm
@@ -1030,7 +1062,7 @@ class GossipTrainer:
         the robust rounds, their redirected mass written into
         ``_robust_mass``); returns the rounds run.  Reads nothing back to
         the host unless eps stopping decides the count."""
-        buffers, eng = self._buffers, self.engine
+        buffers, eng, layout = self._buffers, self.engine, self._param_layout
         if mode == 0:
             return 0
         if self._async_sim is not None or self._robust_cfg is not None:
@@ -1039,16 +1071,18 @@ class GossipTrainer:
             if mass is not None:
                 mass.zero_()
             if self._async_sim is None:
-                eng.mix_robust_(buffers, self._robust_cfg, times, mass=mass, spare=spare)
+                eng.mix_robust_(buffers, self._robust_cfg, times, mass=mass, spare=spare,
+                                layout=layout)
             elif self._robust_cfg is None:
                 eng.mix_async_(buffers, self._async_state, tau, times,
-                               periods=self._async_sim["periods"], spare=spare)
+                               periods=self._async_sim["periods"], spare=spare, layout=layout)
             else:
                 eng.mix_async_robust_(buffers, self._async_state, self._robust_cfg, tau, times,
-                                      periods=self._async_sim["periods"], mass=mass, spare=spare)
+                                      periods=self._async_sim["periods"], mass=mass, spare=spare,
+                                      layout=layout)
             return times
         if mode == 2:
-            eng.global_average_(buffers)
+            eng.global_average_(buffers, layout=layout)
             if self._choco is not None:
                 # The estimates tracked the iterates before the exact
                 # average; kept, they would push the now-equal iterates
@@ -1066,13 +1100,13 @@ class GossipTrainer:
             return times
         spare = self._spare_sets()
         if self.chebyshev:
-            eng.mix_chebyshev_(buffers, times, W=W, omegas=omegas, spare=spare)
+            eng.mix_chebyshev_(buffers, times, W=W, omegas=omegas, spare=spare, layout=layout)
         elif self.mix_eps is not None:
             rounds, _ = eng.mix_until_with_(buffers, W, eps=self.mix_eps, min_times=times,
-                                            spare=spare)
+                                            spare=spare, layout=layout)
             return rounds
         else:
-            eng.mix_with_(buffers, W, times, spare=spare)
+            eng.mix_with_(buffers, W, times, spare=spare, layout=layout)
         return times
 
     def _gossip_done(self, mode: int) -> None:
@@ -1118,31 +1152,144 @@ class GossipTrainer:
             total += per.sum(dim=1).to(torch.float64)
         return (total / max(len(X), 1)).cpu().numpy()
 
+    # -- observability ---------------------------------------------------- #
+    def _span(self, name: str):
+        """Wall-clock span on the trainer's tracer (a no-op with obs off)."""
+        if self._obs_tracer is None:
+            return contextlib.nullcontext()
+        return self._obs_tracer.span(name)
+
+    def _count_dispatch(self, n: int = 1) -> None:
+        """``trainer.dispatches``: the train path's host dispatches, an
+        eager program or a graph replay (an epoch's steps, its gossip, its
+        deviation readout; eval and checkpoints are reporting)."""
+        if self._obs_registry is not None:
+            self._obs_registry.inc("trainer.dispatches", n)
+
+    def _observe_epoch(self, deviation: float, mode: int, rounds: int,
+                       mass: Optional[float]) -> None:
+        """One epoch's consensus series and counters (the reference's)."""
+        reg = self._obs_registry
+        if reg is None:
+            return
+        reg.observe("consensus.residual", deviation, step=self._global_step)
+        if mode:
+            reg.inc("consensus.rounds_run", rounds)
+            if mass is not None:
+                # The defense's detection signal: ~0 in honest runs.
+                reg.inc("consensus.robust.clipped_mass", mass)
+                reg.observe("consensus.robust.mass", mass, step=self._global_step)
+
+    def _observe_eval(self, test_accs: Optional[np.ndarray]) -> None:
+        if test_accs is not None and self._obs_registry is not None:
+            self._obs_registry.observe("eval.test_acc", float(np.mean(test_accs)),
+                                       step=self._global_step)
+
+    def _flush(self, host: np.ndarray) -> Dict[str, np.ndarray]:
+        """The chunk's ``(..., steps, 3, n)`` traces, read to the host
+        once already, through ``flush_chunk``: the ``train.*`` series."""
+        return flush_chunk(
+            self._obs_registry,
+            {"loss": host[..., 0, :], "acc": host[..., 1, :], "grad_norm": host[..., 2, :]},
+            step0=self._global_step, node_names=self.node_names)
+
+    def cost_profile(self, k: Optional[int] = None):
+        """:class:`~distributed_learning_tpu_torch.obs.cost.CostProfile` of
+        one training step (forward and backward of every agent on the
+        next epoch's first batch), registered process-wide as
+        ``trainer.epoch`` (``k`` None or 1) or ``trainer.superstep<k>``:
+        the loop body of either, whose ``loop_steps`` (``epoch_len``, or
+        ``k * epoch_len``) the timer passes.  The step RUNS once, counted
+        by ``obs.cost.FlopCounter`` (the flash kernels by their analytic
+        count), on a snapshot: the gradients, the running statistics and
+        every generator are restored after it, the optimizer is not
+        stepped, and its kernel launches and obs hooks do not count.  So
+        a later step is bit-identical to one without the profile."""
+        if self._opt is None:
+            self.initialize_nodes()
+        name = "trainer.epoch" if k is None or int(k) <= 1 else f"trainer.superstep{int(k)}"
+        return profile_fn(self._profile_step, name=name, registry=self._obs_registry,
+                          platform=self.device.type)
+
+    def _profile_step(self) -> None:
+        from distributed_learning_tpu_torch.obs.instrument import muted
+
+        model = self.model
+        idx = torch.as_tensor(self._epoch_perm(self._epochs_done)[0].astype(np.int64),
+                              device=self.device)
+        snap = StateSnapshot(lambda: [model.flat_grads, model.flat_stats],
+                             self._train_generators)
+        try:
+            with fa.record_launches(), muted():
+                x, y = self._Xs[self._agent, idx], self._ys[self._agent, idx]
+                model.train()
+                if self.augment:
+                    x = self._augment(x)
+                model.flat_grads.zero_()
+                loss = self.loss_fn(model(x), y)
+                with warnings.catch_warnings():
+                    warnings.filterwarnings("ignore", message="grad and param do not obey")
+                    loss.sum().backward()
+        finally:
+            snap.restore()
+
+    def _maybe_profile_costs(self, k: Optional[int] = None) -> None:
+        """Register this program's cost profile once (``profile_costs``)."""
+        key = "epoch" if k is None or int(k) <= 1 else f"superstep{int(k)}"
+        if not self.profile_costs or key in self._cost_profiled:
+            return
+        self._cost_profiled.add(key)
+        self.cost_profile(k)
+
     # -- epochs ----------------------------------------------------------- #
     def train_epoch(self) -> Dict[str, Any]:
         """One epoch: local SGD on every node, then (maybe) gossip."""
+        with self._span("trainer.epoch"):
+            return self._train_epoch()
+
+    def _train_epoch(self) -> Dict[str, Any]:
         if self._opt is None:
             self.initialize_nodes()
+        self._maybe_profile_costs()
         epoch_idx = self._epochs_done
         n = len(self.node_names)
         plan = self._plan(epoch_idx)  # a schedule that raises leaves the state as it was
         mode = plan.mode
         lr = self._lr_slots(1)
         trace = torch.empty(self.epoch_len, 3, n, device=self.device)
-        self._run_steps(self._indices(epoch_idx, 1)[0], None if lr is None else lr[0], trace)
-        self._opt_steps += self.epoch_len
-        mix_rounds = self._gossip(epoch_idx, plan) if mode else 0
-        # One host sync for the epoch's (steps, 3, n) traces.
-        losses, accs, gnorms = trace.cpu().numpy().transpose(1, 0, 2)
+        timer = self._cost_timer
+        sampled = timer.tick() if timer is not None else False
+        with self._span("trainer.chunk"):
+            t0 = timer.start(self.device) if sampled else None
+            self._run_steps(self._indices(epoch_idx, 1)[0], None if lr is None else lr[0], trace)
+            self._count_dispatch()
+            self._opt_steps += self.epoch_len
+            mix_rounds = 0
+            if mode:
+                with self._span("trainer.mix"):
+                    mix_rounds = self._gossip(epoch_idx, plan)
+                self._count_dispatch()
+            if sampled:
+                # The declared 1-in-N sync, at the boundary the flush reads.
+                timer.measure(t0, name="trainer.epoch", loop_steps=self.epoch_len,
+                              step=self._global_step)
+            # One host read for the epoch's (steps, 3, n) traces.
+            arrs = self._flush(trace.cpu().numpy())
+        losses, accs, gnorms = arrs["loss"], arrs["acc"], arrs["grad_norm"]
+        mass = None
         if mode and self._robust_mass is not None:
-            self._robust_masses.append(float(self._robust_mass))
+            mass = float(self._robust_mass)
+            self._robust_masses.append(mass)
         self._record_stats(losses, accs)
         test_accs = self._eval_and_record()
+        self._count_dispatch()  # the deviation readout
         payload = self._payload(epoch_idx, mode, losses, accs, gnorms, test_accs,
                                 mix_rounds, self.parameter_deviation())
         if self._adaptive_cfg is not None:
             self._adaptive_res = np.float32(payload["deviation"])
-        self._telemetry([payload])
+        self._observe_epoch(payload["deviation"], mode, mix_rounds, mass)
+        self._observe_eval(test_accs)
+        self._telemetry([payload], sampled)
         return payload
 
     def _record_stats(self, losses: np.ndarray, accs: np.ndarray) -> None:
@@ -1161,7 +1308,8 @@ class GossipTrainer:
     def _eval_and_record(self) -> Optional[np.ndarray]:
         if self.test_data is None:
             return None
-        test_accs = self._eval_accuracy()
+        with self._span("trainer.eval"):
+            test_accs = self._eval_accuracy()
         for a, name in enumerate(self.node_names):
             node = self.network[name]
             node.stats.test_acc.append(float(test_accs[a]))
@@ -1181,23 +1329,34 @@ class GossipTrainer:
             "deviation": float(deviation),
         }
 
-    def _telemetry(self, payloads: List[Dict[str, Any]]) -> None:
+    def _telemetry(self, payloads: List[Dict[str, Any]], sampled: bool) -> None:
+        """Per-node payloads to the telemetry processor; with the timer
+        configured they carry ``step_time_s`` and ``mfu`` (None on a
+        chunk the timer did not sample)."""
         if self.telemetry is None:
             return
-        for p in payloads:
-            for a, name in enumerate(self.node_names):
-                self.telemetry.process(
-                    name,
-                    {
-                        "epoch": p["epoch"],
-                        "train_loss": float(p["train_loss"][a]),
-                        "train_acc": float(p["train_acc"][a]),
-                        "grad_norm": float(p["grad_norm"][a]),
-                        "test_acc": None if p["test_acc"] is None else float(p["test_acc"][a]),
-                        "mix_rounds": p["mix_rounds"],
-                        "deviation": p["deviation"],
-                    },
-                )
+        timer = self._cost_timer
+        cost_keys = {} if timer is None else {
+            "step_time_s": timer.last_step_time_s if sampled else None,
+            "mfu": timer.last_mfu if sampled else None,
+        }
+        with self._span("trainer.telemetry"):
+            for p in payloads:
+                for a, name in enumerate(self.node_names):
+                    self.telemetry.process(
+                        name,
+                        {
+                            "epoch": p["epoch"],
+                            "train_loss": float(p["train_loss"][a]),
+                            "train_acc": float(p["train_acc"][a]),
+                            "grad_norm": float(p["grad_norm"][a]),
+                            "test_acc": (None if p["test_acc"] is None
+                                         else float(p["test_acc"][a])),
+                            "mix_rounds": p["mix_rounds"],
+                            "deviation": p["deviation"],
+                            **cost_keys,
+                        },
+                    )
 
     # -- the epoch superstep ---------------------------------------------- #
     @property
@@ -1300,8 +1459,13 @@ class GossipTrainer:
             raise ValueError(f"train_epochs needs k >= 1, got {k}")
         if k == 1:
             return [self.train_epoch()]
+        with self._span("trainer.superstep"):
+            return self._train_superstep(k)
+
+    def _train_superstep(self, k: int) -> List[Dict[str, Any]]:
         if self._opt is None:
             self.initialize_nodes()
+        self._maybe_profile_costs(k)
         epoch0, n, steps = self._epochs_done, len(self.node_names), self.epoch_len
         # Every epoch's schedule is called and validated before anything
         # trains: one that raises leaves the state as it was.
@@ -1330,63 +1494,84 @@ class GossipTrainer:
         traces = flush[:, :-2].view(k, steps, 3, n)
         devs, masses = flush[:, -2], flush[:, -1]
         graphs = self.device.type == "cuda"
-        if graphs:
-            keys = [("train",)]
-            if not cut:
-                keys += sorted({("gossip", p.mode, p.times) for p in plans})
-            self._capture(keys)
-        rounds = [0] * k
-        with count_host_syncs(self.device) as syncs:
-            for j in range(k):
-                if graphs:
-                    self._stage_inputs(j, idx, lr)
-                    self._graphs.replay(("train",))
-                    traces[j].copy_(self._static.trace)
-                else:
-                    self._run_steps(idx[j], None if lr is None else lr[j], traces[j])
-                self._opt_steps += steps
-                p = plans[j]
-                W = None if W_all is None else W_all[j]
-                om = None if om_all is None else om_all[j, : p.times]
-                if cut:  # eps / adaptive: the count needs the residual
-                    if j > 0 and self._adaptive_cfg is not None:
-                        self._adaptive_res = np.float32(float(devs[j - 1]))
-                    rounds[j] = self._run_gossip(p.mode, self._times(p), W, om, tau_all[j])
-                    self._gossip_done(p.mode)
-                    self.engine.max_deviation_(self._buffers, devs[j])
-                else:
-                    rounds[j] = p.times if p.mode else 0
+        timer = self._cost_timer
+        sampled = timer.tick() if timer is not None else False
+        with self._span("trainer.chunk"):
+            if graphs:
+                keys = [("train",)]
+                if not cut:
+                    keys += sorted({("gossip", p.mode, p.times) for p in plans})
+                self._capture(keys)
+            t0 = timer.start(self.device) if sampled else None
+            rounds = [0] * k
+            with count_host_syncs(self.device) as syncs:
+                for j in range(k):
                     if graphs:
-                        st = self._static
-                        if W is not None:
-                            st.W.copy_(W)
-                        if om is not None and p.mode == 1:
-                            st.omegas[p.times].copy_(om)
-                        st.tau.copy_(tau_all[j])
-                        self._graphs.replay(("gossip", p.mode, p.times))
-                        devs[j].copy_(st.dev)
+                        self._stage_inputs(j, idx, lr)
+                        self._graphs.replay(("train",))
+                        traces[j].copy_(self._static.trace)
                     else:
-                        self._run_gossip(p.mode, p.times, W, om, tau_all[j])
+                        self._run_steps(idx[j], None if lr is None else lr[j], traces[j])
+                    self._count_dispatch()
+                    self._opt_steps += steps
+                    p = plans[j]
+                    W = None if W_all is None else W_all[j]
+                    om = None if om_all is None else om_all[j, : p.times]
+                    if cut:  # eps / adaptive: the count needs the residual
+                        if j > 0 and self._adaptive_cfg is not None:
+                            self._adaptive_res = np.float32(float(devs[j - 1]))
+                        rounds[j] = self._run_gossip(p.mode, self._times(p), W, om, tau_all[j])
+                        self._gossip_done(p.mode)
                         self.engine.max_deviation_(self._buffers, devs[j])
-                    self._gossip_done(p.mode)
-                if p.mode and self._robust_mass is not None:
-                    masses[j].copy_(self._robust_mass)
-        host = flush.cpu().numpy()
-        if graphs:
-            self.superstep_host_syncs.append(syncs[0])
-        tr = host[:, :-2].reshape(k, steps, 3, n)
+                        self._count_dispatch(2 if p.mode else 1)
+                    else:
+                        rounds[j] = p.times if p.mode else 0
+                        if graphs:
+                            st = self._static
+                            if W is not None:
+                                st.W.copy_(W)
+                            if om is not None and p.mode == 1:
+                                st.omegas[p.times].copy_(om)
+                            st.tau.copy_(tau_all[j])
+                            self._graphs.replay(("gossip", p.mode, p.times))
+                            devs[j].copy_(st.dev)
+                        else:
+                            self._run_gossip(p.mode, p.times, W, om, tau_all[j])
+                            self.engine.max_deviation_(self._buffers, devs[j])
+                        self._gossip_done(p.mode)
+                        self._count_dispatch()  # the gossip program, its deviation included
+                    if p.mode and self._robust_mass is not None:
+                        masses[j].copy_(self._robust_mass)
+            if sampled:
+                # One sample covers the whole k-epoch chunk: the declared
+                # sync, after the superstep's replays, at the flush.
+                timer.measure(t0, name="trainer.superstep",
+                              profile=get_profile(f"trainer.superstep{k}"),
+                              loop_steps=k * steps, step=self._global_step)
+            host = flush.cpu().numpy()
+            if graphs:
+                self.superstep_host_syncs.append(syncs[0])
+            tr = host[:, :-2].reshape(k, steps, 3, n)
+            arrs = self._flush(tr)  # the (k, steps, n) traces as one k*steps-step chunk
         devs_host = host[:, -2]
-        if self._robust_mass is not None:
-            self._robust_masses.extend(float(host[j, -1]) for j in range(k) if plans[j].mode)
         if self._adaptive_cfg is not None:
             self._adaptive_res = np.float32(devs_host[-1])
         payloads = []
+        test_accs = None
         for j in range(k):
-            self._record_stats(tr[j, :, 0], tr[j, :, 1])
-            test_accs = self._eval_and_record() if j == k - 1 else None
-            payloads.append(self._payload(epoch0 + j, plans[j].mode, tr[j, :, 0], tr[j, :, 1],
-                                          tr[j, :, 2], test_accs, rounds[j], devs_host[j]))
-        self._telemetry(payloads)
+            self._record_stats(arrs["loss"][j], arrs["acc"][j])
+            if j == k - 1:
+                test_accs = self._eval_and_record()
+            payloads.append(self._payload(epoch0 + j, plans[j].mode, arrs["loss"][j],
+                                          arrs["acc"][j], arrs["grad_norm"][j], test_accs,
+                                          rounds[j], devs_host[j]))
+            mass = None
+            if plans[j].mode and self._robust_mass is not None:
+                mass = float(host[j, -1])
+                self._robust_masses.append(mass)
+            self._observe_epoch(float(devs_host[j]), plans[j].mode, rounds[j], mass)
+        self._observe_eval(test_accs)
+        self._telemetry(payloads, sampled)
         return payloads
 
     def start_consensus(self) -> List[Dict[str, Any]]:

@@ -91,3 +91,59 @@ def test_graph_layer_modules_import_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     loaded = [line for line in out.stdout.splitlines() if line.startswith("LOADED=")][0]
     assert loaded == "LOADED=", f"port import loaded {loaded}"
+
+
+_OBS_CLI = [
+    "distributed_learning_tpu_torch.cli",
+    "distributed_learning_tpu_torch.obs",
+    "distributed_learning_tpu_torch.obs.registry",
+    "distributed_learning_tpu_torch.obs.spans",
+    "distributed_learning_tpu_torch.obs.carry",
+    "distributed_learning_tpu_torch.obs.instrument",
+    "distributed_learning_tpu_torch.obs.cost",
+    "distributed_learning_tpu_torch.obs.sketch",
+    "distributed_learning_tpu_torch.obs.flight",
+    "distributed_learning_tpu_torch.obs.health",
+    "distributed_learning_tpu_torch.obs.aggregate",
+    "distributed_learning_tpu_torch.obs.report",
+    "distributed_learning_tpu_torch.utils.profiling",
+    "distributed_learning_tpu_torch.training.config",
+    "distributed_learning_tpu_torch.training.eval",
+]
+
+
+@pytest.fixture(scope="module")
+def obs_cli_imports():
+    """One fresh interpreter imports the modules in turn (and runs the
+    CLI's ``obs-report`` on a one-line log); after each import it lists
+    the JAX modules loaded so far, so a module that loads JAX is named
+    by the first line that is not empty."""
+    code = "\n".join([
+        "import importlib, sys, tempfile, os",
+        "def bad():",
+        "    return ','.join(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"
+        " or m.startswith('distributed_learning_tpu.')))",
+        f"for name in {_OBS_CLI!r}:",
+        "    importlib.import_module(name)",
+        "    print('LOADED', name, '=' + bad())",
+        "from distributed_learning_tpu_torch.cli import main",
+        "d = tempfile.mkdtemp(); p = os.path.join(d, 'r.jsonl')",
+        "open(p, 'w').write('{\"ts\": 1.0, \"kind\": \"series\", \"name\": \"x\", \"value\": 1.0}\\n')",
+        "assert main(['obs-report', p]) == 0",
+        "print('LOADED obs-report =' + bad())",
+    ])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return dict(line[len("LOADED "):].split(" =", 1) for line in out.stdout.splitlines()
+                if line.startswith("LOADED "))
+
+
+@pytest.mark.parametrize("module", _OBS_CLI + ["obs-report"])
+def test_obs_cli_config_and_eval_import_no_jax(module, obs_cli_imports):
+    """The obs layer, the CLI (and its ``obs-report`` run), the
+    experiment config and LM eval load no JAX and nothing of the JAX
+    package."""
+    assert obs_cli_imports[module] == "", f"{module} loaded {obs_cli_imports[module]}"

@@ -198,8 +198,10 @@ def test_start_consensus_runs_superstep_chunks():
 
 
 def test_graph_replays_count_their_captured_launches():
-    """GraphSet.replay counts the capture's launch record once per replay
-    and the replays per graph (a stand-in graph: no card here)."""
+    """GraphSet.replay counts the capture's launch record and its obs
+    record once per replay, and the replays per graph (a stand-in graph:
+    no card here)."""
+    from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
     from distributed_learning_tpu_torch.ops import flash_attention as fa
     from distributed_learning_tpu_torch.training.graphs import GraphSet
 
@@ -213,11 +215,17 @@ def test_graph_replays_count_their_captured_launches():
     graphs._graphs, graphs.replays = {}, __import__("collections").Counter()
     record = __import__("collections").Counter({("flash_fwd", "wgmma"): 16,
                                                 ("flash_bwd_rowterm", "cuda_core"): 8})
-    graphs._graphs[("train",)] = (FakeGraph(), record)
+    counted = MetricsRegistry()
+    counted.inc("consensus.rounds_run", 2)
+    counted.gauge("consensus.leaf_count", 7)
+    graphs._graphs[("train",)] = (FakeGraph(), record, counted)
     fa.reset_launch_counts()
-    for _ in range(3):
-        graphs.replay(("train",))
+    with use_registry(MetricsRegistry()) as reg:
+        for _ in range(3):
+            graphs.replay(("train",))
     assert FakeGraph.replayed == 3 and graphs.replays[("train",)] == 3
+    assert reg.counters == {"consensus.rounds_run": 6.0}
+    assert reg.gauges == {"consensus.leaf_count": 7.0}
     assert fa.KERNELS["flash_fwd"].by_body["wgmma"] == 48
     assert fa.KERNELS["flash_bwd_rowterm"].launches == 24
     fa.reset_launch_counts()
