@@ -193,6 +193,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
              checkpoints equal bit for bit; ``--testOnly``; ``obs-report``
              over phase 23's JSONL (exit 0).  Checkpoints removed after.
 
+27. lm_extras — the LM slice's model with rope, 2 KV heads, top-2 MoE over
+             4 experts (capacity 1.25) and dropout 0.1 (306,423,808
+             params per agent), 4 agents on the ring, adam, B 1 (B 2
+             does not fit the superstep's captures), ``moe_aux_coef``
+             0.01: 3 eager epochs of 3 steps (A, B, C
+             and the pre-pass counted: 8 layers x steps, plus the evals'
+             forwards) against ``train_epochs(3)`` as graph replays with
+             obs on, bit for bit under deterministic algorithms, 0 host
+             syncs; tokens/s, the timer's MFU and peak memory beside the
+             dense slice's from this run; the trainer's loss equal to CE
+             + 0.01 aux; each block's dropped fraction.
+28. lm_extras_plain — that model at 2 layers, 2 agents, dropout off: one
+             step through the kernels against plain attention under
+             phase 4's limits; the control rotates Q but not K.
+29. lm_remat — that model at 2 layers with dropout: one epoch with
+             ``remat`` off, on, and on as a graph replay, bit for bit,
+             flash launches equal; step ms by CUDA events and peak memory
+             both ways.
+30. lm_decode — ``generate`` at ``benchmarks/bench_lm.py``'s full-scale
+             decode (1 agent, 8 layers, B 2, prefill 2048 + 256 greedy
+             steps, bf16; MHA and 2 KV heads): tokens/s by the
+             prefill-subtracted protocol, ms a step against the byte
+             bound, the KV cache's bytes, kernel A once a layer in the
+             prefill; the logits of the prefill and 32 steps against a
+             full forward (``DECODE_LOGITS_RTOL``), the greedy tokens
+             against its argmax; the same for a 2-layer rope + GQA + MoE
+             (drop-free) + window-4 decode, whose cache write one slot
+             off must fail.
+
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -202,6 +231,7 @@ before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -473,7 +503,8 @@ def pattern_batch(n_seq: int, phases, rng: np.random.Generator):
     return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
 
 
-def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, **trainer_kwargs):
+def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, model_kwargs=None,
+                 batch=BATCH, **trainer_kwargs):
     from distributed_learning_tpu_torch.models import TransformerLM
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
@@ -481,18 +512,18 @@ def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, **trainer_kwa
     rng = np.random.default_rng(seed)
     quarter = VOCAB // agents
     nodes = list(range(agents))
-    train = {a: pattern_batch(steps * BATCH, range(quarter * a, quarter * (a + 1)), rng)
+    train = {a: pattern_batch(steps * batch, range(quarter * a, quarter * (a + 1)), rng)
              for a in nodes}
     test = pattern_batch(4, range(VOCAB), rng)
     model = TransformerLM(
         vocab_size=VOCAB, num_layers=layers, num_heads=HEADS, head_dim=HEAD_DIM,
         max_len=SEQ, attn_impl=attn_impl, dtype=torch.bfloat16,
-        n_agents=agents, device=DEVICE, seed=seed,
+        n_agents=agents, device=DEVICE, seed=seed, **(model_kwargs or {}),
     )
     master = MasterNode(
         nodes, model, optimizer="adam", optimizer_kwargs={"lr": 1e-3},
         weights=Topology.ring(agents), train_loaders=train, test_loader=test,
-        stat_step=1, epoch=epochs, epoch_len=steps, batch_size=BATCH,
+        stat_step=1, epoch=epochs, epoch_len=steps, batch_size=batch,
         mix_times=1, eval_batch_size=2, seed=seed, device=DEVICE, **trainer_kwargs,
     )
     master.initialize_nodes()
@@ -605,6 +636,9 @@ def leaf_grads(model) -> dict:
         if name.endswith("attn.qkv"):
             for j, part in enumerate("qkv"):
                 out[f"{name}.{part}"] = g[:, :, j].clone()
+        elif name.endswith("attn.kv_proj"):
+            for j, part in enumerate("kv"):
+                out[f"{name}.{part}"] = g[:, :, j].clone()
         else:
             out[name] = g.clone()
     return out
@@ -630,38 +664,54 @@ def _drop_first_key_tile(fa):
         dv[:, :TILE_ROWS] = 0
         return dk, dv
 
-    return real, broken
+    return broken
 
 
-def phase_plain(fa):
-    """One training step of 2 agents x 2 layers at full width, through the
-    kernels and through plain attention from identical weights: loss and
-    every leaf's gradient, per agent.  A control run with a dK/dV that
-    drops key tile 0 must fail the same limits."""
+@contextlib.contextmanager
+def _patched(owner, name, value):
+    """``owner.name`` replaced by ``value`` inside the block (the
+    attribute as ``owner`` holds it, so a static method stays one)."""
+    real = vars(owner)[name]
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None,
+                    **trainer_kwargs) -> dict:
+    """One training step of ``agents`` x ``layers`` at full width, through
+    the kernels and through plain attention from identical weights (the
+    first model's, round-tripped through ``convert.py``), then a control
+    run through the kernels inside ``control()``: the loss and every
+    leaf's gradient per agent, each run against the plain one under
+    LOSS_RTOL / GRAD_RTOL.  ``around(run)``, when given, is a context
+    manager around each run.  Returns the facts; ``ok`` when the kernel
+    run passes and the control fails."""
     from distributed_learning_tpu_torch.convert import flax_to_torch, torch_to_flax
 
-    agents, layers = 2, 2
     out = {}
     weights = None
-    real, broken = _drop_first_key_tile(fa)
     for run, impl in (("flash", "flash"), ("full", "full"), ("control", "flash")):
-        master = make_trainer(impl, layers, agents, 1, 1)
+        master = make_trainer(impl, layers, agents, 1, 1, model_kwargs=model_kwargs,
+                              **trainer_kwargs)
         if weights is None:
             weights = flax_to_torch(torch_to_flax(
                 {k: v.detach().cpu().numpy().copy()
                  for k, v in master.model.stacked_parameters().items()}
             ), n_agents=agents)
         master.initialize_nodes(params=weights)
-        fa.flash_bwd_dkv = broken if run == "control" else real
-        try:
+        with contextlib.ExitStack() as stack:
+            if around is not None:
+                stack.enter_context(around(run))
+            if run == "control":
+                stack.enter_context(control())
             p = master.train_epoch()
-        finally:
-            fa.flash_bwd_dkv = real
         out[run] = (p["train_loss"], leaf_grads(master.model))
         del master
         gc.collect()
         torch.cuda.empty_cache()
-    loss_rtol, grad_rtol = LOSS_RTOL, GRAD_RTOL
     full_loss, full_grads = out["full"]
     verdict = {}
     for run in ("flash", "control"):
@@ -672,14 +722,22 @@ def phase_plain(fa):
             "loss_rel_err": float(np.max(np.abs(loss - full_loss) / np.abs(full_loss))),
             "grad_rel_err": errs, "worst_leaf": worst,
         }
-        verdict[run]["ok"] = (verdict[run]["loss_rel_err"] <= loss_rtol
-                              and errs[worst] <= grad_rtol)
-    ok = verdict["flash"]["ok"] and not verdict["control"]["ok"]
-    emit({"phase": "plain", "agents": agents, "layers": layers,
-          "loss": {k: v[0].tolist() for k, v in out.items()},
-          "limits": {"loss_rtol": loss_rtol, "grad_rtol": grad_rtol},
-          **verdict, "ok": ok})
-    if not ok:
+        verdict[run]["ok"] = (verdict[run]["loss_rel_err"] <= LOSS_RTOL
+                              and errs[worst] <= GRAD_RTOL)
+    return {"agents": agents, "layers": layers,
+            "loss": {k: v[0].tolist() for k, v in out.items()},
+            "limits": {"loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL},
+            **verdict, "ok": verdict["flash"]["ok"] and not verdict["control"]["ok"]}
+
+
+def phase_plain(fa):
+    """One training step of 2 agents x 2 layers at full width, through the
+    kernels and through plain attention from identical weights: loss and
+    every leaf's gradient, per agent.  A control run with a dK/dV that
+    drops key tile 0 must fail the same limits."""
+    facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)))
+    emit({"phase": "plain", **facts})
+    if not facts["ok"]:
         raise AssertionError("kernel path and plain path disagree, or the "
                              "control was not rejected")
 
@@ -1544,7 +1602,7 @@ def phase_lm_superstep(fa, out_dir=None):
                               profile_to=None if out_dir is None
                               else (out_dir, "profile_lm_superstep.txt"))
     emit({"phase": "lm_superstep_timing", **timing})
-    return launches
+    return launches, timing["superstep_tokens_per_s"]
 
 
 def _route_trainer(**over):
@@ -2882,7 +2940,7 @@ def phase_obs_lm(fa):
         raise AssertionError(f"obs_lm launches {launches} != {expect}")
     if abs(prof.flops / formula - 1.0) > LM_FLOPS_RTOL:
         raise AssertionError(f"LM profile {prof.flops:.4e} FLOPs a step vs formula {formula:.4e}")
-    return {"launches": launches, "master": runs["trainers"]["on"]}
+    return {"launches": launches, "master": runs["trainers"]["on"], "mfu": facts["timer"]["mfu"]}
 
 
 EVAL_EPOCHS = 12  # the LM's epochs before lm_eval (obs_lm's 6 and 2 more supersteps)
@@ -3029,6 +3087,450 @@ def phase_cli(obs_jsonl):
         raise AssertionError(f"--testOnly printed {out['test_only']}")
 
 
+# ---------------------------------------------------------------------- #
+# Phases 27-30: the LM extras and the serving path                       #
+# ---------------------------------------------------------------------- #
+# The LM slice's model with the modern-LM options of the JAX package's
+# TransformerLM: rotary positions, 2 KV heads, top-2 MoE over 4 experts
+# (GShard capacity 1.25), residual dropout 0.1; moe_aux_coef the
+# reference trainer's default.  306,423,808 parameters per agent.  The
+# superstep phase trains it at B 1 per agent: at B 2 its captures need
+# ~77 GB (state 19.6 GB, the warm-up's snapshot 9.8 GB, the gossip's spare
+# set 4.9 GB, the training graph's pool 34.5 GB, the gossip warm-up's
+# deviation temporaries) and ran out of the card's 79.2 GB.
+EXTRAS_BATCH = 1
+EXTRAS = dict(pos_emb="rope", num_kv_heads=2, mlp="moe", num_experts=4, moe_top_k=2,
+              moe_capacity_factor=1.25)
+EXTRAS_DROPOUT, EXTRAS_AUX_COEF, EXTRAS_PARAMS = 0.1, 0.01, 306_423_808
+EXTRAS_PLAIN_LAYERS, REMAT_LAYERS = 2, 2
+# lm_decode: benchmarks/bench_lm.py's full-scale decode (B 2, prefill 2048,
+# 256 greedy steps), MHA and 2 KV heads; the short decode adds rope, MoE
+# (drop-free; capacity 8 so the full forward drops nothing either) and a
+# window of 4 over a prefill of 256, at 2 layers.
+DECODE_BATCH, DECODE_PREFILL, DECODE_STEPS, DECODE_CHECK_STEPS = 2, 2048, 256, 32
+SHORT_DECODE = dict(pos_emb="rope", num_kv_heads=2, mlp="moe", num_experts=4, moe_top_k=2,
+                    moe_capacity_factor=8.0, attn_window=4)
+SHORT_LAYERS, SHORT_PREFILL = 2, 256
+# Decode logits against the full forward at the same positions, bf16: per
+# step ||decode - full|| / ||full|| over the vocabulary.  The two paths
+# round differently (the masked product over the cache against kernel A,
+# GEMMs of 1 row against GEMMs of 2080): ~1e-2 expected.  A cache write one
+# slot off hides each query's own key and value: in the short decode's
+# window of 4 that is a quarter of what it attends to, O(1e-1) or more of
+# the logits.  At prefill 2048 under random weights attention is near
+# uniform, so the same fault moves the logits by ~1/2048: reported there,
+# gated on the short decode.
+DECODE_LOGITS_RTOL = 5e-2
+
+
+def _extras_model_kwargs(dropout=EXTRAS_DROPOUT):
+    return dict(EXTRAS, dropout_rate=dropout)
+
+
+def _extras_trainer(layers=LAYERS, dropout=EXTRAS_DROPOUT, batch=BATCH, **trainer_kwargs):
+    return make_trainer("flash", layers, AGENTS, EPOCHS, STEPS,
+                        model_kwargs=_extras_model_kwargs(dropout), batch=batch,
+                        moe_aux_coef=EXTRAS_AUX_COEF, **trainer_kwargs)
+
+
+def _launches(fa) -> dict:
+    return {k.name: k.launches for k in fa.KERNELS.values()}
+
+
+def _moe_facts(master) -> dict:
+    """On one training batch in eval mode (no dropout; the same routing
+    and capacity drops as training): the trainer's loss, the plain cross
+    entropy and the mean load-balance aux per agent, and each block's
+    dropped fraction.  The trainer's loss is CE + coef * aux."""
+    from distributed_learning_tpu_torch.models.moe import collect_load_balance_loss
+
+    model = master.model
+    idx = torch.as_tensor(master._epoch_perm(0)[0].astype(np.int64), device=DEVICE)
+    x, y = master._Xs[master._agent, idx], master._ys[master._agent, idx]
+    model.eval()
+    with torch.no_grad():
+        ce = master.loss_fn(model(x), y)
+        aux = collect_load_balance_loss(model)
+        dropped = [blk.moe.dropped_fraction.tolist() for blk in model.blocks]
+        loss, _ = master._loss(x, y)
+    gap = float((loss - ce - EXTRAS_AUX_COEF * aux).abs().max())
+    return {"trainer_loss": loss.tolist(), "cross_entropy": ce.tolist(), "aux": aux.tolist(),
+            "loss_minus_ce_minus_coef_aux_max_abs": gap, "dropped_fraction_by_block": dropped}
+
+
+def phase_lm_extras(fa, dense):
+    """The extras LM at the slice's width and depth, 4 agents on the ring,
+    adam, B 1 (``EXTRAS_BATCH``), 3 steps an epoch, under deterministic
+    algorithms: 3 eager
+    ``train_epoch()`` calls (A, B, C and the pre-pass launched, counted),
+    then a fresh trainer's ``train_epochs(3)`` as graph replays with obs
+    on (cost profile, chunk timer), equal to the eager run bit for bit
+    with 0 host syncs inside the superstep; then a second superstep,
+    timed.  Tokens/s, MFU (the timer's, from ``cost_profile``) and peak
+    memory beside the dense slice's numbers from this run (``dense``);
+    the trainer's loss is CE + 0.01 aux, and each block's dropped
+    fraction.  Returns the eager run's launch counts."""
+    from distributed_learning_tpu_torch.obs import MetricsRegistry
+    from distributed_learning_tpu_torch.obs import cost
+
+    cost.clear_profiles()
+    facts, records = {"memory_allocated_at_start_bytes": torch.cuda.memory_allocated()}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in ("eager", "graph"):
+            kw = {} if run == "eager" else dict(obs=MetricsRegistry(), **OBS_ON)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                master = _extras_trainer(batch=EXTRAS_BATCH, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launch_counts()
+                t0 = time.perf_counter()
+                if run == "eager":
+                    payloads = []
+                    for _ in range(SUPERSTEP_K):
+                        t1 = time.perf_counter()
+                        payloads.append(master.train_epoch())
+                        torch.cuda.synchronize()
+                        facts["eager_epoch_s"] = time.perf_counter() - t1
+                else:
+                    payloads = master.train_epochs(SUPERSTEP_K)
+                torch.cuda.synchronize()
+                facts[f"{run}_first_s"] = time.perf_counter() - t0
+                facts[f"{run}_launches"] = _launches(fa)
+                facts[f"{run}_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+                records[run] = trainer_record(master, payloads)
+                facts[f"{run}_losses"] = [p["train_loss"].tolist() for p in payloads]
+                if run == "graph":
+                    facts["host_syncs_per_superstep"] = list(master.superstep_host_syncs)
+                    t0 = time.perf_counter()
+                    master.train_epochs(SUPERSTEP_K)
+                    torch.cuda.synchronize()
+                    facts["superstep_s"] = time.perf_counter() - t0
+                    facts["host_syncs_per_superstep"] += master.superstep_host_syncs[1:]
+                    reg = master._obs_registry
+                    facts["mfu"] = reg.gauges.get("cost.mfu/trainer.superstep")
+                    facts["timer_step_time_s"] = reg.series.get(
+                        "cost.step_time_s/trainer.superstep")
+                    prof = cost.get_profile(f"trainer.superstep{SUPERSTEP_K}")
+                    facts["profile_flops_per_step"] = prof.flops
+                    facts["peak_memory_bytes_with_graphs"] = torch.cuda.max_memory_allocated()
+                    facts["moe"] = _moe_facts(master)
+                    facts["params_per_agent"] = master.model.param_count()
+            del master
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max_diffs(records["graph"], records["eager"])
+    del records
+    tokens = AGENTS * EXTRAS_BATCH * SEQ * STEPS
+    n_eval = 2  # make_trainer's 4 test sequences, eval batch 2
+    per = LAYERS * STEPS * SUPERSTEP_K
+    expect = {"flash_fwd": per + LAYERS * n_eval * SUPERSTEP_K, "flash_bwd_dq": per,
+              "flash_bwd_dkv": per, "flash_bwd_rowterm": per}
+    facts.update(
+        graph_vs_eager_max_abs=diff, bitwise_graph_vs_eager=not any(diff.values()),
+        expected_eager_launches=expect,
+        eager_tokens_per_s=tokens / facts["eager_epoch_s"],
+        superstep_tokens_per_s=tokens * SUPERSTEP_K / facts["superstep_s"],
+        dense=dense)
+    emit({"phase": "lm_extras", "agents": AGENTS, "layers": LAYERS, "batch_per_agent": EXTRAS_BATCH,
+          "seq": SEQ, "options": _extras_model_kwargs(), "moe_aux_coef": EXTRAS_AUX_COEF,
+          **facts})
+    if facts["params_per_agent"] != EXTRAS_PARAMS:
+        raise AssertionError(f"extras LM has {facts['params_per_agent']} params per agent")
+    if not facts["bitwise_graph_vs_eager"]:
+        raise AssertionError(f"extras LM superstep differs from the eager epochs: {diff}")
+    if any(n != 0 for n in facts["host_syncs_per_superstep"]):
+        raise AssertionError(
+            f"extras LM superstep synchronised: {facts['host_syncs_per_superstep']}")
+    if facts["eager_launches"] != expect:
+        raise AssertionError(f"extras LM launches {facts['eager_launches']} != {expect}")
+    if not facts["moe"]["loss_minus_ce_minus_coef_aux_max_abs"] <= 1e-5:
+        raise AssertionError(f"the trainer's loss is not CE + coef * aux: {facts['moe']}")
+    if facts["mfu"] is None:
+        raise AssertionError("the extras LM's timer recorded no MFU")
+    return facts["eager_launches"]
+
+
+class RouteTape:
+    """The MoE blocks' expert choices of the kernel run, handed to the
+    other runs of :func:`kernel_vs_plain`.  Routing is a discrete function
+    of bf16 activations: the plain path's rounding flips near-tied routes
+    and capacity queues, which moves the gradients by more than the
+    kernels do (measured: up to 0.19 relative on a gate).  With the
+    kernel run's routes replayed, both paths compute one continuous
+    function; the share of routes the plain path would have flipped is
+    reported."""
+
+    def __init__(self):
+        self.routes, self.flips, self.total, self.pos = [], 0, 0, 0
+
+    def around(self, run):
+        from distributed_learning_tpu_torch.models.moe import MoEMLP
+
+        real = MoEMLP._choose
+        tape = self
+
+        def choose(module, probs):
+            if run == "flash":
+                choices = real(module, probs)
+                tape.routes.append(choices)
+                return choices
+            choices = tape.routes[tape.pos % len(tape.routes)]
+            tape.pos += 1
+            if run == "full":
+                own = real(module, probs)
+                tape.flips += sum(int((a != b).sum()) for a, b in zip(own, choices))
+                tape.total += sum(c.numel() for c in choices)
+            return choices
+
+        return _patched(MoEMLP, "_choose", choose)
+
+
+def phase_lm_extras_plain(fa):
+    """The extras LM at 2 layers, 2 agents, dropout off: one step through
+    the kernels and through plain attention from identical weights under
+    the plain phase's limits, the MoE routes of the kernel run replayed
+    in the others (:class:`RouteTape`); the control applies rope to Q
+    only."""
+    from distributed_learning_tpu_torch.models import transformer
+
+    def q_only(self, q, k, positions):
+        return transformer._rope(q, positions), k
+
+    tape = RouteTape()
+    facts = kernel_vs_plain(2, EXTRAS_PLAIN_LAYERS,
+                            lambda: _patched(transformer._Attention, "_rotate", q_only),
+                            model_kwargs=_extras_model_kwargs(0.0), around=tape.around,
+                            moe_aux_coef=EXTRAS_AUX_COEF)
+    emit({"phase": "lm_extras_plain", "options": _extras_model_kwargs(0.0),
+          "routes_replayed": tape.total, "plain_route_flips": tape.flips,
+          "plain_route_flip_share": tape.flips / max(tape.total, 1), **facts})
+    if not facts["ok"]:
+        raise AssertionError("extras kernel path and plain path disagree, or the rope "
+                             "control was not rejected")
+
+
+def phase_lm_remat(fa):
+    """The extras LM at 2 layers with dropout on, 4 agents, under
+    deterministic algorithms: one eager epoch of 3 steps with ``remat``
+    off and on, and on as a graph replay (``train_epochs(1)``): parameters,
+    optimizer state and traces bit for bit, flash launches equal; then
+    3 more steps each, timed by CUDA events, with peak memory.  Returns
+    the remat run's launch counts."""
+    facts, records = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in ("off", "on", "on_graph"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                master = _extras_trainer(REMAT_LAYERS, remat=run != "off")
+                fa.reset_launch_counts()
+                payloads = (master.train_epochs(1) if run == "on_graph"
+                            else [master.train_epoch()])
+                torch.cuda.synchronize()
+                facts[f"{run}_launches"] = _launches(fa)
+                records[run] = trainer_record(master, payloads)
+                if run != "on_graph":
+                    idx = master._indices(1, 1)[0]
+                    trace = torch.empty(STEPS, 3, AGENTS, device=DEVICE)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    master._run_steps(idx, None, trace)
+                    end.record()
+                    end.synchronize()
+                    facts[f"{run}_step_ms"] = start.elapsed_time(end) / STEPS
+                    facts[f"{run}_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            del master
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs = {run: max_diffs(records[run], records["off"]) for run in ("on", "on_graph")}
+    facts.update({f"{run}_vs_off_max_abs": d for run, d in diffs.items()},
+                 bitwise={run: not any(d.values()) for run, d in diffs.items()},
+                 memory_saved_bytes=facts["off_peak_memory_bytes"] - facts["on_peak_memory_bytes"])
+    emit({"phase": "lm_remat", "layers": REMAT_LAYERS, "agents": AGENTS,
+          "options": _extras_model_kwargs(), **facts})
+    if not all(facts["bitwise"].values()):
+        raise AssertionError(f"remat changed the run: {diffs}")
+    if not facts["on_launches"] == facts["off_launches"] == facts["on_graph_launches"]:
+        raise AssertionError("remat changed the flash launch counts")
+    return facts["on_launches"]
+
+
+def _decode_model(layers, num_kv_heads=None, max_len=DECODE_PREFILL + DECODE_STEPS, **kw):
+    from distributed_learning_tpu_torch.models import TransformerLM
+
+    return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
+                         head_dim=HEAD_DIM, max_len=max_len, attn_impl="flash",
+                         dtype=torch.bfloat16, num_kv_heads=num_kv_heads, n_agents=1,
+                         device=DEVICE, seed=3, **kw)
+
+
+def _write_one_slot_off(ck, cv, k, v, i):
+    """The decode control: every cache write lands one slot later."""
+    L, T = ck.shape[1], k.shape[1]
+    slots = (i + 1 + torch.arange(T, device=k.device)).clamp(max=L - 1)
+    ck.index_copy_(1, slots, k.to(ck.dtype))
+    cv.index_copy_(1, slots, v.to(cv.dtype))
+
+
+def decode_vs_full(model, prompt, steps, control=False) -> dict:
+    """Greedy decode of ``steps`` tokens after ``prompt`` (1, B, Tp),
+    keeping the prefill's and every step's logits (``control``: every
+    cache write one slot off), then a full forward over the prompt and
+    the decoded tokens at the same positions: the largest per-position
+    relative logits error, and whether the greedy tokens equal the full
+    forward's argmax wherever its top-2 margin exceeds twice that
+    position's largest logit error."""
+    from distributed_learning_tpu_torch.models import transformer
+
+    Tp = prompt.shape[-1]
+    cache = model.init_cache(prompt.shape[1])
+    fault = (_patched(transformer._Attention, "_write_cache", staticmethod(_write_one_slot_off))
+             if control else contextlib.nullcontext())
+    with torch.no_grad(), fault:
+        logits = [model(prompt, cache)[:, :, -1]]
+        toks = []
+        for _ in range(steps):
+            toks.append(logits[-1].argmax(-1))
+            logits.append(model(toks[-1][..., None], cache)[:, :, -1])
+    with torch.no_grad():
+        dec = torch.stack(logits, dim=2)                       # positions Tp-1 .. Tp+steps-1
+        seq = torch.cat([prompt, torch.stack(toks, dim=-1)], dim=-1)
+        full = model(seq)[:, :, Tp - 1:]
+    err = (dec - full).norm(dim=-1) / full.norm(dim=-1)
+    top2 = full.topk(2, dim=-1).values
+    worst = (dec - full).abs().amax(dim=-1)
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * worst
+    agree = (dec.argmax(-1) == full.argmax(-1)) | ~sure
+    return {"max_rel_err": float(err.max()), "max_abs_err": float(worst.max()),
+            "tokens_checked": int(sure.sum()), "tokens_agree": bool(agree.all())}
+
+
+def decode_step_profile(model, prompt, steps=32) -> dict:
+    """``steps`` greedy decode steps after a prefill outside the window,
+    under ``torch.profiler``: the window's wall ms a step and the device
+    ms a step that its kernel rows sum to, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(prompt.shape[1])
+    with torch.no_grad():
+        tok = model(prompt, cache)[:, :, -1].argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = model(tok[..., None], cache)[:, :, -1].argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    dev_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False) or "#" in ev.key:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        dev_us += ev.self_cuda_time_total if us is None else us
+    return {"wall_ms_per_step": wall * 1e3 / steps, "device_ms_per_step": dev_us / 1e3 / steps,
+            "device_idle_share": max(0.0, 1 - dev_us / 1e3 / (wall * 1e3))}
+
+
+def phase_lm_decode(fa):
+    """The serving path: ``generate`` at bench_lm's full-scale decode
+    (B 2, prefill 2048, 256 greedy steps; MHA and 2 KV heads) through the
+    flash prefill and the masked product over the KV cache.  Tokens/s by
+    the prefill-subtracted protocol of ``_time_decode``, ms a step, the
+    cache's bytes, kernel A's launches in the prefill (one a layer, no
+    backward kernel), the per-step byte bound; the logits of the first 32
+    steps against a full forward (DECODE_LOGITS_RTOL), the greedy tokens
+    against its argmax; then the short rope + GQA + MoE + window decode
+    the same way, with a cache write one slot off as the control.
+    Returns the prefill's launch counts, both models together."""
+    from distributed_learning_tpu_torch.models.transformer import generate
+    from distributed_learning_tpu_torch.training.graphs import count_host_syncs
+
+    rng = np.random.default_rng(31)
+    prompt = torch.as_tensor(rng.integers(0, VOCAB, (1, DECODE_BATCH, DECODE_PREFILL)),
+                             device=DEVICE)
+    prefill_launches = dict.fromkeys(fa.KERNELS, 0)
+    cases = {}
+    for label, hkv in (("mha", None), ("gqa", 2)):
+        model = _decode_model(LAYERS, hkv)
+        cache_bytes = model.init_cache(DECODE_BATCH).nbytes()
+        for n in (1, DECODE_STEPS):  # warm-up
+            generate(model, prompt, n)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        generate(model, prompt, 1)
+        torch.cuda.synchronize()
+        dt_prefill = time.perf_counter() - t0
+        launches = _launches(fa)
+        for name, n in launches.items():
+            prefill_launches[name] += n
+        t0 = time.perf_counter()
+        generate(model, prompt, DECODE_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        decode_s = dt - dt_prefill
+        with count_host_syncs(torch.device(DEVICE)) as syncs:
+            out = generate(model, prompt, 8)
+        out.cpu()
+        # The step's least bytes: every float32 weight the step multiplies
+        # by (blocks and head; the embedding is a gather of B rows) read
+        # once, and the whole cache read once.
+        weights = sum(p[0].numel() for name, p in model.stacked_parameters().items()
+                      if name != "embed" and not name.endswith(("scale", "bias")))
+        bound_ms = (weights * 4 + cache_bytes) / PEAK_HBM_BYTES * 1e3
+        profiled = decode_step_profile(model, prompt)
+        check = decode_vs_full(model, prompt, DECODE_CHECK_STEPS)
+        shifted = decode_vs_full(model, prompt, DECODE_CHECK_STEPS, control=True)
+        cases[label] = {
+            "num_kv_heads": hkv or HEADS, "kv_cache_bytes": cache_bytes,
+            "prefill_s": dt_prefill, "generate_s": dt,
+            "tokens_per_s": DECODE_BATCH * (DECODE_STEPS - 1) / decode_s,
+            "ms_per_step": decode_s / (DECODE_STEPS - 1) * 1e3,
+            "bound_ms_per_step": bound_ms,
+            "bound_tokens_per_s": DECODE_BATCH / (bound_ms / 1e3),
+            "host_syncs_in_generate_8": syncs[0], "profiled_steps": profiled,
+            "prefill_launches": launches, "check": check, "shifted_write": shifted}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    short = _decode_model(SHORT_LAYERS, max_len=SHORT_PREFILL + DECODE_CHECK_STEPS + 1,
+                          **SHORT_DECODE)
+    sp = prompt[..., :SHORT_PREFILL]
+    cases["short"] = {"options": SHORT_DECODE, "layers": SHORT_LAYERS, "prefill": SHORT_PREFILL,
+                      "check": decode_vs_full(short, sp, DECODE_CHECK_STEPS),
+                      "control_shifted_write": decode_vs_full(short, sp, DECODE_CHECK_STEPS,
+                                                              control=True)}
+    del short
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_decode", "batch": DECODE_BATCH, "prefill": DECODE_PREFILL,
+          "steps": DECODE_STEPS, "layers": LAYERS, "logits_rtol": DECODE_LOGITS_RTOL, **cases})
+    for label in ("mha", "gqa", "short"):
+        c = cases[label]["check"]
+        if not (c["max_rel_err"] <= DECODE_LOGITS_RTOL and c["tokens_agree"]):
+            raise AssertionError(f"{label} decode disagrees with the full forward: {c}")
+    if cases["short"]["control_shifted_write"]["max_rel_err"] <= DECODE_LOGITS_RTOL:
+        raise AssertionError("a cache write one slot off passed the logits check")
+    for label in ("mha", "gqa"):
+        if cases[label]["host_syncs_in_generate_8"]:
+            raise AssertionError(f"{label} generate synchronised: {cases[label]}")
+        got = cases[label]["prefill_launches"]
+        if got != {"flash_fwd": LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                   "flash_bwd_rowterm": 0}:
+            raise AssertionError(f"{label} prefill launches {got}: want kernel A once a layer")
+    return prefill_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3075,7 +3577,7 @@ def main(argv=None) -> int:
     # The epoch superstep: graph replays against the eager epochs.
     out = args.out if args.profile else None
     dense_timing = phase_superstep(out)
-    ss_launches = phase_lm_superstep(fa, out)
+    ss_launches, lm_tokens_per_s = phase_lm_superstep(fa, out)
     phase_superstep_routes()
     # CHOCO compressed gossip, its routes, and checkpoint/resume.
     phase_choco_slice(dense_timing)
@@ -3093,9 +3595,16 @@ def main(argv=None) -> int:
     # The observability layer, LM eval and the training CLI.
     obs_jsonl = phase_obs_superstep(dense_timing)
     obs_lm = phase_obs_lm(fa)
+    dense_mfu = obs_lm["mfu"]
     eval_launches = phase_lm_eval(fa, obs_lm)
     phase_cli(obs_jsonl)
     shutil.rmtree(_smoke_dir(SMOKE_OBS), ignore_errors=True)
+    # The LM extras, remat and the serving path.
+    extras_launches = phase_lm_extras(fa, {"superstep_tokens_per_s": lm_tokens_per_s,
+                                           "mfu": dense_mfu})
+    phase_lm_extras_plain(fa)
+    remat_launches = phase_lm_remat(fa)
+    prefill_launches = phase_lm_decode(fa)
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -3106,7 +3615,10 @@ def main(argv=None) -> int:
                                  "lm_superstep": ss_launches[k.name],
                                  "lm_tracking": tracking_launches[k.name],
                                  "lm_obs": obs_lm["launches"][k.name],
-                                 "lm_eval": eval_launches[k.name]},
+                                 "lm_eval": eval_launches[k.name],
+                                 "lm_extras": extras_launches[k.name],
+                                 "lm_remat": remat_launches[k.name],
+                                 "lm_prefill": prefill_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -16,12 +16,17 @@ transpose.
 **TransformerLM**: the flax tree, as nested dicts of numpy arrays:
 
 * top level: ``Embed_0/embedding (V, d)``, ``Embed_1/embedding
-  (max_len, d)``, ``_Block_i/...``, ``LayerNorm_0/{scale, bias}``,
-  ``Dense_0/{kernel (d, V), bias}``;
+  (max_len, d)`` (learned positions only; none under rope),
+  ``_Block_i/...``, ``LayerNorm_0/{scale, bias}``, ``Dense_0/{kernel
+  (d, V), bias}``;
 * inside a block: ``LayerNorm_0``, ``LayerNorm_1``,
-  ``_Attention_0/DenseGeneral_0/kernel (d, 3, H, Dh)``,
-  ``_Attention_0/DenseGeneral_1/kernel (H, Dh, d)``, ``Dense_0 (d, 4d)``
-  and ``Dense_1 (4d, d)`` with biases.
+  ``_Attention_0/DenseGeneral_0/kernel (d, 3, H, Dh)`` or, with grouped
+  queries, ``_Attention_0/q_proj/kernel (d, H, Dh)`` and
+  ``_Attention_0/kv_proj/kernel (d, 2, Hkv, Dh)``,
+  ``_Attention_0/DenseGeneral_1/kernel (H, Dh, d)``, then ``Dense_0 (d,
+  4d)`` and ``Dense_1 (4d, d)`` with biases, or with ``mlp="moe"``
+  ``MoEMLP_0/{gate/kernel (d, E), w_up (E, d, h), b_up (E, h), w_dn
+  (E, h, d), b_dn (E, d)}``.
 
 The port keeps flax's per-agent shapes (kernels ``(in, out)``), so the
 mapping is a renaming by the tables below; nothing is transposed.
@@ -50,11 +55,18 @@ _BLOCK = {
     ("LayerNorm_1", "scale"): "ln2.scale",
     ("LayerNorm_1", "bias"): "ln2.bias",
     ("_Attention_0", "DenseGeneral_0", "kernel"): "attn.qkv",
+    ("_Attention_0", "q_proj", "kernel"): "attn.q_proj",
+    ("_Attention_0", "kv_proj", "kernel"): "attn.kv_proj",
     ("_Attention_0", "DenseGeneral_1", "kernel"): "attn.out",
     ("Dense_0", "kernel"): "fc1.kernel",
     ("Dense_0", "bias"): "fc1.bias",
     ("Dense_1", "kernel"): "fc2.kernel",
     ("Dense_1", "bias"): "fc2.bias",
+    ("MoEMLP_0", "gate", "kernel"): "moe.gate",
+    ("MoEMLP_0", "w_up"): "moe.w_up",
+    ("MoEMLP_0", "b_up"): "moe.b_up",
+    ("MoEMLP_0", "w_dn"): "moe.w_dn",
+    ("MoEMLP_0", "b_dn"): "moe.b_dn",
 }
 _BLOCK_RE = re.compile(r"_Block_(\d+)")
 

@@ -17,7 +17,8 @@ from distributed_learning_tpu_torch.models.logreg import (
     loss_fn as logreg_loss,
 )
 from distributed_learning_tpu_torch.models.mlp import ANNModel
-from distributed_learning_tpu_torch.models.transformer import TransformerLM
+from distributed_learning_tpu_torch.models.moe import MoEMLP
+from distributed_learning_tpu_torch.models.transformer import TransformerLM, generate
 from distributed_learning_tpu_torch.models.vision import LeNet, ResNet, VGG, WideResNet
 
 _REGISTRY = {
@@ -74,6 +75,8 @@ def get_model(name: str, *args: Any, input_shape=None, **kwargs: Any):
 __all__ = [
     "ANNModel",
     "TransformerLM",
+    "generate",
+    "MoEMLP",
     "LeNet",
     "VGG",
     "ResNet",

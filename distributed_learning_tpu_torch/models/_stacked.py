@@ -11,18 +11,28 @@ the parameter buffer, so the gossip never touches them.
 
 Parameter and statistic names are the flax tree's paths joined with dots
 where the model mirrors a flax tree (``convert.py``).
+
+Dropout draws each agent's mask from that agent's own ``torch.Generator``
+(:class:`Dropout`, shared by the vision zoo and the transformer).  Under
+activation checkpointing (the trainer's ``remat``) the recompute of a
+checkpointed forward must see the masks the forward drew and must not
+update BatchNorm running statistics again: :func:`remat_tape` records a
+forward's masks and replays them in its recompute, and
+:func:`recomputing` tells a layer that the forward it runs is such a
+recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Dense", "StackedModel", "add_child", "dense"]
+__all__ = ["Dense", "Dropout", "StackedModel", "add_child", "dense", "recomputing", "remat_tape"]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
@@ -44,6 +54,95 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.kernel, self.bias, x.dtype)
+
+
+class _Tape:
+    """The dropout masks one checkpointed forward drew, in draw order;
+    ``replay`` iterates over them while its recompute runs."""
+
+    def __init__(self):
+        self.masks: List[torch.Tensor] = []
+        self.replay: Optional[Iterator[torch.Tensor]] = None
+
+
+# Open tapes, innermost last (see remat_tape).
+_TAPES: List[_Tape] = []
+
+
+def remat_tape() -> Tuple[Callable, Callable]:
+    """A fresh tape's two context managers, ``(forward, recompute)``, as
+    ``torch.utils.checkpoint``'s ``context_fn`` wants them: inside
+    ``forward()`` every dropout mask drawn is recorded; inside
+    ``recompute()`` the masks are handed back in the same order instead of
+    drawn (the generators do not advance again) and :func:`recomputing`
+    is true."""
+    tape = _Tape()
+
+    @contextlib.contextmanager
+    def forward():
+        _TAPES.append(tape)
+        try:
+            yield
+        finally:
+            _TAPES.pop()
+
+    @contextlib.contextmanager
+    def recompute():
+        tape.replay = iter(tape.masks)
+        _TAPES.append(tape)
+        try:
+            yield
+        finally:
+            _TAPES.pop()
+            tape.replay = None
+
+    return forward, recompute
+
+
+def recomputing() -> bool:
+    """Whether the forward running now recomputes a checkpointed one."""
+    return bool(_TAPES) and _TAPES[-1].replay is not None
+
+
+def _mask(draw: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``draw()``, recorded on an open tape, or the tape's next mask while
+    its recompute runs."""
+    if not _TAPES:
+        return draw()
+    tape = _TAPES[-1]
+    if tape.replay is not None:
+        return next(tape.replay)
+    m = draw()
+    tape.masks.append(m)
+    return m
+
+
+class Dropout(nn.Module):
+    """Per-agent dropout: agent ``a`` draws its keep mask from
+    ``generators[a]``, keeps a unit with probability ``1 - rate`` and
+    scales it by ``1 / (1 - rate)`` (flax ``nn.Dropout``).  Takes a list
+    of per-agent tensors (the vision zoo) or one agent-stacked tensor
+    (the transformer).  Identity in eval mode and when ``enabled`` is
+    false."""
+
+    def __init__(self, rate: float, generators: List[torch.Generator]):
+        super().__init__()
+        self.rate, self.generators, self.enabled = float(rate), generators, True
+
+    def forward(self, xs):
+        if not (self.training and self.enabled) or self.rate == 0.0:
+            return xs
+        keep = 1.0 - self.rate
+
+        def draw(x, g):
+            return lambda: torch.empty_like(x).bernoulli_(keep, generator=g).bool()
+
+        if isinstance(xs, torch.Tensor):
+            mask = _mask(lambda: torch.stack(
+                [draw(x, g)() for x, g in zip(xs.unbind(0), self.generators)]))
+            return torch.where(mask, xs / keep, 0.0)
+        return [torch.where(_mask(draw(x, g)), x / keep, 0.0)
+                for x, g in zip(xs, self.generators)]
 
 
 def add_child(parent: nn.Module, kind: str, module: nn.Module) -> nn.Module:
@@ -171,6 +270,23 @@ class StackedModel(nn.Module):
         """Copy ``{name: (N, C) or (C,)}`` values into the running
         statistics (an unstacked value is broadcast to every agent)."""
         self._load(self.stacked_stats(), stats, "statistic")
+
+    # -- dropout ------------------------------------------------------- #
+    def _make_generators(self, device: torch.device, seed: int) -> None:
+        """One dropout generator per agent on ``device``, seeded."""
+        self.generators = [torch.Generator(device) for _ in range(self.n_agents)]
+        self.seed_dropout(seed)
+
+    def seed_dropout(self, seed: int) -> None:
+        """Reseed every agent's dropout generator from ``seed`` (a model
+        without dropout generators has nothing to reseed)."""
+        for a, g in enumerate(getattr(self, "generators", ())):
+            g.manual_seed(int(np.random.SeedSequence([int(seed), 0, a]).generate_state(1)[0]))
+
+    def set_dropout(self, enabled: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.enabled = bool(enabled)
 
     def param_count(self) -> int:
         """Parameters of ONE agent."""

@@ -35,13 +35,18 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from distributed_learning_tpu_torch.device import resolve_device
-from distributed_learning_tpu_torch.models._stacked import Dense, StackedModel, add_child
+from distributed_learning_tpu_torch.models._stacked import (
+    Dense,
+    Dropout,
+    StackedModel,
+    add_child,
+    recomputing,
+)
 
 __all__ = ["LeNet", "VGG", "ResNet", "WideResNet", "BatchNorm", "Dropout", "Conv"]
 
@@ -106,32 +111,14 @@ class BatchNorm(nn.Module):
             # the kernel returns the mean and 1/sqrt(biased var + eps).
             y, mean, invstd = torch.native_batch_norm(
                 x, scales[a], biases[a], None, None, True, 0.0, BN_EPS)
+            out.append(y)
+            if recomputing():  # the checkpointed forward updated them already
+                continue
             with torch.no_grad():
                 var = (invstd.double().pow(-2) - BN_EPS).to(torch.float32)
                 self.mean[a].mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
                 self.var[a].mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
-            out.append(y)
         return out
-
-
-class Dropout(nn.Module):
-    """Per-agent dropout: agent ``a`` draws its keep mask from
-    ``generators[a]``, keeps a unit with probability ``1 - rate`` and
-    scales it by ``1 / (1 - rate)`` (flax ``nn.Dropout``).  Identity in
-    eval mode and when ``enabled`` is false."""
-
-    def __init__(self, rate: float, generators: List[torch.Generator]):
-        super().__init__()
-        self.rate, self.generators, self.enabled = float(rate), generators, True
-
-    def forward(self, xs: Acts) -> Acts:
-        if not (self.training and self.enabled) or self.rate == 0.0:
-            return xs
-        keep = 1.0 - self.rate
-        return [
-            torch.where(torch.empty_like(x).bernoulli_(keep, generator=g).bool(), x / keep, 0.0)
-            for x, g in zip(xs, self.generators)
-        ]
 
 
 class _VisionModel(StackedModel):
@@ -143,22 +130,11 @@ class _VisionModel(StackedModel):
         nn.Module.__init__(self)
         self.n_agents, self.dtype = int(n_agents), dtype
         self.device = resolve_device(device)
-        self.generators = [torch.Generator(self.device) for _ in range(self.n_agents)]
-        self.seed_dropout(seed)
+        self._make_generators(self.device, seed)
 
     def _finish(self, seed):
         self.reset_parameters(seed)
         self._bind_flat(self.device)
-
-    def seed_dropout(self, seed: int) -> None:
-        """Reseed every agent's dropout generator from ``seed``."""
-        for a, g in enumerate(self.generators):
-            g.manual_seed(int(np.random.SeedSequence([int(seed), 0, a]).generate_state(1)[0]))
-
-    def set_dropout(self, enabled: bool) -> None:
-        for m in self.modules():
-            if isinstance(m, Dropout):
-                m.enabled = bool(enabled)
 
     def _agents_in(self, x: torch.Tensor) -> Acts:
         N = x.shape[0]

@@ -15,7 +15,9 @@ synchronisation in between (``GossipTrainer.train_epochs``).
 * a warm-up of each body on the side stream before its capture (library
   handles, workspaces, the optimizer's lazily created state), in a launch
   record that is thrown away: the caller undoes the warm-up's effect on
-  the training state (:class:`StateSnapshot`);
+  the training state (:class:`StateSnapshot`); the warm-up's cached
+  blocks are released (``torch.cuda.empty_cache``) before the capture,
+  whose allocations cannot free memory mid-capture;
 * the trainer's random generators registered with each graph, so a
   replay advances their Philox offsets as the eager calls would;
 * a record of the flash-attention launches each capture made, counted
@@ -131,6 +133,12 @@ class GraphSet:
         t0 = time.perf_counter()
         with fa.record_launches(), muted():  # the warm-up's work is undone
             self._on_side_stream(fn)
+        # The warm-up's freed blocks stay cached outside the graph's pool;
+        # a capture that then runs short of memory would have the
+        # allocator free them mid-capture, which the capture does not
+        # allow.  Release them first.
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)

@@ -56,8 +56,16 @@ inside a superstep they add no host sync.
 
 Dropout masks, crops and flips come from explicit ``torch.Generator``s,
 one per agent, seeded from ``seed``; their bits cannot follow the
-reference's ``jax.random`` streams.  Options that are not ported raise
-``NotImplementedError`` naming their ROADMAP.md item.
+reference's ``jax.random`` streams.  A model with MoE blocks trains on
+``loss + moe_aux_coef * aux`` (the mean load-balance loss over its
+blocks), and the loss trace reports that sum, as the reference's does.
+``remat`` recomputes the forward's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant, around the loss, where the
+reference puts ``jax.checkpoint``): the recompute replays the forward's
+dropout masks, leaves BatchNorm running statistics alone and counts no
+flash launch or obs hook, so a run with remat equals one without it bit
+for bit.  Options that are not ported raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -70,12 +78,16 @@ from typing import Any, Callable, Dict, Hashable, List, Mapping, NamedTuple, Opt
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distributed_learning_tpu_torch.data.cifar import augment_batch, draw_augment
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models import get_model
+from distributed_learning_tpu_torch.models._stacked import remat_tape
+from distributed_learning_tpu_torch.models.moe import collect_load_balance_loss
 from distributed_learning_tpu_torch.obs.carry import flush_chunk, global_norm
 from distributed_learning_tpu_torch.obs.cost import SampledDispatchTimer, get_profile, profile_fn
+from distributed_learning_tpu_torch.obs.instrument import muted
 from distributed_learning_tpu_torch.obs.registry import MetricsRegistry, get_registry
 from distributed_learning_tpu_torch.obs.spans import SpanTracer, get_tracer
 from distributed_learning_tpu_torch.ops import flash_attention as fa
@@ -308,7 +320,6 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
     "mesh": ((None,), "queue 1, item 1 (sharded engine on torch.distributed)"),
-    "remat": ((False,), "queue 1, item 3 (LM extras)"),
 }
 
 
@@ -320,6 +331,24 @@ def _reject_unported(options: Mapping[str, Any]) -> None:
                 f"GossipTrainer option {name}={value!r} is not ported yet: "
                 f"ROADMAP.md {item}"
             )
+
+
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``remat``: the
+    forward records its dropout masks; the recompute replays them (the
+    explicit generators do not advance twice, which the checkpoint's own
+    RNG stash would not prevent), leaves BatchNorm running statistics
+    alone (``models/_stacked.recomputing``), and counts its flash launches
+    and obs hooks into records it throws away, so counters read as
+    without remat."""
+    forward, recompute = remat_tape()
+
+    @contextlib.contextmanager
+    def recompute_quietly():
+        with fa.record_launches(), muted(), recompute():
+            yield
+
+    return forward(), recompute_quietly()
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -470,8 +499,11 @@ class GossipTrainer:
         augment: bool = False,
         augment_pad_value: Any = 0.0,
         remat: bool = False,
+        moe_aux_coef: float = 0.01,
     ):
-        _reject_unported(dict(mesh=mesh, remat=remat))
+        _reject_unported(dict(mesh=mesh))
+        self.remat = bool(remat)
+        self.moe_aux_coef = float(moe_aux_coef)
         self.device = resolve_device(device)
         self.eval_batch_size = int(eval_batch_size)
         self.node_names = list(node_names)
@@ -929,8 +961,7 @@ class GossipTrainer:
         if self.augment:
             x = self._augment(x)
         model.flat_grads.zero_()
-        logits = model(x)
-        loss = self.loss_fn(logits, y)
+        loss, acc = self._loss(x, y)
         with warnings.catch_warnings():
             # The gradients are strided views into the (N, P) buffer by
             # design; autograd accumulates into them in place.
@@ -938,8 +969,25 @@ class GossipTrainer:
             loss.sum().backward()
         gnorm = global_norm(model.flat_grads, dim=1)
         self._opt.step()
-        acc = self.metric_fn(logits.detach(), y).mean(dim=1)
         return loss.detach(), acc, gnorm
+
+    def _loss(self, x, y):
+        """(N,) training loss of every agent on its batch (with MoE blocks
+        ``loss + moe_aux_coef * aux``, the mean load-balance loss over the
+        blocks) and (N,) batch accuracy; under ``remat`` the forward's
+        activations are recomputed in the backward."""
+        if self.remat:
+            return checkpoint(self._loss_body, x, y, use_reentrant=False,
+                              preserve_rng_state=False, context_fn=_remat_contexts)
+        return self._loss_body(x, y)
+
+    def _loss_body(self, x, y):
+        logits = self.model(x)
+        loss = self.loss_fn(logits, y)
+        aux = collect_load_balance_loss(self.model)
+        if aux is not None:
+            loss = loss + self.moe_aux_coef * aux
+        return loss, self.metric_fn(logits.detach(), y).mean(dim=1)
 
     def _run_steps(self, idx: torch.Tensor, lr: Optional[torch.Tensor],
                    trace: torch.Tensor) -> None:
@@ -1204,7 +1252,16 @@ class GossipTrainer:
         count), on a snapshot: the gradients, the running statistics and
         every generator are restored after it, the optimizer is not
         stepped, and its kernel launches and obs hooks do not count.  So
-        a later step is bit-identical to one without the profile."""
+        a later step is bit-identical to one without the profile.
+
+        What the count includes: every aten matrix product of the step
+        (projections, the head, the MoE gate and expert GEMMs over all
+        ``E * C`` capacity slots, filled or not, and the drop-free path's
+        every-expert products), flash attention at 4 (forward) and 10
+        (backward) FLOPs per live pair and head dimension over the H query
+        heads (under GQA the K/V heads repeated up to H, as the kernels
+        run them), and with ``remat`` the recomputed forward; no
+        elementwise, normalisation, routing, gather or optimizer work."""
         if self._opt is None:
             self.initialize_nodes()
         name = "trainer.epoch" if k is None or int(k) <= 1 else f"trainer.superstep{int(k)}"
@@ -1212,8 +1269,6 @@ class GossipTrainer:
                           platform=self.device.type)
 
     def _profile_step(self) -> None:
-        from distributed_learning_tpu_torch.obs.instrument import muted
-
         model = self.model
         idx = torch.as_tensor(self._epoch_perm(self._epochs_done)[0].astype(np.int64),
                               device=self.device)
@@ -1226,7 +1281,7 @@ class GossipTrainer:
                 if self.augment:
                     x = self._augment(x)
                 model.flat_grads.zero_()
-                loss = self.loss_fn(model(x), y)
+                loss, _ = self._loss(x, y)
                 with warnings.catch_warnings():
                     warnings.filterwarnings("ignore", message="grad and param do not obey")
                     loss.sum().backward()

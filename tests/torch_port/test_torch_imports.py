@@ -147,3 +147,49 @@ def test_obs_cli_config_and_eval_import_no_jax(module, obs_cli_imports):
     experiment config and LM eval load no JAX and nothing of the JAX
     package."""
     assert obs_cli_imports[module] == "", f"{module} loaded {obs_cli_imports[module]}"
+
+
+_LM_EXTRAS = [
+    "distributed_learning_tpu_torch.models._stacked",
+    "distributed_learning_tpu_torch.models.moe",
+    "distributed_learning_tpu_torch.models.transformer",
+]
+
+
+def test_lm_extras_modules_import_no_jax():
+    """The LM extras (MoE, decode and generation, the shared dropout and
+    remat tape), each imported on its own with its public names, load no
+    JAX and nothing of the JAX package."""
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"importlib.import_module({m!r})" for m in _LM_EXTRAS]
+        + ["from distributed_learning_tpu_torch.models.moe import (MoEMLP,"
+           " collect_load_balance_loss)",
+           "from distributed_learning_tpu_torch.models.transformer import (KVCache, generate,"
+           " sample_fn, truncate_logits, validate_sampling)",
+           "from distributed_learning_tpu_torch.models._stacked import Dropout, remat_tape",
+           "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+           " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"
+           " or m.startswith('distributed_learning_tpu.'))",
+           "print('LOADED=' + ','.join(bad))"])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = [line for line in out.stdout.splitlines() if line.startswith("LOADED=")][0]
+    assert loaded == "LOADED=", f"port import loaded {loaded}"
+
+
+def test_lm_extras_entry_points_need_the_card_unless_cpu_is_asked_for():
+    from distributed_learning_tpu_torch.models import TransformerLM
+    from distributed_learning_tpu_torch.models.moe import MoEMLP
+
+    kw = dict(vocab_size=8, num_layers=1, num_heads=2, head_dim=8, max_len=8,
+              pos_emb="rope", num_kv_heads=1, mlp="moe", dropout_rate=0.1)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MoEMLP(1, 8, 4)
+    assert TransformerLM(device="cpu", **kw).flat_params.device.type == "cpu"

@@ -129,7 +129,6 @@ def test_optimizers_match_optax(name, kwargs):
     [
         ("mesh", "agents"),
         ("mesh", object()),
-        ("remat", True),
     ],
 )
 def test_unported_options_raise(option, value):

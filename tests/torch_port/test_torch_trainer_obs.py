@@ -19,7 +19,7 @@
 * the telemetry payloads carry ``step_time_s`` / ``mfu`` with the timer
   on, set on sampled chunks only; the step's cost profile counts the
   MLP's products exactly and the MFU follows the loop convention;
-* ``_UNPORTED`` still rejects ``mesh`` and ``remat``.
+* ``_UNPORTED`` still rejects ``mesh`` (``remat`` is ported).
 """
 
 import jax
@@ -254,10 +254,11 @@ def test_step_profile_counts_the_mlps_products():
 
 
 def test_unported_still_rejects_mesh_and_remat():
-    assert sorted(_UNPORTED) == ["mesh", "remat"]
-    for option in ({"mesh": "agents"}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            GossipTrainer(device="cpu", **_kw(**option))
+    """Only ``mesh`` is left unported; ``remat`` is ported (LM extras)."""
+    assert sorted(_UNPORTED) == ["mesh"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        GossipTrainer(device="cpu", **_kw(mesh="agents"))
+    assert GossipTrainer(device="cpu", **_kw(remat=True)).remat
     with pytest.raises(ValueError, match="obs must be"):
         GossipTrainer(device="cpu", **_kw(obs="yes"))
 
