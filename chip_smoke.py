@@ -17,8 +17,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              zeroed), the lse cotangent (``dadj``) path, a
              windowed ragged case, a non-causal case, head-dim-64 cases,
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
-             window of 100 over T 1000, non-causal T 333) and the CUDA-core
-             bodies (float32, bf16 head dim 32).
+             window of 100 over T 1000, non-causal T 333), the CUDA-core
+             bodies (float32, bf16 head dim 32) and head dims the kernels
+             run zero-padded (8, 16, 48, 96; float32 16).
 3. slice   — ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
@@ -81,7 +82,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              eval's forwards), all on the wgmma body.
 12. superstep_routes — plain, ``mix_times_schedule``, Chebyshev, Gossip-PGA,
              ``topology_schedule`` (also with Chebyshev), an Adam
-             learning-rate schedule, ``adaptive_comm`` and ``mix_eps`` on
+             learning-rate schedule, the port's AdamW with ``eps_root``,
+             ``adaptive_comm`` and ``mix_eps`` on
              the MLP (784 -> 150, 4 agents x B 64): graph against eager, and
              the host syncs per superstep (0 for every fixed-count one).
              The WRN superstep also compares eval-mode logits of 256 test
@@ -206,7 +208,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
              + 0.01 aux; each block's dropped fraction.
 28. lm_extras_plain — that model at 2 layers, 2 agents, dropout off: one
              step through the kernels against plain attention under
-             phase 4's limits; the control rotates Q but not K.
+             phase 4's limits; the control rotates Q but not K.  Every
+             route the plain path would flip is a near-tie
+             (``ROUTE_FLIP_RTOL``), and so is every route flipped by a
+             witness run with the plain attention in float32, at a
+             tighter limit (``ROUTE_FLIP_F32_RTOL``); a confident route
+             swapped to another expert must fail both bounds.
 29. lm_remat — that model at 2 layers with dropout: one epoch with
              ``remat`` off, on, and on as a graph replay, bit for bit,
              flash launches equal; step ms by CUDA events and peak memory
@@ -218,9 +225,39 @@ Phases, each printing one JSON line (any failure exits non-zero):
              bound, the KV cache's bytes, kernel A once a layer in the
              prefill; the logits of the prefill and 32 steps against a
              full forward (``DECODE_LOGITS_RTOL``), the greedy tokens
-             against its argmax; the same for a 2-layer rope + GQA + MoE
-             (drop-free) + window-4 decode, whose cache write one slot
-             off must fail.
+             against its argmax; the same on a float32 copy of each model
+             (``DECODE_F32_LOGITS_RTOL``, kernel A's float32 body in the
+             prefill), where a cache write one slot off must fail; the same
+             for a 2-layer rope + GQA + MoE (drop-free) + window-4 decode,
+             whose cache write one slot off must fail.
+
+31. lm_head_dims — ``benchmarks/bench_lm.py``'s small config (2 layers, 2
+             heads x 16, vocab 64, T 128, B 2) on 2 agents through the
+             kernels at head dim 16 (run zero-padded to 32): one step
+             against plain attention under phase 4's limits with the
+             dropped-key-tile control, then 4 epochs of 1 step trained both
+             ways from the same weights (losses within
+             ``SMALL_LM_LOSS_RTOL``); kernel launches counted.
+32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
+             36,489,290 float32 parameters, Metropolis ring): both native
+             libraries built into ``_build/``; each agent's parameters
+             ``tree_to_flat`` from the card and encoded as dense float32,
+             bf16 and int8 frames and one fused top-k 10% CHOCO correction
+             frame; sent to the ring neighbours through
+             ``open_framed_connection`` / ``FramedStream`` over 127.0.0.1
+             and read through a ``StreamMultiplexer``; decoded into pinned
+             ``out=`` scratch, ``flat_to_tree`` onto the card and mixed
+             with W there: the float32 round against ``ConsensusEngine``'s
+             (``WIRE_MIX_ATOL``), bf16 and int8 values within their wire
+             rounding, ``decode_fused_apply`` into a live estimate equal
+             to ``hat + decode_fused_sparse`` bit for bit, native frames
+             equal to the numpy path's byte for byte, the
+             ``comm.wire.native`` gauge never 0; a flipped byte in each
+             kind of frame must raise (``FrameError`` in transit,
+             ``CodecError`` for the fused frame's own check, its apply
+             target untouched).  Per mode and agent: frame bytes, D2H +
+             encode, send, decode + H2D times, MB/s, and the pinned copy
+             time of the same bytes as the transfer's bound.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -444,18 +481,38 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     del dk, dv, pdk, pdv
     if with_lse_grad:
         # The public lse-returning function end to end: its backward must
-        # route the lse cotangent into both kernels as dadj.
+        # route the lse cotangent into both kernels as dadj.  At a head dim
+        # the kernels have, held against the independent plain pipeline
+        # (the plain forward's O and lse into the plain backward).  At a
+        # padded head dim the plain backward gets the inputs the kernels
+        # saw, the kernel forward's O and lse (O is held against the plain
+        # forward above): there the plain O's one-ulp bf16 differences,
+        # carried by rowsum(dO * O), put dQ / dK 7.8e-3 off at D 16 on a
+        # correct kernel, which the pipeline's numbers, reported beside,
+        # show.
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out, l_out = fa.flash_attention_with_lse(qq, kk, vv, causal=causal)
         grads = torch.autograd.grad((out, l_out), (qq, kk, vv), (do, dadj))
-        pdq = fa.plain_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, None)
-        pdk, pdv = fa.plain_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, None)
-        for name, a, b in zip(("lse_fn.dq", "lse_fn.dk", "lse_fn.dv"), grads, (pdq, pdk, pdv)):
+        pipeline = [fa.plain_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, None),
+                    *fa.plain_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, None)]
+        names = ("lse_fn.dq", "lse_fn.dk", "lse_fn.dv")
+        if fa.kernel_head_dim(D) == D:
+            res["lse_fn_reference"] = "plain_pipeline"
+            refs = pipeline
+        else:
+            res["lse_fn_reference"] = "kernel_o_and_lse"
+            res["lse_fn_vs_plain_pipeline"] = {
+                name: compare(a, b, tol["grad"], tol["rtol"], tol["tile"])
+                for name, a, b in zip(names, grads, pipeline)}
+            ko, klse = out.detach(), l_out.detach()
+            refs = [fa.plain_bwd_dq(q, k, v, ko, do, klse, dadj, scale, causal, None),
+                    *fa.plain_bwd_dkv(q, k, v, ko, do, klse, dadj, scale, causal, None)]
+        for name, a, b in zip(names, grads, refs):
             check(name, a, b, "grad")
     res["max_abs_err"] = {k: v[0] for k, v in errs.items()}
     res["max_tile_rel_err"] = {k: v[1] for k, v in errs.items()
                                if k not in ("fwd_lse.lse", "rowterm")}
-    res["body"] = "wgmma" if fa.wgmma_body(dtype, D) else "cuda_core"
+    res["body"] = "wgmma" if fa.wgmma_body(dtype, fa.kernel_head_dim(D)) else "cuda_core"
     res["ok"] = all(v[2] for v in errs.values()) and all(res.get("controls_rejected", {}).values())
     emit({"phase": "kernels", **res})
     if not res["ok"]:
@@ -486,6 +543,13 @@ def phase_kernels(fa):
     # The CUDA-core bodies.
     _compare_case(fa, "f32_head_dim_32", 2, 333, 2, 32, f32, True, None, True)
     _compare_case(fa, "bf16_head_dim_32", 2, 200, 2, 32, bf16, True, None, True)
+    # Head dims the kernels do not have, zero-padded to the next of 32, 64
+    # and 128: 8 and 16 on the CUDA-core bodies, 48 and 96 on wgmma.
+    _compare_case(fa, "head_dim_8", 2, 200, 2, 8, bf16, True, None, False)
+    _compare_case(fa, "head_dim_16_dadj", 2, 512, 4, 16, bf16, True, None, True)
+    _compare_case(fa, "head_dim_48", 2, 768, 4, 48, bf16, True, None, False)
+    _compare_case(fa, "head_dim_96_non_causal_dadj", 2, 384, 2, 96, bf16, False, None, True)
+    _compare_case(fa, "f32_head_dim_16_window", 2, 333, 2, 16, f32, True, 64, False)
     torch.cuda.empty_cache()
     return main
 
@@ -493,31 +557,37 @@ def phase_kernels(fa):
 # ---------------------------------------------------------------------- #
 # Phase 3: the slice                                                     #
 # ---------------------------------------------------------------------- #
-def pattern_batch(n_seq: int, phases, rng: np.random.Generator):
-    """Cyclic token windows ``x[t] = (start + t) % VOCAB`` from the given
+def pattern_batch(n_seq: int, phases, rng: np.random.Generator, vocab=None, seq_len=None):
+    """Cyclic token windows ``x[t] = (start + t) % vocab`` from the given
     start phases (shuffled by ``rng``); y is the next token.  A window
     covers half the cycle, so each agent's quarter of start phases hides
-    transitions the others see."""
+    transitions the others see.  ``vocab`` and ``seq_len`` default to the
+    slice's."""
+    vocab, seq_len = vocab or VOCAB, seq_len or SEQ
     starts = rng.choice(np.asarray(list(phases)), size=n_seq)
-    seq = (starts[:, None] + np.arange(SEQ + 1)[None, :]) % VOCAB
+    seq = (starts[:, None] + np.arange(seq_len + 1)[None, :]) % vocab
     return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
 
 
 def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, model_kwargs=None,
-                 batch=BATCH, **trainer_kwargs):
+                 batch=BATCH, dims=None, **trainer_kwargs):
+    """The slice's trainer; ``dims`` (``vocab``, ``heads``, ``head_dim``,
+    ``seq``) replaces the slice's widths."""
     from distributed_learning_tpu_torch.models import TransformerLM
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
 
+    d = {"vocab": VOCAB, "heads": HEADS, "head_dim": HEAD_DIM, "seq": SEQ, **(dims or {})}
     rng = np.random.default_rng(seed)
-    quarter = VOCAB // agents
+    quarter = d["vocab"] // agents
     nodes = list(range(agents))
-    train = {a: pattern_batch(steps * batch, range(quarter * a, quarter * (a + 1)), rng)
+    train = {a: pattern_batch(steps * batch, range(quarter * a, quarter * (a + 1)), rng,
+                              d["vocab"], d["seq"])
              for a in nodes}
-    test = pattern_batch(4, range(VOCAB), rng)
+    test = pattern_batch(4, range(d["vocab"]), rng, d["vocab"], d["seq"])
     model = TransformerLM(
-        vocab_size=VOCAB, num_layers=layers, num_heads=HEADS, head_dim=HEAD_DIM,
-        max_len=SEQ, attn_impl=attn_impl, dtype=torch.bfloat16,
+        vocab_size=d["vocab"], num_layers=layers, num_heads=d["heads"], head_dim=d["head_dim"],
+        max_len=d["seq"], attn_impl=attn_impl, dtype=torch.bfloat16,
         n_agents=agents, device=DEVICE, seed=seed, **(model_kwargs or {}),
     )
     master = MasterNode(
@@ -679,7 +749,7 @@ def _patched(owner, name, value):
         setattr(owner, name, real)
 
 
-def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None,
+def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None, witness=None,
                     **trainer_kwargs) -> dict:
     """One training step of ``agents`` x ``layers`` at full width, through
     the kernels and through plain attention from identical weights (the
@@ -687,13 +757,18 @@ def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None,
     run through the kernels inside ``control()``: the loss and every
     leaf's gradient per agent, each run against the plain one under
     LOSS_RTOL / GRAD_RTOL.  ``around(run)``, when given, is a context
-    manager around each run.  Returns the facts; ``ok`` when the kernel
-    run passes and the control fails."""
+    manager around each run.  ``witness()``, when given, adds a fourth
+    run through plain attention inside it, reported against the kernel
+    run.  Returns the facts; ``ok`` when the kernel run passes and the
+    control fails."""
     from distributed_learning_tpu_torch.convert import flax_to_torch, torch_to_flax
 
     out = {}
     weights = None
-    for run, impl in (("flash", "flash"), ("full", "full"), ("control", "flash")):
+    runs = [("flash", "flash"), ("full", "full"), ("control", "flash")]
+    if witness is not None:
+        runs.append(("witness", "full"))
+    for run, impl in runs:
         master = make_trainer(impl, layers, agents, 1, 1, model_kwargs=model_kwargs,
                               **trainer_kwargs)
         if weights is None:
@@ -707,6 +782,8 @@ def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None,
                 stack.enter_context(around(run))
             if run == "control":
                 stack.enter_context(control())
+            if run == "witness":
+                stack.enter_context(witness())
             p = master.train_epoch()
         out[run] = (p["train_loss"], leaf_grads(master.model))
         del master
@@ -724,6 +801,14 @@ def kernel_vs_plain(agents, layers, control, model_kwargs=None, around=None,
         }
         verdict[run]["ok"] = (verdict[run]["loss_rel_err"] <= LOSS_RTOL
                               and errs[worst] <= GRAD_RTOL)
+    if witness is not None:
+        # How far each plain run is from the kernel run.
+        flash_loss, flash_grads = out["flash"]
+        verdict["plain_runs_vs_flash"] = {
+            run: {"loss_rel_err": float(np.max(np.abs(out[run][0] - flash_loss)
+                                               / np.abs(flash_loss))),
+                  "worst_grad_rel_err": max(rel_errs(out[run][1], flash_grads).values())}
+            for run in ("full", "witness")}
     return {"agents": agents, "layers": layers,
             "loss": {k: v[0].tolist() for k, v in out.items()},
             "limits": {"loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL},
@@ -1642,6 +1727,11 @@ def route_configs():
                                             mix_times=3),
         "lr_schedule_adam": dict(optimizer="adam", optimizer_kwargs={},
                                  learning_rate=lambda c: 1e-3 / (1 + c)),
+        # The port's Adam (eps_root != 0): its moments and step count are
+        # device tensors from construction, so the capture takes it.
+        "adamw_eps_root": dict(optimizer="adamw",
+                               optimizer_kwargs={"eps_root": 1e-8, "weight_decay": 1e-2},
+                               learning_rate=lambda c: 1e-3 / (1 + c)),
         "adaptive_comm": dict(mix_times=2, adaptive_comm={"target": 0.05, "gain": 1.0}),
         "mix_eps": dict(mix_eps=1e-3),
     }
@@ -3121,6 +3211,31 @@ SHORT_LAYERS, SHORT_PREFILL = 2, 256
 # uniform, so the same fault moves the logits by ~1/2048: reported there,
 # gated on the short decode.
 DECODE_LOGITS_RTOL = 5e-2
+# The same check on a float32 copy of the full-scale decode model (the
+# same weights; its prefill runs kernel A's float32 body): the decode
+# path and the full forward differ by float32 summation order only, so a
+# correct cache sits near 1e-6 relative, and the shifted write (~3e-2 /
+# ~1.5e-2 at prefill 2048 in bf16) far above this limit.
+DECODE_F32_LOGITS_RTOL = 1e-3
+# lm_extras_plain: a route the plain path's own choice would flip must be
+# a near-tie: its two experts' router probabilities (the plain run's)
+# within |p_own - p_tape| <= limit * max(p_own, p_tape).  A flip's gap
+# follows the two runs' activation difference at the router (phase 4's
+# gradients differ by ~1e-2 relative) times the size of the bf16 router
+# logits, not bf16 rounding of the probabilities (2**-7).  On the card
+# (H100 80GB HBM3, 700 W), of 196,608 routes at full width the plain run
+# flips 1,058, 403 above 2**-7, the largest at 0.0823; a witness run with
+# the plain attention in float32 (the bf16 inputs upcast, the output
+# rounded to bf16 once, as the kernels round theirs) flips 693, 158 above
+# 2**-7, 2 above 2**-5 (86 for the plain run), the largest at 0.0421.
+# The bf16 attention scores make the tail above 2**-5; no run attributes
+# the rest (the kernel's bf16 P and its summation order differ from both
+# plain runs).  Each limit is the power of two above its run's reading
+# (both readings repeat to the digit from run to run).  A wrong
+# argmax or capacity queue on the kernel path flips confident routes (the
+# control's swap reads 0.99) and fails both.
+ROUTE_FLIP_RTOL = 2 ** -3
+ROUTE_FLIP_F32_RTOL = 2 ** -4
 
 
 def _extras_model_kwargs(dropout=EXTRAS_DROPOUT):
@@ -3254,6 +3369,19 @@ def phase_lm_extras(fa, dense):
     return facts["eager_launches"]
 
 
+def route_flip_gaps(probs, own, taped) -> torch.Tensor:
+    """For every route where ``own`` (k of (N, S) expert choices) differs
+    from ``taped``, the relative gap of the two experts' probabilities in
+    ``probs`` (N, S, E): ``|p_own - p_tape| / max(p_own, p_tape)``."""
+    gaps, probs = [], probs.detach()
+    for a, b in zip(own, taped):
+        flip = a != b
+        pa = probs.gather(-1, a[..., None]).squeeze(-1)[flip]
+        pb = probs.gather(-1, b[..., None]).squeeze(-1)[flip]
+        gaps.append((pa - pb).abs() / torch.maximum(pa, pb))
+    return torch.cat(gaps)
+
+
 class RouteTape:
     """The MoE blocks' expert choices of the kernel run, handed to the
     other runs of :func:`kernel_vs_plain`.  Routing is a discrete function
@@ -3261,11 +3389,14 @@ class RouteTape:
     and capacity queues, which moves the gradients by more than the
     kernels do (measured: up to 0.19 relative on a gate).  With the
     kernel run's routes replayed, both paths compute one continuous
-    function; the share of routes the plain path would have flipped is
-    reported."""
+    function.  The gaps of every route a plain run (``full``, ``witness``)
+    would have flipped are kept per run (:func:`route_flip_gaps`); the
+    first block's probabilities and own choices of the ``full`` run are
+    kept for the swapped-route control."""
 
     def __init__(self):
-        self.routes, self.flips, self.total, self.pos = [], 0, 0, 0
+        self.routes, self.pos, self.sample = [], 0, None
+        self.total, self.gaps = {}, {}
 
     def around(self, run):
         from distributed_learning_tpu_torch.models.moe import MoEMLP
@@ -3280,13 +3411,47 @@ class RouteTape:
                 return choices
             choices = tape.routes[tape.pos % len(tape.routes)]
             tape.pos += 1
-            if run == "full":
+            if run in ("full", "witness"):
                 own = real(module, probs)
-                tape.flips += sum(int((a != b).sum()) for a, b in zip(own, choices))
-                tape.total += sum(c.numel() for c in choices)
+                tape.total[run] = tape.total.get(run, 0) + sum(c.numel() for c in choices)
+                tape.gaps.setdefault(run, []).append(route_flip_gaps(probs, own, choices).cpu())
+                if run == "full" and tape.sample is None:
+                    tape.sample = (probs.detach().clone(), [c.clone() for c in own])
             return choices
 
         return _patched(MoEMLP, "_choose", choose)
+
+    def flip_facts(self, run, limit) -> dict:
+        gaps = torch.cat(self.gaps[run])
+        return {"routes_replayed": self.total[run], "flips": int(gaps.numel()),
+                "flip_share": gaps.numel() / max(self.total[run], 1), "limit": limit,
+                "max_gap": float(gaps.max()) if gaps.numel() else 0.0,
+                "over_2**-e": {e: int((gaps > 2.0 ** -e).sum()) for e in (4, 5, 6, 7, 8)},
+                "over_limit": int((gaps > limit).sum())}
+
+    def swapped_route_control(self) -> float:
+        """The bound's control: the plain run's own choices for the first
+        block with one confident route (the largest first-choice
+        probability) swapped to that token's least likely expert.  Returns
+        the largest gap the bound sees, which must exceed the limit."""
+        probs, own = self.sample
+        taped = [c.clone() for c in own]
+        first = probs.gather(-1, own[0][..., None]).squeeze(-1)
+        i = int(first.argmax())
+        taped[0].view(-1)[i] = probs.argmin(-1).view(-1)[i]
+        return float(route_flip_gaps(probs, own, taped).max())
+
+
+def _f32_attention():
+    """The plain path's attention in float32: the bf16 inputs upcast and
+    the output rounded to their dtype once."""
+    from distributed_learning_tpu_torch.models import transformer
+    from distributed_learning_tpu_torch.ops.ring_attention import attention_reference
+
+    def f32(q, k, v, **kw):
+        return attention_reference(q.float(), k.float(), v.float(), **kw).to(v.dtype)
+
+    return _patched(transformer, "attention_reference", f32)
 
 
 def phase_lm_extras_plain(fa):
@@ -3294,7 +3459,9 @@ def phase_lm_extras_plain(fa):
     the kernels and through plain attention from identical weights under
     the plain phase's limits, the MoE routes of the kernel run replayed
     in the others (:class:`RouteTape`); the control applies rope to Q
-    only."""
+    only.  The plain run's route flips are held to ``ROUTE_FLIP_RTOL``,
+    and a witness run with the plain attention in float32 to
+    ``ROUTE_FLIP_F32_RTOL``."""
     from distributed_learning_tpu_torch.models import transformer
 
     def q_only(self, q, k, positions):
@@ -3304,13 +3471,21 @@ def phase_lm_extras_plain(fa):
     facts = kernel_vs_plain(2, EXTRAS_PLAIN_LAYERS,
                             lambda: _patched(transformer._Attention, "_rotate", q_only),
                             model_kwargs=_extras_model_kwargs(0.0), around=tape.around,
-                            moe_aux_coef=EXTRAS_AUX_COEF)
+                            witness=_f32_attention, moe_aux_coef=EXTRAS_AUX_COEF)
+    flips = {"full": tape.flip_facts("full", ROUTE_FLIP_RTOL),
+             "witness_f32_attention": tape.flip_facts("witness", ROUTE_FLIP_F32_RTOL)}
+    control_gap = tape.swapped_route_control()
     emit({"phase": "lm_extras_plain", "options": _extras_model_kwargs(0.0),
-          "routes_replayed": tape.total, "plain_route_flips": tape.flips,
-          "plain_route_flip_share": tape.flips / max(tape.total, 1), **facts})
+          "route_flips": flips, "control_swapped_route_gap": control_gap, **facts})
     if not facts["ok"]:
         raise AssertionError("extras kernel path and plain path disagree, or the rope "
                              "control was not rejected")
+    for run, f in flips.items():
+        if f["over_limit"]:
+            raise AssertionError(f"{run}: {f['over_limit']} MoE route flips are not "
+                                 f"near-ties (largest gap {f['max_gap']} > {f['limit']})")
+    if not control_gap > ROUTE_FLIP_RTOL:
+        raise AssertionError("a swapped confident route passed the route flip bound")
 
 
 def phase_lm_remat(fa):
@@ -3364,12 +3539,13 @@ def phase_lm_remat(fa):
     return facts["on_launches"]
 
 
-def _decode_model(layers, num_kv_heads=None, max_len=DECODE_PREFILL + DECODE_STEPS, **kw):
+def _decode_model(layers, num_kv_heads=None, max_len=DECODE_PREFILL + DECODE_STEPS,
+                  dtype=torch.bfloat16, **kw):
     from distributed_learning_tpu_torch.models import TransformerLM
 
     return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
                          head_dim=HEAD_DIM, max_len=max_len, attn_impl="flash",
-                         dtype=torch.bfloat16, num_kv_heads=num_kv_heads, n_agents=1,
+                         dtype=dtype, num_kv_heads=num_kv_heads, n_agents=1,
                          device=DEVICE, seed=3, **kw)
 
 
@@ -3442,6 +3618,53 @@ def decode_step_profile(model, prompt, steps=32) -> dict:
             "device_idle_share": max(0.0, 1 - dev_us / 1e3 / (wall * 1e3))}
 
 
+DECODE_CASES = (("mha", None), ("gqa", 2))
+
+
+def _decode_prompt():
+    rng = np.random.default_rng(31)
+    return torch.as_tensor(rng.integers(0, VOCAB, (1, DECODE_BATCH, DECODE_PREFILL)),
+                           device=DEVICE)
+
+
+def time_decode(fa, model, prompt):
+    """``generate``'s times by the prefill-subtracted protocol
+    (``bench_lm.py:112``): after a warm-up, the prefill alone (one token)
+    and the whole of ``DECODE_STEPS`` steps.  Returns (prefill seconds,
+    generate seconds, the prefill's launch counts)."""
+    from distributed_learning_tpu_torch.models.transformer import generate
+
+    for n in (1, DECODE_STEPS):  # warm-up
+        generate(model, prompt, n)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    generate(model, prompt, 1)
+    torch.cuda.synchronize()
+    dt_prefill = time.perf_counter() - t0
+    launches = _launches(fa)
+    t0 = time.perf_counter()
+    generate(model, prompt, DECODE_STEPS)
+    torch.cuda.synchronize()
+    return dt_prefill, time.perf_counter() - t0, launches
+
+
+def decode_timing(fa, repeats):
+    """``--decode-timing``: the serving path's decode tokens/s alone, MHA
+    and GQA, ``repeats`` times each, as phase 30 times them (a fresh
+    model a repeat); no check and no other phase."""
+    prompt = _decode_prompt()
+    for r in range(repeats):
+        for label, hkv in DECODE_CASES:
+            model = _decode_model(LAYERS, hkv)
+            dt_prefill, dt, _ = time_decode(fa, model, prompt)
+            emit({"phase": "decode_timing", "repeat": r, "case": label,
+                  "tokens_per_s": DECODE_BATCH * (DECODE_STEPS - 1) / (dt - dt_prefill),
+                  "prefill_s": dt_prefill, "generate_s": dt})
+            del model
+            torch.cuda.empty_cache()
+
+
 def phase_lm_decode(fa):
     """The serving path: ``generate`` at bench_lm's full-scale decode
     (B 2, prefill 2048, 256 greedy steps; MHA and 2 KV heads) through the
@@ -3456,29 +3679,15 @@ def phase_lm_decode(fa):
     from distributed_learning_tpu_torch.models.transformer import generate
     from distributed_learning_tpu_torch.training.graphs import count_host_syncs
 
-    rng = np.random.default_rng(31)
-    prompt = torch.as_tensor(rng.integers(0, VOCAB, (1, DECODE_BATCH, DECODE_PREFILL)),
-                             device=DEVICE)
+    prompt = _decode_prompt()
     prefill_launches = dict.fromkeys(fa.KERNELS, 0)
     cases = {}
-    for label, hkv in (("mha", None), ("gqa", 2)):
+    for label, hkv in DECODE_CASES:
         model = _decode_model(LAYERS, hkv)
         cache_bytes = model.init_cache(DECODE_BATCH).nbytes()
-        for n in (1, DECODE_STEPS):  # warm-up
-            generate(model, prompt, n)
-        torch.cuda.synchronize()
-        fa.reset_launch_counts()
-        t0 = time.perf_counter()
-        generate(model, prompt, 1)
-        torch.cuda.synchronize()
-        dt_prefill = time.perf_counter() - t0
-        launches = _launches(fa)
+        dt_prefill, dt, launches = time_decode(fa, model, prompt)
         for name, n in launches.items():
             prefill_launches[name] += n
-        t0 = time.perf_counter()
-        generate(model, prompt, DECODE_STEPS)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         decode_s = dt - dt_prefill
         with count_host_syncs(torch.device(DEVICE)) as syncs:
             out = generate(model, prompt, 8)
@@ -3492,6 +3701,15 @@ def phase_lm_decode(fa):
         profiled = decode_step_profile(model, prompt)
         check = decode_vs_full(model, prompt, DECODE_CHECK_STEPS)
         shifted = decode_vs_full(model, prompt, DECODE_CHECK_STEPS, control=True)
+        # The float32 copy: the same weights, computed in float32.
+        f32 = _decode_model(LAYERS, hkv, dtype=torch.float32)
+        with torch.no_grad():
+            f32.flat_params.copy_(model.flat_params)
+        fa.reset_launch_counts()
+        f32_check = decode_vs_full(f32, prompt, DECODE_CHECK_STEPS)
+        f32_bodies = dict(fa.KERNELS["flash_fwd"].by_body)
+        f32_shifted = decode_vs_full(f32, prompt, DECODE_CHECK_STEPS, control=True)
+        del f32
         cases[label] = {
             "num_kv_heads": hkv or HEADS, "kv_cache_bytes": cache_bytes,
             "prefill_s": dt_prefill, "generate_s": dt,
@@ -3500,7 +3718,9 @@ def phase_lm_decode(fa):
             "bound_ms_per_step": bound_ms,
             "bound_tokens_per_s": DECODE_BATCH / (bound_ms / 1e3),
             "host_syncs_in_generate_8": syncs[0], "profiled_steps": profiled,
-            "prefill_launches": launches, "check": check, "shifted_write": shifted}
+            "prefill_launches": launches, "check": check, "shifted_write": shifted,
+            "f32_check": f32_check, "f32_flash_fwd_by_body": f32_bodies,
+            "f32_control_shifted_write": f32_shifted}
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3514,13 +3734,24 @@ def phase_lm_decode(fa):
     del short
     torch.cuda.empty_cache()
     emit({"phase": "lm_decode", "batch": DECODE_BATCH, "prefill": DECODE_PREFILL,
-          "steps": DECODE_STEPS, "layers": LAYERS, "logits_rtol": DECODE_LOGITS_RTOL, **cases})
+          "steps": DECODE_STEPS, "layers": LAYERS, "logits_rtol": DECODE_LOGITS_RTOL,
+          "f32_logits_rtol": DECODE_F32_LOGITS_RTOL, **cases})
     for label in ("mha", "gqa", "short"):
         c = cases[label]["check"]
         if not (c["max_rel_err"] <= DECODE_LOGITS_RTOL and c["tokens_agree"]):
             raise AssertionError(f"{label} decode disagrees with the full forward: {c}")
     if cases["short"]["control_shifted_write"]["max_rel_err"] <= DECODE_LOGITS_RTOL:
         raise AssertionError("a cache write one slot off passed the logits check")
+    for label in ("mha", "gqa"):
+        c = cases[label]["f32_check"]
+        if not (c["max_rel_err"] <= DECODE_F32_LOGITS_RTOL and c["tokens_agree"]):
+            raise AssertionError(f"{label} float32 decode disagrees with its full forward: {c}")
+        if cases[label]["f32_control_shifted_write"]["max_rel_err"] <= DECODE_F32_LOGITS_RTOL:
+            raise AssertionError(f"{label}: a cache write one slot off passed the float32 "
+                                 "logits check at full scale")
+        if not cases[label]["f32_flash_fwd_by_body"]["cuda_core"]:
+            raise AssertionError(f"{label}: the float32 prefill did not run kernel A's "
+                                 "float32 body")
     for label in ("mha", "gqa"):
         if cases[label]["host_syncs_in_generate_8"]:
             raise AssertionError(f"{label} generate synchronised: {cases[label]}")
@@ -3531,12 +3762,471 @@ def phase_lm_decode(fa):
     return prefill_launches
 
 
+# ---------------------------------------------------------------------- #
+# Phase 31: a head dim the kernels run zero-padded                       #
+# ---------------------------------------------------------------------- #
+# benchmarks/bench_lm.py's small config (its non-full-scale branch).
+SMALL_LM = {"vocab": 64, "heads": 2, "head_dim": 16, "seq": 128}
+SMALL_LM_LAYERS, SMALL_LM_AGENTS, SMALL_LM_EPOCHS = 2, 2, 4
+# Losses of 4 epochs (one adam step and one gossip round each) through the
+# kernels against plain attention from the same weights: step one is held
+# to LOSS_RTOL by kernel_vs_plain; after it the two runs' bf16 rounding
+# differences move the weights apart by ~lr x a few bf16 ulps a step, which
+# moves a loss of ~4.2 by under 1e-3 relative.
+SMALL_LM_LOSS_RTOL = 1e-3
+
+
+def phase_lm_head_dims(fa):
+    """``TransformerLM(attn_impl="flash", head_dim=16)`` at bench_lm's small
+    config on the card: one step against plain attention (phase 4's limits
+    and control), then 4 epochs trained both ways.  Returns the kernel
+    run's launch counts."""
+    facts = kernel_vs_plain(SMALL_LM_AGENTS, SMALL_LM_LAYERS,
+                            lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
+                            dims=SMALL_LM)
+    losses, launches, bodies = {}, None, None
+    for impl in ("flash", "full"):
+        master = make_trainer(impl, SMALL_LM_LAYERS, SMALL_LM_AGENTS, SMALL_LM_EPOCHS, 1,
+                              dims=SMALL_LM)
+        if impl == "flash":
+            weights = {k: v.detach().clone() for k, v in master.model.stacked_parameters().items()}
+            fa.reset_launch_counts()
+        else:
+            with torch.no_grad():
+                for k, v in master.model.stacked_parameters().items():
+                    v.copy_(weights[k])
+        losses[impl] = np.asarray([master.train_epoch()["train_loss"].tolist()
+                                   for _ in range(SMALL_LM_EPOCHS)])
+        torch.cuda.synchronize()
+        if impl == "flash":
+            launches = _launches(fa)
+            bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+        del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = np.abs(losses["flash"] - losses["full"]) / np.abs(losses["full"])
+    trained = {"losses_flash": losses["flash"].tolist(), "losses_full": losses["full"].tolist(),
+               "loss_rel_err": float(rel.max()), "limit": SMALL_LM_LOSS_RTOL,
+               "loss_falls": bool((losses["flash"][-1] < losses["flash"][0]).all()),
+               "launches": launches, "by_body": bodies}
+    emit({"phase": "lm_head_dims", "config": SMALL_LM, "layers": SMALL_LM_LAYERS,
+          "kernel_head_dim": fa.kernel_head_dim(SMALL_LM["head_dim"]), "one_step": facts,
+          "trained": trained})
+    if not facts["ok"]:
+        raise AssertionError("head dim 16: kernel path and plain path disagree, or the "
+                             "control was not rejected")
+    if not (trained["loss_rel_err"] <= SMALL_LM_LOSS_RTOL and trained["loss_falls"]):
+        raise AssertionError(f"head dim 16 training disagrees with plain attention: {trained}")
+    per = SMALL_LM_LAYERS * SMALL_LM_EPOCHS
+    if not (launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == per
+            and bodies["flash_fwd"]["cuda_core"] >= per and not bodies["flash_fwd"]["wgmma"]):
+        raise AssertionError(f"head dim 16 launches {launches} {bodies}: want the CUDA-core "
+                             "bodies once a layer and step")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# Phase 32: the comm/ wire layer on the card's WRN-28-10 agents          #
+# ---------------------------------------------------------------------- #
+# The float32 wire carries the parameters exactly, so its ring round
+# differs from ConsensusEngine's dense round (one GEMM) by summation order
+# only: 2e-6, the mixing tolerance of tests/test_consensus.py.  A bf16 wire
+# value is the RNE narrowing of its float32 source, within 2**-9 of it
+# relative; 2**-8 is held.  An int8 wire value is round(x / s) * s with
+# s = max|x| / 127: within s / 2, plus one float32 rounding of the product
+# (an ulp of max|x|).  The bf16 and int8 rounds are then held to the
+# ring weights times each received vector's largest error, plus 2e-6.
+WIRE_MIX_ATOL = 2e-6
+WIRE_BF16_RTOL = 2.0 ** -8
+WIRE_TOPK = 0.1
+WIRE_MODES = {"f32": {}, "bf16": {"bf16_wire": True}, "int8": {"int8_wire": True}}
+WIRE_DEPTH, WIDEN = 28, 10
+
+
+def _nest(flat: dict) -> dict:
+    """``{"a.b.c": t}`` -> ``{"a": {"b": {"c": t}}}``: a model's parameters
+    under flax's names, the tree the comm layer carries."""
+    tree: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return tree
+
+
+def _unnest(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_unnest(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _wire_transport(packed: dict, nbrs: dict, controls: dict) -> tuple:
+    """Every packed body ``packed[mode][a]`` (an ``AsyncValue`` body) sent
+    from agent ``a`` to each ring neighbour over 127.0.0.1 through
+    ``FramedStream``, read back through the receiver's
+    ``StreamMultiplexer``, sender by sender and mode by mode.  Returns the
+    received payloads ``{(mode, a, b): DenseFrame or FusedFrame}``, the
+    send seconds ``{(mode, a): s}`` and the controls' outcomes: each body
+    of ``controls`` sent with one flipped byte (the transport crc of the
+    true body) on a fresh connection, which must raise ``FrameError``."""
+    import asyncio
+    import dataclasses
+    import struct
+
+    from distributed_learning_tpu_torch.comm import framing, protocol
+    from distributed_learning_tpu_torch.comm.multiplexer import StreamMultiplexer
+    from distributed_learning_tpu_torch import native
+
+    @dataclasses.dataclass
+    class Packed(protocol.AsyncValue):
+        """An ``AsyncValue`` whose body was packed before the timed send."""
+
+        body: bytes = b""
+
+        def _pack(self) -> bytes:
+            return self.body
+
+    async def flipped_byte_rejected(body) -> bool:
+        """``body`` with one payload byte flipped in transit (the frame's
+        crc is the true body's) on a fresh connection: True when the
+        receiving ``FramedStream`` raises ``FrameError``."""
+        accepted = asyncio.get_running_loop().create_future()
+        srv = await asyncio.start_server(
+            lambda r, w: accepted.set_result(framing.FramedStream(r, w)), "127.0.0.1", 0)
+        sender = await framing.open_framed_connection(
+            "127.0.0.1", srv.sockets[0].getsockname()[1])
+        receiver = await asyncio.wait_for(accepted, 60)
+        header = struct.pack("<IBBH", len(body), framing.WIRE_VERSION,
+                             protocol.AsyncValue.TYPE_CODE, 0)
+        bad = bytearray(body)
+        bad[29 + (len(body) - 30) // 2] ^= 0x10  # inside the frame's payload
+
+        async def send():
+            sender.writer.write(header + bytes(bad) + struct.pack("<I", native.crc32(body)))
+            await sender.writer.drain()
+
+        try:  # the receiver reads while the sender drains
+            _, got = await asyncio.wait_for(
+                asyncio.gather(send(), receiver.recv(), return_exceptions=True), 120)
+            return isinstance(got, framing.FrameError)
+        finally:
+            sender.close()
+            receiver.close()
+            srv.close()
+            await srv.wait_closed()
+
+    async def main():
+        inbound = {b: {} for b in nbrs}
+        edges = sum(len(v) for v in nbrs.values())
+        ready = asyncio.Event()
+
+        async def handle(reader, writer, b):
+            stream = framing.FramedStream(reader, writer)
+            hello = await stream.recv()
+            inbound[b][int(hello.token)] = stream
+            if sum(len(v) for v in inbound.values()) == edges:
+                ready.set()
+
+        servers = {b: await asyncio.start_server(
+            lambda r, w, b=b: handle(r, w, b), "127.0.0.1", 0) for b in nbrs}
+        out = {}
+        for a in nbrs:
+            for b in nbrs[a]:
+                out[a, b] = await framing.open_framed_connection(
+                    "127.0.0.1", servers[b].sockets[0].getsockname()[1])
+                await out[a, b].send(protocol.Register(token=str(a), host="127.0.0.1", port=0))
+        await asyncio.wait_for(ready.wait(), 60)
+        muxes = {b: StreamMultiplexer(inbound[b]) for b in nbrs}
+        received, send_s, rejected = {}, {}, {}
+        try:
+            for mode, bodies in packed.items():
+                for a, body in bodies.items():
+                    async def send_all(a=a, body=body):
+                        for b in nbrs[a]:
+                            await out[a, b].send(Packed(body=body))
+
+                    async def recv_one(b, a=a):
+                        token, msg, _ = await asyncio.wait_for(muxes[b].__anext__(), 120)
+                        if token != a or msg is None:
+                            raise AssertionError(f"agent {b} got {msg!r} from {token}, want {a}")
+                        return b, msg.value
+
+                    t0 = time.perf_counter()
+                    got = await asyncio.gather(send_all(), *(recv_one(b) for b in nbrs[a]))
+                    send_s[mode, a] = time.perf_counter() - t0
+                    for b, value in got[1:]:
+                        received[mode, a, b] = value
+            for kind, body in controls.items():
+                rejected[kind] = await flipped_byte_rejected(body)
+        finally:
+            for m in muxes.values():
+                m.close()
+            for s in out.values():
+                s.close()
+            for per in inbound.values():
+                for s in per.values():
+                    s.close()
+            for srv in servers.values():
+                srv.close()
+                await srv.wait_closed()
+        return received, send_s, rejected
+
+    return asyncio.run(asyncio.wait_for(main(), 600))
+
+
+def phase_wire():
+    """The wire layer on the WRN slice's 4 agents (see the module
+    docstring, phase 32).  The wire has no kernel: every number here is a
+    host or copy time."""
+    from distributed_learning_tpu_torch import native
+    from distributed_learning_tpu_torch.comm import protocol, pytree_codec
+    from distributed_learning_tpu_torch.comm import tensor_codec as tc
+    from distributed_learning_tpu_torch.comm import top_k_compressor
+    from distributed_learning_tpu_torch.models import WideResNet
+    from distributed_learning_tpu_torch.native import wire as native_wire
+    from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+
+    os.environ.pop("DLT_NO_NATIVE", None)
+    t0 = time.perf_counter()
+    built = {"codec": native.native_available(), "wire": native_wire.available()}
+    libs = {"codec": native.library_path(native._SRC), "wire": native.library_path(native_wire._SRC)}
+    facts = {"native_build_and_load_s": time.perf_counter() - t0, "native_built": built,
+             "libraries": {k: os.path.relpath(v) for k, v in libs.items()}}
+    if not all(built.values()) or any(os.path.dirname(p) != str(native.BUILD_DIR)
+                                      for p in libs.values()):
+        emit({"phase": "wire", **facts})
+        raise AssertionError(f"the native wire libraries did not build into _build/: {facts}")
+
+    model = WideResNet(WIRE_DEPTH, WIDEN, n_agents=AGENTS, device=DEVICE, seed=0)
+    stacked = {k: v.detach() for k, v in model.stacked_parameters().items()}
+    P = model.param_count()
+    trees = [_nest({k: v[a] for k, v in stacked.items()}) for a in range(AGENTS)]
+    W = Topology.ring(AGENTS).metropolis_weights()
+    nbrs = {a: [b for b in range(AGENTS) if b != a and W[a, b] > 0] for a in range(AGENTS)}
+    ref = ConsensusEngine(W, device=DEVICE).mix({k: v.clone() for k, v in stacked.items()})
+
+    # The bound of the transfer part: the pinned copy of the float32 ravel.
+    dev_buf = torch.empty(P, device=DEVICE)
+    host_buf = torch.empty(P, pin_memory=DEVICE == "cuda")
+    bound = {"bytes": 4 * P, "d2h_ms": cuda_ms(lambda: host_buf.copy_(dev_buf), 5),
+             "h2d_ms": cuda_ms(lambda: dev_buf.copy_(host_buf), 5)}
+    del dev_buf
+
+    reg = MetricsRegistry()
+    gauge = []  # the comm.wire.native gauge after every encode and decode
+
+    def served():
+        gauge.append(reg.gauges.get("comm.wire.native"))
+
+    rec = {m: {a: {} for a in range(AGENTS)} for m in (*WIRE_MODES, "topk")}
+    flats, frames, packed, hats, spec = {}, {m: {} for m in rec}, {m: {} for m in rec}, {}, None
+    same_as_numpy_path = True
+    compress = top_k_compressor(WIRE_TOPK)
+    with use_registry(reg):
+        for a in range(AGENTS):
+            for mode, kw in WIRE_MODES.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                flat, spec = pytree_codec.tree_to_flat(trees[a])
+                t2 = time.perf_counter()
+                frames[mode][a] = tc.encode_tensor(flat, **kw)
+                t3 = time.perf_counter()
+                served()
+                rec[mode][a].update(d2h_s=t2 - t1, encode_s=t3 - t2)
+                flats[a] = flat
+            # CHOCO's correction against the estimate the neighbours hold
+            # after the int8 round: top-k 10% of x - hat, one fused frame.
+            hats[a] = tc.decode_tensor(frames["int8"][a])
+            served()
+            t1 = time.perf_counter()
+            q = compress(flats[a] - hats[a])
+            t2 = time.perf_counter()
+            frames["topk"][a] = tc.encode_fused_sparse(q, spec.dtype_buckets())
+            t3 = time.perf_counter()
+            served()
+            rec["topk"][a].update(select_s=t2 - t1, encode_s=t3 - t2, kept=int(np.count_nonzero(q)))
+            rec["topk"][a]["q"] = q
+            # The same frames from the numpy path, and the protocol's body.
+            with use_registry(MetricsRegistry()):
+                os.environ["DLT_NO_NATIVE"] = "1"
+                try:
+                    for mode, kw in WIRE_MODES.items():
+                        same_as_numpy_path &= tc.encode_tensor(flats[a], **kw) == frames[mode][a]
+                    same_as_numpy_path &= (tc.encode_fused_sparse(q, spec.dtype_buckets())
+                                           == frames["topk"][a])
+                    same_as_numpy_path &= np.array_equal(
+                        tc.decode_tensor(frames["int8"][a]).view(np.uint32),
+                        hats[a].view(np.uint32))
+                finally:
+                    del os.environ["DLT_NO_NATIVE"]
+            for mode, kw in WIRE_MODES.items():
+                _, body = protocol.pack_message(protocol.AsyncValue(value=flats[a], **kw))
+                packed[mode][a] = body
+            _, packed["topk"][a] = protocol.pack_message(protocol.AsyncValue(
+                value=q, kind=2, buckets=spec.dtype_buckets()))
+            served()
+            for mode in rec:
+                n = len(frames[mode][a])
+                same_as_numpy_path &= packed[mode][a][29:29 + n] == frames[mode][a]
+                rec[mode][a]["frame_bytes"] = n
+        received, send_s, rejected = _wire_transport(
+            packed, nbrs, {m: packed[m][0] for m in rec})
+
+        # Receive side: decode into pinned out= scratch, flat_to_tree onto
+        # the card, mix with W there.
+        scratch = torch.empty(P, pin_memory=DEVICE == "cuda").numpy()
+        errs, mixed_err, recv_trees = {}, {}, {}
+        for mode in WIRE_MODES:
+            worst = {}
+            for (m, a, b), frame in received.items():
+                if m != mode:
+                    continue
+                t1 = time.perf_counter()
+                dec = frame.densify(out=scratch)
+                t2 = time.perf_counter()
+                served()
+                tree = pytree_codec.flat_to_tree(dec, spec, device=DEVICE)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                x = flats[a]
+                diff = np.abs(dec - x)
+                if mode == "f32":
+                    ok = bool(np.array_equal(dec.view(np.uint32), x.view(np.uint32)))
+                elif mode == "bf16":
+                    ok = bool((diff <= WIRE_BF16_RTOL * np.abs(x)).all())
+                else:
+                    amax = float(np.abs(x).max())
+                    ok = bool((diff <= amax / 127 / 2 + np.spacing(np.float32(amax))).all())
+                worst[a, b] = (float(diff.max()), ok)
+                recv_trees[a, b] = tree
+                r = rec[mode][a].setdefault("to", {})
+                r[b] = {"decode_s": t2 - t1, "h2d_s": t3 - t2}
+            errs[mode] = {f"{a}->{b}": v for (a, b), v in worst.items()}
+            # x_b' = sum_a W[b, a] x_a over b and its neighbours' received trees.
+            dev = 0.0
+            for b in range(AGENTS):
+                parts = [(W[b, b], _unnest(trees[b]))] + [
+                    (W[b, a], _unnest(recv_trees[a, b])) for a in nbrs[b]]
+                allowed = WIRE_MIX_ATOL + sum(W[b, a] * worst[a, b][0] for a in nbrs[b])
+                for name in stacked:
+                    acc = sum(float(w) * leaves[name].float() for w, leaves in parts)
+                    d = float((acc - ref[name][b]).abs().max())
+                    dev = max(dev, d / allowed)
+                del parts
+            mixed_err[mode] = dev  # the largest error over its limit; <= 1 passes
+            recv_trees.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # The fused frames: applied into a live estimate, and densified.
+        apply_equal, fused_exact = True, True
+        for (m, a, b), frame in received.items():
+            if m != "topk":
+                continue
+            target = hats[a].copy()
+            t1 = time.perf_counter()
+            frame.apply_into(target)
+            t2 = time.perf_counter()
+            served()
+            pytree_codec.flat_to_tree(target, spec, device=DEVICE)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            want = hats[a] + tc.decode_fused_sparse(frames["topk"][a])
+            served()
+            apply_equal &= np.array_equal(target.view(np.uint32), want.view(np.uint32))
+            fused_exact &= np.array_equal(frame.densify(out=scratch), rec["topk"][a]["q"])
+            served()
+            rec["topk"][a].setdefault("to", {})[b] = {"decode_s": t2 - t1, "h2d_s": t3 - t2}
+
+    # Codec-level control: a flipped byte in the fused frame fails its own
+    # crc, and the live target of decode_fused_apply stays as it was.
+    bad = bytearray(frames["topk"][0])
+    bad[len(bad) // 2] ^= 0x10
+    target = hats[0].copy()
+    fused_rejected = {}
+    for name, fn in (("decode_fused_apply", lambda: tc.decode_fused_apply(bytes(bad), target)),
+                     ("FusedFrame", lambda: tc.FusedFrame(bytes(bad))),
+                     ("decode_fused_sparse", lambda: tc.decode_fused_sparse(bytes(bad)))):
+        try:
+            fn()
+            fused_rejected[name] = False
+        except tc.CodecError:
+            fused_rejected[name] = True
+    target_untouched = bool(np.array_equal(target.view(np.uint32), hats[0].view(np.uint32)))
+
+    for mode in rec:
+        agents = []
+        for a in range(AGENTS):
+            r = rec[mode][a]
+            r.pop("q", None)
+            send = send_s[mode, a]
+            into = r.pop("to")
+            agents.append({
+                "agent": a, **r,
+                "d2h_encode_s": r.get("d2h_s", 0.0) + r.get("select_s", 0.0) + r["encode_s"],
+                "send_s": send, "send_MBps": r["frame_bytes"] * len(nbrs[a]) / send / 1e6,
+                "decode_h2d_s": {str(b): v["decode_s"] + v["h2d_s"] for b, v in into.items()},
+                "decode_s": {str(b): v["decode_s"] for b, v in into.items()},
+                "h2d_s": {str(b): v["h2d_s"] for b, v in into.items()}})
+        emit({"phase": "wire", "mode": mode, "params_per_agent": P,
+              "copy_bound": bound, "agents": agents})
+    reads = [g for g in gauge]
+    checks = {
+        "params_per_agent_is_wrn_28_10": P == WRN_PARAMS or (WIRE_DEPTH, WIDEN) != (28, 10),
+        "f32_round_vs_engine_over_limit": mixed_err["f32"],
+        "bf16_round_over_limit": mixed_err["bf16"], "int8_round_over_limit": mixed_err["int8"],
+        "values_within_wire_rounding": {m: all(ok for _, ok in e.values()) for m, e in errs.items()},
+        "max_abs_value_err": {m: max(v for v, _ in e.values()) for m, e in errs.items()},
+        "fused_apply_bit_equal": apply_equal, "fused_densify_exact": fused_exact,
+        "native_frames_equal_numpy_path": bool(same_as_numpy_path),
+        "gauge_reads": len(reads), "gauge_min": min((g for g in reads if g is not None),
+                                                     default=None),
+        "gauge_never_0": bool(reads) and all(g == 1.0 for g in reads),
+        "transit_flip_rejected": rejected, "fused_flip_rejected": fused_rejected,
+        "apply_target_untouched": target_untouched,
+    }
+    ok = (checks["params_per_agent_is_wrn_28_10"]
+          and all(mixed_err[m] <= 1.0 for m in WIRE_MODES)
+          and all(checks["values_within_wire_rounding"].values())
+          and apply_equal and fused_exact and checks["native_frames_equal_numpy_path"]
+          and checks["gauge_never_0"] and all(rejected.values()) and len(rejected) == len(rec)
+          and all(fused_rejected.values()) and target_untouched)
+    emit({"phase": "wire", "summary": True, **facts, "limits": {
+        "mix_atol": WIRE_MIX_ATOL, "bf16_rtol": WIRE_BF16_RTOL,
+        "int8": "max|x| / 127 / 2 + ulp(max|x|)"}, "topk_fraction": WIRE_TOPK, **checks,
+        "ok": ok})
+    del model, stacked, trees, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"wire phase failed: {checks}")
+
+
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler window over one epoch of the slice")
     ap.add_argument("--out", default="smoke_out",
                     help="directory for the profiler table (with --profile)")
+    ap.add_argument("--decode-timing", type=int, default=0, metavar="N",
+                    help="only time the serving path's decode N times (MHA and GQA)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3553,6 +4243,10 @@ def main(argv=None) -> int:
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
     phase_build()
+    if args.decode_timing:
+        decode_timing(fa, args.decode_timing)
+        print_card()
+        return 0
     main_errs = phase_kernels(fa)
     master, launches, bodies = phase_slice(fa)
     if args.profile:
@@ -3605,6 +4299,9 @@ def main(argv=None) -> int:
     phase_lm_extras_plain(fa)
     remat_launches = phase_lm_remat(fa)
     prefill_launches = phase_lm_decode(fa)
+    # A head dim the kernels run zero-padded, and the comm/ wire layer.
+    head_dim_launches = phase_lm_head_dims(fa)
+    phase_wire()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -3618,7 +4315,8 @@ def main(argv=None) -> int:
                                  "lm_eval": eval_launches[k.name],
                                  "lm_extras": extras_launches[k.name],
                                  "lm_remat": remat_launches[k.name],
-                                 "lm_prefill": prefill_launches[k.name]},
+                                 "lm_prefill": prefill_launches[k.name],
+                                 "lm_head_dims": head_dim_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3626,12 +4324,7 @@ def main(argv=None) -> int:
         })
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a",
-          flush=True)
+    print_card()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -17,7 +17,13 @@ counts its launches, per body:
 All three kernels have two bodies: ``"wgmma"`` (tensor cores, TMA-fed,
 ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64 or 128,
 and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and head
-dim 32, where wgmma has no float32-exact product.  The C++ dispatcher
+dim 32, where wgmma has no float32-exact product.  The kernels take head
+dims 32, 64 and 128; a call of another head dim up to 128 runs at the
+next of them (:func:`kernel_head_dim`), as the reference's
+``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO) zero-padded, the
+scale the caller's (from the true D), O, dQ, dK and dV sliced back.
+Zero columns leave Q.K^T, rowsum(dO * O) and the padded output columns
+exactly zero, so the kernels need no change.  The C++ dispatcher
 picks the body by (dtype, D) alone; :func:`wgmma_body` mirrors it.  A
 bfloat16 view that TMA cannot read (base or a stride not a multiple of
 16 bytes) raises instead of taking another body.  A layer's backward
@@ -75,6 +81,11 @@ __all__ = [
     "plain_bwd_rowterm",
     "flash_bwd_rowterm",
     "wgmma_body",
+    "kernel_head_dim",
+    "padded_fwd",
+    "padded_bwd_dq",
+    "padded_bwd_dkv",
+    "padded_bwd_rowterm",
     "live_pairs",
     "KERNELS",
     "reset_launch_counts",
@@ -170,6 +181,70 @@ def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
     return dtype == torch.bfloat16 and head_dim in (64, 128)
 
 
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run a call of head dim ``D`` at: the
+    smallest of 32, 64 and 128 that holds it.  Above 128 there is no body
+    yet."""
+    for d in _HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(
+        f"head dim {D} is above 128, the kernels' largest: a body for it is the open "
+        'item "flash attention for head dims above 128" of ROADMAP.md'
+    )
+
+
+def _pad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """``t`` zero-padded in its last dim up to ``D``."""
+    if t.shape[-1] == D:
+        return t
+    return torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+
+
+def padded_fwd(fwd, q, k, v, scale, causal, window, with_lse):
+    """``fwd`` (a forward with :func:`plain_fwd`'s signature) run at the
+    kernels' head dim: Q, K, V zero-padded, O sliced back.  ``scale``
+    stays the caller's."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D)
+    if Dp == D:
+        return fwd(q, k, v, scale, causal, window, with_lse)
+    o, lse = fwd(_pad(q, Dp), _pad(k, Dp), _pad(v, Dp), scale, causal, window, with_lse)
+    return o[..., :D].contiguous(), lse
+
+
+def padded_bwd_dq(bwd_dq, q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """``bwd_dq`` (:func:`plain_bwd_dq`'s signature) at the kernels' head
+    dim: Q, K, V, O and dO zero-padded, dQ sliced back."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D)
+    if Dp == D:
+        return bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    q, k, v, o, do = (_pad(t, Dp) for t in (q, k, v, o, do))
+    return bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window,
+                  rowterm)[..., :D].contiguous()
+
+
+def padded_bwd_dkv(bwd_dkv, q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
+    """``bwd_dkv`` (:func:`plain_bwd_dkv`'s signature) at the kernels'
+    head dim: dK and dV sliced back."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D)
+    if Dp == D:
+        return bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    q, k, v, o, do = (_pad(t, Dp) for t in (q, k, v, o, do))
+    dk, dv = bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    return dk[..., :D].contiguous(), dv[..., :D].contiguous()
+
+
+def padded_bwd_rowterm(bwd_rowterm, o, do, dadj):
+    """``bwd_rowterm`` (:func:`plain_bwd_rowterm`'s signature) on O and
+    dO zero-padded to the kernels' head dim; the row term is per row, so
+    nothing is sliced."""
+    Dp = kernel_head_dim(o.shape[-1])
+    return bwd_rowterm(_pad(o, Dp), _pad(do, Dp), dadj)
+
+
 def _check_tma(**tensors) -> None:
     """TMA reads a tile from a base and strides that are multiples of 16
     bytes; a view that breaks that raises (no other body is taken)."""
@@ -198,9 +273,7 @@ def _check_qkv(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if q.device.type == "cuda":
-        D = q.shape[-1]
-        if D not in _HEAD_DIMS:
-            raise ValueError(f"head dim {D} not supported by the kernels; want one of {_HEAD_DIMS}")
+        kernel_head_dim(q.shape[-1])
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(-1) != 1:
                 raise ValueError(f"{name} must be unit-stride in the head dim")
@@ -303,7 +376,8 @@ def reset_launch_counts() -> None:
 
 
 def _body(q) -> str:
-    return "wgmma" if wgmma_body(q.dtype, q.shape[-1]) else "cuda_core"
+    """The body a call on ``q`` runs, at the kernels' head dim."""
+    return "wgmma" if wgmma_body(q.dtype, kernel_head_dim(q.shape[-1])) else "cuda_core"
 
 
 def live_pairs(B: int, H: int, Tq: int, Tk: int, causal: bool, window: Optional[int]) -> int:
@@ -335,6 +409,10 @@ def _flash_fwd(q, k, v, scale, causal, window, with_lse):
     _check_qkv(q, k, v)
     if q.device.type == "cpu":
         return plain_fwd(q, k, v, scale, causal, window, with_lse)
+    return padded_fwd(_launch_fwd, q, k, v, scale, causal, window, with_lse)
+
+
+def _launch_fwd(q, k, v, scale, causal, window, with_lse):
     B, T, H, D = q.shape
     body = _body(q)
     if body == "wgmma":
@@ -378,6 +456,10 @@ def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None)
     o, do, lse, dadj, rowterm = _bwd_inputs(q, o, do, lse, dadj, rowterm)
     if q.device.type == "cpu":
         return plain_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    return padded_bwd_dq(_launch_dq, q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+
+
+def _launch_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _DQ.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
@@ -390,13 +472,18 @@ def flash_bwd_rowterm(o, do, dadj):
     float32 for (B, T, H, D) ``o`` and ``do``; ``dadj`` may be None."""
     if o.device.type == "cpu":
         return plain_bwd_rowterm(o, do, dadj)
-    if o.shape != do.shape or o.dim() != 4 or o.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"o and do must share one (B, T, H, D) shape with D in {_HEAD_DIMS}")
+    if o.shape != do.shape or o.dim() != 4:
+        raise ValueError("o and do must share one (B, T, H, D) shape")
     if o.dtype != do.dtype or o.dtype not in _DTYPES:
         raise TypeError(f"o and do must share a dtype in float32/bfloat16; got {o.dtype}, {do.dtype}")
-    B, T, H, D = o.shape
+    B, T, H, _ = o.shape
     if dadj is not None and (dadj.shape != (B, H, T) or dadj.dtype != torch.float32):
         raise ValueError("dadj must be (B, H, T) float32")
+    return padded_bwd_rowterm(_launch_rowterm, o, do, dadj)
+
+
+def _launch_rowterm(o, do, dadj):
+    B, T, H, _ = o.shape
     o, do = o.contiguous(), do.contiguous()
     dadj = None if dadj is None else dadj.contiguous()
     _check_tma(o=o, do=do)
@@ -415,6 +502,10 @@ def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None
     o, do, lse, dadj, rowterm = _bwd_inputs(q, o, do, lse, dadj, rowterm)
     if q.device.type == "cpu":
         return plain_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+    return padded_bwd_dkv(_launch_dkv, q, k, v, o, do, lse, dadj, scale, causal, window, rowterm)
+
+
+def _launch_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)

@@ -37,6 +37,8 @@ __all__ = [
     "flatten_stacked",
     "unflatten_stacked",
     "dense_mix",
+    "fused_dense_mix",
+    "fused_max_deviation",
     "global_average",
     "agent_deviations",
     "max_deviation",
@@ -230,6 +232,26 @@ def dense_mix(stacked: Stacked, W: torch.Tensor, out: Stacked) -> Stacked:
             else:
                 dst.copy_(torch.matmul(Wf, xf.to(torch.float32)).reshape(dst.shape))
     return out
+
+
+def fused_dense_mix(stacked: Stacked, W: torch.Tensor, *, times: int = 1) -> Stacked:
+    """``times`` dense rounds on the fused buffers of ``stacked``: flatten
+    once into ``{dtype: (N, P)}`` buffers, mix them (ping-pong with one
+    spare set), and return a new stacked dict of views of the result
+    (``ops/mixing.py:236`` of the JAX package, for a caller's own loop)."""
+    buffers, layout = flatten_stacked(stacked)
+    spare = {k: torch.empty_like(b) for k, b in buffers.items()}
+    for _ in range(int(times)):
+        buffers, spare = dense_mix(buffers, W, spare), buffers
+    return unflatten_stacked(buffers, layout)
+
+
+def fused_max_deviation(stacked: Stacked, *, fused: bool = True) -> torch.Tensor:
+    """:func:`max_deviation` on the fused buffers (one reduction per dtype
+    bucket instead of one per tensor); ``fused=False`` reduces per
+    tensor.  The statistic does not depend on the layout, so both agree
+    to summation order."""
+    return max_deviation(flatten_stacked(stacked)[0] if fused else stacked)
 
 
 def global_average(stacked: Stacked, out: Stacked) -> Stacked:

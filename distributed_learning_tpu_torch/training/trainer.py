@@ -110,6 +110,7 @@ __all__ = [
     "ConsensusNode",
     "GossipTrainer",
     "SGD",
+    "Adam",
     "make_optimizer",
     "get_loss",
     "get_metric",
@@ -208,6 +209,56 @@ class SGD(torch.optim.Optimizer):
                     p.add_(d, alpha=-lr)
 
 
+class Adam(torch.optim.Optimizer):
+    """optax's ``adam`` / ``adamw`` with ``eps_root`` on the stacked
+    buffer: ``m <- b1 m + (1 - b1) g``, ``v <- b2 v + (1 - b2) g^2``, ``t
+    <- t + 1``, ``u = m_hat / (sqrt(v_hat + eps_root) + eps)`` with
+    ``m_hat = m / (1 - b1^t)`` and ``v_hat = v / (1 - b2^t)``, then ``p
+    -= lr u``.  ``weight_decay`` is L2 added to the gradient first
+    (``optax.add_decayed_weights`` in front of adam), or with
+    ``decoupled`` added to the update (``optax.adamw``: ``p -= lr (u + wd
+    p)``).  The moments and the step count are tensors on the
+    parameters' device, made at construction, so every step runs the
+    same ops, eager or captured in a CUDA graph.  ``lr`` is a float or a
+    0-dim device tensor, as for :class:`SGD`."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8,
+                 eps_root: float = 0.0, weight_decay: float = 0.0, decoupled: bool = False):
+        super().__init__(params, dict(lr=lr, betas=tuple(map(float, betas)), eps=float(eps),
+                                      eps_root=float(eps_root), weight_decay=float(weight_decay),
+                                      decoupled=bool(decoupled)))
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise NotImplementedError("Adam.step takes no closure")
+        for group in self.param_groups:
+            lr, (b1, b2), wd = group["lr"], group["betas"], group["weight_decay"]
+            for p in group["params"]:
+                g, st = p.grad, self.state[p]
+                if wd and not group["decoupled"]:
+                    g = g.add(p, alpha=wd)
+                m, v, t = st["exp_avg"], st["exp_avg_sq"], st["step"]
+                t.add_(1.0)
+                m.mul_(b1).add_(g, alpha=1.0 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                m_hat = m / (1.0 - torch.pow(b1, t))
+                v_hat = v / (1.0 - torch.pow(b2, t))
+                u = m_hat.div_(v_hat.add_(group["eps_root"]).sqrt_().add_(group["eps"]))
+                if wd and group["decoupled"]:
+                    u.add_(p, alpha=wd)
+                if isinstance(lr, torch.Tensor):
+                    p.addcmul_(u, lr, value=-1.0)
+                else:
+                    p.add_(u, alpha=-lr)
+
+
 class _OptimizerFactory(NamedTuple):
     """``build(flat_params, lr=None)`` and the learning-rate ``schedule``
     (``None`` for a constant rate)."""
@@ -233,10 +284,11 @@ def make_optimizer(
     semantics: for sgd and adam, ``weight_decay`` is L2 added to the
     gradient before the update (``optax.add_decayed_weights`` chained in
     front); for adamw it is decoupled.  Adam's defaults are optax's (eps
-    1e-8; ``eps_root`` must be 0, as torch has no such term); on the card
-    Adam is built ``capturable`` (its step count and bias correction on
-    the device), in eager steps too, so eager and captured steps compute
-    alike.  A ``torch.optim.Optimizer`` subclass or factory is called as
+    1e-8, ``eps_root`` 0).  With ``eps_root == 0`` it is torch's Adam /
+    AdamW, on the card built ``capturable`` (its step count and bias
+    correction on the device), in eager steps too, so eager and captured
+    steps compute alike; a nonzero ``eps_root``, which torch has no term
+    for, builds the port's :class:`Adam`.  A ``torch.optim.Optimizer`` subclass or factory is called as
     ``optimizer([flat_params], lr=..., **kwargs)``.
 
     The learning rate may be an optax-style schedule ``count -> lr``,
@@ -263,10 +315,14 @@ def make_optimizer(
         if name in ("adam", "adamw"):
             betas = (float(kw.pop("b1", 0.9)), float(kw.pop("b2", 0.999)))
             eps = float(kw.pop("eps", 1e-8))
-            if float(kw.pop("eps_root", 0.0)) != 0.0:
-                raise NotImplementedError("adam eps_root != 0 has no torch counterpart")
+            eps_root = float(kw.pop("eps_root", 0.0))
             if kw:
                 raise ValueError(f"unknown {name} kwargs {sorted(kw)}")
+            if eps_root:
+                return _OptimizerFactory(
+                    lambda p, lr: Adam([p], lr=lr, betas=betas, eps=eps, eps_root=eps_root,
+                                       weight_decay=wd, decoupled=name == "adamw"),
+                    schedule, lr0)
             cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
             return _OptimizerFactory(
                 lambda p, lr: cls([p], lr=lr, betas=betas, eps=eps, weight_decay=wd,
@@ -319,7 +375,7 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
 # Constructor options of the reference that this port does not run yet:
 # option -> (values that mean "off", the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "mesh": ((None,), "queue 1, item 1 (sharded engine on torch.distributed)"),
+    "mesh": ((None,), 'queue 1, "sharded engine on torch.distributed"'),
 }
 
 

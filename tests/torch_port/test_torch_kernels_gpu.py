@@ -58,6 +58,13 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 333, 2, 128, torch.bfloat16, False, None, False),
         # bf16 with head dim 32 stays on the CUDA-core bodies.
         (2, 200, 2, 32, torch.bfloat16, True, 50, True),
+        # Other head dims run zero-padded to the next of 32, 64, 128.
+        (2, 200, 2, 8, torch.bfloat16, True, None, False),
+        (2, 200, 2, 16, torch.bfloat16, True, 50, True),
+        (2, 256, 2, 48, torch.bfloat16, True, None, True),
+        (2, 333, 2, 96, torch.bfloat16, False, None, False),
+        (1, 130, 2, 16, torch.float32, True, None, True),
+        (1, 130, 2, 48, torch.float32, False, None, False),
     ],
 )
 def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
@@ -125,6 +132,43 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
     assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert fa.KERNELS[name].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,body", [(8, "cuda_core"), (16, "cuda_core"), (48, "wgmma"),
+                                    (96, "wgmma")])
+def test_padded_head_dims_train_through_the_kernels(card, D, body):
+    """``flash_attention`` at a head dim the kernels do not have: the
+    gradients of a bf16 call equal the plain versions' at ``TOL``, every
+    kernel launches once on the body of the padded head dim, and the
+    outputs keep the true head dim."""
+    g = torch.Generator(device=card).manual_seed(D)
+    q, k, v = (torch.randn(2, 256, 2, D, generator=g, device=card).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, k, v)
+    do = torch.randn(out.shape, generator=g, device=card).to(torch.bfloat16)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert out.shape == dq.shape == q.shape
+    scale = D ** -0.5
+    po, plse = fa.plain_fwd(q, k, v, scale, True, None, with_lse=True)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), po.float(), atol=tol["o"], rtol=tol["rtol"])
+    for got, want in ((dq, fa.plain_bwd_dq(q, k, v, po, do, plse, None, scale, True, None)),
+                      *zip((dk, dv), fa.plain_bwd_dkv(q, k, v, po, do, plse, None, scale,
+                                                      True, None))):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body[body] == 1
+    assert fa.KERNELS["flash_bwd_rowterm"].launches == (body == "wgmma")
+
+
+@pytest.mark.gpu
+def test_head_dim_above_128_raises_and_names_its_roadmap_item(card):
+    q = torch.zeros(1, 8, 1, 160, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fa.flash_attention(q, q, q)
 
 
 @pytest.mark.gpu

@@ -170,6 +170,9 @@ def test_adaptive_rounds_follow_the_residual():
         ("sgd", {"momentum": 0.9, "weight_decay": 5e-4},
          optax.cosine_decay_schedule(0.1, decay_steps=6, alpha=0.1)),
         ("adam", {}, optax.linear_schedule(1e-2, 1e-3, transition_steps=5)),
+        # eps_root builds the port's own Adam (torch's has no such term).
+        ("adamw", {"eps_root": 1e-8, "weight_decay": 1e-2},
+         optax.linear_schedule(1e-2, 1e-3, transition_steps=5)),
     ],
 )
 def test_learning_rate_schedule_matches_jax(optimizer, kwargs, schedule):
