@@ -3,6 +3,7 @@
 one NVIDIA card: the quickest proof that the port builds and trains there.
 
     python3 chip_smoke.py [--profile] [--out DIR]
+    python3 chip_smoke.py --decode-timing N | --step-timing N
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -19,7 +20,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
              window of 100 over T 1000, non-causal T 333), the CUDA-core
              bodies (float32, bf16 head dim 32) and head dims the kernels
-             run zero-padded (8, 16, 48, 96; float32 16).
+             run zero-padded (8, 16, 48, 96; float32 16); the D-256
+             CUDA-core bodies (32-row tiles) at the slice's model width as
+             4 heads x 256 (B 2, T 4096, with the tile controls), ragged
+             and windowed, float32, and head dim 192 zero-padded to 256.
 3. slice   — ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
@@ -34,8 +38,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              drops key tile 0 must not.
 5. times   — each kernel at the slice's shape: CUDA-event time, its bound
              on this card, its plain version's time, and
-             ``scaled_dot_product_attention``'s time as a yardstick (none
-             for the pre-pass, which no one PyTorch call computes).
+             ``scaled_dot_product_attention``'s time as a yardstick (for
+             the pre-pass a ``vecdot``); then the same at 4 heads x 256
+             (``times_d256``, the D-256 bodies).
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
@@ -258,8 +263,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
              target untouched).  Per mode and agent: frame bytes, D2H +
              encode, send, decode + H2D times, MB/s, and the pinned copy
              time of the same bytes as the transfer's bound.
+33. comm_runtime — the ``comm/`` runtime driving gossip SGD between the WRN
+             slice's 4 agents (full width, seed 0) over 127.0.0.1, under
+             deterministic algorithms: a port ``ConsensusMaster``
+             (Metropolis ring, eps 1e-4) and 4 port ``ConsensusAgent``s
+             in one event loop.  (1) 2 epochs of the slice's 4 steps with
+             the trainer's own round off (``mix_times=0``), each followed
+             by one master-gated ``run_round(max_iterations=1)`` written
+             back into ``flat_params``: against ``ConsensusEngine`` with
+             the master's W on the same input (``WIRE_MIX_ATOL``) and
+             against a dense trainer (steps, then its on-card round):
+             epoch 1 at ``WIRE_MIX_ATOL``, epoch 2 at
+             ``RUNTIME_EPOCH2_ATOL``; one agent's value scaled by 1 +
+             2^-10 must fail the epoch-1 limit.  (2) a bf16-wire
+             ``run_round`` to ``RUNTIME_BF16_K`` iterations against as
+             many engine rounds, per value within the propagated bf16
+             rounding (``_bf16_envelope``).  (3) ``run_choco_tree``,
+             top-k 10% per leaf, fused sparse frames, 2 iterations,
+             against a host numpy CHOCO recurrence with its own top-k
+             (selection flips counted, 0 expected).  (4)
+             ``AsyncGossipRunner`` at tau 0 bit-equal to ``run_choco_once``
+             (sparse frames, every 100th value) and to ``run_once`` (bf16
+             wire); then tau 1 with agent 3 held back
+             (overlap decode): staleness, drops, pokes, and
+             ``comm.wire.scratch_misses`` exactly one per inbound edge;
+             a seeded ``FaultPlan`` (drop / dup / reorder) on edge 0 -> 1
+             whose decision stream must equal the plan's schedule.  (5) a
+             lying peer (byzantine fields) quarantined by a
+             ``regenerate`` master.  Per agent and operation: D2H,
+             encode, send, decode, H2D, mix and wall seconds, beside the
+             pinned copy of one agent's ravel.
 
-Then a ``kernels`` JSON line, the card's name and power limit as
+Then a ``kernels`` JSON line (each kernel also carries its D-256 body's
+error, time, bound, plain and library times under ``head_dim_256``),
+the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
 before any phase.
@@ -489,14 +526,18 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
         # forward above): there the plain O's one-ulp bf16 differences,
         # carried by rowsum(dO * O), put dQ / dK 7.8e-3 off at D 16 on a
         # correct kernel, which the pipeline's numbers, reported beside,
-        # show.
+        # show.  The bf16 D-256 body takes the second reference too: its
+        # row sum carries 256 terms of those differences (dK 7.8e-3 off
+        # at T 129, non-causal, on an H100, where the kernel's own dQ,
+        # dK, dV against the plain versions on the same inputs are within
+        # 2.5e-4).
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out, l_out = fa.flash_attention_with_lse(qq, kk, vv, causal=causal)
         grads = torch.autograd.grad((out, l_out), (qq, kk, vv), (do, dadj))
         pipeline = [fa.plain_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, None),
                     *fa.plain_bwd_dkv(q, k, v, po, do, plse, dadj, scale, causal, None)]
         names = ("lse_fn.dq", "lse_fn.dk", "lse_fn.dv")
-        if fa.kernel_head_dim(D) == D:
+        if fa.kernel_head_dim(D) == D and (D <= 128 or dtype == torch.float32):
             res["lse_fn_reference"] = "plain_pipeline"
             refs = pipeline
         else:
@@ -550,8 +591,17 @@ def phase_kernels(fa):
     _compare_case(fa, "head_dim_48", 2, 768, 4, 48, bf16, True, None, False)
     _compare_case(fa, "head_dim_96_non_causal_dadj", 2, 384, 2, 96, bf16, False, None, True)
     _compare_case(fa, "f32_head_dim_16_window", 2, 333, 2, 16, f32, True, 64, False)
+    # Head dim 256 (the CUDA-core bodies' 32-row tiles) at the slice's
+    # model width as 4 heads of 256, with the tile controls; ragged,
+    # windowed and float32 cases; 192 runs zero-padded to 256.
+    d256 = _compare_case(fa, "head_dim_256_slice_width", BATCH, SEQ, D256_HEADS, D256_HEAD_DIM,
+                         bf16, True, None, True, controls=True)
+    _compare_case(fa, "head_dim_256_window_ragged", 2, 1000, 2, 256, bf16, True, 100, False)
+    _compare_case(fa, "f32_head_dim_256_dadj", 2, 333, 2, 256, f32, True, None, True)
+    _compare_case(fa, "head_dim_192", 2, 768, 4, 192, bf16, True, None, False)
+    _compare_case(fa, "f32_head_dim_192_non_causal_dadj", 2, 384, 2, 192, f32, False, None, True)
     torch.cuda.empty_cache()
-    return main
+    return main, d256
 
 
 # ---------------------------------------------------------------------- #
@@ -831,9 +881,31 @@ def phase_plain(fa):
 # Phase 5: times                                                         #
 # ---------------------------------------------------------------------- #
 def phase_times(fa):
+    times = kernel_times(fa, AGENTS * BATCH, SEQ, HEADS, HEAD_DIM)
+    emit({"phase": "times", "shape": [AGENTS * BATCH, SEQ, HEADS, HEAD_DIM], "dtype": "bfloat16",
+          "causal": True, **_rounded(times)})
+    return times
+
+
+# The LM slice's model width (8 x 128) as 4 heads of 256: the CUDA-core
+# D-256 bodies (bf16) at the slice's launch shape otherwise.
+D256_HEADS, D256_HEAD_DIM = 4, 256
+
+
+def phase_times_d256(fa):
+    times = kernel_times(fa, AGENTS * BATCH, SEQ, D256_HEADS, D256_HEAD_DIM)
+    emit({"phase": "times_d256", "shape": [AGENTS * BATCH, SEQ, D256_HEADS, D256_HEAD_DIM],
+          "dtype": "bfloat16", "causal": True,
+          "bodies": {n: ("wgmma" if fa.wgmma_body(torch.bfloat16, D256_HEAD_DIM) else "cuda_core")
+                     for n in times}, **_rounded(times)})
+    return times
+
+
+def kernel_times(fa, B, T, H, D):
+    """Each kernel at (B, T, H, D), bf16, causal: CUDA-event ms, its bound
+    on this card, its plain version's ms and one PyTorch call's ms."""
     import torch.nn.functional as F
 
-    B, T, H, D = AGENTS * BATCH, SEQ, HEADS, HEAD_DIM
     q, k, v, do = _qkv(B, T, H, D, torch.bfloat16, seed=11)
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, scale, True, None, with_lse=True)
@@ -897,10 +969,14 @@ def phase_times(fa):
             "flops": flops, "bytes": nbytes,
         }
         torch.cuda.empty_cache()
-    emit({"phase": "times", "shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
-          **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv) for kk, vv in t.items()}
-             for k, t in times.items()}})
+    del q, k, v, do, o, lse, rowterm, qh, kh, vh, doh, out_h
+    torch.cuda.empty_cache()
     return times
+
+
+def _rounded(times: dict) -> dict:
+    return {k: {kk: (round(vv, 4) if isinstance(vv, float) else vv) for kk, vv in t.items()}
+            for k, t in times.items()}
 
 
 # ---------------------------------------------------------------------- #
@@ -3665,6 +3741,26 @@ def decode_timing(fa, repeats):
             torch.cuda.empty_cache()
 
 
+def step_timing(repeats):
+    """``--step-timing``: the dense LM slice's training step (adam,
+    ``make_trainer``'s full width) alone, ``repeats`` times on a fresh
+    trainer each, by ``superstep_timing`` (eager epochs, then supersteps
+    as graph replays); no check and no other phase.  For parent against
+    change, run this script in both trees in one call, A B B A."""
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    opt = make_optimizer("adam", {"lr": 1e-3})(torch.zeros(1, device=DEVICE))
+    make = lambda: make_trainer("flash", LAYERS, AGENTS, EPOCHS, STEPS)  # noqa: E731
+    for r in range(repeats):
+        t = superstep_timing(make, AGENTS * BATCH * SEQ * STEPS, "tokens")
+        emit({"phase": "step_timing", "repeat": r,
+              "optimizer": f"{type(opt).__module__}.{type(opt).__name__}",
+              "eager_step_ms": t["steady_eager_epoch_s"] / STEPS * 1e3,
+              "superstep_step_ms": t["steady_superstep_epoch_s"] / STEPS * 1e3,
+              "superstep_tokens_per_s": t["superstep_tokens_per_s"],
+              "superstep_device_ms_by_events": t["superstep_device_ms_by_events"]})
+
+
 def phase_lm_decode(fa):
     """The serving path: ``generate`` at bench_lm's full-scale decode
     (B 2, prefill 2048, 256 greedy steps; MHA and 2 KV heads) through the
@@ -4209,6 +4305,554 @@ def phase_wire():
         raise AssertionError(f"wire phase failed: {checks}")
 
 
+# ---------------------------------------------------------------------- #
+# Phase 33: the comm/ runtime on the WRN slice's agents                  #
+# ---------------------------------------------------------------------- #
+# The epoch-1 TCP round against the dense on-card epoch: the wire phase's
+# limit (the f32 round equalled the engine exactly there).  The control
+# scales one agent's value by 1 + 2^-10 before its send, which moves its
+# neighbours' results by ~w 2^-10 |x| (3.3e-4 on an H100), far above it.
+RUNTIME_SCALE = 1.0 + 2.0 ** -10
+# After epoch 2 the TCP trainer and the dense trainer have each trained on
+# its own epoch-1 result, which differ by one float32 rounding of the
+# round (1.2e-7); the 4 steps of epoch 2 amplify that to 1.9e-3 on an H100
+# (the CPU rehearsals at WRN-16-2 / 16-4 read 5.9e-3 / 8.4e-3).  The limit
+# is 2^-7, 4x the card's reading.  The round itself is held at
+# WIRE_MIX_ATOL on the same input every epoch.
+RUNTIME_EPOCH2_ATOL = 2.0 ** -7
+RUNTIME_EPOCHS = 2
+RUNTIME_BF16_K = 2  # bf16-wire run_round iterations
+RUNTIME_CHOCO_ITERS, RUNTIME_CHOCO_GAMMA = 2, 0.2
+RUNTIME_STRAGGLER = {"tau": 1, "deadline_s": 3.0, "fast_rounds": 1, "slow_rounds": 1}
+RUNTIME_FAULT = {"seed": 12, "drop_p": 0.25, "dup_p": 0.25, "reorder_p": 0.25, "rounds": 2}
+# The honest agents wait this long for a neighbour's value beside a liar,
+# long enough to read its lies (73 MB frames) in their first round.
+RUNTIME_LIAR_DEADLINE_S, RUNTIME_LIAR_ROUNDS = 60.0, 3
+# One agent operation may take RUNTIME_STEP_S, the whole phase RUNTIME_LIMIT_S.
+RUNTIME_STEP_S, RUNTIME_LIMIT_S = 180, 480
+
+
+class _RuntimeClock:
+    """Per-agent host seconds of the runtime's parts, attributed through a
+    context variable each agent's task carries: D2H (``host_value``), H2D
+    (the way back), encode and decode (the protocol's pack and unpack),
+    send (inside ``FramedStream.send`` past the encode: the socket write
+    and drain, on a loop the agents share), mix (the host arithmetic after
+    the exchange) and round wall time.  Installed around the phase and
+    removed after it."""
+
+    def __init__(self):
+        import contextvars
+
+        self.var = contextvars.ContextVar("runtime_agent", default=None)
+        self.secs: dict = {}
+        self._undo = []
+
+    def add(self, key: str, dt: float) -> None:
+        agent = self.var.get()
+        if agent is not None:
+            d = self.secs.setdefault(agent, {})
+            d[key] = d.get(key, 0.0) + dt
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def install(self):
+        from distributed_learning_tpu_torch.comm import agent as agent_mod
+        from distributed_learning_tpu_torch.comm import async_runtime, framing
+
+        clock, real_host_value = self, agent_mod.host_value
+        real_pack, real_unpack = framing.pack_message, framing.unpack_message
+        real_send = framing.FramedStream.send
+        real_exchange = agent_mod.ConsensusAgent._exchange_values
+        real_iteration = agent_mod.ConsensusAgent._gossip_iteration
+        real_finish = agent_mod.ConsensusAgent._choco_finish
+
+        def host_value(value):
+            t0 = time.perf_counter()
+            flat, back = real_host_value(value)
+            clock.add("d2h_s", time.perf_counter() - t0)
+
+            def timed_back(out):
+                t1 = time.perf_counter()
+                res = back(out)
+                if res.device.type == "cuda":
+                    torch.cuda.synchronize()
+                clock.add("h2d_s", time.perf_counter() - t1)
+                return res
+
+            return flat, timed_back
+
+        def pack(msg):
+            t0 = time.perf_counter()
+            out = real_pack(msg)
+            clock.add("encode_s", time.perf_counter() - t0)
+            return out
+
+        def unpack(code, body):
+            t0 = time.perf_counter()
+            out = real_unpack(code, body)
+            clock.add("decode_s", time.perf_counter() - t0)
+            return out
+
+        async def send(stream, msg):
+            before = clock.secs.get(clock.var.get(), {}).get("encode_s", 0.0)
+            t0 = time.perf_counter()
+            await real_send(stream, msg)
+            after = clock.secs.get(clock.var.get(), {}).get("encode_s", 0.0)
+            clock.add("send_s", time.perf_counter() - t0 - (after - before))
+
+        async def exchange(agent, *a, **k):
+            out = await real_exchange(agent, *a, **k)
+            agent._rt_exchange_end = time.perf_counter()
+            return out
+
+        async def iteration(agent, y):
+            out = await real_iteration(agent, y)
+            clock.add("mix_s", time.perf_counter() - agent._rt_exchange_end)
+            return out
+
+        def finish(agent, *a, **k):
+            t0 = time.perf_counter()
+            out = real_finish(agent, *a, **k)
+            clock.add("mix_s", time.perf_counter() - t0)
+            return out
+
+        self._patch(agent_mod, "host_value", host_value)
+        self._patch(async_runtime, "host_value", host_value)
+        self._patch(framing, "pack_message", pack)
+        self._patch(framing, "unpack_message", unpack)
+        self._patch(framing.FramedStream, "send", send)
+        self._patch(agent_mod.ConsensusAgent, "_exchange_values", exchange)
+        self._patch(agent_mod.ConsensusAgent, "_gossip_iteration", iteration)
+        self._patch(agent_mod.ConsensusAgent, "_choco_finish", finish)
+        return self
+
+    def remove(self):
+        for owner, name, value in reversed(self._undo):
+            setattr(owner, name, value)
+        self._undo.clear()
+
+    async def call(self, token, fn):
+        """``await fn()`` (within ``RUNTIME_STEP_S``) with its wall time
+        counted as ``wall_s`` of ``token``, and every part inside it
+        attributed to ``token``."""
+        import asyncio
+
+        self.var.set(token)
+        t0 = time.perf_counter()
+        out = await asyncio.wait_for(fn(), RUNTIME_STEP_S)
+        self.add("wall_s", time.perf_counter() - t0)
+        return out
+
+    def take(self) -> dict:
+        out, self.secs = self.secs, {}
+        return out
+
+
+def _topk_per_leaf(v: np.ndarray, fraction: float) -> np.ndarray:
+    """Top-k by magnitude (``k = max(1, round(fraction * n))``, ties to the
+    lowest index), written independently of ``tensor_codec.top_k_sparse``:
+    the k-th largest magnitude from a partition, everything above it,
+    then the lowest indices at it."""
+    flat = v.ravel()
+    n = flat.size
+    k = max(1, int(round(fraction * n)))
+    mag = np.abs(flat)
+    thr = np.partition(mag, n - k)[n - k]
+    out = np.zeros_like(flat)
+    above = np.flatnonzero(mag > thr)
+    at = np.flatnonzero(mag == thr)[: k - above.size]
+    keep = np.concatenate([above, at])
+    out[keep] = flat[keep]
+    return out.reshape(v.shape)
+
+
+def _bf16_envelope(W: np.ndarray, ys: list, k: int) -> torch.Tensor:
+    """Per-value bound on a ``k``-iteration bf16-wire run_round against
+    ``k`` float32 rounds: every value an agent receives is rounded to
+    bf16 (within 2^-8 of itself, ``WIRE_BF16_RTOL``), its own is
+    not, and the errors propagate through W: E' = W_ii E_i + sum_j W_ij
+    (E_j + 2^-8 (|Y_j| + E_j)), plus ``WIRE_MIX_ATOL`` for the float32
+    sums.  ``ys[t]`` is the (N, P) float32 state after t rounds; float64
+    on the state's device."""
+    n = W.shape[0]
+    E = torch.zeros(ys[0].shape, dtype=torch.float64, device=ys[0].device)
+    for t in range(k):
+        Y = ys[t].abs().double()
+        nxt = torch.zeros_like(E)
+        for i in range(n):
+            nxt[i] = W[i, i] * E[i]
+            for j in range(n):
+                if j != i and W[i, j] > 0:
+                    nxt[i] += W[i, j] * (E[j] + WIRE_BF16_RTOL * (Y[j] + E[j]))
+        E = nxt
+        del Y
+    return E + WIRE_MIX_ATOL
+
+
+def _every_hundredth(v: np.ndarray) -> np.ndarray:
+    """A 1% sparse CHOCO compressor without a selection: every 100th value."""
+    out = np.zeros_like(v)
+    out[::100] = v[::100]
+    return out
+
+
+def phase_comm_runtime():
+    """The ``comm/`` runtime driving gossip SGD between the WRN slice's 4
+    agents (see the module docstring, phase 33).  The runtime has no
+    kernel: every time here is a host or copy time."""
+    import asyncio
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    clock = _RuntimeClock().install()
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            facts = asyncio.run(asyncio.wait_for(_comm_runtime(clock), RUNTIME_LIMIT_S))
+    finally:
+        clock.remove()
+        torch.use_deterministic_algorithms(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "comm_runtime", **facts})
+    failed = [k for k, v in facts["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"comm_runtime checks failed: {failed}")
+
+
+def _runtime_wrn(**trainer_kwargs):
+    return make_vision_master(
+        "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, RUNTIME_EPOCHS, WRN_EVAL, augment=True,
+        depth=WIRE_DEPTH, widen_factor=WIDEN, dropout_rate=0.3, dtype=torch.bfloat16,
+        trainer_kwargs=trainer_kwargs)
+
+
+async def _runtime_deploy(master_kw, agent_kw):
+    import asyncio
+
+    from distributed_learning_tpu_torch.comm import ConsensusAgent, ConsensusMaster
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    master = ConsensusMaster(Topology.ring(AGENTS), **master_kw)
+    host, port = await master.start()
+    agents = [ConsensusAgent(str(a), host, port, **agent_kw) for a in range(AGENTS)]
+    await asyncio.gather(*(a.start() for a in agents))
+    assert [master._index[a.token] for a in agents] == list(range(AGENTS))
+    return master, agents
+
+
+async def _runtime_close(master, agents):
+    import asyncio
+
+    await master.shutdown()
+    await asyncio.gather(*(a.close(drain=0.1) for a in agents))
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+async def _comm_runtime(clock) -> dict:
+    import asyncio
+
+    from distributed_learning_tpu_torch.comm import AsyncGossipRunner, FaultPlan
+    from distributed_learning_tpu_torch.comm import inject_neighbor_faults, top_k_compressor
+    from distributed_learning_tpu_torch.comm.pytree_codec import tree_to_flat
+    from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine
+
+    checks, facts, times = {}, {}, {}
+    t_phase = time.perf_counter()
+    # --- 1. gossip SGD: local steps, then one master-gated TCP round --- #
+    # A round that max_iterations ended is still open at the master; it is
+    # cut as the master's enforced deadline would cut it (600 s, a safety
+    # net) once all 4 agents asked for the next round, which then starts
+    # at once.  The agents drop the cut's Done while they wait for it.
+    master, agents = await _runtime_deploy(
+        dict(convergence_eps=1e-4, enforce_round_deadline=True, round_deadline_s=600.0),
+        dict(sparse_wire=True))
+    W = master.W
+    tcp = _runtime_wrn(mix_times=0)
+    dense = _runtime_wrn(weights=W, mix_times=1)
+    P = tcp.model.param_count()
+    engine = ConsensusEngine(W, device=DEVICE)
+    facts["params_per_agent"] = P
+    checks["full_width"] = P == WRN_PARAMS
+
+    async def cut_open_round():
+        if master._round_running:
+            while len(master._round_weights) < AGENTS:
+                await asyncio.sleep(0.001)
+            await master._deadline_cut(master._round_id)
+
+    async def tcp_round(values, label):
+        t0 = time.perf_counter()
+        outs, _ = await asyncio.gather(asyncio.gather(*(clock.call(a.token, lambda a=a, v=v: a.run_round(
+            v, 1.0, max_iterations=1)) for a, v in zip(agents, values))), cut_open_round())
+        torch.cuda.synchronize()
+        times[label] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+        return torch.stack(outs)
+
+    epochs = []
+    for e in range(RUNTIME_EPOCHS):
+        t0 = time.perf_counter()
+        tcp.train_epoch()
+        dense.train_epoch()
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        flat = tcp.model.flat_params
+        before = flat.detach().clone()
+        ref = engine.mix({"p": before.clone()})["p"]
+        mixed = await tcp_round([flat[a] for a in range(AGENTS)], f"epoch_{e + 1}")
+        rec = {"epoch": e + 1, "steps_and_eval_s_both_trainers": steps_s,
+               "round_id": master._round_id, "generation": master.generation,
+               "tcp_vs_engine_on_same_input": _max_abs(mixed, ref)}
+        if e == 0:
+            scaled = [before[a] * RUNTIME_SCALE if a == 0 else before[a] for a in range(AGENTS)]
+            control = await tcp_round(scaled, "control")
+            rec["control_vs_engine"] = _max_abs(control, ref)
+            checks["control_rejected"] = rec["control_vs_engine"] > WIRE_MIX_ATOL
+        with torch.no_grad():
+            flat.copy_(mixed)
+        torch.cuda.synchronize()
+        rec["tcp_vs_dense_trainer"] = _max_abs(tcp.model.flat_params, dense.model.flat_params)
+        limit = WIRE_MIX_ATOL if e == 0 else RUNTIME_EPOCH2_ATOL
+        rec["limit"] = limit
+        checks[f"epoch_{e + 1}_round_equals_engine"] = rec["tcp_vs_engine_on_same_input"] <= WIRE_MIX_ATOL
+        checks[f"epoch_{e + 1}_tcp_trainer_vs_dense_trainer"] = rec["tcp_vs_dense_trainer"] <= limit
+        epochs.append(rec)
+    facts["epochs"] = epochs
+    checks["finite"] = bool(torch.isfinite(tcp.model.flat_params).all())
+    trees = [_nest({k: v[a].detach() for k, v in tcp.model.stacked_parameters().items()})
+             for a in range(AGENTS)]
+    x0 = tcp.model.flat_params.detach().clone()
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 3. run_choco_tree: top-k 10% per leaf, fused sparse frames --- #
+    comp = top_k_compressor(WIRE_TOPK)
+    host_trees = [{k: v.float().cpu().numpy() for k, v in _unnest(t).items()} for t in trees]
+    hats = [{k: np.zeros_like(v) for k, v in t.items()} for t in host_trees]
+    xs, cur = host_trees, trees
+    choco = {"iterations": []}
+    w_of = {(i, j): W[i, j] for i in range(AGENTS) for j in range(AGENTS)}
+    for it in range(RUNTIME_CHOCO_ITERS):
+        t0 = time.perf_counter()
+        cur = await asyncio.gather(*(clock.call(a.token, lambda a=a, t=t: a.run_choco_tree(
+            t, comp, gamma=RUNTIME_CHOCO_GAMMA, fused=True)) for a, t in zip(agents, cur)))
+        torch.cuda.synchronize()
+        times[f"choco_{it + 1}"] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+        # The independent host recurrence: q = topk(x - hat) per leaf,
+        # hat += q, x' = x + gamma sum_j w_ij (hat_j - hat_i), neighbours
+        # in token order, float32.
+        for i in range(AGENTS):
+            for k in xs[i]:
+                hats[i][k] = hats[i][k] + _topk_per_leaf(xs[i][k] - hats[i][k], WIRE_TOPK)
+        new = []
+        for i in range(AGENTS):
+            out = {k: v.copy() for k, v in xs[i].items()}
+            for j in sorted(range(AGENTS), key=str):
+                if j != i and W[i, j] > 0:
+                    for k in out:
+                        out[k] += RUNTIME_CHOCO_GAMMA * w_of[i, j] * (hats[j][k] - hats[i][k])
+            new.append(out)
+        xs = new
+        flips = 0
+        for i, a in enumerate(agents):
+            mine, _ = tree_to_flat(_nest({k: torch.from_numpy(v) for k, v in hats[i].items()}))
+            flips += int(((a._choco_hat_self != 0) != (mine != 0)).sum())
+        got = [{k: v.float().cpu().numpy() for k, v in _unnest(t).items()} for t in cur]
+        diff = max(float(np.abs(got[i][k] - xs[i][k]).max()) for i in range(AGENTS) for k in xs[i])
+        frames = sum(a.counters.get("fused_frames", 0) for a in agents)
+        choco["iterations"].append({"selection_flips": flips, "max_abs_vs_host_recurrence": diff,
+                                    "fused_frames_total": frames})
+    checks["choco_tree_equals_host_recurrence"] = all(
+        r["max_abs_vs_host_recurrence"] <= WIRE_MIX_ATOL for r in choco["iterations"])
+    checks["choco_tree_no_selection_flip"] = all(r["selection_flips"] == 0 for r in choco["iterations"])
+    facts["choco_tree"] = choco
+
+    # --- 4a. AsyncGossipRunner at tau = 0 against the lock-step path --- #
+    # CHOCO here (sparse frames); the plain round below on the bf16 wire.
+    # The compressor keeps every 100th value: a 1% sparse correction
+    # without the host top-k's ~0.7 s an agent (the equality holds for
+    # any compressor).
+    vals = [x0[a] for a in range(AGENTS)]
+    runners = [AsyncGossipRunner(a, staleness_bound=0) for a in agents]
+    for a in agents:
+        a.reset_choco()
+    lock_c = await asyncio.gather(*(clock.call(a.token, lambda a=a, v=v: a.run_choco_once(
+        v, _every_hundredth, gamma=RUNTIME_CHOCO_GAMMA)) for a, v in zip(agents, vals)))
+    times["run_choco_once"] = {"agents": clock.take()}
+    for a in agents:
+        a.reset_choco()
+    asy_c = await asyncio.gather(*(clock.call(a.token, lambda r=r, v=v: r.run_async_choco(
+        v, _every_hundredth, gamma=RUNTIME_CHOCO_GAMMA)) for a, r, v in zip(agents, runners, vals)))
+    times["async_choco_tau0"] = {"agents": clock.take()}
+    checks["async_tau0_choco_bitwise"] = all(torch.equal(x, y) for x, y in zip(lock_c, asy_c))
+    facts["async_tau0"] = {"choco_max_abs": max(_max_abs(x, y) for x, y in zip(lock_c, asy_c))}
+    facts["wire_stats_agent_0"] = agents[0].wire_stats()
+    await _runtime_close(master, agents)
+
+    # --- 2. bf16 wire: run_round to max_iterations K -------------------- #
+    master, agents = await _runtime_deploy(dict(convergence_eps=1e-4), dict(bf16_wire=True))
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*(clock.call(a.token, lambda a=a, v=x0[i]: a.run_round(
+        v, 1.0, max_iterations=RUNTIME_BF16_K)) for i, a in enumerate(agents)))
+    torch.cuda.synchronize()
+    times["bf16_round"] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+    ys = [x0]
+    for _ in range(RUNTIME_BF16_K):
+        ys.append(engine.mix({"p": ys[-1].clone()})["p"])
+    got = torch.stack(outs)
+    env = _bf16_envelope(W, ys, RUNTIME_BF16_K)
+    diff = (got.double() - ys[-1].double()).abs()
+    facts["bf16_round"] = {
+        "iterations": RUNTIME_BF16_K, "round_id": master._round_id,
+        "agent_iterations": [a._iteration + 1 for a in agents],
+        "master_statuses": {t: ("converged" if ok else "not_converged")
+                            for t, ok in master._converged.items()},
+        "max_abs_vs_engine": float(diff.max()), "max_ratio_to_limit": float((diff / env).max()),
+        "deviation_after_k": float((got - got.mean(0)).abs().max()),
+        "deviation_before": float((x0 - x0.mean(0)).abs().max())}
+    checks["bf16_round_within_envelope"] = bool((diff <= env).all())
+    del env, diff, got, ys
+    # The plain async round at tau 0 against run_once, on this bf16 wire.
+    vals = [x0[a] for a in range(AGENTS)]
+    t0 = time.perf_counter()
+    lock = await asyncio.gather(*(clock.call(a.token, lambda a=a, v=v: a.run_once(v))
+                                  for a, v in zip(agents, vals)))
+    times["run_once"] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+    runners = [AsyncGossipRunner(a, staleness_bound=0) for a in agents]
+    t0 = time.perf_counter()
+    asy = await asyncio.gather(*(clock.call(a.token, lambda r=r, v=v: r.run_async_round(v))
+                                 for a, r, v in zip(agents, runners, vals)))
+    torch.cuda.synchronize()
+    times["async_tau0"] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+    checks["async_tau0_plain_bitwise"] = all(torch.equal(x, y) for x, y in zip(lock, asy))
+    facts["async_tau0"]["plain_bf16_max_abs"] = max(_max_abs(x, y) for x, y in zip(lock, asy))
+
+    # --- 4b. straggler rounds (tau 1): agent 3 held back ---------------- #
+    st = RUNTIME_STRAGGLER
+    reg = MetricsRegistry()
+    with use_registry(reg):
+        runners = [AsyncGossipRunner(a, staleness_bound=st["tau"], deadline_s=st["deadline_s"],
+                                     overlap=True) for a in agents]
+        released = asyncio.Event()
+
+        async def fast(i):
+            x = x0[i]
+            for _ in range(st["fast_rounds"]):
+                x = await runners[i].run_async_round(x)
+            return x
+
+        async def slow(i):
+            await released.wait()
+            x = x0[i]
+            for _ in range(st["slow_rounds"]):
+                x = await runners[i].run_async_round(x)
+            return x
+
+        t0 = time.perf_counter()
+        slow_task = asyncio.ensure_future(clock.call("3", lambda: slow(3)))
+        fast_out = await asyncio.gather(*(clock.call(str(i), lambda i=i: fast(i)) for i in range(3)))
+        released.set()
+        slow_out = await slow_task
+        times["straggler"] = {"wall_s": time.perf_counter() - t0, "agents": clock.take()}
+        straggler_counters = dict(reg.counters)
+        staleness = [v for _, v in reg.series.get("comm.agent.staleness", ())]
+        # The fault plan: seeded drop / dup / reorder on edge 0 -> 1.
+        ft = RUNTIME_FAULT
+        plan = FaultPlan(ft["seed"], drop_p=ft["drop_p"], dup_p=ft["dup_p"],
+                         reorder_p=ft["reorder_p"])
+        wrapped = inject_neighbor_faults(agents[0], "1", plan)
+        xs = list(fast_out) + [slow_out]
+        for _ in range(ft["rounds"]):
+            xs = await asyncio.gather(*(clock.call(str(i), lambda i=i: runners[i].run_async_round(
+                xs[i])) for i in range(AGENTS)))
+        times["fault_rounds"] = {"agents": clock.take()}
+        expected = [(i, d.kind) for i, d in enumerate(plan.schedule(wrapped.send_index))
+                    if d.kind != "none"]
+        facts["fault_plan"] = {"frames": wrapped.send_index, "events": wrapped.events,
+                               "counters": wrapped.counters}
+        checks["fault_decisions_replay_the_plan"] = wrapped.events == expected
+        checks["fault_rounds_finite"] = all(bool(torch.isfinite(x).all()) for x in xs)
+        # Every inbound edge has now decoded frames; in overlap mode only
+        # its first decode misses the pool (skipped, dropped and duplicate
+        # frames are never decoded).
+        scratch = {k: reg.counters.get(f"comm.wire.scratch_{k}", 0) for k in ("misses", "hits")}
+    counters = straggler_counters
+    facts["straggler"] = {
+        "rounds": [r.round for r in runners[:3]] + [runners[3].round],
+        "staleness_max": max(staleness) if staleness else None,
+        "staleness_points": len(staleness),
+        "stale_dropped": counters.get("comm.agent.async_stale_dropped", 0),
+        "stale_mixed": counters.get("comm.agent.async_stale_mixed", 0),
+        "pokes_sent": counters.get("comm.agent.pokes_sent", 0),
+        "deadline_drops": counters.get("comm.agent.async_deadline_drops", 0),
+        "scratch_misses_after_fault_rounds": scratch["misses"],
+        "scratch_hits_after_fault_rounds": scratch["hits"]}
+    checks["straggler_dropped_and_poked"] = (facts["straggler"]["stale_dropped"] > 0
+                                             and facts["straggler"]["pokes_sent"] > 0)
+    checks["straggler_staleness_observed"] = bool(staleness) and max(staleness) >= 1
+    checks["scratch_misses_one_per_inbound_edge"] = scratch["misses"] == 2 * AGENTS
+    checks["straggler_finite"] = all(bool(torch.isfinite(x).all()) for x in (*fast_out, slow_out))
+    await _runtime_close(master, agents)
+
+    # --- 5. a lying peer is quarantined by the master ------------------- #
+    master, agents = await _runtime_deploy(dict(convergence_eps=1e-4, regenerate=True),
+                                           dict(bf16_wire=True))
+    liar = agents[3]
+    for nb in ("0", "2"):
+        inject_neighbor_faults(liar, nb, FaultPlan(7, byzantine_p=1.0))
+    honest = [AsyncGossipRunner(a, staleness_bound=1, deadline_s=RUNTIME_LIAR_DEADLINE_S,
+                                quarantine_after=2) for a in agents[:3]]
+    lying = AsyncGossipRunner(liar, staleness_bound=1)
+    xs = [x0[i] for i in range(3)]
+    t0 = time.perf_counter()
+    # The liar pushes two lying frames to each neighbour (its whole run).
+    # The honest agents' first round waits for every neighbour's value (the
+    # deadline is long), so it reads both lies; their reports then reach
+    # the master.
+    flat, _ = tree_to_flat(x0[3])
+    for _ in range(2):
+        await lying._push(flat)
+    honest_rounds = 0
+    while not master.counters.get("agents_quarantined") and honest_rounds < RUNTIME_LIAR_ROUNDS:
+        xs = await asyncio.gather(*(clock.call(r.agent.token, lambda r=r, x=x: r.run_async_round(x))
+                                    for r, x in zip(honest, xs)))
+        honest_rounds += 1
+        for _ in range(1000):  # the accusers' telemetry is on its way (at most 5 s)
+            if master.counters.get("agents_quarantined"):
+                break
+            await asyncio.sleep(0.005)
+    times["quarantine_rounds"] = {"agents": clock.take()}
+    facts["quarantine"] = {"seconds": time.perf_counter() - t0, "honest_rounds": honest_rounds,
+                           "master_agents_quarantined": master.counters.get("agents_quarantined", 0),
+                           "master_reports": master.counters.get("quarantine_reports", 0),
+                           "generation": master.generation,
+                           "quarantined_by": [r.agent.token for r in honest if "3" in r.quarantined],
+                           "violations": [r.agent.counters.get("async_field_violations", 0)
+                                          for r in honest]}
+    checks["liar_quarantined_by_master"] = (facts["quarantine"]["master_agents_quarantined"] == 1
+                                            and "3" in master._quarantined)
+    await _runtime_close(master, agents)
+
+    # --- the per-agent host times beside the pinned-copy bound ---------- #
+    dev_buf = torch.empty(P, device=DEVICE)
+    host_buf = torch.empty(P, pin_memory=DEVICE == "cuda")
+    facts["pinned_copy_bound"] = {"bytes": 4 * P,
+                                  "d2h_ms": cuda_ms(lambda: host_buf.copy_(dev_buf), 5),
+                                  "h2d_ms": cuda_ms(lambda: dev_buf.copy_(host_buf), 5)}
+    del dev_buf, host_buf
+    facts["times"] = times
+    facts["checks"] = checks
+    facts["seconds"] = time.perf_counter() - t_phase
+    return facts
+
+
 def print_card() -> None:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4227,6 +4871,8 @@ def main(argv=None) -> int:
                     help="directory for the profiler table (with --profile)")
     ap.add_argument("--decode-timing", type=int, default=0, metavar="N",
                     help="only time the serving path's decode N times (MHA and GQA)")
+    ap.add_argument("--step-timing", type=int, default=0, metavar="N",
+                    help="only time the dense LM slice's training step N times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4247,7 +4893,11 @@ def main(argv=None) -> int:
         decode_timing(fa, args.decode_timing)
         print_card()
         return 0
-    main_errs = phase_kernels(fa)
+    if args.step_timing:
+        step_timing(args.step_timing)
+        print_card()
+        return 0
+    main_errs, d256_errs = phase_kernels(fa)
     master, launches, bodies = phase_slice(fa)
     if args.profile:
         phase_profile(master, args.out)
@@ -4256,6 +4906,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_plain(fa)
     times = phase_times(fa)
+    times_d256 = phase_times_d256(fa)
     gc.collect()
     torch.cuda.empty_cache()
     # The paper's own path: no hand-written kernel on it.
@@ -4302,6 +4953,8 @@ def main(argv=None) -> int:
     # A head dim the kernels run zero-padded, and the comm/ wire layer.
     head_dim_launches = phase_lm_head_dims(fa)
     phase_wire()
+    # The comm/ runtime: gossip SGD over loopback TCP between the WRN agents.
+    phase_comm_runtime()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -4321,6 +4974,11 @@ def main(argv=None) -> int:
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # The D-256 body (CUDA cores) at 4 heads x 256, held and timed
+            # in the kernels and times_d256 phases; not on the main path.
+            "head_dim_256": {"body": "cuda_core", "max_abs_err": d256_errs[k.name],
+                             **{f: times_d256[k.name][f] for f in
+                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         })
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
     emit({"kernels": kernels})

@@ -1,26 +1,43 @@
-"""Multi-process communication backend: the wire layer (port of
+"""Multi-process communication backend (port of
 ``distributed_learning_tpu/comm/``).
 
-Typed binary messages (``protocol``), crc32-checked framing over asyncio
-TCP streams (``framing``), an async select over many streams
-(``multiplexer``), the tensor codec with the port's native engine
+The wire layer: typed binary messages (``protocol``), crc32-checked
+framing over asyncio TCP streams (``framing``), an async select over many
+streams (``multiplexer``), the tensor codec with the port's native engine
 (``tensor_codec``, ``native/``) and the tree <-> wire vector adapter for
 torch tensors (``pytree_codec``).  Frames are the JAX package's, byte for
 byte, so a port agent and a JAX agent speak one wire.
 
-The runtime on top of it (``ConsensusAgent``, ``ConsensusMaster``,
-``AsyncGossipRunner``, the fault harness) is not ported yet: those names
-raise an ``AttributeError`` that names its ROADMAP.md item.
+The runtime on top of it: ``ConsensusMaster`` (topology, weights, round
+gating, elastic membership, quarantine), ``ConsensusAgent`` (lock-step
+gossip, CHOCO over the wire, master rounds), ``AsyncGossipRunner``
+(staleness-bounded async rounds and async CHOCO) and the fault harness
+(``FaultPlan``, ``FaultyStream``, ``inject_neighbor_faults``).  Their
+values are torch tensors on the caller's device; the host arithmetic is
+the reference's.
 """
 
 import importlib
 
-# PEP 562 lazy re-exports: the JAX package's table, limited to the names
-# ported; a submodule loads at the first access of one of its names.
+# PEP 562 lazy re-exports (the JAX package's table): a submodule loads at
+# the first access of one of its names.
 _LAZY = {
+    "AgentStatus": ("agent", "AgentStatus"),
+    "ConsensusAgent": ("agent", "ConsensusAgent"),
+    "RoundAbortedError": ("agent", "RoundAbortedError"),
+    "ShutdownError": ("agent", "ShutdownError"),
+    "AsyncGossipRunner": ("async_runtime", "AsyncGossipRunner"),
+    "AsyncRoundStats": ("async_runtime", "AsyncRoundStats"),
+    "QUARANTINE_PAYLOAD_KIND": ("async_runtime", "QUARANTINE_PAYLOAD_KIND"),
+    "FaultPlan": ("faults", "FaultPlan"),
+    "FaultyStream": ("faults", "FaultyStream"),
+    "inject_neighbor_faults": ("faults", "inject_neighbor_faults"),
+    "lying_fields_mutator": ("faults", "lying_fields_mutator"),
+    "poison_value_mutator": ("faults", "poison_value_mutator"),
     "FramedStream": ("framing", "FramedStream"),
     "FrameError": ("framing", "FrameError"),
     "open_framed_connection": ("framing", "open_framed_connection"),
+    "ConsensusMaster": ("master", "ConsensusMaster"),
     "StreamMultiplexer": ("multiplexer", "StreamMultiplexer"),
     "decode_fused_sparse": ("tensor_codec", "decode_fused_sparse"),
     "decode_sparse": ("tensor_codec", "decode_sparse"),
@@ -31,21 +48,8 @@ _LAZY = {
     "top_k_sparse": ("tensor_codec", "top_k_sparse"),
 }
 
-# The JAX package's runtime names, not ported yet.
-_UNPORTED = (
-    "AgentStatus", "ConsensusAgent", "RoundAbortedError", "ShutdownError",
-    "AsyncGossipRunner", "AsyncRoundStats", "QUARANTINE_PAYLOAD_KIND",
-    "FaultPlan", "FaultyStream", "inject_neighbor_faults", "lying_fields_mutator",
-    "poison_value_mutator", "ConsensusMaster",
-)
-
 
 def __getattr__(name):
-    if name in _UNPORTED:
-        raise AttributeError(
-            f"{name} is part of the comm runtime, not ported yet: ROADMAP.md "
-            'queue 1, "comm/ runtime"'
-        )
     try:
         submodule, attr = _LAZY[name]
     except KeyError:

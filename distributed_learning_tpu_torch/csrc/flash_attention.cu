@@ -9,7 +9,7 @@
 // Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
 // bfloat16 with head dim 64 or 128; dispatch() picks it by (dtype, D)
 // alone (uses_wgmma_body in flash_params.cuh).  The bodies here serve
-// float32 inputs and head dim 32.
+// float32 inputs and head dims 32 and 256.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -21,7 +21,8 @@
 //
 // What changed for this card:
 //   * No 128-lane head-dim padding and no lane-replicated lse: lse and the
-//     lse cotangent dadj are (B, H, T) float32, head dims are 32, 64, 128.
+//     lse cotangent dadj are (B, H, T) float32, head dims are 32, 64, 128
+//     and 256.
 //   * Q, K and V are read in place from the (B, T, H, D) layout through
 //     their strides (the transformer hands over strided views of its fused
 //     QKV projection), so no transpose or copy precedes a launch.  O, dO,
@@ -36,9 +37,10 @@
 // each kernel does ~1,000 flops per byte it must move (chip_smoke.py
 // prints both counts), far above the ~295 where HBM (3.35 TB/s) stops
 // being the limit, so the tensor cores (989 TFLOP/s bf16) bound it.  These
-// bodies are the simple correct design: 64 x 64 tiles staged through
-// shared memory as float32, each of 256 threads accumulating a 4 x 4 score
-// micro-tile and a 4 x (D/16) output micro-tile with CUDA-core FMAs.  bf16
+// bodies are the simple correct design: BQ x BK tiles (64 x 64; 32 x 32 at
+// D 256, tile_rows) staged through shared memory as float32, each of 256
+// threads accumulating a (BQ/16) x (BK/16) score micro-tile and a
+// (BQ/16) x (D/16) output micro-tile with CUDA-core FMAs.  bf16
 // products are exact in float32, so rounding P and dS to bf16 before the
 // FMA reproduces what a bf16 tensor-core product with float32
 // accumulation computes, and float32 inputs get full float32 products.
@@ -59,10 +61,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid
-constexpr int kPP = kBK + 4;   // padded row of the P / dS tiles
 constexpr float kNegInf = -1e30f;  // large-but-finite, as the TPU kernels
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -110,48 +109,53 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, i
   }
 }
 
-// delta_r = sum_d dO[r, d] * O[r, d] for the kBQ rows of one Q tile, four
-// threads per row; dO comes from shared memory, O from device memory.
-template <typename T, int D>
+// delta_r = sum_d dO[r, d] * O[r, d] for the BQ rows of one Q tile,
+// kThreads / BQ threads per row; dO comes from shared memory, O from
+// device memory.
+template <typename T, int D, int BQ>
 __device__ __forceinline__ void row_delta(float* delta, const float* dos, int pitch,
                                           const T* o, int64_t st, int q0, int t_max) {
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  constexpr int kParts = kThreads / BQ;
+  static_assert(kParts <= 32 && (kParts & (kParts - 1)) == 0, "a row's threads share a warp");
+  const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
   const int t = q0 + r;
   float acc = 0.f;
   if (t < t_max) {
-    for (int c = part; c < D; c += 4) acc += dos[r * pitch + c] * to_f(o[(int64_t)t * st + c]);
+    for (int c = part; c < D; c += kParts) acc += dos[r * pitch + c] * to_f(o[(int64_t)t * st + c]);
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+#pragma unroll
+  for (int off = kParts / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (part == 0) delta[r] = acc;
 }
 
-// Key-tile range [lo, hi) that a Q tile starting at q0 must visit.
+// Key-tile range [lo, hi) (tiles of BK rows) that a Q tile of BQ rows
+// starting at q0 must visit.
+template <int BQ, int BK>
 __device__ __forceinline__ void key_tiles(const FlashParams& p, int q0, int* lo, int* hi) {
   int k_lo = 0, k_hi = p.T;
   if (p.causal) {
-    k_hi = min(p.T, q0 + kBQ);
+    k_hi = min(p.T, q0 + BQ);
     if (p.window > 0) k_lo = max(0, q0 - (p.window - 1));
   }
-  *lo = k_lo / kBK;
-  *hi = (k_hi + kBK - 1) / kBK;
+  *lo = k_lo / BK;
+  *hi = (k_hi + BK - 1) / BK;
 }
 
 // ---------------------------------------------------------------------------
 // A. Forward: O = softmax(scale * Q K^T + mask) V, optionally lse.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
-  constexpr int QP = D + 4, KP = D + 1, DC = D / 16;
+  constexpr int QP = D + 4, KP = D + 1, DC = D / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
   extern __shared__ float smem[];
-  float* Qs = smem;             // kBQ x QP
-  float* Ks = Qs + kBQ * QP;    // kBK x KP
-  float* Vs = Ks + kBK * KP;    // kBK x D
-  float* Ps = Vs + kBK * D;     // kBQ x kPP
+  float* Qs = smem;            // BQ x QP
+  float* Ks = Qs + BQ * QP;    // BK x KP
+  float* Vs = Ks + BK * KP;    // BK x D
+  float* Ps = Vs + BK * D;     // BQ x PP
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n_qt = (p.T + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;  // longest causal rows first
+  const int n_qt = (p.T + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -159,11 +163,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   const int64_t o_st = (int64_t)p.H * D;
   T* o = static_cast<T*>(p.o) + (int64_t)b * p.T * o_st + (int64_t)h * D;
 
-  load_tile<T, D>(Qs, QP, q, p.q_st, q0, kBQ, p.T);
+  load_tile<T, D>(Qs, QP, q, p.q_st, q0, BQ, p.T);
 
-  float m[4], l[4], acc[4][DC];
+  float m[RI], l[RI], acc[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -171,38 +175,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   }
 
   int kt_lo, kt_hi;
-  key_tiles(p, q0, &kt_lo, &kt_hi);
+  key_tiles<BQ, BK>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, KP, k, p.k_st, k0, kBK, p.T);
-    load_tile<T, D>(Vs, D, v, p.v_st, k0, kBK, p.T);
+    load_tile<T, D>(Ks, KP, k, p.k_st, k0, BK, p.T);
+    load_tile<T, D>(Vs, D, v, p.v_st, k0, BK, p.T);
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      float qv[RI], kv[RJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QP + d];
+      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + 16 * i) * QP + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KP + d];
+      for (int j = 0; j < RJ; ++j) kv[j] = Ks[(tx + 16 * j) * KP + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int row = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         const float x = s[i][j] * p.scale;
         s[i][j] = keep(p, row, k0 + tx + 16 * j) ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -212,10 +216,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
       const float corr = expf(m[i] - m_next);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         const float pij = expf(s[i][j] - m_next);
         sum += pij;
-        Ps[(ty + 16 * i) * kPP + tx + 16 * j] = round_to<T>(pij);
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(pij);
       }
       l[i] = l[i] * corr + reduce16_sum(sum);
       m[i] = m_next;
@@ -225,21 +229,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[DC];
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RI], vv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * kPP + kk];
+      for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) vv[c] = Vs[kk * D + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.T) continue;
     const float ls = fmaxf(l[i], 1e-30f);
@@ -252,22 +256,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
 // ---------------------------------------------------------------------------
 // B. dQ = scale * sum_k dS K, dS = P * (dO V^T - rowsum(dO * O) + dadj).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
-  constexpr int QP = D + 4, KP = D + 1, DC = D / 16;
+  constexpr int QP = D + 4, KP = D + 1, DC = D / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
   extern __shared__ float smem[];
-  float* Qs = smem;               // kBQ x QP
-  float* dOs = Qs + kBQ * QP;     // kBQ x QP
-  float* Ks = dOs + kBQ * QP;     // kBK x KP
-  float* Vs = Ks + kBK * KP;      // kBK x KP
-  float* dSs = Vs + kBK * KP;     // kBQ x kPP
-  float* delta = dSs + kBQ * kPP;  // kBQ
-  float* lse_s = delta + kBQ;      // kBQ
-  float* adj_s = lse_s + kBQ;      // kBQ
+  float* Qs = smem;             // BQ x QP
+  float* dOs = Qs + BQ * QP;    // BQ x QP
+  float* Ks = dOs + BQ * QP;    // BK x KP
+  float* Vs = Ks + BK * KP;     // BK x KP
+  float* dSs = Vs + BK * KP;    // BQ x PP
+  float* delta = dSs + BQ * PP;  // BQ
+  float* lse_s = delta + BQ;     // BQ
+  float* adj_s = lse_s + BQ;     // BQ
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n_qt = (p.T + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;
+  const int n_qt = (p.T + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -278,21 +282,21 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   const T* dout = static_cast<const T*>(p.dout) + c_off;
   T* dq = static_cast<T*>(p.dq) + c_off;
 
-  load_tile<T, D>(Qs, QP, q, p.q_st, q0, kBQ, p.T);
-  load_tile<T, D>(dOs, QP, dout, c_st, q0, kBQ, p.T);
-  if (threadIdx.x < kBQ) {
+  load_tile<T, D>(Qs, QP, q, p.q_st, q0, BQ, p.T);
+  load_tile<T, D>(dOs, QP, dout, c_st, q0, BQ, p.T);
+  if (threadIdx.x < BQ) {
     const int t = q0 + threadIdx.x;
     const bool in = t < p.T;
     lse_s[threadIdx.x] = in ? p.lse[(int64_t)bh * p.T + t] : 0.f;
     adj_s[threadIdx.x] = (in && p.dadj != nullptr) ? p.dadj[(int64_t)bh * p.T + t] : 0.f;
   }
   __syncthreads();
-  row_delta<T, D>(delta, dOs, QP, o, c_st, q0, p.T);
+  row_delta<T, D, BQ>(delta, dOs, QP, o, c_st, q0, p.T);
   __syncthreads();
 
-  float rl[4], rd[4], acc[4][DC];
+  float rl[RI], rd[RI], acc[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     rl[i] = lse_s[ty + 16 * i];
     rd[i] = adj_s[ty + 16 * i] - delta[ty + 16 * i];
 #pragma unroll
@@ -300,68 +304,68 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   }
 
   int kt_lo, kt_hi;
-  key_tiles(p, q0, &kt_lo, &kt_hi);
+  key_tiles<BQ, BK>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(Ks, KP, k, p.k_st, k0, kBK, p.T);
-    load_tile<T, D>(Vs, KP, v, p.v_st, k0, kBK, p.T);
+    load_tile<T, D>(Ks, KP, k, p.k_st, k0, BK, p.T);
+    load_tile<T, D>(Vs, KP, v, p.v_st, k0, BK, p.T);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RJ], dp[RI][RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[RI], gv[RI], kv[RJ], vv[RJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = Qs[(ty + 16 * i) * QP + d];
         gv[i] = dOs[(ty + 16 * i) * QP + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         kv[j] = Ks[(tx + 16 * j) * KP + d];
         vv[j] = Vs[(tx + 16 * j) * KP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RJ; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int row = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         const float x = keep(p, row, k0 + tx + 16 * j) ? s[i][j] * p.scale : kNegInf;
         const float pij = expf(x - rl[i]);
-        dSs[(ty + 16 * i) * kPP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] + rd[i]));
+        dSs[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] + rd[i]));
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sv[4], kv[DC];
+    for (int kk = 0; kk < BK; ++kk) {
+      float sv[RI], kv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * kPP + kk];
+      for (int i = 0; i < RI; ++i) sv[i] = dSs[(ty + 16 * i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * KP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.T) continue;
 #pragma unroll
@@ -373,22 +377,23 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
 // ---------------------------------------------------------------------------
 // C. dV = sum_q P^T dO, dK = scale * sum_q dS^T Q, same recompute as B.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
-  constexpr int QP = D + 4, KP = D + 1, DC = D / 16;
+  // Scores: RI query rows by RJ key columns a thread; accumulators: RJ key rows.
+  constexpr int QP = D + 4, KP = D + 1, DC = D / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
   extern __shared__ float smem[];
-  float* Ks = smem;               // kBK x KP
-  float* Vs = Ks + kBK * KP;      // kBK x KP
-  float* Qs = Vs + kBK * KP;      // kBQ x QP
-  float* dOs = Qs + kBQ * QP;     // kBQ x QP
-  float* Ps = dOs + kBQ * QP;     // kBQ x kPP
-  float* dSs = Ps + kBQ * kPP;    // kBQ x kPP
-  float* delta = dSs + kBQ * kPP;  // kBQ
-  float* lse_s = delta + kBQ;      // kBQ
-  float* adj_s = lse_s + kBQ;      // kBQ
+  float* Ks = smem;             // BK x KP
+  float* Vs = Ks + BK * KP;     // BK x KP
+  float* Qs = Vs + BK * KP;     // BQ x QP
+  float* dOs = Qs + BQ * QP;    // BQ x QP
+  float* Ps = dOs + BQ * QP;    // BQ x PP
+  float* dSs = Ps + BQ * PP;    // BQ x PP
+  float* delta = dSs + BQ * PP;  // BQ
+  float* lse_s = delta + BQ;     // BQ
+  float* adj_s = lse_s + BQ;     // BQ
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = (int)blockIdx.x * kBK;  // early keys see the most queries
+  const int k0 = (int)blockIdx.x * BK;  // early keys see the most queries
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -400,12 +405,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   T* dk = static_cast<T*>(p.dk) + c_off;
   T* dv = static_cast<T*>(p.dv) + c_off;
 
-  load_tile<T, D>(Ks, KP, k, p.k_st, k0, kBK, p.T);
-  load_tile<T, D>(Vs, KP, v, p.v_st, k0, kBK, p.T);
+  load_tile<T, D>(Ks, KP, k, p.k_st, k0, BK, p.T);
+  load_tile<T, D>(Vs, KP, v, p.v_st, k0, BK, p.T);
 
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[RJ][DC], dv_acc[RJ][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RJ; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
@@ -413,72 +418,72 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   int q_lo = 0, q_hi = p.T;
   if (p.causal) {
     q_lo = k0;
-    if (p.window > 0) q_hi = min(p.T, k0 + kBK - 1 + p.window);
+    if (p.window > 0) q_hi = min(p.T, k0 + BK - 1 + p.window);
   }
-  const int qt_lo = q_lo / kBQ, qt_hi = (q_hi + kBQ - 1) / kBQ;
+  const int qt_lo = q_lo / BQ, qt_hi = (q_hi + BQ - 1) / BQ;
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * kBQ;
+    const int q0 = qt * BQ;
     __syncthreads();
-    load_tile<T, D>(Qs, QP, q, p.q_st, q0, kBQ, p.T);
-    load_tile<T, D>(dOs, QP, dout, c_st, q0, kBQ, p.T);
-    if (threadIdx.x < kBQ) {
+    load_tile<T, D>(Qs, QP, q, p.q_st, q0, BQ, p.T);
+    load_tile<T, D>(dOs, QP, dout, c_st, q0, BQ, p.T);
+    if (threadIdx.x < BQ) {
       const int t = q0 + threadIdx.x;
       const bool in = t < p.T;
       lse_s[threadIdx.x] = in ? p.lse[(int64_t)bh * p.T + t] : 0.f;
       adj_s[threadIdx.x] = (in && p.dadj != nullptr) ? p.dadj[(int64_t)bh * p.T + t] : 0.f;
     }
     __syncthreads();
-    row_delta<T, D>(delta, dOs, QP, o, c_st, q0, p.T);
+    row_delta<T, D, BQ>(delta, dOs, QP, o, c_st, q0, p.T);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RJ], dp[RI][RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[RI], gv[RI], kv[RJ], vv[RJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = Qs[(ty + 16 * i) * QP + d];
         gv[i] = dOs[(ty + 16 * i) * QP + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         kv[j] = Ks[(tx + 16 * j) * KP + d];
         vv[j] = Vs[(tx + 16 * j) * KP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RJ; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i, row = q0 + r;
       const float rl = lse_s[r], rd = adj_s[r] - delta[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         const int cidx = tx + 16 * j;
         const float x = keep(p, row, k0 + cidx) ? s[i][j] * p.scale : kNegInf;
         const float pij = expf(x - rl);
-        Ps[r * kPP + cidx] = round_to<T>(pij);
-        dSs[r * kPP + cidx] = round_to<T>(pij * (dp[i][j] + rd));
+        Ps[r * PP + cidx] = round_to<T>(pij);
+        dSs[r * PP + cidx] = round_to<T>(pij * (dp[i][j] + rd));
       }
     }
     __syncthreads();
 
 #pragma unroll 2
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pv[4], sv[4], gv[DC], qv[DC];
+    for (int qq = 0; qq < BQ; ++qq) {
+      float pv[RJ], sv[RJ], gv[DC], qv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[qq * kPP + ty + 16 * i];
-        sv[i] = dSs[qq * kPP + ty + 16 * i];
+      for (int i = 0; i < RJ; ++i) {
+        pv[i] = Ps[qq * PP + ty + 16 * i];
+        sv[i] = dSs[qq * PP + ty + 16 * i];
       }
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -486,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
         qv[c] = Qs[qq * QP + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RJ; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           dv_acc[i][c] = fmaf(pv[i], gv[c], dv_acc[i][c]);
@@ -496,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RJ; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= p.T) continue;
 #pragma unroll
@@ -507,15 +512,22 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 }
 
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (kBQ * (D + 4) + kBK * (D + 1) + kBK * D + kBQ * kPP);
+// Rows of the Q and K/V tiles for head dim D.  64-row tiles staged as
+// float32 need 283-300 KB of shared memory for dQ and dK/dV at D 256, above
+// the 227 KB a block may opt into, so D 256 runs 32-row tiles (103-142 KB).
+template <int D> constexpr int tile_rows() { return D > 128 ? 32 : 64; }
+
+template <int D, int BQ, int BK> constexpr size_t fwd_smem() {
+  return sizeof(float) * (BQ * (D + 4) + BK * (D + 1) + BK * D + BQ * (BK + 4));
 }
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kBQ * (D + 4) + 2 * kBK * (D + 1) + kBQ * kPP + 3 * kBQ);
+template <int D, int BQ, int BK> constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * BQ * (D + 4) + 2 * BK * (D + 1) + BQ * (BK + 4) + 3 * BQ);
 }
-template <int D> constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kBK * (D + 1) + 2 * kBQ * (D + 4) + 2 * kBQ * kPP + 3 * kBQ);
+template <int D, int BQ, int BK> constexpr size_t dkv_smem() {
+  return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 4) + 2 * BQ * (BK + 4) + 3 * BQ);
 }
+static_assert(dkv_smem<256, tile_rows<256>(), tile_rows<256>()>() <= 227 * 1024,
+              "the D-256 tiles fit the opt-in shared memory");
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int n_tiles, const FlashParams& p,
@@ -530,20 +542,24 @@ cudaError_t launch(Kernel kernel, size_t smem, int n_tiles, const FlashParams& p
 
 bool valid(const FlashParams* p) {
   return p != nullptr && p->B > 0 && p->H > 0 && p->T > 0 && p->B * p->H <= 65535 &&
-         (p->D == 32 || p->D == 64 || p->D == 128) && (p->dtype == 0 || p->dtype == 1);
+         (p->D == 32 || p->D == 64 || p->D == 128 || p->D == 256) && (p->dtype == 0 || p->dtype == 1);
 }
 
 template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
-  const int n_tiles = (p.T + kBQ - 1) / kBQ;  // kBQ == kBK
+  constexpr int BQ = tile_rows<D>(), BK = tile_rows<D>();
+  const int q_tiles = (p.T + BQ - 1) / BQ, k_tiles = (p.T + BK - 1) / BK;
   // bf16 with D 64 or 128 runs the wgmma bodies, so these are not built for it.
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128)) {
     return cudaErrorInvalidValue;
   } else {
     switch (which) {
-      case 0: return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), n_tiles, p, stream);
-      case 1: return launch(flash_dq_kernel<T, D>, dq_smem<D>(), n_tiles, p, stream);
-      default: return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), n_tiles, p, stream);
+      case 0:
+        return launch(flash_fwd_kernel<T, D, BQ, BK>, fwd_smem<D, BQ, BK>(), q_tiles, p, stream);
+      case 1:
+        return launch(flash_dq_kernel<T, D, BQ, BK>, dq_smem<D, BQ, BK>(), q_tiles, p, stream);
+      default:
+        return launch(flash_dkv_kernel<T, D, BQ, BK>, dkv_smem<D, BQ, BK>(), k_tiles, p, stream);
     }
   }
 }
@@ -553,7 +569,8 @@ cudaError_t dispatch_d(int which, const FlashParams& p, cudaStream_t stream) {
   switch (p.D) {
     case 32: return run<T, 32>(which, p, stream);
     case 64: return run<T, 64>(which, p, stream);
-    default: return run<T, 128>(which, p, stream);
+    case 128: return run<T, 128>(which, p, stream);
+    default: return run<T, 256>(which, p, stream);
   }
 }
 

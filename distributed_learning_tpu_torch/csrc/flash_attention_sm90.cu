@@ -780,8 +780,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // Pre-pass of B and C: rowterm[b, h, t] = dadj[b, h, t] - sum_d dO[b, t, h, d] O[b, t, h, d]
-// in float32, reading O and dO once (16 bytes a thread, D / VEC threads
-// a row).  Bound by bytes.
+// in float32, reading O and dO once (16 bytes a load, min(D / VEC, 32)
+// threads a row, so a row's threads share a warp).  Bound by bytes.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -790,19 +790,23 @@ constexpr int kRowThreads = 256;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRowThreads) flash_bwd_rowterm_kernel(const FlashParams p) {
-  constexpr int kVec = 16 / sizeof(T), kPerRow = D / kVec, kRows = kRowThreads / kPerRow;
+  constexpr int kVec = 16 / sizeof(T), kPerRow = D / kVec < 32 ? D / kVec : 32;
+  constexpr int kLoads = D / (kVec * kPerRow), kRows = kRowThreads / kPerRow;
   const int64_t n_rows = static_cast<int64_t>(p.B) * p.T * p.H;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / kPerRow;
   const int part = threadIdx.x % kPerRow;
   float acc = 0.f;
   if (r < n_rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + r * D + part * kVec);
-    const uint4 g =
-        *reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + r * D + part * kVec);
-    const T* av = reinterpret_cast<const T*>(&a);
-    const T* gv = reinterpret_cast<const T*>(&g);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc += to_f(gv[e]) * to_f(av[e]);
+    for (int i = 0; i < kLoads; ++i) {
+      const int64_t off = r * D + (i * kPerRow + part) * kVec;
+      const uint4 a = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4 g = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+      const T* av = reinterpret_cast<const T*>(&a);
+      const T* gv = reinterpret_cast<const T*>(&g);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc += to_f(gv[e]) * to_f(av[e]);
+    }
   }
 #pragma unroll
   for (int off = kPerRow / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -913,7 +917,8 @@ cudaError_t dkv(const FlashParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t rowterm(const FlashParams& p, cudaStream_t stream) {
-  constexpr int rows_per_block = kRowThreads / (D / (16 / sizeof(T)));
+  constexpr int per_row = D / (16 / sizeof(T)) < 32 ? D / (16 / sizeof(T)) : 32;
+  constexpr int rows_per_block = kRowThreads / per_row;
   const int64_t n_rows = static_cast<int64_t>(p.B) * p.T * p.H;
   const dim3 grid(static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block));
   flash_bwd_rowterm_kernel<T, D><<<grid, kRowThreads, 0, stream>>>(p);
@@ -925,7 +930,8 @@ cudaError_t rowterm_d(const FlashParams& p, cudaStream_t stream) {
   switch (p.D) {
     case 32: return rowterm<T, 32>(p, stream);
     case 64: return rowterm<T, 64>(p, stream);
-    default: return rowterm<T, 128>(p, stream);
+    case 128: return rowterm<T, 128>(p, stream);
+    default: return rowterm<T, 256>(p, stream);
   }
 }
 

@@ -17,17 +17,18 @@ counts its launches, per body:
 All three kernels have two bodies: ``"wgmma"`` (tensor cores, TMA-fed,
 ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64 or 128,
 and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and head
-dim 32, where wgmma has no float32-exact product.  The kernels take head
-dims 32, 64 and 128; a call of another head dim up to 128 runs at the
-next of them (:func:`kernel_head_dim`), as the reference's
-``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO) zero-padded, the
-scale the caller's (from the true D), O, dQ, dK and dV sliced back.
-Zero columns leave Q.K^T, rowsum(dO * O) and the padded output columns
-exactly zero, so the kernels need no change.  The C++ dispatcher
-picks the body by (dtype, D) alone; :func:`wgmma_body` mirrors it.  A
-bfloat16 view that TMA cannot read (base or a stride not a multiple of
-16 bytes) raises instead of taking another body.  A layer's backward
-runs the pre-pass once and hands its result to both backward kernels.
+dims 32 and 256, where wgmma has no float32-exact product or no body.
+The kernels take head dims 32, 64, 128 and 256; a call of another head
+dim up to 256 runs at the next of them (:func:`kernel_head_dim`), as the
+reference's ``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO)
+zero-padded, the scale the caller's (from the true D), O, dQ, dK and dV
+sliced back.  Zero columns leave Q.K^T, rowsum(dO * O) and the padded
+output columns exactly zero, so the kernels need no change.  The C++
+dispatcher picks the body by (dtype, D) alone; :func:`wgmma_body`
+mirrors it.  A bfloat16 view that TMA cannot read (base or a stride not
+a multiple of 16 bytes) raises instead of taking another body.  A
+layer's backward runs the pre-pass once and hands its result to both
+backward kernels.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs its plain version, which repeats the kernel's arithmetic
@@ -94,7 +95,7 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30  # large-but-finite, as the TPU kernels
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -183,14 +184,14 @@ def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels run a call of head dim ``D`` at: the
-    smallest of 32, 64 and 128 that holds it.  Above 128 there is no body
-    yet."""
+    smallest of 32, 64, 128 and 256 that holds it.  Above 256 there is no
+    body yet."""
     for d in _HEAD_DIMS:
         if D <= d:
             return d
     raise ValueError(
-        f"head dim {D} is above 128, the kernels' largest: a body for it is the open "
-        'item "flash attention for head dims above 128" of ROADMAP.md'
+        f"head dim {D} is above 256, the kernels' largest: a body for it is the open "
+        'item "flash attention for head dims above 256" of ROADMAP.md'
     )
 
 

@@ -220,7 +220,16 @@ class Adam(torch.optim.Optimizer):
     p)``).  The moments and the step count are tensors on the
     parameters' device, made at construction, so every step runs the
     same ops, eager or captured in a CUDA graph.  ``lr`` is a float or a
-    0-dim device tensor, as for :class:`SGD`."""
+    0-dim device tensor, as for :class:`SGD`.
+
+    A contiguous parameter is updated in slices of ``CHUNK`` elements:
+    the update's temporaries (the decayed gradient, ``m_hat``, ``v_hat``)
+    then take a slice's memory, not three copies of the whole stacked
+    buffer (3 x 4.9 GB on the 4-agent extras LM, which a superstep's
+    capture holds in its pool).  Every element goes through the same
+    operations, so the result does not depend on the slicing."""
+
+    CHUNK = 1 << 26
 
     def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8,
                  eps_root: float = 0.0, weight_decay: float = 0.0, decoupled: bool = False):
@@ -234,6 +243,17 @@ class Adam(torch.optim.Optimizer):
                 st["exp_avg"] = torch.zeros_like(p)
                 st["exp_avg_sq"] = torch.zeros_like(p)
 
+    def _slices(self, *ts):
+        """``ts`` cut into aligned slices of at most ``CHUNK`` elements (the
+        tensors themselves when one is not contiguous or all are small)."""
+        n = ts[0].numel()
+        if n <= self.CHUNK or not all(t.is_contiguous() for t in ts):
+            yield ts
+            return
+        flat = [t.view(-1) for t in ts]
+        for i in range(0, n, self.CHUNK):
+            yield tuple(f[i:i + self.CHUNK] for f in flat)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -241,22 +261,24 @@ class Adam(torch.optim.Optimizer):
         for group in self.param_groups:
             lr, (b1, b2), wd = group["lr"], group["betas"], group["weight_decay"]
             for p in group["params"]:
-                g, st = p.grad, self.state[p]
-                if wd and not group["decoupled"]:
-                    g = g.add(p, alpha=wd)
+                st = self.state[p]
                 m, v, t = st["exp_avg"], st["exp_avg_sq"], st["step"]
                 t.add_(1.0)
-                m.mul_(b1).add_(g, alpha=1.0 - b1)
-                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-                m_hat = m / (1.0 - torch.pow(b1, t))
-                v_hat = v / (1.0 - torch.pow(b2, t))
-                u = m_hat.div_(v_hat.add_(group["eps_root"]).sqrt_().add_(group["eps"]))
-                if wd and group["decoupled"]:
-                    u.add_(p, alpha=wd)
-                if isinstance(lr, torch.Tensor):
-                    p.addcmul_(u, lr, value=-1.0)
-                else:
-                    p.add_(u, alpha=-lr)
+                c1, c2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+                for ps, g, ms, vs in self._slices(p, p.grad, m, v):
+                    if wd and not group["decoupled"]:
+                        g = g.add(ps, alpha=wd)
+                    ms.mul_(b1).add_(g, alpha=1.0 - b1)
+                    vs.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                    m_hat = ms / c1
+                    v_hat = vs / c2
+                    u = m_hat.div_(v_hat.add_(group["eps_root"]).sqrt_().add_(group["eps"]))
+                    if wd and group["decoupled"]:
+                        u.add_(ps, alpha=wd)
+                    if isinstance(lr, torch.Tensor):
+                        ps.addcmul_(u, lr, value=-1.0)
+                    else:
+                        ps.add_(u, alpha=-lr)
 
 
 class _OptimizerFactory(NamedTuple):
@@ -284,12 +306,11 @@ def make_optimizer(
     semantics: for sgd and adam, ``weight_decay`` is L2 added to the
     gradient before the update (``optax.add_decayed_weights`` chained in
     front); for adamw it is decoupled.  Adam's defaults are optax's (eps
-    1e-8, ``eps_root`` 0).  With ``eps_root == 0`` it is torch's Adam /
-    AdamW, on the card built ``capturable`` (its step count and bias
-    correction on the device), in eager steps too, so eager and captured
-    steps compute alike; a nonzero ``eps_root``, which torch has no term
-    for, builds the port's :class:`Adam`.  A ``torch.optim.Optimizer`` subclass or factory is called as
-    ``optimizer([flat_params], lr=..., **kwargs)``.
+    1e-8, ``eps_root`` 0).  Both adam names build the port's :class:`Adam`
+    (optax's update, its step count and moments on the parameters'
+    device, so eager and captured steps compute alike) for every
+    ``eps_root``.  A ``torch.optim.Optimizer`` subclass or factory is
+    called as ``optimizer([flat_params], lr=..., **kwargs)``.
 
     The learning rate may be an optax-style schedule ``count -> lr``,
     read at the update count *before* the update, as optax does: the
@@ -318,15 +339,10 @@ def make_optimizer(
             eps_root = float(kw.pop("eps_root", 0.0))
             if kw:
                 raise ValueError(f"unknown {name} kwargs {sorted(kw)}")
-            if eps_root:
-                return _OptimizerFactory(
-                    lambda p, lr: Adam([p], lr=lr, betas=betas, eps=eps, eps_root=eps_root,
-                                       weight_decay=wd, decoupled=name == "adamw"),
-                    schedule, lr0)
-            cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
             return _OptimizerFactory(
-                lambda p, lr: cls([p], lr=lr, betas=betas, eps=eps, weight_decay=wd,
-                                  capturable=p.device.type == "cuda"), schedule, lr0)
+                lambda p, lr: Adam([p], lr=lr, betas=betas, eps=eps, eps_root=eps_root,
+                                   weight_decay=wd, decoupled=name == "adamw"),
+                schedule, lr0)
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if callable(optimizer):
         return _OptimizerFactory(lambda p, lr: optimizer([p], lr=lr, **kw), schedule, lr0)

@@ -363,16 +363,25 @@ def test_sparse_codec_rejects_corrupt_and_hostile_frames_as_the_reference():
 
 
 def test_comm_package_names_and_the_unported_runtime():
+    """Since the runtime is ported, the lazy table is the reference's,
+    name for name and submodule for submodule, and the runtime's names
+    resolve to the port's own classes (none is missing any more)."""
     from distributed_learning_tpu import comm as r_comm
+    from distributed_learning_tpu_torch.comm import agent, async_runtime, faults, master
 
-    ported = set(r_comm._LAZY) - set(p_comm._UNPORTED)
-    assert set(p_comm._LAZY) == ported
-    assert set(p_comm.__all__) == ported | {"top_k_compressor"}
-    for name in ported:
-        assert getattr(p_comm, name) is not None
+    assert p_comm._LAZY == r_comm._LAZY
+    assert not hasattr(p_comm, "_UNPORTED")
+    assert set(p_comm.__all__) == set(r_comm._LAZY) | {"top_k_compressor"}
+    assert set(r_comm.__all__) <= set(p_comm.__all__)
+    for name in r_comm._LAZY:
+        value = getattr(p_comm, name)
+        assert value is not None
+        if isinstance(value, type):
+            assert value.__module__.startswith("distributed_learning_tpu_torch.comm."), name
     assert p_comm.encode_tensor is p_tc.encode_tensor
-    for name in ("ConsensusAgent", "ConsensusMaster", "AsyncGossipRunner", "FaultPlan"):
-        with pytest.raises(AttributeError, match='ROADMAP.md queue 1, "comm/ runtime"'):
-            getattr(p_comm, name)
+    assert p_comm.ConsensusAgent is agent.ConsensusAgent
+    assert p_comm.ConsensusMaster is master.ConsensusMaster
+    assert p_comm.AsyncGossipRunner is async_runtime.AsyncGossipRunner
+    assert p_comm.FaultPlan is faults.FaultPlan
     with pytest.raises(AttributeError, match="no attribute"):
         p_comm.no_such_name

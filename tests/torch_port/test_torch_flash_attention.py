@@ -157,11 +157,13 @@ def test_attention_reference_matches_jax():
     (torch.bfloat16, 32, False),
     (torch.float32, 64, False),
     (torch.float32, 128, False),
+    (torch.bfloat16, 256, False),
+    (torch.float32, 256, False),
 ])
 def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
     """bf16 with D 64 or 128 takes the wgmma/TMA body of all three
-    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) and
-    D 32 the CUDA-core bodies."""
+    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma), D 32
+    and D 256 the CUDA-core bodies."""
     assert fa.wgmma_body(dtype, D) is wgmma
 
 

@@ -1,17 +1,23 @@
 """The head-dim rule of the flash-attention wrappers, on the CPU through
 the plain versions: a call of head dim D runs at ``kernel_head_dim(D)``
-(the next of 32, 64 and 128) with Q, K, V, O and dO zero-padded, the
+(the next of 32, 64, 128 and 256) with Q, K, V, O and dO zero-padded, the
 scale taken from the true D, and O, dQ, dK, dV sliced back.  The card
 runs the same ``padded_*`` helpers around its launches; here they wrap
 the plain versions, which must then equal unpadded plain attention and
-autograd of softmax attention, in float32, to 1e-5.
+autograd of softmax attention, in float32, to 1e-5.  Head dims 192 and
+256 (the D-256 body) are also held against the JAX package's flash
+attention in interpret mode, which pads them to its 256 lanes, at 1e-5.
 """
 
 import math
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from distributed_learning_tpu.ops.flash_attention import flash_attention as jax_flash
 from distributed_learning_tpu_torch.ops import flash_attention as fa
 
 TOL = 1e-5  # float32: the padded columns add exact zeros; summation order only
@@ -41,13 +47,16 @@ def _softmax_attention(q, k, v, scale, causal, window):
 
 
 def test_kernel_head_dim_rounds_up_and_names_the_roadmap_item_above_128():
-    assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 32, 33, 48, 64, 65, 96, 128)] == [
-        32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match='"flash attention for head dims above 128" of ROADMAP.md'):
-        fa.kernel_head_dim(160)
+    assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 32, 33, 48, 64, 65, 96, 128, 129, 160,
+                                            192, 256)] == [
+        32, 32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256]
+    for D in (257, 320):
+        with pytest.raises(ValueError,
+                           match='"flash attention for head dims above 256" of ROADMAP.md'):
+            fa.kernel_head_dim(D)
 
 
-@pytest.mark.parametrize("D", [8, 16, 48, 96])
+@pytest.mark.parametrize("D", [8, 16, 48, 96, 192, 256])
 @pytest.mark.parametrize("causal,window,with_dadj", [
     (True, None, False), (True, 5, False), (False, None, True), (True, None, True)])
 def test_padded_calls_equal_unpadded_plain_attention(D, causal, window, with_dadj):
@@ -78,7 +87,7 @@ def test_padded_calls_equal_unpadded_plain_attention(D, causal, window, with_dad
         torch.testing.assert_close(got, auto, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("D", [8, 16, 48, 96])
+@pytest.mark.parametrize("D", [8, 16, 48, 96, 192, 256])
 def test_padding_puts_exact_zeros_in_the_padded_columns(D):
     """What the rule rests on: the padded output columns and gradients
     are exactly zero, so slicing them off loses nothing."""
@@ -91,3 +100,36 @@ def test_padding_puts_exact_zeros_in_the_padded_columns(D):
     dk, dv = fa.plain_bwd_dkv(*pad[:3], o, pad[3], lse, dadj, 1.0 / math.sqrt(D), True, None)
     for g in (dq, dk, dv):
         assert torch.count_nonzero(g[..., D:]) == 0
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 5)])
+def test_wide_head_dims_match_jax_flash_interpret(D, causal, window, one_intra_op_thread):
+    """Output and q/k/v grads of the port's flash attention (its plain
+    versions behind the padding rule) against the JAX package's Pallas
+    kernels in interpret mode, which pad D to 256 lanes as the card pads
+    to its D-256 body; float32, T 32."""
+    rng = np.random.default_rng(D)
+    q, k, v, co = (rng.normal(size=(1, 32, 2, D)).astype(np.float32) for _ in range(4))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal, window=window)
+    (out * torch.tensor(co)).sum().backward()
+
+    def jfn(q, k, v):
+        return jax_flash(q, k, v, causal=causal, window=window, block_q=32, block_k=32,
+                         interpret=True)
+
+    js = [jnp.asarray(a) for a in (q, k, v)]
+    want = jfn(*js)
+    want_g = jax.grad(lambda *a: jnp.sum(jfn(*a) * co), argnums=(0, 1, 2))(*js)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+    for t, g in zip(ts, want_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=TOL, rtol=TOL)

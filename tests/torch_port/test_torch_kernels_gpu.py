@@ -65,6 +65,11 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 333, 2, 96, torch.bfloat16, False, None, False),
         (1, 130, 2, 16, torch.float32, True, None, True),
         (1, 130, 2, 48, torch.float32, False, None, False),
+        # Head dim 256 runs the CUDA-core bodies' 32-row tiles; 192 pads to it.
+        (2, 200, 2, 256, torch.bfloat16, True, None, True),
+        (1, 130, 2, 256, torch.float32, True, 37, False),
+        (2, 333, 2, 192, torch.bfloat16, False, None, False),
+        (1, 100, 2, 192, torch.float32, True, None, True),
     ],
 )
 def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
@@ -109,6 +114,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 256, 2, 64), torch.bfloat16, "wgmma"),
     ((2, 512, 2, 128), torch.bfloat16, "wgmma"),
     ((2, 256, 2, 32), torch.float32, "cuda_core"),
+    ((1, 256, 2, 256), torch.bfloat16, "cuda_core"),
 ])
 def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
     """Two runs give the same bits, and every launch is counted once, on
@@ -136,7 +142,7 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,body", [(8, "cuda_core"), (16, "cuda_core"), (48, "wgmma"),
-                                    (96, "wgmma")])
+                                    (96, "wgmma"), (192, "cuda_core")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body):
     """``flash_attention`` at a head dim the kernels do not have: the
     gradients of a bf16 call equal the plain versions' at ``TOL``, every
@@ -166,8 +172,9 @@ def test_padded_head_dims_train_through_the_kernels(card, D, body):
 
 @pytest.mark.gpu
 def test_head_dim_above_128_raises_and_names_its_roadmap_item(card):
-    q = torch.zeros(1, 8, 1, 160, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # Since the D-256 body, the item is "above 256".
+    q = torch.zeros(1, 8, 1, 320, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='"flash attention for head dims above 256" of ROADMAP.md'):
         fa.flash_attention(q, q, q)
 
 
@@ -178,7 +185,7 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
     lib = _build.load_library()
     for which in (0, 1, 2):  # forward, dQ, dK/dV
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            for D in (32, 64, 128):
+            for D in (32, 64, 128, 256):
                 assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D)
 
 
