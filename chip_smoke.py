@@ -4,6 +4,7 @@ one NVIDIA card: the quickest proof that the port builds and trains there.
 
     python3 chip_smoke.py [--profile] [--out DIR]
     python3 chip_smoke.py --decode-timing N | --step-timing N
+    python3 chip_smoke.py [--wide-only] [--sharded-only]
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -23,7 +24,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              run zero-padded (8, 16, 48, 96; float32 16); the D-256
              CUDA-core bodies (32-row tiles) at the slice's model width as
              4 heads x 256 (B 2, T 4096, with the tile controls), ragged
-             and windowed, float32, and head dim 192 zero-padded to 256.
+             and windowed, float32, and head dim 192 zero-padded to 256;
+             the wide bodies (head dims above 256, walked in 128-column
+             chunks) at the slice's width as 2 heads x 512 (with the
+             tile controls and the lse cotangent), 320 run at 384, 1152
+             windowed and ragged and non-causal, float32 512 and 320.
 3. slice   — ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
@@ -40,7 +45,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              on this card, its plain version's time, and
              ``scaled_dot_product_attention``'s time as a yardstick (for
              the pre-pass a ``vecdot``); then the same at 4 heads x 256
-             (``times_d256``, the D-256 bodies).
+             (``times_d256``, the D-256 bodies) and 2 heads x 512
+             (``times_wide``, the wide bodies).
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
@@ -293,9 +299,46 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ``regenerate`` master.  Per agent and operation: D2H,
              encode, send, decode, H2D, mix and wall seconds, beside the
              pinned copy of one agent's ravel.
+34. sharded — the sharded engine on ``torch.distributed``: 4 rank
+             processes of this script (``--sharded-rank``), one agent
+             each, sharing ``cuda:0`` over gloo (4 cards or more: nccl,
+             one card each); each rank prints its backend and device.
+             (1) The engine at WRN-28-10 width (a 36,489,290-float32
+             bucket a rank, the stacked state from one seed): ``mix``
+             (matchings), ``mix_with`` on the ring and the gathered row
+             against an Erdos-Renyi W, ``mix_chebyshev``, ``mix_until`` to
+             an eps, ``global_average`` and ``max_deviation`` against the
+             dense engine on the same state, each rank its own row
+             (``SHARDED_MIX_ATOL``); a round in which agent 0 loses one
+             matching's message must fail; one round's D2H, exchange,
+             H2D and arithmetic ms beside the dense round.  (2) Gossip
+             SGD: one epoch of vision_slice's steps on WRN-28-10 (ring
+             Metropolis, one round) with ``mesh=``, against the dense
+             trainer's same epoch run on rank 0 after it: losses and
+             running statistics (vision_plain's limits; bit for bit
+             expected), parameters (``SHARDED_MIX_ATOL``); samples/s.
+             (3) The LM slice's model (full width, B 2, T 4096, adam), one
+             epoch of 3 steps and a round: A, B, C and the pre-pass
+             counted on every rank (``launches_by_path["lm_sharded"]``,
+             all wgmma), losses within ``LOSS_RTOL`` and each agent's
+             update within ``GRAD_RTOL`` of the dense epoch's; tokens/s.
+             (4) DSGT and EXTRA on tracking_routes' Titanic logreg
+             (``ROUTES_ATOL``) and push-sum at WRN-28-10 width on a
+             directed ring (``SHARDED_MIX_ATOL``, the totals within
+             ``PUSHSUM_SUM_RTOL``) with ``mesh=``, against the dense
+             engines.  (5) superstep_routes' MLP with ``mesh=`` (plain,
+             Chebyshev, ``topology_schedule``, Gossip-PGA, ``mix_eps``):
+             ``train_epochs(3)`` (training replays, eager rounds) equal
+             to 3 eager epochs bit for bit and to the dense trainer's
+             agent (``SHARDED_MIX_ATOL``).  A failing rank stops the
+             others and the phase.
+
+``--wide-only`` and ``--sharded-only`` build and run only the wide
+bodies' cases and times, or only phase 34, and end with the card line.
 
 Then a ``kernels`` JSON line (each kernel also carries its D-256 body's
-error, time, bound, plain and library times under ``head_dim_256``),
+error, time, bound, plain and library times under ``head_dim_256``, and
+the wide body's under ``head_dim_wide``),
 the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -417,10 +460,11 @@ def ptxas_summary(report: str) -> dict:
     """``{kernel<dtype,D>: "R regs, S spill bytes"}`` from ptxas -v."""
     out, name, spills = {}, None, 0
     for line in report.splitlines():
-        m = re.search(r"[0-9](flash_[a-z_0-9]+?kernel(?:_sm90)?)I(13__nv_bfloat16|f)?Li(\d+)E", line)
+        m = re.search(r"[0-9](flash_[a-z_0-9]+?kernel(?:_sm90)?)I(13__nv_bfloat16|f)?(?:Li(\d+)E)?",
+                      line)
         if m:
-            dtype = {"13__nv_bfloat16": "bf16,", "f": "f32,", None: ""}[m.group(2)]
-            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
+            dtype = {"13__nv_bfloat16": "bf16", "f": "f32", None: ""}[m.group(2)]
+            name = f"{m.group(1)}<{','.join(x for x in (dtype, m.group(3)) if x)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
@@ -553,7 +597,8 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     res["max_abs_err"] = {k: v[0] for k, v in errs.items()}
     res["max_tile_rel_err"] = {k: v[1] for k, v in errs.items()
                                if k not in ("fwd_lse.lse", "rowterm")}
-    res["body"] = "wgmma" if fa.wgmma_body(dtype, fa.kernel_head_dim(D)) else "cuda_core"
+    res["body"] = fa._body(q)
+    res["kernel_head_dim"] = fa.kernel_head_dim(D)
     res["ok"] = all(v[2] for v in errs.values()) and all(res.get("controls_rejected", {}).values())
     emit({"phase": "kernels", **res})
     if not res["ok"]:
@@ -600,8 +645,30 @@ def phase_kernels(fa):
     _compare_case(fa, "f32_head_dim_256_dadj", 2, 333, 2, 256, f32, True, None, True)
     _compare_case(fa, "head_dim_192", 2, 768, 4, 192, bf16, True, None, False)
     _compare_case(fa, "f32_head_dim_192_non_causal_dadj", 2, 384, 2, 192, f32, False, None, True)
+    wide = phase_kernels_wide(fa)
     torch.cuda.empty_cache()
-    return main, d256
+    return main, d256, wide
+
+
+# The wide bodies (head dims above 256, the next multiple of 128): the
+# slice's model width as 2 heads of 512, with the tile controls.
+WIDE_HEADS, WIDE_HEAD_DIM = 2, 512
+
+
+def phase_kernels_wide(fa):
+    """The wide CUDA-core bodies against their plain versions: D 512 at
+    the slice's width and T, D 320 (run at 384) with the lse cotangent,
+    D 1152 windowed and ragged, and float32 cases."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    wide = _compare_case(fa, "head_dim_512_slice_width", BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM,
+                         bf16, True, None, True, controls=True)
+    _compare_case(fa, "head_dim_320_dadj", 2, 333, 2, 320, bf16, True, None, True)
+    _compare_case(fa, "head_dim_1152_window_ragged", 1, 300, 1, 1152, bf16, True, 50, False)
+    _compare_case(fa, "head_dim_1152_non_causal", 1, 160, 2, 1152, bf16, False, None, False)
+    _compare_case(fa, "f32_head_dim_512_non_causal_dadj", 1, 200, 2, 512, f32, False, None, True)
+    _compare_case(fa, "f32_head_dim_320", 1, 130, 2, 320, f32, True, None, False)
+    torch.cuda.empty_cache()
+    return wide
 
 
 # ---------------------------------------------------------------------- #
@@ -620,9 +687,10 @@ def pattern_batch(n_seq: int, phases, rng: np.random.Generator, vocab=None, seq_
 
 
 def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, model_kwargs=None,
-                 batch=BATCH, dims=None, **trainer_kwargs):
+                 batch=BATCH, dims=None, mesh=None, **trainer_kwargs):
     """The slice's trainer; ``dims`` (``vocab``, ``heads``, ``head_dim``,
-    ``seq``) replaces the slice's widths."""
+    ``seq``) replaces the slice's widths.  With ``mesh`` this rank's agent
+    of it (the same data and init; a model of one agent)."""
     from distributed_learning_tpu_torch.models import TransformerLM
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import MasterNode
@@ -638,8 +706,11 @@ def make_trainer(attn_impl, layers, agents, epochs, steps, seed=0, model_kwargs=
     model = TransformerLM(
         vocab_size=d["vocab"], num_layers=layers, num_heads=d["heads"], head_dim=d["head_dim"],
         max_len=d["seq"], attn_impl=attn_impl, dtype=torch.bfloat16,
-        n_agents=agents, device=DEVICE, seed=seed, **(model_kwargs or {}),
+        n_agents=1 if mesh is not None else agents, device=DEVICE, seed=seed,
+        **(model_kwargs or {}),
     )
+    if mesh is not None:
+        trainer_kwargs["mesh"] = mesh
     master = MasterNode(
         nodes, model, optimizer="adam", optimizer_kwargs={"lr": 1e-3},
         weights=Topology.ring(agents), train_loaders=train, test_loader=test,
@@ -901,6 +972,15 @@ def phase_times_d256(fa):
     return times
 
 
+def phase_times_wide(fa):
+    """The wide bodies at the slice's launch shape with its width as 2
+    heads of 512."""
+    times = kernel_times(fa, AGENTS * BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM)
+    emit({"phase": "times_wide", "shape": [AGENTS * BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM],
+          "dtype": "bfloat16", "causal": True, "body": "cuda_core_wide", **_rounded(times)})
+    return times
+
+
 def kernel_times(fa, B, T, H, D):
     """Each kernel at (B, T, H, D), bf16, causal: CUDA-event ms, its bound
     on this card, its plain version's ms and one PyTorch call's ms."""
@@ -946,6 +1026,7 @@ def kernel_times(fa, B, T, H, D):
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 5)
     out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_h, (qh, kh, vh), doh, retain_graph=True), 5)
+    del out_h
     # The pre-pass's yardstick: rowsum(dO * O) as one float32 vecdot (from
     # float32 copies made outside the timing; it leaves out the dadj
     # subtraction).
@@ -969,7 +1050,7 @@ def kernel_times(fa, B, T, H, D):
             "flops": flops, "bytes": nbytes,
         }
         torch.cuda.empty_cache()
-    del q, k, v, do, o, lse, rowterm, qh, kh, vh, doh, out_h
+    del q, k, v, do, o, lse, rowterm, qh, kh, vh, doh
     torch.cuda.empty_cache()
     return times
 
@@ -4853,6 +4934,440 @@ async def _comm_runtime(clock) -> dict:
     return facts
 
 
+# ---------------------------------------------------------------------- #
+# Phase 34: the sharded engine on torch.distributed, one agent a rank    #
+# ---------------------------------------------------------------------- #
+# Four rank processes of this script share cuda:0 over gloo (with four
+# cards or more: nccl, one card each).  Limits: the engine's routes at
+# WRN-28-10 width against the dense engine on the same stacked state
+# within SHARDED_MIX_ATOL (the reference's mixing tolerance,
+# tests/test_consensus.py); the max deviation within SHARDED_DEV_RTOL
+# (float32 sums over 36.5M elements taken in another order).  The WRN
+# epoch against the dense trainer's: losses and running statistics
+# within the vision_plain limits (bit for bit expected: the same cuDNN
+# calls per agent under deterministic algorithms), parameters after the
+# round within SHARDED_MIX_ATOL (the round's sums in another order).
+# The LM epoch against the dense one: losses within LOSS_RTOL, each
+# agent's parameter update within GRAD_RTOL of the dense update
+# (||p - p_dense|| / ||p_dense - p_0||: the batched and the one-agent
+# GEMMs round differently, carried through Adam).  DSGT and EXTRA
+# within ROUTES_ATOL, push-sum within SHARDED_MIX_ATOL and its totals
+# within PUSHSUM_SUM_RTOL.
+SHARDED_WORLD = 4
+SHARDED_TIMEOUT_S = 900
+SHARDED_MIX_ATOL = 2e-6
+SHARDED_DEV_RTOL = 1e-5
+SHARDED_EPS = 100.0  # mix_until's eps on the N(0, 1) WRN-width state (~4 rounds)
+SHARDED_PS_ROUNDS = 8
+SHARDED_TIMING_ROUNDS = 3
+
+
+def phase_sharded():
+    """Spawn the ranks, stream nothing, print their lines when they end,
+    and fail if one fails (the others are stopped at once)."""
+    import socket
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(SHARDED_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+             "--coordinator", f"127.0.0.1:{port}", "--sharded-out", tmp],
+            stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=here)
+            for r in range(SHARDED_WORLD)]
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            time.sleep(0.5)
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+            elif time.perf_counter() - t0 > SHARDED_TIMEOUT_S:
+                failed = f"ranks still running after {SHARDED_TIMEOUT_S} s"
+        for p in procs:  # stop every process this phase started
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+        for out in outs:
+            for line in out.splitlines():
+                if line.startswith("{"):
+                    print(line, flush=True)
+        if failed is None and any(p.returncode != 0 for p in procs):
+            failed = "a rank exited non-zero"
+        if failed:
+            tails = "\n".join(f"--- rank {r} ---\n{o[-4000:]}" for r, o in enumerate(outs))
+            raise AssertionError(f"sharded phase failed: {failed}\n{tails}")
+        facts = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(SHARDED_WORLD)]
+    launches = {k: sum(f["lm"]["launches"][k] for f in facts) for k in facts[0]["lm"]["launches"]}
+    lm_s = max(f["lm"]["epoch_seconds"] for f in facts)
+    wrn_s = max(f["wrn"]["epoch_seconds"] for f in facts)
+    summary = {
+        "phase": "sharded_summary", "world": SHARDED_WORLD,
+        "backend": facts[0]["backend"], "devices": [f["device"] for f in facts],
+        "engine_round_ms": {f"rank{f['rank']}": f["engine"]["round_ms"] for f in facts},
+        "dense_round_ms": facts[0]["engine"]["dense_round_ms"],
+        "wrn_epoch_seconds": wrn_s,
+        "wrn_transport_s": {f"rank{f['rank']}": f["wrn"]["transport_s"] for f in facts},
+        "lm_transport_s": {f"rank{f['rank']}": f["lm"]["transport_s"] for f in facts},
+        "wrn_samples_per_s": WRN_AGENTS * WRN_BATCH * WRN_STEPS / wrn_s,
+        "lm_epoch_seconds": lm_s, "lm_tokens_per_s": AGENTS * BATCH * SEQ * STEPS / lm_s,
+        "lm_sharded_launches": launches, "seconds": round(time.perf_counter() - t0, 2),
+    }
+    emit(summary)
+    return launches
+
+
+def _transport_s(mesh) -> dict:
+    """The transport's seconds since the clock's reset: the gossip round's
+    and the trainer's cross-rank reads (traces, eval, residual)."""
+    c = mesh.clock
+    return {"d2h": c.d2h_s, "exchange": c.exchange_s, "h2d": c.h2d_s,
+            "bytes_sent": c.bytes_sent}
+
+
+def _rank_emit(mesh, part, facts):
+    emit({"phase": f"sharded_{part}", "rank": mesh.rank, "agent": mesh.agent, **facts})
+
+
+def _sharded_engine(mesh) -> dict:
+    """The engine's routes at WRN-28-10 width on this rank against the
+    dense engine on the same stacked state (every rank draws it from one
+    seed and checks its own row), a dropped-message control, and one
+    round's parts timed."""
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+
+    n, a, dev = mesh.size, mesh.agent, mesh.device
+    W = Topology.ring(n).metropolis_weights()
+    W2 = Topology.erdos_renyi(n, 0.6, seed=1).metropolis_weights()
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = {"float32": torch.randn(n, WRN_PARAMS, generator=g, device=dev)}
+    x = {"float32": X["float32"][a:a + 1].clone()}
+    dense = ConsensusEngine(W, device=dev)
+    eng = ConsensusEngine(W, mesh=mesh)
+    errs, checks = {}, {}
+
+    def held(name, got, want):
+        errs[name] = float((got["float32"] - want["float32"][a:a + 1]).abs().max())
+        checks[name] = errs[name] <= SHARDED_MIX_ATOL
+
+    held("mix", eng.mix(x, 1), dense.mix(X, 1))
+    for route in ("ring", "allgather"):
+        held(f"mix_with_{route}", eng.mix_with(x, W2, 1, route=route), dense.mix_with(X, W2, 1))
+    held("mix_chebyshev", eng.mix_chebyshev(x, 3), dense.mix_chebyshev(X, 3))
+    s, t, res = eng.mix_until(x, eps=SHARDED_EPS)
+    sd, td, rd = dense.mix_until(X, eps=SHARDED_EPS)
+    held("mix_until", s, sd)
+    checks["mix_until_rounds"] = t == td and t > 1
+    del s, sd
+    held("global_average", eng.global_average(x), dense.global_average(X))
+    md, mdd = float(eng.max_deviation(x)), float(dense.max_deviation(X))
+    checks["max_deviation"] = abs(md - mdd) <= SHARDED_DEV_RTOL * mdd
+    # Control: agent 0 loses one matching's message (zeros arrive).
+    orig, dropped = mesh.exchange, []
+
+    def dropping(sends, recvs):
+        orig(sends, recvs)
+        if a == 0 and not dropped:
+            for _, buf in recvs:
+                buf.zero_()
+            dropped.append(True)
+
+    mesh.exchange = dropping
+    try:
+        bad = eng.mix(x, 1)
+    finally:
+        mesh.exchange = orig
+    ctrl = float((bad["float32"] - dense.mix(X, 1)["float32"][a:a + 1]).abs().max())
+    checks["dropped_message_rejected"] = a != 0 or ctrl > SHARDED_MIX_ATOL
+    del bad
+    # One round's parts: device-to-host, exchange, host-to-device, and the rest.
+    buffers, spare = {"float32": x["float32"].clone()}, eng.spare_for(x, 1)
+    eng.mix_(buffers, 1, spare=spare)  # warm-up: pinned buffers, allocator
+    mesh.clock.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_TIMING_ROUNDS):
+        eng.mix_(buffers, 1, spare=spare)
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / SHARDED_TIMING_ROUNDS * 1e3
+    c = mesh.clock
+    parts = {"d2h_ms": c.d2h_s * 1e3 / SHARDED_TIMING_ROUNDS,
+             "exchange_ms": c.exchange_s * 1e3 / SHARDED_TIMING_ROUNDS,
+             "h2d_ms": c.h2d_s * 1e3 / SHARDED_TIMING_ROUNDS}
+    parts["arithmetic_and_rest_ms"] = wall - sum(parts.values())
+    round_ms = {"wall_ms": wall, **parts,
+                "bytes_sent_per_round": c.bytes_sent // SHARDED_TIMING_ROUNDS}
+    dspare = dense.spare_for(X, 1)
+    dense_ms = cuda_ms(lambda: dense.mix_(X, 1, spare=dspare), 3)
+    facts = {"width": WRN_PARAMS, "max_abs_err": errs, "limit": SHARDED_MIX_ATOL,
+             "mix_until_rounds": [t, td], "mix_until_residual": [res, rd],
+             "max_deviation": [md, mdd], "control_max_abs_err": ctrl,
+             "round_ms": round_ms, "dense_round_ms": dense_ms, "checks": checks}
+    _rank_emit(mesh, "engine", facts)
+    del X, x, buffers, spare, dspare
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts
+
+
+def _sharded_wrn(mesh) -> dict:
+    """One epoch of gossip SGD on WRN-28-10 (the vision slice's steps, one
+    round) with one agent a rank, against agent i of the dense trainer's
+    same epoch, run on rank 0 once the sharded trainers are freed."""
+    def master(**kw):
+        return make_vision_master(
+            "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, 1, WRN_EVAL, augment=True,
+            depth=28, widen_factor=10, dropout_rate=0.3, dtype=torch.bfloat16, trainer_kwargs=kw)
+
+    dev = mesh.device
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        sm = master(mesh=mesh)
+        torch.cuda.synchronize(dev)
+        mesh.clock.reset()
+        t0 = time.perf_counter()
+        p = sm.train_epoch()
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        transport = _transport_s(mesh)
+        params = mesh.all_gather(sm.model.flat_params[0])
+        stats = mesh.all_gather(sm.model.flat_stats[0])
+        losses = [list(sm.network[a].stats.train_loss) for a in range(WRN_AGENTS)]
+        del sm
+        gc.collect()
+        torch.cuda.empty_cache()
+        facts = {"epoch_seconds": dt, "transport_s": transport, "steps": WRN_STEPS,
+                 "batch_per_agent": WRN_BATCH, "train_loss": p["train_loss"].tolist(),
+                 "deviation": p["deviation"]}
+        if mesh.agent == 0:
+            dm = master()
+            pd = dm.train_epoch()
+            dlosses = np.asarray([dm.network[a].stats.train_loss for a in range(WRN_AGENTS)])
+            loss_rel = float(np.max(np.abs(np.asarray(losses) - dlosses) / np.abs(dlosses)))
+            p_err = float((params - dm.model.flat_params).abs().max())
+            ds = dm.model.flat_stats
+            s_rel = max(float((stats[i] - ds[i]).norm() / ds[i].norm()) for i in range(WRN_AGENTS))
+            facts.update(
+                dense_train_loss=pd["train_loss"].tolist(), dense_deviation=pd["deviation"],
+                loss_max_rel_err=loss_rel, params_max_abs_err=p_err,
+                stats_bitwise=bool(torch.equal(stats, dm.model.flat_stats)),
+                stats_max_rel_err=s_rel,
+                checks={"losses": loss_rel <= PLAIN_LOSS_RTOL,
+                        "stats": s_rel <= PLAIN_STAT_RTOL,
+                        "params": p_err <= SHARDED_MIX_ATOL,
+                        "deviation": abs(p["deviation"] - pd["deviation"])
+                        <= SHARDED_DEV_RTOL * pd["deviation"]})
+            del dm
+        del params, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    mesh.barrier()
+    _rank_emit(mesh, "wrn", facts)
+    return facts
+
+
+def _sharded_lm(mesh, fa) -> dict:
+    """The LM slice sharded: one epoch of the slice's steps and one round
+    with one agent a rank; A, B, C and the pre-pass counted on this rank
+    around the epoch.  Rank 0 then runs the dense slice's same epoch."""
+    dev = mesh.device
+    sm = make_trainer("flash", LAYERS, AGENTS, 1, STEPS, mesh=mesh)
+    p0 = mesh.all_gather(sm.model.flat_params[0])
+    torch.cuda.synchronize(dev)
+    mesh.clock.reset()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    p = sm.train_epoch()
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in fa.KERNELS.values()}
+    transport = _transport_s(mesh)
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    n_eval = math.ceil(len(sm.test_data[0]) / sm.eval_batch_size)
+    expect = {"flash_fwd": LAYERS * (STEPS + n_eval), "flash_bwd_dq": LAYERS * STEPS,
+              "flash_bwd_dkv": LAYERS * STEPS, "flash_bwd_rowterm": LAYERS * STEPS}
+    params = mesh.all_gather(sm.model.flat_params[0])
+    losses = np.asarray([sm.network[a].stats.train_loss for a in range(AGENTS)])
+    facts = {"epoch_seconds": dt, "transport_s": transport,
+             "tokens_per_s": AGENTS * BATCH * SEQ * STEPS / dt,
+             "params_per_agent": sm.model.param_count(), "launches": launches,
+             "launches_by_body": bodies, "expected_launches": expect,
+             "train_loss": p["train_loss"].tolist(), "peak_memory_bytes":
+             torch.cuda.max_memory_allocated(dev)}
+    checks = {"launches": launches == expect,
+              "wgmma": all(bodies[k]["wgmma"] == launches[k]
+                           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
+    del sm
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.agent == 0:
+        dm = make_trainer("flash", LAYERS, AGENTS, 1, STEPS)
+        pd = dm.train_epoch()
+        dlosses = np.asarray([dm.network[a].stats.train_loss for a in range(AGENTS)])
+        loss_rel = float(np.max(np.abs(losses - dlosses) / np.abs(dlosses)))
+        upd = [float((params[a] - dm.model.flat_params[a]).norm()
+                     / (dm.model.flat_params[a] - p0[a]).norm()) for a in range(AGENTS)]
+        facts.update(dense_train_loss=pd["train_loss"].tolist(), loss_max_rel_err=loss_rel,
+                     update_rel_err=upd)
+        checks.update(losses=loss_rel <= LOSS_RTOL, params=max(upd) <= GRAD_RTOL)
+        del dm
+    facts["checks"] = checks
+    del params, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    _rank_emit(mesh, "lm", facts)
+    return facts
+
+
+def _sharded_tracking(mesh) -> dict:
+    """DSGT and EXTRA on the Titanic logreg and push-sum at WRN-28-10
+    width with ``mesh=``, each against the dense engine on this rank's
+    row, and push-sum's totals across the ranks."""
+    from distributed_learning_tpu_torch.data import load_titanic, split_data
+    from distributed_learning_tpu_torch.models.logreg import loss_fn
+    from distributed_learning_tpu_torch.parallel import (
+        ExtraEngine, GradientTrackingEngine, PushSumEngine, Topology, push_sum_matrix)
+
+    n, a, dev = mesh.size, mesh.agent, mesh.device
+    X_tr, y_tr, _, _ = load_titanic()
+    order = np.argsort(y_tr)
+    shards = split_data(X_tr[order], y_tr[order], n)
+    m = min(len(shards[i][0]) for i in range(n))
+    X = torch.as_tensor(np.stack([shards[i][0][:m] for i in range(n)]), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(np.stack([shards[i][1][:m] for i in range(n)]), dtype=torch.float32,
+                        device=dev)
+
+    def grad(w, i, step):
+        with torch.enable_grad():
+            w = w.detach().requires_grad_(True)
+            (gw,) = torch.autograd.grad(loss_fn(w, X[i], y[i], 1e-2).sum(), w)
+        return gw
+
+    W = Topology.ring(n).metropolis_weights()
+    x0 = torch.zeros(n, X.shape[-1], device=dev)
+    errs, checks = {}, {}
+    for name, cls, kw in (("dsgt", GradientTrackingEngine, {}),
+                          ("extra", ExtraEngine, {"project_every": 2})):
+        sh = cls(W, grad, learning_rate=0.5, mesh=mesh, **kw)
+        de = cls(W, grad, learning_rate=0.5, device=dev, **kw)
+        (ss, st), (ds, dtr) = sh.run(sh.init(x0), ROUTES_STEPS), de.run(de.init(x0), ROUTES_STEPS)
+        errs[name] = {"state": float((ss.x - ds.x[a:a + 1]).abs().max()),
+                      "trace": float((st - dtr).abs().max())}
+        checks[name] = max(errs[name].values()) <= ROUTES_ATOL
+    P = push_sum_matrix({i: [(i + 1) % n] for i in range(n)}, n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    V = torch.randn(n, WRN_PARAMS, generator=g, device=dev)
+    ps, dps = PushSumEngine(P, mesh=mesh), PushSumEngine(P, device=dev)
+    est = ps.mix(ps.shard(V), SHARDED_PS_ROUNDS)
+    errs["pushsum"] = float((est - dps.mix(V, SHARDED_PS_ROUNDS)[a:a + 1]).abs().max())
+    checks["pushsum"] = errs["pushsum"] <= SHARDED_MIX_ATOL
+    del est
+    num, den = ps.lift(ps.shard(V))
+    tot0 = mesh.all_reduce(num["float32"].double().sum(0), "sum")
+    den = ps.rounds_(num, den, SHARDED_PS_ROUNDS)
+    tot = mesh.all_reduce(num["float32"].double().sum(0), "sum")
+    dtot = float(mesh.all_reduce(den.double().sum().reshape(1), "sum")[0])
+    sum_rel = float((tot - tot0).abs().max() / tot0.abs().max())
+    checks["pushsum_totals"] = sum_rel <= PUSHSUM_SUM_RTOL and abs(dtot - n) <= PUSHSUM_SUM_RTOL * n
+    facts = {"steps": ROUTES_STEPS, "pushsum_rounds": SHARDED_PS_ROUNDS, "max_abs_err": errs,
+             "pushsum_total_rel_err": sum_rel, "pushsum_weight_total": dtot, "checks": checks}
+    del V, num, den
+    gc.collect()
+    torch.cuda.empty_cache()
+    _rank_emit(mesh, "tracking", facts)
+    return facts
+
+
+SHARDED_ROUTES = ("plain", "chebyshev", "topology_schedule", "global_avg_every", "mix_eps")
+
+
+def _sharded_superstep(mesh) -> dict:
+    """superstep_routes' MLP with ``mesh=`` for the slice's gossip
+    routes: ``train_epochs(3)`` (the training graph replayed, the round
+    eager between the replays) against 3 eager epochs bit for bit, and
+    against the dense trainer's agent on this rank (``SHARDED_MIX_ATOL``)."""
+    configs = route_configs()
+    checks, errs = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        for name in SHARDED_ROUTES:
+            eager = _route_trainer(mesh=mesh, **configs[name])
+            pe = [eager.train_epoch() for _ in range(SUPERSTEP_K)]
+            graph = _route_trainer(mesh=mesh, **configs[name])
+            pg = graph.train_epochs(SUPERSTEP_K)
+            dense = _route_trainer(**configs[name])
+            for _ in range(SUPERSTEP_K):
+                dense.train_epoch()
+            a = mesh.agent
+            same = (torch.equal(eager.model.flat_params, graph.model.flat_params)
+                    and all(x["mix_rounds"] == y["mix_rounds"]
+                            and np.array_equal(x["train_loss"], y["train_loss"])
+                            and x["deviation"] == y["deviation"] for x, y in zip(pe, pg)))
+            errs[name] = float((eager.model.flat_params[0]
+                                - dense.model.flat_params[a]).abs().max())
+            checks[f"{name}_graph_equals_eager"] = same
+            checks[f"{name}_equals_dense"] = errs[name] <= SHARDED_MIX_ATOL
+            del eager, graph, dense
+    torch.use_deterministic_algorithms(False)
+    facts = {"epochs": SUPERSTEP_K, "dense_max_abs_err": errs, "checks": checks}
+    _rank_emit(mesh, "superstep", facts)
+    return facts
+
+
+def sharded_rank_main(args) -> int:
+    """One rank of phase 34: join the group, run every part, write the
+    facts for the parent; exit 1 if a check failed."""
+    from distributed_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_learning_tpu_torch.parallel import multihost
+    from distributed_learning_tpu_torch.parallel.consensus import make_agent_mesh
+
+    rank = int(args.sharded_rank)
+    cards = torch.cuda.device_count()
+    dev = torch.device("cuda", rank if cards >= SHARDED_WORLD else 0)
+    torch.cuda.set_device(dev)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = multihost.initialize(args.coordinator, SHARDED_WORLD, rank, device=dev,
+                                   timeout_s=SHARDED_TIMEOUT_S)
+    mesh = make_agent_mesh(SHARDED_WORLD, device=dev)
+    emit({"phase": "sharded_rank", "rank": rank, "agent": mesh.agent, "world": mesh.size,
+          "backend": backend, "device": str(dev), "card": torch.cuda.get_device_name(dev),
+          "staged_through_host": mesh.staged})
+    facts = {"rank": rank, "backend": backend, "device": str(dev)}
+    facts["engine"] = _sharded_engine(mesh)
+    facts["wrn"] = _sharded_wrn(mesh)
+    facts["lm"] = _sharded_lm(mesh, fa)
+    facts["tracking"] = _sharded_tracking(mesh)
+    facts["superstep"] = _sharded_superstep(mesh)
+    with open(os.path.join(args.sharded_out, f"rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    failed = [f"{part}.{k}" for part in ("engine", "wrn", "lm", "tracking", "superstep")
+              for k, ok in facts[part].get("checks", {}).items() if not ok]
+    if failed:
+        print(f"rank {rank}: sharded checks failed: {failed}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
 def print_card() -> None:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4873,11 +5388,21 @@ def main(argv=None) -> int:
                     help="only time the serving path's decode N times (MHA and GQA)")
     ap.add_argument("--step-timing", type=int, default=0, metavar="N",
                     help="only time the dense LM slice's training step N times")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="only build and run the sharded phase (34)")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only build, hold and time the wide (D > 256) bodies")
+    # Set by the sharded phase for its rank processes.
+    ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if args.sharded_rank is not None:
+        return sharded_rank_main(args)
     from distributed_learning_tpu_torch.ops import flash_attention as fa
 
     t_start = time.perf_counter()
@@ -4897,7 +5422,15 @@ def main(argv=None) -> int:
         step_timing(args.step_timing)
         print_card()
         return 0
-    main_errs, d256_errs = phase_kernels(fa)
+    if args.wide_only or args.sharded_only:
+        if args.wide_only:
+            phase_kernels_wide(fa)
+            phase_times_wide(fa)
+        if args.sharded_only:
+            phase_sharded()
+        print_card()
+        return 0
+    main_errs, d256_errs, wide_errs = phase_kernels(fa)
     master, launches, bodies = phase_slice(fa)
     if args.profile:
         phase_profile(master, args.out)
@@ -4907,6 +5440,7 @@ def main(argv=None) -> int:
     phase_plain(fa)
     times = phase_times(fa)
     times_d256 = phase_times_d256(fa)
+    times_wide = phase_times_wide(fa)
     gc.collect()
     torch.cuda.empty_cache()
     # The paper's own path: no hand-written kernel on it.
@@ -4955,6 +5489,8 @@ def main(argv=None) -> int:
     phase_wire()
     # The comm/ runtime: gossip SGD over loopback TCP between the WRN agents.
     phase_comm_runtime()
+    # The sharded engine on torch.distributed: one agent a rank process.
+    sharded_launches = phase_sharded()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -4969,7 +5505,8 @@ def main(argv=None) -> int:
                                  "lm_extras": extras_launches[k.name],
                                  "lm_remat": remat_launches[k.name],
                                  "lm_prefill": prefill_launches[k.name],
-                                 "lm_head_dims": head_dim_launches[k.name]},
+                                 "lm_head_dims": head_dim_launches[k.name],
+                                 "lm_sharded": sharded_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4979,6 +5516,12 @@ def main(argv=None) -> int:
             "head_dim_256": {"body": "cuda_core", "max_abs_err": d256_errs[k.name],
                              **{f: times_d256[k.name][f] for f in
                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            # The wide body (CUDA cores, head dims above 256) at 2 heads x
+            # 512, held and timed in the kernels and times_wide phases.
+            "head_dim_wide": {"body": "cuda_core_wide", "head_dim": WIDE_HEAD_DIM,
+                              "max_abs_err": wide_errs[k.name],
+                              **{f: times_wide[k.name][f] for f in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         })
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
     emit({"kernels": kernels})

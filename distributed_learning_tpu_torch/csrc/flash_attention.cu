@@ -9,7 +9,8 @@
 // Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
 // bfloat16 with head dim 64 or 128; dispatch() picks it by (dtype, D)
 // alone (uses_wgmma_body in flash_params.cuh).  The bodies here serve
-// float32 inputs and head dims 32 and 256.
+// float32 inputs and head dims 32 and 256, and (the wide bodies) every
+// multiple of 128 above 256.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -21,8 +22,8 @@
 //
 // What changed for this card:
 //   * No 128-lane head-dim padding and no lane-replicated lse: lse and the
-//     lse cotangent dadj are (B, H, T) float32, head dims are 32, 64, 128
-//     and 256.
+//     lse cotangent dadj are (B, H, T) float32, head dims are 32, 64, 128,
+//     256 and, on the wide bodies, any multiple of 128 above 256.
 //   * Q, K and V are read in place from the (B, T, H, D) layout through
 //     their strides (the transformer hands over strided views of its fused
 //     QKV projection), so no transpose or copy precedes a launch.  O, dO,
@@ -512,6 +513,460 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide bodies: head dims above 256, any multiple of 128 (kWideChunk).
+//
+// No D-sized row block lives in shared memory, so no D is too large for
+// them: each product over the head dim (Q.K^T, dO.V^T) is built up 128
+// columns at a time, and each product into the head dim (P.V, dS.K,
+// dS^T.Q, P^T.dO) is written 128 columns at a time.  Between key (or
+// query) tiles the running O, dQ or dK/dV rows of a block live in a
+// float32 scratch in device memory (FlashParams::acc / acc2, (B, H, T, D),
+// allocated by the wrapper): a block reads and rewrites only its own rows
+// (each thread its own elements), so no atomics, and the last tile
+// writes the output in its dtype instead.  The arithmetic, and its order
+// per element, is that of the bodies above: the running sums pass through
+// float32 memory unchanged.  The backward reads the pre-pass's row term.
+// Bound on this card: the same flops as the bodies above plus the
+// scratch traffic (8 bytes a row element per tile); a simple, correct
+// design on CUDA cores (PERF.md has its times).
+// ---------------------------------------------------------------------------
+constexpr int kWideChunk = 128;  // head-dim columns staged at once
+constexpr int kWideRows = 32;    // BQ = BK
+
+// Stage rows [r0, r0 + rows) x columns [c0, c0 + kWideChunk) of a (T, D)
+// slice with row stride `st` into shared memory as float32 (row pitch
+// `pitch`); rows past T are zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, int pitch, const T* src, int64_t st,
+                                           int r0, int c0, int rows, int t_max) {
+  for (int i = threadIdx.x; i < rows * kWideChunk; i += kThreads) {
+    const int r = i / kWideChunk, c = i % kWideChunk;
+    const int t = r0 + r;
+    dst[r * pitch + c] = t < t_max ? to_f(src[(int64_t)t * st + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(FlashParams p) {
+  constexpr int BQ = kWideRows, BK = kWideRows, C = kWideChunk;
+  constexpr int QP = C + 4, KP = C + 1, CC = C / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;            // BQ x QP: a Q chunk
+  float* KVs = Qs + BQ * QP;   // BK x KP: a K chunk, then a V chunk
+  float* Ps = KVs + BK * KP;   // BQ x PP
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int D = p.D;
+  const int n_qt = (p.T + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int64_t o_st = (int64_t)p.H * D;
+  T* o = static_cast<T*>(p.o) + (int64_t)b * p.T * o_st + (int64_t)h * D;
+  float* acc = p.acc + (int64_t)bh * p.T * D;
+
+  float m[RI], l[RI], corr[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  int kt_lo, kt_hi;
+  key_tiles<BQ, BK>(p, q0, &kt_lo, &kt_hi);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    float s[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();  // the previous chunk's readers are done
+      load_chunk<T>(Qs, QP, q, p.q_st, q0, c0, BQ, p.T);
+      load_chunk<T>(KVs, KP, k, p.k_st, k0, c0, BK, p.T);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < C; ++d) {
+        float qv[RI], kv[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + 16 * i) * QP + d];
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) kv[j] = KVs[(tx + 16 * j) * KP + d];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float x = s[i][j] * p.scale;
+        s[i][j] = keep(p, row, k0 + tx + 16 * j) ? x : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = reduce16_max(mx);
+      const float m_next = fmaxf(m[i], mx);
+      corr[i] = expf(m[i] - m_next);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float pij = expf(s[i][j] - m_next);
+        sum += pij;
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(pij);
+      }
+      l[i] = l[i] * corr[i] + reduce16_sum(sum);
+      m[i] = m_next;
+    }
+
+    const bool first = kt == kt_lo, last = kt == kt_hi - 1;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();  // P written; the K chunk's readers are done
+      load_chunk<T>(KVs, KP, v, p.v_st, k0, c0, BK, p.T);
+      __syncthreads();
+      float a[RI][CC];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = q0 + ty + 16 * i;
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+          a[i][c] = (first || row >= p.T) ? 0.f
+                                          : acc[(int64_t)row * D + c0 + tx + 16 * c] * corr[i];
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        float pv[RI], vv[CC];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * PP + kk];
+#pragma unroll
+        for (int c = 0; c < CC; ++c) vv[c] = KVs[kk * KP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < CC; ++c) a[i][c] = fmaf(pv[i], vv[c], a[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= p.T) continue;
+        const float ls = fmaxf(l[i], 1e-30f);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const int col = c0 + tx + 16 * c;
+          if (last) {
+            o[(int64_t)row * o_st + col] = from_f<T>(a[i][c] / ls);
+          } else {
+            acc[(int64_t)row * D + col] = a[i][c];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.T) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(int64_t)bh * p.T + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_wide_kernel(FlashParams p) {
+  constexpr int BQ = kWideRows, BK = kWideRows, C = kWideChunk;
+  constexpr int QP = C + 4, KP = C + 1, CC = C / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // BQ x QP
+  float* dOs = Qs + BQ * QP;    // BQ x QP
+  float* Ks = dOs + BQ * QP;    // BK x KP
+  float* Vs = Ks + BK * KP;     // BK x KP
+  float* dSs = Vs + BK * KP;    // BQ x PP
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int D = p.D;
+  const int n_qt = (p.T + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int64_t c_st = (int64_t)p.H * D;
+  const int64_t c_off = (int64_t)b * p.T * c_st + (int64_t)h * D;
+  const T* dout = static_cast<const T*>(p.dout) + c_off;
+  T* dq = static_cast<T*>(p.dq) + c_off;
+  float* acc = p.acc + (int64_t)bh * p.T * D;
+
+  float rl[RI], rd[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    rl[i] = row < p.T ? p.lse[(int64_t)bh * p.T + row] : 0.f;
+    rd[i] = row < p.T ? p.rowterm[(int64_t)bh * p.T + row] : 0.f;
+  }
+
+  int kt_lo, kt_hi;
+  key_tiles<BQ, BK>(p, q0, &kt_lo, &kt_hi);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    float s[RI][RJ], dp[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();
+      load_chunk<T>(Qs, QP, q, p.q_st, q0, c0, BQ, p.T);
+      load_chunk<T>(dOs, QP, dout, c_st, q0, c0, BQ, p.T);
+      load_chunk<T>(Ks, KP, k, p.k_st, k0, c0, BK, p.T);
+      load_chunk<T>(Vs, KP, v, p.v_st, k0, c0, BK, p.T);
+      __syncthreads();
+#pragma unroll 2
+      for (int d = 0; d < C; ++d) {
+        float qv[RI], gv[RI], kv[RJ], vv[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          qv[i] = Qs[(ty + 16 * i) * QP + d];
+          gv[i] = dOs[(ty + 16 * i) * QP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          kv[j] = Ks[(tx + 16 * j) * KP + d];
+          vv[j] = Vs[(tx + 16 * j) * KP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float x = keep(p, row, k0 + tx + 16 * j) ? s[i][j] * p.scale : kNegInf;
+        const float pij = expf(x - rl[i]);
+        dSs[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] + rd[i]));
+      }
+    }
+
+    const bool first = kt == kt_lo, last = kt == kt_hi - 1;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();  // dS written; the previous chunk's readers are done
+      load_chunk<T>(Ks, KP, k, p.k_st, k0, c0, BK, p.T);
+      __syncthreads();
+      float a[RI][CC];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = q0 + ty + 16 * i;
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+          a[i][c] = (first || row >= p.T) ? 0.f : acc[(int64_t)row * D + c0 + tx + 16 * c];
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        float sv[RI], kv[CC];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) sv[i] = dSs[(ty + 16 * i) * PP + kk];
+#pragma unroll
+        for (int c = 0; c < CC; ++c) kv[c] = Ks[kk * KP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < CC; ++c) a[i][c] = fmaf(sv[i], kv[c], a[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= p.T) continue;
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const int col = c0 + tx + 16 * c;
+          if (last) {
+            dq[(int64_t)row * c_st + col] = from_f<T>(p.scale * a[i][c]);
+          } else {
+            acc[(int64_t)row * D + col] = a[i][c];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkv_wide_kernel(FlashParams p) {
+  constexpr int BQ = kWideRows, BK = kWideRows, C = kWideChunk;
+  constexpr int QP = C + 4, KP = C + 1, CC = C / 16, RI = BQ / 16, RJ = BK / 16, PP = BK + 4;
+  extern __shared__ float smem[];
+  float* Ks = smem;              // BK x KP
+  float* Vs = Ks + BK * KP;      // BK x KP
+  float* Qs = Vs + BK * KP;      // BQ x QP
+  float* dOs = Qs + BQ * QP;     // BQ x QP
+  float* Ps = dOs + BQ * QP;     // BQ x PP
+  float* dSs = Ps + BQ * PP;     // BQ x PP
+  float* lse_s = dSs + BQ * PP;  // BQ
+  float* rt_s = lse_s + BQ;      // BQ
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int D = p.D;
+  const int k0 = (int)blockIdx.x * BK;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int64_t c_st = (int64_t)p.H * D;
+  const int64_t c_off = (int64_t)b * p.T * c_st + (int64_t)h * D;
+  const T* dout = static_cast<const T*>(p.dout) + c_off;
+  T* dk = static_cast<T*>(p.dk) + c_off;
+  T* dv = static_cast<T*>(p.dv) + c_off;
+  float* acc_k = p.acc + (int64_t)bh * p.T * D;
+  float* acc_v = p.acc2 + (int64_t)bh * p.T * D;
+
+  int q_lo = 0, q_hi = p.T;
+  if (p.causal) {
+    q_lo = k0;
+    if (p.window > 0) q_hi = min(p.T, k0 + BK - 1 + p.window);
+  }
+  const int qt_lo = q_lo / BQ, qt_hi = (q_hi + BQ - 1) / BQ;
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's row vectors are read
+    if (threadIdx.x < BQ) {
+      const int t = q0 + threadIdx.x;
+      const bool in = t < p.T;
+      lse_s[threadIdx.x] = in ? p.lse[(int64_t)bh * p.T + t] : 0.f;
+      rt_s[threadIdx.x] = in ? p.rowterm[(int64_t)bh * p.T + t] : 0.f;
+    }
+    float s[RI][RJ], dp[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();
+      load_chunk<T>(Ks, KP, k, p.k_st, k0, c0, BK, p.T);
+      load_chunk<T>(Vs, KP, v, p.v_st, k0, c0, BK, p.T);
+      load_chunk<T>(Qs, QP, q, p.q_st, q0, c0, BQ, p.T);
+      load_chunk<T>(dOs, QP, dout, c_st, q0, c0, BQ, p.T);
+      __syncthreads();
+#pragma unroll 2
+      for (int d = 0; d < C; ++d) {
+        float qv[RI], gv[RI], kv[RJ], vv[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          qv[i] = Qs[(ty + 16 * i) * QP + d];
+          gv[i] = dOs[(ty + 16 * i) * QP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          kv[j] = Ks[(tx + 16 * j) * KP + d];
+          vv[j] = Vs[(tx + 16 * j) * KP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i, row = q0 + r;
+      const float rl = lse_s[r], rd = rt_s[r];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int cidx = tx + 16 * j;
+        const float x = keep(p, row, k0 + cidx) ? s[i][j] * p.scale : kNegInf;
+        const float pij = expf(x - rl);
+        Ps[r * PP + cidx] = round_to<T>(pij);
+        dSs[r * PP + cidx] = round_to<T>(pij * (dp[i][j] + rd));
+      }
+    }
+
+    const bool first = qt == qt_lo, last = qt == qt_hi - 1;
+    for (int c0 = 0; c0 < D; c0 += C) {
+      __syncthreads();  // P and dS written; the previous chunk's readers are done
+      load_chunk<T>(Qs, QP, q, p.q_st, q0, c0, BQ, p.T);
+      load_chunk<T>(dOs, QP, dout, c_st, q0, c0, BQ, p.T);
+      __syncthreads();
+      float ak[RJ][CC], av[RJ][CC];
+#pragma unroll
+      for (int i = 0; i < RJ; ++i) {
+        const int row = k0 + ty + 16 * i;
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const int64_t e = (int64_t)row * D + c0 + tx + 16 * c;
+          const bool zero = first || row >= p.T;
+          ak[i][c] = zero ? 0.f : acc_k[e];
+          av[i][c] = zero ? 0.f : acc_v[e];
+        }
+      }
+#pragma unroll 2
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pv[RJ], sv[RJ], gv[CC], qv[CC];
+#pragma unroll
+        for (int i = 0; i < RJ; ++i) {
+          pv[i] = Ps[qq * PP + ty + 16 * i];
+          sv[i] = dSs[qq * PP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          gv[c] = dOs[qq * QP + tx + 16 * c];
+          qv[c] = Qs[qq * QP + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < RJ; ++i)
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            av[i][c] = fmaf(pv[i], gv[c], av[i][c]);
+            ak[i][c] = fmaf(sv[i], qv[c], ak[i][c]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < RJ; ++i) {
+        const int row = k0 + ty + 16 * i;
+        if (row >= p.T) continue;
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const int col = c0 + tx + 16 * c;
+          if (last) {
+            dk[(int64_t)row * c_st + col] = from_f<T>(p.scale * ak[i][c]);
+            dv[(int64_t)row * c_st + col] = from_f<T>(av[i][c]);
+          } else {
+            const int64_t e = (int64_t)row * D + col;
+            acc_k[e] = ak[i][c];
+            acc_v[e] = av[i][c];
+          }
+        }
+      }
+    }
+  }
+}
+
+constexpr size_t kWideFwdSmem =
+    sizeof(float) * (kWideRows * (kWideChunk + 4) + kWideRows * (kWideChunk + 1) +
+                     kWideRows * (kWideRows + 4));
+constexpr size_t kWideDqSmem =
+    sizeof(float) * (2 * kWideRows * (kWideChunk + 4) + 2 * kWideRows * (kWideChunk + 1) +
+                     kWideRows * (kWideRows + 4));
+constexpr size_t kWideDkvSmem =
+    sizeof(float) * (2 * kWideRows * (kWideChunk + 1) + 2 * kWideRows * (kWideChunk + 4) +
+                     2 * kWideRows * (kWideRows + 4) + 2 * kWideRows);
+
 // Rows of the Q and K/V tiles for head dim D.  64-row tiles staged as
 // float32 need 283-300 KB of shared memory for dQ and dK/dV at D 256, above
 // the 227 KB a block may opt into, so D 256 runs 32-row tiles (103-142 KB).
@@ -540,9 +995,27 @@ cudaError_t launch(Kernel kernel, size_t smem, int n_tiles, const FlashParams& p
   return cudaGetLastError();
 }
 
+// Head dims above 256 run the wide bodies: any multiple of their chunk.
+bool wide(int D) { return D > 256 && D % kWideChunk == 0; }
+
 bool valid(const FlashParams* p) {
   return p != nullptr && p->B > 0 && p->H > 0 && p->T > 0 && p->B * p->H <= 65535 &&
-         (p->D == 32 || p->D == 64 || p->D == 128 || p->D == 256) && (p->dtype == 0 || p->dtype == 1);
+         (p->D == 32 || p->D == 64 || p->D == 128 || p->D == 256 || wide(p->D)) &&
+         (p->dtype == 0 || p->dtype == 1);
+}
+
+template <typename T>
+cudaError_t run_wide(int which, const FlashParams& p, cudaStream_t stream) {
+  // The scratch, and the backward's row term from the pre-pass.
+  if (p.acc == nullptr || (which == 2 && p.acc2 == nullptr) ||
+      (which != 0 && (p.rowterm == nullptr || p.lse == nullptr)))
+    return cudaErrorInvalidValue;
+  const int tiles = (p.T + kWideRows - 1) / kWideRows;
+  switch (which) {
+    case 0: return launch(flash_fwd_wide_kernel<T>, kWideFwdSmem, tiles, p, stream);
+    case 1: return launch(flash_dq_wide_kernel<T>, kWideDqSmem, tiles, p, stream);
+    default: return launch(flash_dkv_wide_kernel<T>, kWideDkvSmem, tiles, p, stream);
+  }
 }
 
 template <typename T, int D>
@@ -566,6 +1039,7 @@ cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t dispatch_d(int which, const FlashParams& p, cudaStream_t stream) {
+  if (wide(p.D)) return run_wide<T>(which, p, stream);
   switch (p.D) {
     case 32: return run<T, 32>(which, p, stream);
     case 64: return run<T, 64>(which, p, stream);

@@ -925,8 +925,46 @@ cudaError_t rowterm(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Head dims above 256 (multiples of 128): one row per warp, the head dim
+// walked at run time, 16 bytes a load.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) flash_bwd_rowterm_wide_kernel(const FlashParams p) {
+  constexpr int kVec = 16 / sizeof(T), kRows = kRowThreads / 32;
+  const int64_t n_rows = static_cast<int64_t>(p.B) * p.T * p.H;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float acc = 0.f;
+  if (r < n_rows) {
+    for (int c = lane * kVec; c < p.D; c += 32 * kVec) {
+      const int64_t off = r * p.D + c;
+      const uint4 a = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4 g = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+      const T* av = reinterpret_cast<const T*>(&a);
+      const T* gv = reinterpret_cast<const T*>(&g);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc += to_f(gv[e]) * to_f(av[e]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < n_rows && lane == 0) {
+    const int h = static_cast<int>(r % p.H);
+    const int64_t bt = r / p.H;
+    const int tt = static_cast<int>(bt % p.T), b = static_cast<int>(bt / p.T);
+    const int64_t idx = (static_cast<int64_t>(b) * p.H + h) * p.T + tt;
+    p.rowterm[idx] = (p.dadj != nullptr ? p.dadj[idx] : 0.f) - acc;
+  }
+}
+
 template <typename T>
 cudaError_t rowterm_d(const FlashParams& p, cudaStream_t stream) {
+  if (p.D > 256) {
+    constexpr int rows_per_block = kRowThreads / 32;
+    const int64_t n_rows = static_cast<int64_t>(p.B) * p.T * p.H;
+    const dim3 grid(static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block));
+    flash_bwd_rowterm_wide_kernel<T><<<grid, kRowThreads, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
   switch (p.D) {
     case 32: return rowterm<T, 32>(p, stream);
     case 64: return rowterm<T, 64>(p, stream);

@@ -20,6 +20,8 @@ struct FlashParams {
   void* dq;
   void* dk;
   void* dv;
+  float* acc;   // the wide bodies' float32 (B, H, T, D) scratch: O (forward), dQ or dK
+  float* acc2;  // ... and dV (dK/dV); null for every other body
   int64_t q_sb, q_st, q_sh;  // element strides of q over (B, T, H); D is unit
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
@@ -43,7 +45,8 @@ inline bool uses_wgmma_body(int which, int dtype, int D) {
 cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream);
 cudaError_t flash_dq_sm90(const FlashParams& p, cudaStream_t stream);
 cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream);
-// The backward's pre-pass: rowterm = dadj - rowsum(dO * O), any dtype and head dim.
+// The backward's pre-pass: rowterm = dadj - rowsum(dO * O), any dtype, head
+// dims 32, 64, 128 and any multiple of 128.
 cudaError_t flash_rowterm(const FlashParams& p, cudaStream_t stream);
 // Dynamic shared memory of the wgmma forward (which 0), dQ (1) or dK/dV (2) body.
 int flash_sm90_smem_bytes(int which, int D);

@@ -277,11 +277,14 @@ class StackedModel(nn.Module):
         self.generators = [torch.Generator(device) for _ in range(self.n_agents)]
         self.seed_dropout(seed)
 
-    def seed_dropout(self, seed: int) -> None:
+    def seed_dropout(self, seed: int, first_agent: int = 0) -> None:
         """Reseed every agent's dropout generator from ``seed`` (a model
-        without dropout generators has nothing to reseed)."""
+        without dropout generators has nothing to reseed); the stack's
+        agents are agents ``first_agent, first_agent + 1, ...`` of the run
+        (a rank of a sharded trainer holds one agent of many)."""
         for a, g in enumerate(getattr(self, "generators", ())):
-            g.manual_seed(int(np.random.SeedSequence([int(seed), 0, a]).generate_state(1)[0]))
+            g.manual_seed(int(np.random.SeedSequence(
+                [int(seed), 0, int(first_agent) + a]).generate_state(1)[0]))
 
     def set_dropout(self, enabled: bool) -> None:
         for m in self.modules():

@@ -48,7 +48,23 @@ from torch import nn
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models._stacked import dense
 
-__all__ = ["MoEMLP", "collect_load_balance_loss"]
+__all__ = ["MoEMLP", "collect_load_balance_loss", "moe_param_spec", "shard_moe_params"]
+
+_EXPERT_SHARDING = ('expert sharding has no port yet: ROADMAP.md item "3b. Sharded async, '
+                    'robust and CHOCO gossip" (with the reference\'s moe_param_spec and '
+                    'shard_moe_params, models/moe.py:310-329)')
+
+
+def moe_param_spec(path, leaf, expert_axis: str = "expert"):
+    """The reference's per-leaf expert placement; not ported yet (every
+    agent of the port holds all its experts), so it raises."""
+    raise ValueError(_EXPERT_SHARDING)
+
+
+def shard_moe_params(params, mesh, expert_axis: str = "expert"):
+    """The reference's expert-sharded placement of an MoE parameter tree;
+    not ported yet, so it raises."""
+    raise ValueError(_EXPERT_SHARDING)
 
 
 def collect_load_balance_loss(model: nn.Module) -> Optional[torch.Tensor]:

@@ -66,6 +66,8 @@ class FlashParams(ctypes.Structure):
         ("dq", ctypes.c_void_p),
         ("dk", ctypes.c_void_p),
         ("dv", ctypes.c_void_p),
+        ("acc", ctypes.c_void_p),
+        ("acc2", ctypes.c_void_p),
         ("q_sb", ctypes.c_int64), ("q_st", ctypes.c_int64), ("q_sh", ctypes.c_int64),
         ("k_sb", ctypes.c_int64), ("k_st", ctypes.c_int64), ("k_sh", ctypes.c_int64),
         ("v_sb", ctypes.c_int64), ("v_st", ctypes.c_int64), ("v_sh", ctypes.c_int64),

@@ -11,24 +11,28 @@ counts its launches, per body:
 * :data:`flash_bwd_dkv` — dK and dV for one K/V tile per block
   (``_flash_dkv_kernel``);
 * :data:`flash_bwd_rowterm` — the backward's pre-pass, ``dadj -
-  rowsum(dO * O)`` once per row, which the wgmma dQ and dK/dV bodies
-  read (part of their port, not a TPU kernel of its own).
+  rowsum(dO * O)`` once per row, which the wgmma and the wide dQ and
+  dK/dV bodies read (part of their port, not a TPU kernel of its own).
 
-All three kernels have two bodies: ``"wgmma"`` (tensor cores, TMA-fed,
-``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64 or 128,
-and ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and head
-dims 32 and 256, where wgmma has no float32-exact product or no body.
-The kernels take head dims 32, 64, 128 and 256; a call of another head
-dim up to 256 runs at the next of them (:func:`kernel_head_dim`), as the
-reference's ``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO)
+All three kernels have three bodies: ``"wgmma"`` (tensor cores,
+TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64
+or 128; ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and
+head dims 32 and 256, where wgmma has no float32-exact product or no
+body; and ``"cuda_core_wide"`` (the same file) for every multiple of 128
+above 256, which walks the head dim in 128-column chunks and keeps its
+running O, dQ, dK and dV rows in a float32 scratch the wrapper allocates,
+so no head dim is too large for it.  The kernels take head dims 32, 64,
+128, 256 and the multiples of 128 above; a call of another head dim runs
+at the next of them (:func:`kernel_head_dim`), as the reference's
+``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO)
 zero-padded, the scale the caller's (from the true D), O, dQ, dK and dV
 sliced back.  Zero columns leave Q.K^T, rowsum(dO * O) and the padded
 output columns exactly zero, so the kernels need no change.  The C++
 dispatcher picks the body by (dtype, D) alone; :func:`wgmma_body`
 mirrors it.  A bfloat16 view that TMA cannot read (base or a stride not
 a multiple of 16 bytes) raises instead of taking another body.  A
-layer's backward runs the pre-pass once and hands its result to both
-backward kernels.
+layer's backward on the wgmma or the wide body runs the pre-pass once
+and hands its result to both backward kernels.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs its plain version, which repeats the kernel's arithmetic
@@ -82,6 +86,7 @@ __all__ = [
     "plain_bwd_rowterm",
     "flash_bwd_rowterm",
     "wgmma_body",
+    "wide_body",
     "kernel_head_dim",
     "padded_fwd",
     "padded_bwd_dq",
@@ -96,6 +101,7 @@ __all__ = [
 
 _NEG_INF = -1e30  # large-but-finite, as the TPU kernels
 _HEAD_DIMS = (32, 64, 128, 256)
+_WIDE_CHUNK = 128  # the wide bodies' head-dim chunk (kWideChunk)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -184,15 +190,19 @@ def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels run a call of head dim ``D`` at: the
-    smallest of 32, 64, 128 and 256 that holds it.  Above 256 there is no
-    body yet."""
+    smallest of 32, 64, 128 and 256 that holds it, and above 256 the next
+    multiple of 128 (the wide bodies'), as the reference pads any head
+    dim to its 128 lanes."""
     for d in _HEAD_DIMS:
         if D <= d:
             return d
-    raise ValueError(
-        f"head dim {D} is above 256, the kernels' largest: a body for it is the open "
-        'item "flash attention for head dims above 256" of ROADMAP.md'
-    )
+    return -(-int(D) // _WIDE_CHUNK) * _WIDE_CHUNK
+
+
+def wide_body(head_dim: int) -> bool:
+    """Whether a kernel head dim runs the wide CUDA-core bodies (above
+    256; mirrors ``wide()`` in ``csrc/flash_attention.cu``)."""
+    return head_dim > 256
 
 
 def _pad(t: torch.Tensor, D: int) -> torch.Tensor:
@@ -274,7 +284,6 @@ def _check_qkv(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if q.device.type == "cuda":
-        kernel_head_dim(q.shape[-1])
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(-1) != 1:
                 raise ValueError(f"{name} must be unit-stride in the head dim")
@@ -361,9 +370,10 @@ class _Kernel:
 
 
 _TPU = "distributed_learning_tpu/ops/flash_attention.py"
-_FWD = _Kernel("flash_fwd", "dlt_flash_fwd", f"{_TPU}:118", ("wgmma", "cuda_core"))
-_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq", f"{_TPU}:178", ("wgmma", "cuda_core"))
-_DKV = _Kernel("flash_bwd_dkv", "dlt_flash_bwd_dkv", f"{_TPU}:234", ("wgmma", "cuda_core"))
+_BODIES = ("wgmma", "cuda_core", "cuda_core_wide")
+_FWD = _Kernel("flash_fwd", "dlt_flash_fwd", f"{_TPU}:118", _BODIES)
+_DQ = _Kernel("flash_bwd_dq", "dlt_flash_bwd_dq", f"{_TPU}:178", _BODIES)
+_DKV = _Kernel("flash_bwd_dkv", "dlt_flash_bwd_dkv", f"{_TPU}:234", _BODIES)
 # Part of B's and C's port: the delta that _flash_dkv_kernel computes per
 # block (:261), as _flash_dq_kernel does (:212), hoisted out of both
 # backward kernels' loops.
@@ -378,7 +388,20 @@ def reset_launch_counts() -> None:
 
 def _body(q) -> str:
     """The body a call on ``q`` runs, at the kernels' head dim."""
-    return "wgmma" if wgmma_body(q.dtype, kernel_head_dim(q.shape[-1])) else "cuda_core"
+    D = kernel_head_dim(q.shape[-1])
+    if wgmma_body(q.dtype, D):
+        return "wgmma"
+    return "cuda_core_wide" if wide_body(D) else "cuda_core"
+
+
+def _scratch(q, n: int):
+    """The wide bodies' float32 (B, H, T, D) scratch, ``n`` of them (None
+    each for another body)."""
+    if _body(q) != "cuda_core_wide":
+        return (None,) * n
+    B, T, H, D = q.shape
+    return tuple(torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
+                 for _ in range(n))
 
 
 def live_pairs(B: int, H: int, Tq: int, Tk: int, causal: bool, window: Optional[int]) -> int:
@@ -421,7 +444,8 @@ def _launch_fwd(q, k, v, scale, causal, window, with_lse):
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _FWD.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse), q.device, body)
+    acc, = _scratch(q, 1)
+    _FWD.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, acc=acc), q.device, body)
     return o, lse
 
 
@@ -442,11 +466,13 @@ def _bwd_inputs(q, o, do, lse, dadj, rowterm):
 
 def _bwd_rowterm(q, k, v, o, do, dadj, rowterm):
     """The row term a backward kernel reads: on the wgmma body (after the
-    TMA rule) the pre-pass's result, run here unless the caller passes it;
-    on the CUDA-core body None, which computes its own."""
-    if _body(q) != "wgmma":
+    TMA rule) and the wide body the pre-pass's result, run here unless the
+    caller passes it; on the CUDA-core body None, which computes its own."""
+    body = _body(q)
+    if body == "cuda_core":
         return None
-    _check_tma(q=q, k=k, v=v, do=do)
+    if body == "wgmma":
+        _check_tma(q=q, k=k, v=v, do=do)
     return flash_bwd_rowterm(o, do, dadj) if rowterm is None else rowterm
 
 
@@ -463,8 +489,9 @@ def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None)
 def _launch_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    acc, = _scratch(q, 1)
     _DQ.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                       dadj=dadj, rowterm=rowterm, dq=dq), q.device, _body(q))
+                       dadj=dadj, rowterm=rowterm, dq=dq, acc=acc), q.device, _body(q))
     return dq
 
 
@@ -497,8 +524,8 @@ def _launch_rowterm(o, do, dadj):
 def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None):
     """Backward kernel C: ``(dK, dV)``.  ``dadj`` may be None.  The
     wgmma body reads its row term from the pre-pass, run here unless the
-    caller passes its result as ``rowterm``; the CUDA-core body computes
-    it in the kernel."""
+    caller passes its result as ``rowterm``; the wide body reads it too,
+    and the CUDA-core body computes it in the kernel."""
     _check_qkv(q, k, v)
     o, do, lse, dadj, rowterm = _bwd_inputs(q, o, do, lse, dadj, rowterm)
     if q.device.type == "cpu":
@@ -510,8 +537,10 @@ def _launch_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    acc, acc2 = _scratch(q, 2)
     _DKV.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                        dadj=dadj, rowterm=rowterm, dk=dk, dv=dv), q.device, _body(q))
+                        dadj=dadj, rowterm=rowterm, dk=dk, dv=dv, acc=acc, acc2=acc2),
+                q.device, _body(q))
     return dk, dv
 
 
@@ -521,7 +550,7 @@ def _layer_backward(q, k, v, o, do, lse, dadj, scale, causal, window):
     backward kernels read its row term."""
     with counted_as(_flops(q, causal, window, 10)):
         rowterm = None
-        if q.device.type == "cpu" or _body(q) == "wgmma":
+        if q.device.type == "cpu" or _body(q) != "cuda_core":
             rowterm = flash_bwd_rowterm(o, do, dadj)
         dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
         dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window,

@@ -1,7 +1,8 @@
 """Topology, fastest-mixing weights, mixing-matrix checks and schedules,
-the dense consensus engine (plain, pairwise, weighted, async and
-Byzantine-robust rounds, the ``Mixer`` surface), CHOCO compressed gossip,
-push-sum, gradient tracking and EXTRA."""
+the consensus engine (dense: plain, pairwise, weighted, async and
+Byzantine-robust rounds, the ``Mixer`` surface; sharded on
+``torch.distributed`` with ``mesh=``, one agent a rank, ``multihost``),
+CHOCO compressed gossip, push-sum, gradient tracking and EXTRA."""
 
 from distributed_learning_tpu_torch.parallel.compression import (
     ChocoGossipEngine,

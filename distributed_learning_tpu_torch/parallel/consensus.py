@@ -38,8 +38,24 @@ Also here: randomized pairwise gossip (:meth:`ConsensusEngine.mix_pairwise`,
 one edge per round, the literal model), the weighted consensus round
 (:meth:`ConsensusEngine.run_round`), :meth:`ConsensusEngine.max_std`, and
 :class:`Mixer`, the reference's synchronous mixer surface over per-agent
-parameter dicts.  The sharded ``torch.distributed`` route is not ported
-yet (ROADMAP.md).
+parameter dicts.
+
+Sharded route (``ConsensusEngine(W, mesh=)``, ``mesh`` a
+:class:`~distributed_learning_tpu_torch.parallel.multihost.AgentMesh`):
+one agent a rank, each rank holding its agent as a stack of one
+(:meth:`ConsensusEngine.shard`).  A round is this rank's self term plus
+one exchange per matching of :class:`MatchingSchedule` (a send/recv pair
+with the partner; an unmatched rank sends nothing); a per-call matrix
+relays over the agent ring with ``k``-hop relays in both directions
+(:func:`local_ring_mix`) or gathers every agent and contracts with this
+rank's row of ``W`` (``route``, as the reference's ``_route_for``); the
+residual is an ``all_reduce(MAX)`` of each rank's deviation from the
+all-reduced mean, the exact average one ``all_reduce(SUM)``.  Each
+exchange moves the fused ``{dtype: (1, P)}`` buckets, one message a
+bucket.  The same in-place and copy methods serve both routes; the
+sharded ``consensus.bytes_mixed`` counts the bytes this rank sent.  The
+async, robust and CHOCO rounds have no sharded route yet (ROADMAP.md,
+"3b. Sharded async, robust and CHOCO gossip").
 
 Every mix route carries the reference's obs hooks, host-side only (no
 device read): a ``consensus.<route>`` span on the default tracer; the
@@ -56,6 +72,7 @@ an eager one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Hashable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,14 +82,24 @@ from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.obs.registry import get_registry
 from distributed_learning_tpu_torch.obs.spans import get_tracer
 from distributed_learning_tpu_torch.ops import mixing as ops
+from distributed_learning_tpu_torch.parallel.multihost import AgentMesh
 from distributed_learning_tpu_torch.parallel.schedule import (
+    MatchingSchedule,
     chebyshev_omegas,
     validate_mixing_matrix,
 )
 from distributed_learning_tpu_torch.parallel.topology import Topology
 from distributed_learning_tpu_torch.parallel.topology import gamma as exact_gamma
 
-__all__ = ["AsyncGossipState", "ConsensusEngine", "Mixer"]
+__all__ = [
+    "AsyncGossipState",
+    "ConsensusEngine",
+    "Mixer",
+    "make_agent_mesh",
+    "ring_offset_weights",
+    "local_ring_mix",
+    "local_sq_deviation",
+]
 
 Stacked = Dict[str, torch.Tensor]
 Spare = Sequence[Stacked]
@@ -94,6 +121,121 @@ class AsyncGossipState(NamedTuple):
     rnd: torch.Tensor  # () int32
 
 
+_UNSHARDED = ('has no sharded route yet: ROADMAP.md item "3b. Sharded async, robust '
+              'and CHOCO gossip"')
+
+
+def make_agent_mesh(n: int, *, device=None, axis_name: str = "agents") -> AgentMesh:
+    """The agent mesh of ``n`` agents over the process group, agent ``i``
+    on rank ``i`` (the group must have ``n`` ranks: one agent a rank).
+    ``device`` is this rank's; ``None`` is the card (and raises without
+    one), so a CPU rank asks for ``"cpu"``."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_agent_mesh needs the process group: call "
+                           "parallel.multihost.initialize first")
+    if dist.get_world_size() != n:
+        raise ValueError(f"need {n} ranks for {n} agents, the group has "
+                         f"{dist.get_world_size()}")
+    return AgentMesh(range(n), resolve_device(device), axis_name=axis_name)
+
+
+def ring_offset_weights(W: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Decompose a mixing matrix's off-diagonal onto signed ring offsets.
+
+    Returns ``(self_w, w_fwd, w_bwd, k_hops)``: ``w_fwd[i, k-1]`` weights
+    agent ``(i-k) % n`` (reached by ``k`` forward relay hops on the agent
+    ring) and ``w_bwd[i, k-1]`` weights ``(i+k) % n``; ``k_hops`` is the
+    largest offset carrying any weight, the relays a routed round needs.
+    For ``n`` even the antipodal offset ``n/2`` is reachable both ways and
+    is counted once (forward).  Any square matrix decomposes (directed
+    push-sum matrices too).  The reference's numpy, unchanged."""
+    W = np.asarray(W)
+    n = W.shape[0]
+    k_cap = n // 2
+    w_fwd = np.zeros((n, max(k_cap, 1)), np.float32)
+    w_bwd = np.zeros((n, max(k_cap, 1)), np.float32)
+    i = np.arange(n)
+    for k in range(1, k_cap + 1):
+        w_fwd[:, k - 1] = W[i, (i - k) % n]
+        if not (n % 2 == 0 and k == n // 2):
+            w_bwd[:, k - 1] = W[i, (i + k) % n]
+    k_hops = 0
+    for k in range(k_cap, 0, -1):
+        if w_fwd[:, k - 1].any() or w_bwd[:, k - 1].any():
+            k_hops = k
+            break
+    return np.diag(W).astype(np.float32), w_fwd, w_bwd, k_hops
+
+
+def _f32(w) -> float:
+    """A weight as the float32 value the reference's arrays hold."""
+    return float(np.float32(w))
+
+
+def _scaled(v: torch.Tensor, w: float) -> torch.Tensor:
+    """``v * w`` in float32, stored in ``v``'s dtype (the reference's
+    ``scale``)."""
+    if v.dtype == torch.float32:
+        return v * w
+    return (v.float() * w).to(v.dtype)
+
+
+def local_ring_mix(x: Stacked, self_w: float, w_fwd: Sequence[float], w_bwd: Sequence[float],
+                   k_hops: int, *, mesh: AgentMesh, use_fwd: bool = True, use_bwd: bool = True,
+                   out: Optional[Stacked] = None) -> Stacked:
+    """One gossip round under per-offset weights, routed over the agent
+    ring with ``k_hops`` relays: each hop passes the value one step in
+    both ring directions (one exchange per hop, a message per bucket and
+    direction) and adds that offset's weighted term, in float32 whatever
+    the storage dtype, cast back once at the end.  ``self_w`` and the
+    ``w_fwd`` / ``w_bwd`` rows are this rank's (:func:`ring_offset_weights`);
+    a direction whose weights are zero on every agent (``use_fwd`` /
+    ``use_bwd``, the same on every rank) is skipped, so a one-way push-sum
+    ring moves ``k_hops`` messages a bucket, not ``2 k_hops``.  Writes
+    ``out`` (or fresh tensors) and returns it."""
+    n, a = mesh.size, mesh.agent
+    nxt, prv = (a + 1) % n, (a - 1) % n
+    acc = {k: v.float() * _f32(self_w) for k, v in x.items()}
+    fwd, bwd = x, x
+    for hop in range(int(k_hops)):
+        sends, recvs = [], []
+        nf = {k: torch.empty_like(v) for k, v in x.items()} if use_fwd else fwd
+        nb = {k: torch.empty_like(v) for k, v in x.items()} if use_bwd else bwd
+        if use_fwd:
+            sends += [(nxt, fwd[k]) for k in x]
+            recvs += [(prv, nf[k]) for k in x]
+        if use_bwd:
+            sends += [(prv, bwd[k]) for k in x]
+            recvs += [(nxt, nb[k]) for k in x]
+        mesh.exchange(sends, recvs)
+        fwd, bwd = nf, nb
+        for k in x:
+            if use_fwd:
+                acc[k] += fwd[k].float() * _f32(w_fwd[hop])
+            if use_bwd:
+                acc[k] += bwd[k].float() * _f32(w_bwd[hop])
+    if out is None:
+        return {k: acc[k].to(v.dtype) for k, v in x.items()}
+    for k, v in out.items():
+        v.copy_(acc[k])
+    return out
+
+
+def local_sq_deviation(x: Stacked, mesh: AgentMesh) -> torch.Tensor:
+    """This rank's squared L2 distance from the agents' mean vector (a
+    0-dim float32 tensor): the mean is an ``all_reduce(SUM)`` over the
+    agents divided by n, one per bucket."""
+    total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for v in x.values():
+        lf = v.float()
+        mean = mesh.all_reduce(lf.clone(), "sum") / mesh.size
+        d = lf - mean
+        total = total + (d * d).sum()
+    return total
+
+
 def _cheby_step(wx: torch.Tensor, prev: torch.Tensor, omega: torch.Tensor) -> None:
     """``wx <- omega (wx - prev) + prev`` in place, in float32 whatever
     the storage dtype (the reference's order of operations)."""
@@ -109,17 +251,147 @@ class ConsensusEngine:
 
     ``W`` is the (n, n) symmetric row-stochastic mixing matrix; the state
     passed to each method is a ``{name: (n, ...)}`` dict on ``device``
-    (the card unless ``device="cpu"`` is asked for).
+    (the card unless ``device="cpu"`` is asked for).  With ``mesh`` (an
+    :class:`AgentMesh` of n ranks) the rounds run sharded, and the state
+    is this rank's agent as a ``{name: (1, ...)}`` stack of one
+    (:meth:`shard`) on the mesh's device.
     """
 
-    def __init__(self, W: np.ndarray, *, device=None):
+    def __init__(self, W: np.ndarray, *, mesh: Optional[AgentMesh] = None, device=None):
         self.W = validate_mixing_matrix(W)
         self.n = self.W.shape[0]
         self.gamma = exact_gamma(self.W)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.schedule = MatchingSchedule.from_matrix(self.W)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if mesh.size != self.n:
+                raise ValueError(f"mesh axis {mesh.axis_name!r} has size {mesh.size}, need "
+                                 f"{self.n} (one rank per agent)")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            self.device = mesh.device
+            a = mesh.agent
+            # This rank's weights: its self weight, and per matching its
+            # partner (None: unmatched) and the partner's weight.
+            self._sw = _f32(self.schedule.self_weights[a])
+            self._partners = [next((j if i == a else i for i, j in m if a in (i, j)), None)
+                              for m in self.schedule.matchings]
+            self._mw = [_f32(self.schedule.weights[r, a]) for r in range(len(self._partners))]
+            self._recv: Dict[str, torch.Tensor] = {}
         self._W_dev = torch.as_tensor(self.W, dtype=torch.float32, device=self.device)
         self._periods_dev: Dict[Tuple[int, ...], torch.Tensor] = {}
         self._edges_dev: Optional[torch.Tensor] = None
+
+    def _unsharded(self, route: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{route} {_UNSHARDED}")
+
+    # -- the sharded route's building blocks ----------------------------- #
+    def shard(self, stacked):
+        """This rank's agent of a stacked ``(n, ...)`` tensor or dict, as a
+        stack of one on the engine's device (a copy); without a mesh the
+        state on the device."""
+        def one(v):
+            v = torch.as_tensor(v)
+            if self.mesh is None:
+                return v.to(self.device)
+            if v.shape[0] != self.n:
+                raise ValueError(f"shard takes the stacked (n={self.n}, ...) state, got "
+                                 f"{tuple(v.shape)}")
+            a = self.mesh.agent
+            return v[a:a + 1].to(self.device, copy=True).contiguous()
+
+        return {k: one(v) for k, v in stacked.items()} if isinstance(stacked, dict) else one(
+            stacked)
+
+    def _recv_like(self, key: str, v: torch.Tensor) -> torch.Tensor:
+        buf = self._recv.get(key)
+        if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+            buf = self._recv[key] = torch.empty_like(v, memory_format=torch.contiguous_format)
+        return buf
+
+    def _local_mix_once(self, x: Stacked, out: Stacked) -> Stacked:
+        """One gossip round on this rank's stack: the self term, then one
+        exchange per matching with this rank's partner (every bucket
+        sent, every bucket received), each term scaled in float32 and
+        summed in the storage dtype, as the reference's ``_local_mix_once``."""
+        for k, v in x.items():
+            out[k].copy_(_scaled(v, self._sw))
+        for p, w in zip(self._partners, self._mw):
+            if p is None:  # unmatched in this matching: nothing to send
+                continue
+            recv = {k: self._recv_like(k, v) for k, v in x.items()}
+            self.mesh.exchange([(p, v) for v in x.values()], [(p, r) for r in recv.values()])
+            for k, r in recv.items():
+                out[k].add_(_scaled(r, w))
+        return out
+
+    def _local_allgather_mix(self, x: Stacked, W_row: torch.Tensor, out: Stacked) -> Stacked:
+        """One round against a per-call row of W: gather every agent's
+        buckets and contract with this rank's row, in float32."""
+        for k, v in x.items():
+            ag = self.mesh.all_gather(v[0].contiguous()).float().reshape(self.n, -1)
+            out[k].copy_(torch.matmul(W_row[None], ag).reshape(v.shape))
+        return out
+
+    def _local_residual(self, x: Stacked) -> torch.Tensor:
+        """The sharded residual: this rank's deviation, ``all_reduce(MAX)``
+        over the agents (a 0-dim float32 tensor, the same on every rank)."""
+        dev = torch.sqrt(local_sq_deviation(x, self.mesh)).reshape(1)
+        return self.mesh.all_reduce(dev, "max")[0]
+
+    def _local_global_avg(self, x: Stacked) -> None:
+        """Every agent's buckets replaced by the float32 mean over the
+        agents: one ``all_reduce(SUM)`` a bucket, divided by n."""
+        for v in x.values():
+            mean = self.mesh.all_reduce(v.float().clone(), "sum") / self.n
+            v.copy_(mean)
+
+    def _host_matrix(self, W) -> np.ndarray:
+        if isinstance(W, torch.Tensor):
+            W = W.detach().cpu().numpy()
+        W = np.asarray(W, dtype=np.float32)
+        if W.shape != (self.n, self.n):
+            raise ValueError(f"W must have shape ({self.n}, {self.n}), got {W.shape}")
+        return W
+
+    def _route_for(self, W: np.ndarray, route: str) -> Tuple[str, tuple]:
+        """The sharded strategy for a per-call matrix: ``"ring"`` relays
+        over the agent ring (``2 k_hops`` messages a bucket and round),
+        ``"allgather"`` gathers every agent (``n - 1``); ``"auto"`` picks
+        the ring exactly when it moves less.  Returns the choice and the
+        ring decomposition."""
+        if route not in ("auto", "ring", "allgather"):
+            raise ValueError(f"unknown route {route!r}")
+        self_w, w_fwd, w_bwd, k_hops = ring_offset_weights(W)
+        if route == "auto":
+            route = "ring" if 2 * k_hops < self.n - 1 else "allgather"
+        return route, (self_w, w_fwd, w_bwd, k_hops)
+
+    def _step_for(self, W=None, route: str = "auto") -> Step:
+        """One round ``(state, out) -> out`` against ``W`` (``None``: the
+        engine's own): the dense GEMM, or on a mesh the matchings (own
+        ``W``), the ring relay or the gathered row (a per-call ``W``)."""
+        if self.mesh is None:
+            if route not in ("auto", "ring", "allgather"):
+                raise ValueError(f"unknown route {route!r}")
+            return self._plain(self._matrix(W))
+        if W is None:
+            return self._local_mix_once
+        Wh = self._host_matrix(W)
+        route, (sw, wf, wb, k) = self._route_for(Wh, route)
+        a = self.mesh.agent
+        if route == "allgather":
+            row = torch.as_tensor(Wh[a], dtype=torch.float32, device=self.device)
+            return lambda x, out: self._local_allgather_mix(x, row, out)
+        use_fwd, use_bwd = bool(wf.any()), bool(wb.any())
+        return lambda x, out: local_ring_mix(x, sw[a], wf[a], wb[a], k, mesh=self.mesh,
+                                             use_fwd=use_fwd, use_bwd=use_bwd, out=out)
+
+    def _residual(self, state: Stacked) -> torch.Tensor:
+        return ops.max_deviation(state) if self.mesh is None else self._local_residual(state)
 
     # -- obs hooks (host-side only) -------------------------------------- #
     def _note_layout(self, buffers: Stacked, rounds: Optional[int] = None,
@@ -138,13 +410,24 @@ class ConsensusEngine:
     def _count_rounds(times: int) -> None:
         get_registry().inc("consensus.rounds_run", int(times))
 
+    @contextlib.contextmanager
     def _hooks(self, route: str, buffers: Stacked, rounds: Optional[int],
                layout: Optional[ops.FusedLayout]):
-        """Round and layout accounting for a fixed-count route, then its span."""
+        """Round and layout accounting for a fixed-count route, then its
+        span; on a mesh ``consensus.bytes_mixed`` adds the bytes this rank
+        sent inside it."""
         if rounds is not None:
             self._count_rounds(rounds)
-        self._note_layout(buffers, rounds, layout)
-        return get_tracer().span(f"consensus.{route}")
+        if self.mesh is None:
+            self._note_layout(buffers, rounds, layout)
+            with get_tracer().span(f"consensus.{route}"):
+                yield
+            return
+        self._note_layout(buffers, None, layout)
+        sent = self.mesh.clock.bytes_sent
+        with get_tracer().span(f"consensus.{route}"):
+            yield
+        get_registry().inc("consensus.bytes_mixed", self.mesh.clock.bytes_sent - sent)
 
     # ------------------------------------------------------------------ #
     def spare_for(self, buffers: Stacked, sets: int = 2) -> Tuple[Stacked, ...]:
@@ -197,21 +480,22 @@ class ConsensusEngine:
              layout: Optional[ops.FusedLayout] = None) -> None:
         """Run exactly ``times`` gossip rounds in place on fused buffers."""
         with self._hooks("mix", buffers, times, layout):
-            self._rounds(buffers, lambda t, _: t < times, self._plain(self._W_dev), spare)
+            self._rounds(buffers, lambda t, _: t < times, self._step_for(), spare)
 
     def mix_with_(self, buffers: Stacked, W, times: int = 1, *,
                   spare: Optional[Spare] = None,
-                  layout: Optional[ops.FusedLayout] = None) -> None:
+                  layout: Optional[ops.FusedLayout] = None, route: str = "auto") -> None:
         """``times`` rounds in place against the per-call matrix ``W``
         (the reference's traced-W ``mix_with``: a time-varying graph
         costs an (n, n) copy, nothing more); ``W=None`` is the engine's
-        own matrix, :meth:`mix_`."""
+        own matrix, :meth:`mix_`.  On a mesh ``route`` picks the ring
+        relay or the gathered row (``"auto"``: whichever moves less)."""
         with self._hooks("mix" if W is None else "mix_with", buffers, times, layout):
-            self._rounds(buffers, lambda t, _: t < times, self._plain(self._matrix(W)), spare)
+            self._rounds(buffers, lambda t, _: t < times, self._step_for(W, route), spare)
 
     def mix_chebyshev_(self, buffers: Stacked, times: Optional[int] = None, *, W=None,
                        omegas=None, spare: Optional[Spare] = None,
-                       layout: Optional[ops.FusedLayout] = None) -> None:
+                       layout: Optional[ops.FusedLayout] = None, route: str = "auto") -> None:
         """Chebyshev-accelerated gossip in place:
         ``x_{k+1} = omega_{k+1} (W x_k - x_{k-1}) + x_{k-1}``, the first
         round plain.  ``omegas`` (one per round; a device tensor keeps
@@ -231,11 +515,11 @@ class ConsensusEngine:
                          buffers, k, layout):
             if k == 0:
                 return
-            Wd = self._matrix(W)
+            step = self._step_for(W, route)
             one, two = spare if spare is not None else self.spare_for(buffers, 2)
-            prev, cur, free = buffers, ops.dense_mix(buffers, Wd, out=one), two
+            prev, cur, free = buffers, step(buffers, one), two
             for r in range(1, k):
-                nxt = ops.dense_mix(cur, Wd, out=free)
+                nxt = step(cur, free)
                 for key, x in nxt.items():
                     _cheby_step(x, prev[key], omegas[r])
                 prev, cur, free = cur, nxt, prev
@@ -248,23 +532,27 @@ class ConsensusEngine:
         """Exact averaging in place: every agent gets the float32 mean
         over agents (the Gossip-PGA epoch, ``gamma = 0``)."""
         get_registry().inc("consensus.global_averages")
+        if self.mesh is not None:
+            with self._hooks("global_average", buffers, None, layout):
+                self._local_global_avg(buffers)
+            return
         self._note_layout(buffers, 1, layout)
         with get_tracer().span("consensus.global_average"):
             ops.global_average(buffers, out=buffers)
 
     # -- eps-stopping: one residual read per round ---------------------- #
-    def _until(self, route, buffers, W, eps, min_times, max_rounds, spare,
+    def _until(self, route, buffers, step, eps, min_times, max_rounds, spare,
                layout) -> Tuple[int, float]:
         res = 0.0
 
         def more(t, state):
             nonlocal res
-            res = float(ops.max_deviation(state))
+            res = float(self._residual(state))
             return t < min_times or (res >= eps and t < max_rounds)
 
         get_registry().inc("consensus.mix_until.calls")
         with self._hooks(route, buffers, None, layout):
-            return self._rounds(buffers, more, self._plain(W), spare), res
+            return self._rounds(buffers, more, step, spare), res
 
     def mix_until_(
         self,
@@ -284,7 +572,7 @@ class ConsensusEngine:
         stopping needs.  Like the reference's, it counts a call
         (``consensus.mix_until.calls``), not rounds: its caller knows them.
         """
-        return self._until("mix_until", buffers, self._W_dev, eps, min_times, max_rounds,
+        return self._until("mix_until", buffers, self._step_for(), eps, min_times, max_rounds,
                            spare, layout)
 
     def mix_until_with_(
@@ -297,10 +585,12 @@ class ConsensusEngine:
         max_rounds: int = 10_000,
         spare: Optional[Spare] = None,
         layout: Optional[ops.FusedLayout] = None,
+        route: str = "auto",
     ) -> Tuple[int, float]:
-        """:meth:`mix_until_` against the per-call matrix ``W``."""
+        """:meth:`mix_until_` against the per-call matrix ``W`` (on a mesh
+        routed as :meth:`mix_with_`)."""
         return self._until("mix_until" if W is None else "mix_until_with", buffers,
-                           self._matrix(W), eps, min_times, max_rounds, spare, layout)
+                           self._step_for(W, route), eps, min_times, max_rounds, spare, layout)
 
     # -- asynchronous (stale-weighted) gossip ----------------------------- #
     def _normalize_periods(self, periods) -> Tuple[int, ...]:
@@ -371,6 +661,7 @@ class ConsensusEngine:
         an int or a 0-dim int32 device tensor (one captured graph then
         serves every epoch's bound).  ``tau=0`` with every period 1 is
         bitwise :meth:`mix_`.  Reads nothing back to the host."""
+        self._unsharded("mix_async")
         round_once = self._async_round_body(self._periods_tensor(periods))
         with self._hooks("mix_async", buffers, times, layout):
             self._rounds(buffers, lambda t, _: t < times,
@@ -387,6 +678,7 @@ class ConsensusEngine:
         are bitwise :meth:`mix_`)."""
         from distributed_learning_tpu_torch.parallel import robust
 
+        self._unsharded("mix_robust")
         with self._hooks("mix_robust", buffers, times, layout):
             robust.robust_mix_times_program(self, spec)(buffers, times, mass, spare)
         get_registry().inc("consensus.robust.rounds", int(times))
@@ -401,6 +693,7 @@ class ConsensusEngine:
         to ``mass``.  At the neutral knobs bitwise :meth:`mix_async_`."""
         from distributed_learning_tpu_torch.parallel import robust
 
+        self._unsharded("mix_async_robust")
         with self._hooks("mix_async_robust", buffers, times, layout):
             robust.robust_async_gossip_times_program(self, spec, periods=periods)(
                 buffers, state, times, tau, mass, spare)
@@ -425,6 +718,34 @@ class ConsensusEngine:
         t, res = self.mix_until_(buffers, eps=eps, min_times=min_times, max_rounds=max_rounds,
                                  layout=layout)
         return ops.unflatten_stacked(buffers, layout), t, res
+
+    def mix_with(self, stacked: Stacked, W, times: int = 1, *, route: str = "auto") -> Stacked:
+        """:meth:`mix_with_` on a copy."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        self.mix_with_(buffers, W, times, layout=layout, route=route)
+        return ops.unflatten_stacked(buffers, layout)
+
+    def mix_until_with(self, stacked: Stacked, W, *, eps: float, min_times: int = 0,
+                       max_rounds: int = 10_000,
+                       route: str = "auto") -> Tuple[Stacked, int, float]:
+        """:meth:`mix_until_with_` on a copy: ``(state, rounds_done, residual)``."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        t, res = self.mix_until_with_(buffers, W, eps=eps, min_times=min_times,
+                                      max_rounds=max_rounds, layout=layout, route=route)
+        return ops.unflatten_stacked(buffers, layout), t, res
+
+    def mix_chebyshev(self, stacked: Stacked, times: Optional[int] = None, *, W=None,
+                      omegas=None, route: str = "auto") -> Stacked:
+        """:meth:`mix_chebyshev_` on a copy."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        self.mix_chebyshev_(buffers, times, W=W, omegas=omegas, layout=layout, route=route)
+        return ops.unflatten_stacked(buffers, layout)
+
+    def global_average(self, stacked: Stacked) -> Stacked:
+        """:meth:`global_average_` on a copy."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        self.global_average_(buffers, layout=layout)
+        return ops.unflatten_stacked(buffers, layout)
 
     def _fused_carry(self, state: Optional[AsyncGossipState], stacked: Stacked,
                      layout) -> AsyncGossipState:
@@ -483,8 +804,14 @@ class ConsensusEngine:
         total = float(w.sum())
         if not np.isfinite(total) or total <= 0.0:
             raise ValueError(f"agent weights must sum to a positive finite value, got {total}")
-        mixed, _, _ = self.mix_until(ops.weighted_lift(stacked, w), eps=convergence_eps,
-                                     min_times=1, max_rounds=max_rounds)
+        if self.mesh is None:
+            lifted = ops.weighted_lift(stacked, w)
+        else:  # this rank's row of the lift
+            a = self.mesh.agent
+            scale = (w / w.mean())[a:a + 1]
+            lifted = {k: x * ops._agent_axis(scale, x).to(x.dtype) for k, x in stacked.items()}
+        mixed, _, _ = self.mix_until(lifted, eps=convergence_eps, min_times=1,
+                                     max_rounds=max_rounds)
         return mixed
 
     def pairwise_edges(self) -> np.ndarray:
@@ -501,13 +828,27 @@ class ConsensusEngine:
         ``x_i, x_j <- (x_i + x_j) / 2``.  The mean is kept exactly every
         round.  The draws are made up front on the generator's device
         (``torch.Generator`` cannot replay the reference's ``jax.random``
-        stream; :meth:`mix_pairwise_edges` takes fed draws)."""
+        stream; :meth:`mix_pairwise_edges` takes fed draws).  On a mesh
+        each round draws one of :meth:`random_maximal_matchings` instead and
+        all its pairs average at once; agent 0's draws are broadcast, so
+        every rank runs the same matchings."""
         n_edges = len(self.pairwise_edges())
         if n_edges == 0:
             return stacked
+        if self.mesh is not None:
+            pool = self.random_maximal_matchings()
+            draws = torch.randint(0, len(pool), (int(rounds),), generator=generator,
+                                  device=generator.device).to(self.device)
+            return self.mix_pairwise_matchings(stacked, self.mesh.broadcast(draws))
         draws = torch.randint(0, n_edges, (int(rounds),), generator=generator,
                               device=generator.device)
         return self.mix_pairwise_edges(stacked, draws)
+
+    def mix_pairwise_matchings(self, stacked: Stacked, draws) -> Stacked:
+        """:meth:`pairwise_matchings_` on a copy of ``stacked``."""
+        buffers, layout = ops.flatten_stacked(stacked)
+        self.pairwise_matchings_(buffers, draws, layout=layout)
+        return ops.unflatten_stacked(buffers, layout)
 
     def mix_pairwise_edges(self, stacked: Stacked, draws) -> Stacked:
         """Pairwise gossip with the per-round edge indices ``draws`` (into
@@ -526,6 +867,10 @@ class ConsensusEngine:
         if self._edges_dev is None:
             self._edges_dev = torch.as_tensor(self.pairwise_edges(), dtype=torch.int64,
                                               device=self.device)
+        if self.mesh is not None:
+            raise ValueError("one edge a round is the dense model; on a mesh every matched "
+                             "pair of a random maximal matching averages "
+                             "(mix_pairwise, pairwise_matchings_)")
         draws = torch.as_tensor(draws, dtype=torch.int64).to(self.device)
         with self._hooks("mix_pairwise", buffers, draws.shape[0], layout):
             pairs = self._edges_dev.index_select(0, draws)
@@ -536,22 +881,91 @@ class ConsensusEngine:
                     avg = ((rows[0] + rows[1]) * 0.5).to(x.dtype)
                     x.index_copy_(0, ij, avg.expand(2, *avg.shape))
 
+    def random_maximal_matchings(self) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+        """The pool of random maximal matchings sharded pairwise gossip
+        draws from, the reference's exactly: greedy completions of edge
+        orders from ``np.random.default_rng(0x5EED)``, one order seeded by
+        each edge (so every edge is in some matching) and eight fully
+        random ones, deduplicated in first-seen order."""
+        cached = getattr(self, "_pairwise_matchings", None)
+        if cached is not None:
+            return cached
+        rng = np.random.default_rng(0x5EED)
+        E = [(int(i), int(j)) for i, j in self.pairwise_edges()]
+
+        def greedy(order):
+            used, M = set(), []
+            for (i, j) in order:
+                if i not in used and j not in used:
+                    M.append((i, j))
+                    used.update((i, j))
+            return tuple(sorted(M))
+
+        pool: Dict[Tuple, None] = {}
+        for k, e in enumerate(E):
+            rest = E[:k] + E[k + 1:]
+            rng.shuffle(rest)
+            pool.setdefault(greedy([e] + rest), None)
+        for _ in range(8):
+            order = list(E)
+            rng.shuffle(order)
+            pool.setdefault(greedy(order), None)
+        self._pairwise_matchings = tuple(pool.keys())
+        return self._pairwise_matchings
+
+    def pairwise_matchings_(self, buffers: Stacked, draws, *,
+                            layout: Optional[ops.FusedLayout] = None) -> None:
+        """Sharded pairwise gossip in place (the reference's
+        ``_mix_pairwise_sharded``): round ``r`` takes matching
+        ``draws[r]`` of :meth:`random_maximal_matchings`; a matched rank
+        exchanges its buckets with its partner and both keep
+        ``(1 - 0.5) x + 0.5 x_partner`` in float32, an unmatched rank keeps
+        its value.  The draws must be the same on every rank."""
+        if self.mesh is None:
+            raise ValueError("pairwise_matchings_ is the sharded route; the dense one is "
+                             "pairwise_ (one edge a round)")
+        pool = self.random_maximal_matchings()
+        draws = [int(d) for d in torch.as_tensor(draws).reshape(-1).tolist()]
+        a = self.mesh.agent
+        with self._hooks("mix_pairwise", buffers, len(draws), layout):
+            for d in draws:
+                p = next((j if i == a else i for i, j in pool[d] if a in (i, j)), None)
+                if p is None:
+                    continue
+                recv = {k: self._recv_like(k, v) for k, v in buffers.items()}
+                self.mesh.exchange([(p, v) for v in buffers.values()],
+                                   [(p, r) for r in recv.values()])
+                for k, v in buffers.items():
+                    v.copy_(0.5 * v.float() + 0.5 * recv[k].float())
+
     def deviations(self, stacked: Stacked) -> torch.Tensor:
-        """(n,) per-agent L2 distance from the mean parameter vector."""
-        return ops.agent_deviations(stacked)
+        """(n,) per-agent L2 distance from the mean parameter vector (on a
+        mesh gathered from every rank)."""
+        if self.mesh is None:
+            return ops.agent_deviations(stacked)
+        return self.mesh.all_gather(torch.sqrt(local_sq_deviation(stacked, self.mesh)))
 
     def max_deviation(self, stacked: Stacked) -> torch.Tensor:
-        return ops.max_deviation(stacked)
+        return self._residual(stacked)
 
     def max_std(self, stacked: Stacked) -> torch.Tensor:
         """Max across-agent parameter std (population std), a 0-dim device
-        tensor."""
-        return ops.max_std(stacked)
+        tensor (on a mesh the same on every rank)."""
+        if self.mesh is None:
+            return ops.max_std(stacked)
+        m = torch.zeros((), dtype=torch.float32, device=self.device)
+        for v in stacked.values():
+            lf = v.float()
+            mean = self.mesh.all_reduce(lf.clone(), "sum") / self.n
+            var = self.mesh.all_reduce((lf - mean) ** 2, "sum") / self.n
+            m = torch.maximum(m, torch.sqrt(var).max())
+        return m
 
     def max_deviation_(self, stacked: Stacked, out: torch.Tensor) -> None:
         """The residual written into the 0-dim device tensor ``out``, with
-        no host read: what a captured gossip program reports."""
-        out.copy_(ops.max_deviation(stacked))
+        no host read on the dense route: what a captured gossip program
+        reports."""
+        out.copy_(self._residual(stacked))
 
     def cost_profile(self, stacked: Stacked, *, times: int = 1,
                      name: str = "consensus.mix"):

@@ -1,5 +1,5 @@
 """EXTRA: exact first-order decentralized optimization (Shi et al. 2015),
-dense route (port of ``distributed_learning_tpu/parallel/extra.py``).
+dense and sharded (port of ``distributed_learning_tpu/parallel/extra.py``).
 
 The one-variable sibling of gradient tracking: EXTRA cancels the
 constant-step bias of decentralized gradient descent with a memory of the
@@ -32,9 +32,10 @@ gap floor of ~2.4e-6 on its quadratic suite against ~1e-3 for the
 textbook form; ``tests/torch_port/test_torch_tracking_extra.py`` holds
 the port to the same floor.
 
-The reference's ``mesh=`` route (one fused ``pmean`` for the guard) and
-its obs hooks wait for the port's ``torch.distributed`` engine and obs
-layer.
+With ``mesh=`` (one agent a rank) each rank holds its agent as a stack
+of one, the mix is the consensus engine's matching exchanges, and the
+guard's three across-agent means (``r``, ``d`` and the per-tensor scale)
+are one fused ``all_reduce``, as the reference's one ``pmean``.
 """
 
 from __future__ import annotations
@@ -46,9 +47,10 @@ import torch
 
 from distributed_learning_tpu_torch.parallel._spmd import (
     Tree,
+    leaves,
     mix_once,
-    own,
     per_agent_grads,
+    place,
     run_steps,
     tree_map,
 )
@@ -92,19 +94,21 @@ def _kahan_add(x: torch.Tensor, c: torch.Tensor,
 
 
 class ExtraEngine:
-    """Runs EXTRA over a mixing matrix, dense route.
+    """Runs EXTRA over a mixing matrix, dense or sharded.
 
     Same constructor contract as :class:`GradientTrackingEngine` (the
     per-agent or, with ``stacked_grads=True``, the stacked gradient
-    oracle; ``device`` the card unless ``"cpu"``), but a constant
+    oracle; ``mesh`` one agent a rank; ``device`` the card unless
+    ``"cpu"``), but a constant
     ``learning_rate`` only: a schedule raises ``TypeError``.
     ``project_every`` sets the cadence of the float32 safeguards
     (:meth:`_guard`); 1 runs them every step.
     """
 
     def __init__(self, W: np.ndarray, grad_fn: Callable, *, learning_rate: float = 1e-2,
-                 project_every: int = 8, stacked_grads: bool = False, device=None):
-        self.engine = ConsensusEngine(W, device=device)
+                 project_every: int = 8, stacked_grads: bool = False, mesh=None, device=None):
+        self.engine = ConsensusEngine(W, mesh=mesh, device=device)
+        self.mesh = mesh
         self.n = self.engine.n
         self.device = self.engine.device
         self.grad_fn = grad_fn
@@ -137,15 +141,33 @@ class ExtraEngine:
            against the tensor's mean magnitude ``mean(|x|)``: once the
            float32 iterate stops moving nothing else damps that mode.
         """
-        def project(rv):
-            return rv - rv.mean(dim=0, keepdim=True)
+        mesh = self.engine.mesh
+        if mesh is None:
+            def project(rv):
+                return rv - rv.mean(dim=0, keepdim=True)
 
-        def stall_kill(dv, xv):
-            md = dv.mean(dim=0, keepdim=True)
-            scale = xv.float().abs().mean()
-            return dv - torch.where(md.abs() <= _ULP * scale, md, torch.zeros_like(md))
+            def stall_kill(dv, xv):
+                md = dv.mean(dim=0, keepdim=True)
+                scale = xv.float().abs().mean()
+                return dv - torch.where(md.abs() <= _ULP * scale, md, torch.zeros_like(md))
 
-        return tree_map(project, r), tree_map(stall_kill, d, x)
+            return tree_map(project, r), tree_map(stall_kill, d, x)
+        # Sharded: the three means in one fused all_reduce over the ranks.
+        rl, dl = leaves(r), leaves(d)
+        scales = [xv.float().abs().mean().reshape(1) for xv in leaves(x)]
+        parts = rl + dl + scales
+        flat = torch.cat([t.reshape(-1).float() for t in parts])
+        means = iter(torch.split(mesh.all_reduce(flat, "sum") / self.n,
+                                 [t.numel() for t in parts]))
+        m_r = [next(means).view(t.shape) for t in rl]
+        m_d = [next(means).view(t.shape) for t in dl]
+        m_sc = [next(means)[0] for _ in scales]
+        r_new = [rv - mr for rv, mr in zip(rl, m_r)]
+        d_new = [dv - torch.where(md.abs() <= _ULP * ms, md, torch.zeros_like(md))
+                 for dv, md, ms in zip(dl, m_d, m_sc)]
+        if isinstance(r, dict):
+            return dict(zip(r, r_new)), dict(zip(d, d_new))
+        return r_new[0], d_new[0]
 
     def _step(self, s: ExtraState) -> ExtraState:
         """One difference-form iteration: mix the small difference ``d``,
@@ -172,7 +194,7 @@ class ExtraEngine:
         ``d^0 = (W x^0 - x^0) - alpha g^0``, so the one large-term
         cancellation happens once, here; ``r^0`` is guarded at once."""
         alpha = self._alpha
-        x = own(x0, self.device)
+        x = place(self, x0)
         g0 = self._grads(x, 0)
         mix_res = tree_map(lambda wx, xv: wx.float() - xv.float(), mix_once(self.engine, x), x)
         d0 = tree_map(lambda mr, gv: torch.add(mr, gv.float(), alpha=-alpha), mix_res, g0)

@@ -15,8 +15,9 @@ so once x reaches consensus each agent descends the *global* objective.
 Both mixes are float32 ``W @ X`` GEMMs over the stacked agent axis; the
 updates are plain PyTorch in the reference's order of operations.  A run
 reads nothing back to the host: the step counter is a host int, the
-residual trace a device tensor (``parallel/_spmd.py``).  The reference's
-``mesh=`` route waits for the port's ``torch.distributed`` engine.
+residual trace a device tensor (``parallel/_spmd.py``).  With ``mesh=``
+(one agent a rank) each rank holds its agent as a stack of one and both
+mixes run the consensus engine's matching exchanges.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ import torch
 
 from distributed_learning_tpu_torch.parallel._spmd import (
     Tree,
+    agent_sum,
     leaves,
     mix_once,
-    own,
     per_agent_grads,
+    place,
     run_steps,
     tree_map,
 )
@@ -64,7 +66,7 @@ def _sub_scaled(x: torch.Tensor, y: torch.Tensor, alpha) -> torch.Tensor:
 
 
 class GradientTrackingEngine:
-    """Runs DSGT over a mixing matrix, dense route.
+    """Runs DSGT over a mixing matrix, dense or sharded.
 
     Parameters
     ----------
@@ -80,16 +82,19 @@ class GradientTrackingEngine:
     learning_rate:
         Constant float, or ``step -> alpha`` (a number or a 0-dim device
         tensor) called with the host's step counter.
+    mesh:
+        An :class:`~distributed_learning_tpu_torch.parallel.multihost.AgentMesh`
+        of n ranks: the state is then this rank's agent (:meth:`init`
+        takes the stacked ``x0`` and keeps its row) and the mixes are the
+        consensus engine's matching exchanges.
     device:
-        The card unless ``"cpu"`` is asked for.
-
-    The reference's obs hooks (spans, round and layout counters) wait for
-    the port's obs layer.
+        The card unless ``"cpu"`` is asked for (on a mesh, the mesh's).
     """
 
     def __init__(self, W: np.ndarray, grad_fn: Callable, *, learning_rate: Schedule = 1e-2,
-                 stacked_grads: bool = False, device=None):
-        self.engine = ConsensusEngine(W, device=device)
+                 stacked_grads: bool = False, mesh=None, device=None):
+        self.engine = ConsensusEngine(W, mesh=mesh, device=device)
+        self.mesh = mesh
         self.n = self.engine.n
         self.device = self.engine.device
         self.grad_fn = grad_fn
@@ -117,8 +122,9 @@ class GradientTrackingEngine:
 
     def init(self, x0: Tree) -> TrackingState:
         """``y_0 = g_0 = grad(x_0)``, the tracking invariant's anchor; the
-        state holds copies of ``x0`` on the engine's device."""
-        x = own(x0, self.device)
+        state holds copies of ``x0`` on the engine's device (on a mesh of
+        this rank's agent of the stacked ``x0``)."""
+        x = place(self, x0)
         g0 = self._grads(x, 0)
         return TrackingState(x=x, y=tree_map(torch.clone, g0), g=g0, step=0)
 
@@ -132,6 +138,6 @@ class GradientTrackingEngine:
         """Max-norm of ``sum_i y_i - sum_i g_i``: zero to float32 round-off
         at every step by the tracking invariant (a runtime self-check;
         one host read)."""
-        gaps = [(y.sum(dim=0) - g.sum(dim=0)).abs().max()
+        gaps = [(agent_sum(self, y) - agent_sum(self, g)).abs().max()
                 for y, g in zip(leaves(state.y), leaves(state.g))]
         return float(torch.stack(gaps).max()) if gaps else 0.0

@@ -1,0 +1,323 @@
+"""Multi-process agent meshes on ``torch.distributed`` (port of
+``distributed_learning_tpu/parallel/multihost.py``).
+
+The reference brings every host's chips into one JAX runtime and lays a
+one-axis agent mesh over them, so that ring neighbours are physical
+neighbours.  Here every agent is one rank, a process of its own:
+:func:`initialize` joins the process group (``torch.distributed.
+init_process_group``) with its address, world size and rank taken from
+the arguments or the environment, and :class:`AgentMesh` is the port's
+mesh: the group, the rank of each agent and this rank's device.  It is a
+small class of the port's own rather than a ``torch.distributed.
+device_mesh.DeviceMesh``, because a ``DeviceMesh`` binds one device type
+to the whole mesh and one rank to each device, and the ranks of this
+port may share one card (gloo) or sit on the CPU: what the engines need
+is the peer rank of each agent, this rank's device, and a transport that
+knows whether its tensors must pass through the host.
+
+The transport (:meth:`AgentMesh.exchange`, :meth:`AgentMesh.all_reduce`,
+:meth:`AgentMesh.all_gather`): with ``nccl`` the device tensors go to the
+collectives as they are; with ``gloo`` and a card, each message is copied
+to a pinned host buffer once, exchanged, and copied back once, and the
+arithmetic stays on the card (gloo's send and recv take CPU tensors
+only).  :attr:`AgentMesh.clock` keeps the seconds and bytes of each leg.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import logging
+import os
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "AgentMesh",
+    "RankDevice",
+    "default_backend",
+    "hybrid_agent_mesh",
+    "initialize",
+    "order_devices_for_ring",
+    "process_local_agents",
+]
+
+_log = logging.getLogger(__name__)
+
+
+def default_backend(device=None, local_world_size: Optional[int] = None) -> str:
+    """``nccl`` when every rank of this host has a card of its own, else
+    ``gloo`` (CPU ranks, or ranks that share one card).  ``device`` "cpu"
+    means CPU ranks; ``local_world_size`` defaults to ``LOCAL_WORLD_SIZE``
+    or, without it, ``WORLD_SIZE`` (every rank on this host)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo"
+    if not torch.cuda.is_available():
+        return "gloo"
+    if local_world_size is None:
+        local_world_size = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                              os.environ.get("WORLD_SIZE", "1")))
+    return "nccl" if torch.cuda.device_count() >= int(local_world_size) else "gloo"
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    backend: Optional[str] = None,
+    device=None,
+    timeout_s: float = 300.0,
+) -> str:
+    """Join this process to the process group; returns the backend.
+
+    The address is ``coordinator_address`` (``host:port``), else
+    ``DLT_COORDINATOR``, else ``MASTER_ADDR``/``MASTER_PORT``; the world
+    size ``num_processes`` or ``WORLD_SIZE``; the rank ``process_id`` or
+    ``RANK``.  ``backend`` is taken as given, else chosen by
+    :func:`default_backend` for ``device``; the choice is logged.  A
+    second call is a no-op that returns the group's backend (the
+    idempotence guard the upstream call lacks)."""
+    if dist.is_initialized():
+        return dist.get_backend()
+    if coordinator_address is None:
+        coordinator_address = os.environ.get("DLT_COORDINATOR")
+    if coordinator_address is None and os.environ.get("MASTER_ADDR"):
+        coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '29500')}"
+    if coordinator_address is None:
+        raise ValueError("no coordinator address: pass coordinator_address or set "
+                         "DLT_COORDINATOR (or MASTER_ADDR and MASTER_PORT)")
+    if num_processes is None:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None:
+        process_id = int(os.environ["RANK"])
+    if backend is None:
+        backend = default_backend(device, int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                             num_processes)))
+    dist.init_process_group(backend=backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes), rank=int(process_id),
+                            timeout=datetime.timedelta(seconds=float(timeout_s)))
+    _log.info("process group: backend %s, world size %d, rank %d", backend,
+              int(num_processes), int(process_id))
+    return backend
+
+
+class RankDevice(NamedTuple):
+    """What the ring order reads of a rank: its host (``process_index``),
+    its slice (``None`` where the platform has none) and its id (the
+    global rank)."""
+
+    process_index: int
+    slice_index: Optional[int]
+    id: int
+
+
+def order_devices_for_ring(devices: Sequence) -> list:
+    """Sort devices by (process, slice, id), so a ring laid over the order
+    crosses a host or slice boundary only where it must.  Pure ordering on
+    any objects with those attributes (``slice_index`` absent or ``None``
+    counts as slice 0), so layouts are testable without the hardware."""
+    return sorted(devices, key=lambda d: (d.process_index, getattr(d, "slice_index", 0) or 0,
+                                          d.id))
+
+
+@dataclasses.dataclass
+class TransportClock:
+    """Seconds and bytes of the transport's legs on this rank: device to
+    host, the exchange or collective itself, host to device."""
+
+    d2h_s: float = 0.0
+    exchange_s: float = 0.0
+    h2d_s: float = 0.0
+    bytes_sent: int = 0
+
+    def reset(self) -> None:
+        self.d2h_s = self.exchange_s = self.h2d_s = 0.0
+        self.bytes_sent = 0
+
+
+class AgentMesh:
+    """One agent a rank over the default process group.
+
+    ``ranks[i]`` is the global rank that holds agent ``i``; this rank's
+    agent is :attr:`agent`, its tensors live on :attr:`device` (``cuda:<local>``
+    on a card, ``cpu`` for CPU ranks).  ``axis_name`` and :attr:`shape`
+    mirror the reference's one-axis ``Mesh``."""
+
+    def __init__(self, ranks: Sequence[int], device, *, axis_name: str = "agents"):
+        if not dist.is_initialized():
+            raise RuntimeError("AgentMesh needs the process group: call multihost.initialize")
+        self.ranks: Tuple[int, ...] = tuple(int(r) for r in ranks)
+        if sorted(self.ranks) != list(range(dist.get_world_size())):
+            raise ValueError(f"ranks {self.ranks} must cover the {dist.get_world_size()} "
+                             "ranks of the group once each")
+        self.size = len(self.ranks)
+        self.rank = dist.get_rank()
+        self.agent = self.ranks.index(self.rank)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.backend = dist.get_backend()
+        # gloo moves CPU tensors: a card's messages pass through pinned host buffers.
+        self.staged = self.device.type == "cuda" and self.backend == "gloo"
+        self.axis_name = axis_name
+        self.clock = TransportClock()
+        self._pinned: Dict[Tuple, torch.Tensor] = {}
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_name: self.size}
+
+    def __repr__(self) -> str:
+        return (f"AgentMesh(agent {self.agent} of {self.size}, rank {self.rank}, "
+                f"{self.backend}, {self.device})")
+
+    # -- host staging ------------------------------------------------------ #
+    def _host(self, key, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer of ``like``'s shape and dtype, kept per
+        ``key`` (pinning is slow; the rounds reuse their buffers)."""
+        k = (key, tuple(like.shape), like.dtype)
+        buf = self._pinned.get(k)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._pinned[k] = buf
+        return buf
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _to_wire(self, tensors: List[torch.Tensor], tag: str) -> List[torch.Tensor]:
+        """The tensors as the backend takes them: pinned host copies when
+        staged (one device-to-host copy each), else themselves."""
+        if not self.staged:
+            return [t.contiguous() for t in tensors]
+        t0 = time.perf_counter()
+        out = []
+        for i, t in enumerate(tensors):
+            buf = self._host((tag, i), t)
+            buf.copy_(t)
+            out.append(buf)
+        self.clock.d2h_s += time.perf_counter() - t0
+        return out
+
+    def _from_wire(self, wire: List[torch.Tensor], dst: List[torch.Tensor]) -> None:
+        if not self.staged:
+            for w, d in zip(wire, dst):
+                if w is not d:
+                    d.copy_(w)
+            return
+        t0 = time.perf_counter()
+        for w, d in zip(wire, dst):
+            d.copy_(w)
+        self._sync()
+        self.clock.h2d_s += time.perf_counter() - t0
+
+    # -- point to point ------------------------------------------------------ #
+    def exchange(self, sends: Sequence[Tuple[int, torch.Tensor]],
+                 recvs: Sequence[Tuple[int, torch.Tensor]]) -> None:
+        """Send each ``(agent, tensor)`` of ``sends`` to that agent and
+        receive each ``(agent, tensor)`` of ``recvs`` from it, posted as one
+        ``batch_isend_irecv`` (sends first, then receives, in the order
+        given: every rank posts its side of a pair in the same order).  A
+        tensor sent twice is staged once."""
+        if not sends and not recvs:
+            return
+        uniq: Dict[int, int] = {}
+        send_list: List[torch.Tensor] = []
+        for _, t in sends:
+            if id(t) not in uniq:
+                uniq[id(t)] = len(send_list)
+                send_list.append(t)
+        wire_send = self._to_wire(send_list, "send")
+        recv_dst = [t for _, t in recvs]
+        if self.staged:
+            wire_recv = [self._host(("recv", i), t) for i, t in enumerate(recv_dst)]
+        else:
+            wire_recv = [t if t.is_contiguous() else torch.empty_like(t) for t in recv_dst]
+        ops = [dist.P2POp(dist.isend, wire_send[uniq[id(t)]], self.ranks[a])
+               for a, t in sends]
+        ops += [dist.P2POp(dist.irecv, w, self.ranks[a]) for (a, _), w in zip(recvs, wire_recv)]
+        t0 = time.perf_counter()
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        self.clock.exchange_s += time.perf_counter() - t0
+        self.clock.bytes_sent += sum(t.numel() * t.element_size() for _, t in sends)
+        self._from_wire(wire_recv, recv_dst)
+
+    # -- collectives --------------------------------------------------------- #
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the agents (``"sum"`` or ``"max"``), in place."""
+        wire, = self._to_wire([t], "reduce")
+        self.clock.bytes_sent += t.numel() * t.element_size()
+        t0 = time.perf_counter()
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+        self.clock.exchange_s += time.perf_counter() - t0
+        self._from_wire([wire], [t])
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every agent's ``t`` stacked on a new leading axis in agent order
+        (an ``(n, ...)`` tensor on this rank's device)."""
+        wire, = self._to_wire([t], "gather")
+        self.clock.bytes_sent += t.numel() * t.element_size()
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, wire)
+        self.clock.exchange_s += time.perf_counter() - t0
+        by_agent = [parts[r] for r in self.ranks]
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=self.device)
+        self._from_wire(by_agent, list(out.unbind(0)))
+        return out
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Agent 0's ``t`` on every rank, in place."""
+        wire, = self._to_wire([t], "bcast")
+        t0 = time.perf_counter()
+        dist.broadcast(wire, src=self.ranks[0])
+        self.clock.exchange_s += time.perf_counter() - t0
+        self._from_wire([wire], [t])
+        return t
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def _rank_devices() -> List[RankDevice]:
+    """Every rank's (host, slice, rank), gathered: the host is the rank's
+    ``GROUP_RANK`` (torchrun's node index) or 0."""
+    mine = RankDevice(int(os.environ.get("GROUP_RANK", "0")), None, dist.get_rank())
+    out: List[Optional[RankDevice]] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, tuple(mine))
+    return [RankDevice(*d) for d in out]
+
+
+def hybrid_agent_mesh(n_agents: Optional[int] = None, *, device=None,
+                      axis_name: str = "agents") -> AgentMesh:
+    """The agent mesh over every rank, agents in ring order (host, slice,
+    rank; :func:`order_devices_for_ring`), so adjacent agents share a host
+    where they can.  ``device`` is this rank's (default: the card of its
+    local rank).  With ``n_agents`` set it must equal the world size: one
+    agent a rank."""
+    order = order_devices_for_ring(_rank_devices())
+    n = n_agents or len(order)
+    if n != len(order):
+        raise ValueError(f"{n} agents on {len(order)} ranks: the port puts one agent on each rank")
+    if device is None:
+        from distributed_learning_tpu_torch.device import resolve_device
+
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = resolve_device(f"cuda:{local % max(torch.cuda.device_count(), 1)}"
+                                if torch.cuda.is_available() else None)
+    return AgentMesh([d.id for d in order], device, axis_name=axis_name)
+
+
+def process_local_agents(mesh: AgentMesh, *, axis_name: str = "agents") -> Sequence[int]:
+    """Agent indices held by this process: the set its data pipeline must
+    feed (one agent a rank, so this rank's agent)."""
+    if axis_name != mesh.axis_name:
+        raise ValueError(f"mesh has no axis {axis_name!r}")
+    return (mesh.agent,)

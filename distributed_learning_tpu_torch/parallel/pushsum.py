@@ -14,8 +14,11 @@ the ratio converges to ``sum(x_0) / sum(w_0)`` on every agent.
 mix through :class:`~.consensus.ConsensusEngine` (which validates a
 symmetric ``W``): it checks ``P`` itself and runs each round as one
 float32 ``P @ X`` GEMM per tensor (:func:`ops.dense_mix`) plus the
-(n,)-vector of weights.  The reference's sharded ring route waits for
-the port's ``torch.distributed`` engine.
+(n,)-vector of weights.  With ``mesh=`` (one agent a rank) each rank
+holds its agent as a stack of one and a round relays the numerator
+buckets and the weight together over the agent ring
+(:func:`~.consensus.local_ring_mix` on ``P``'s ring decomposition; a
+direction with no weight anywhere is skipped).
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ import torch
 
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.ops import mixing as ops
+from distributed_learning_tpu_torch.parallel.consensus import (
+    local_ring_mix,
+    local_sq_deviation,
+    ring_offset_weights,
+)
 
 __all__ = ["PushSumEngine", "push_sum_matrix"]
 
@@ -79,15 +87,17 @@ def push_sum_matrix(out_neighbors, n: Optional[int] = None) -> np.ndarray:
 
 
 class PushSumEngine:
-    """Push-sum rounds on agent-stacked state, dense route.
+    """Push-sum rounds on agent-stacked state, dense or sharded.
 
     ``P_matrix``: (n, n) column-stochastic matrix (columns sum to 1,
     entries >= 0) of a strongly connected digraph.  The state is an
     ``(n, ...)`` tensor or a ``{name: (n, ...)}`` dict on ``device`` (the
-    card unless ``device="cpu"``).
+    card unless ``device="cpu"``); with ``mesh`` (an ``AgentMesh`` of n
+    ranks) this rank's agent as a stack of one (:meth:`shard`), the
+    ``weights`` of :meth:`mix` still the (n,) vector of every agent.
     """
 
-    def __init__(self, P_matrix: np.ndarray, *, device=None):
+    def __init__(self, P_matrix: np.ndarray, *, mesh=None, device=None):
         P_ = np.asarray(P_matrix, dtype=np.float64)
         if P_.ndim != 2 or P_.shape[0] != P_.shape[1]:
             raise ValueError(f"P must be square, got {P_.shape}")
@@ -98,8 +108,34 @@ class PushSumEngine:
             raise ValueError(f"P must be column-stochastic; column sums {cols}")
         self.P = P_
         self.n = P_.shape[0]
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.size != self.n:
+                raise ValueError(f"mesh axis {mesh.axis_name!r} has size {mesh.size}, "
+                                 f"need {self.n}")
+            device = mesh.device
+            # This rank's ring weights; the live directions are decided on
+            # every agent's weights, so every rank posts the same exchanges.
+            sw, wf, wb, self._k_hops = ring_offset_weights(P_.astype(np.float32))
+            a = mesh.agent
+            self._ring = (float(sw[a]), wf[a], wb[a])
+            self._use = (bool(wf.any()), bool(wb.any()))
         self.device = resolve_device(device)
         self._P_dev = torch.as_tensor(P_, dtype=torch.float32, device=self.device)
+
+    def shard(self, stacked):
+        """This rank's agent of a stacked state (a stack of one); without a
+        mesh the state on the device."""
+        if self.mesh is None:
+            return stacked.to(self.device) if isinstance(stacked, torch.Tensor) else {
+                k: v.to(self.device) for k, v in stacked.items()}
+        a = self.mesh.agent
+
+        def one(v):
+            return torch.as_tensor(v)[a:a + 1].to(self.device, copy=True).contiguous()
+
+        return one(stacked) if isinstance(stacked, torch.Tensor) else {
+            k: one(v) for k, v in stacked.items()}
 
     # ------------------------------------------------------------------ #
     def _weights_vec(self, weights) -> torch.Tensor:
@@ -117,8 +153,11 @@ class PushSumEngine:
 
     def lift(self, stacked, weights=None) -> Tuple[Stacked, torch.Tensor]:
         """The push-sum pair of ``stacked``: fused numerator buffers
-        ``x_i w_i`` and the (n,) weights (ones for ``weights=None``)."""
+        ``x_i w_i`` and the (n,) weights (ones for ``weights=None``; on a
+        mesh this rank's (1,) entry)."""
         w0 = self._weights_vec(weights)
+        if self.mesh is not None:
+            w0 = w0[self.mesh.agent:self.mesh.agent + 1].clone()
         buffers, _ = ops.flatten_stacked(self._as_dict(stacked))
         return _lift(buffers, w0), w0
 
@@ -128,6 +167,17 @@ class PushSumEngine:
         ``num``; returns the mixed weights (a new (n,) tensor).  Rounds
         ping-pong between ``num`` and a spare set (``spare`` or fresh),
         with one copy home after an odd count; no host reads."""
+        if self.mesh is not None:
+            # The weight rides with the numerator buckets, one message more a hop.
+            sw, wf, wb = self._ring
+            for _ in range(int(times)):
+                mixed = local_ring_mix({**num, "__den__": den}, sw, wf, wb, self._k_hops,
+                                       mesh=self.mesh, use_fwd=self._use[0],
+                                       use_bwd=self._use[1])
+                den = mixed.pop("__den__")
+                for k, v in mixed.items():
+                    num[k].copy_(v)
+            return den
         cur = num
         other = spare if spare is not None else {k: torch.empty_like(v) for k, v in num.items()}
         for _ in range(int(times)):
@@ -165,9 +215,17 @@ class PushSumEngine:
         num, den = self.lift(stacked, weights)
         spare = {k: torch.empty_like(v) for k, v in num.items()}
         t = 0
-        res = float(ops.max_deviation(_readout(num, den)))
+        res = float(self._residual(_readout(num, den)))
         while res >= eps and t < max_rounds:
             den = self.rounds_(num, den, 1, spare)
             t += 1
-            res = float(ops.max_deviation(_readout(num, den)))
+            res = float(self._residual(_readout(num, den)))
         return self._finish(stacked, num, den), t, res
+
+    def _residual(self, est: Stacked) -> torch.Tensor:
+        """The estimates' max deviation from their mean (on a mesh the
+        ``all_reduce(MAX)`` of every rank's)."""
+        if self.mesh is None:
+            return ops.max_deviation(est)
+        dev = torch.sqrt(local_sq_deviation(est, self.mesh)).reshape(1)
+        return self.mesh.all_reduce(dev, "max")[0]

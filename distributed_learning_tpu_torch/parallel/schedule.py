@@ -6,9 +6,9 @@ support graph of ``W`` is edge-coloured greedily, and each colour class
 is a set of vertex-disjoint pairs.  One gossip round is then
 ``x_i <- W[i,i] x_i + sum_r w_r[i] x_partner_r(i)``, one exchange per
 matching.  The reference runs each matching as one ``ppermute``; the
-port's sharded route (send/recv on ``torch.distributed``) is not written
-yet (and with it the reference's ``ppermute_pairs``), so here the
-schedule is host-side analytics whose rounds and
+port's sharded engine (``ConsensusEngine(mesh=)``) posts the
+:meth:`MatchingSchedule.ppermute_pairs` of a matching as one batch of
+send/recv pairs on ``torch.distributed``.  The rounds and
 :meth:`MatchingSchedule.as_matrix` equal the reference's exactly.
 """
 
@@ -128,6 +128,16 @@ class MatchingSchedule:
     def num_rounds(self) -> int:
         """Exchanges per gossip round (= chromatic index found)."""
         return len(self.matchings)
+
+    def ppermute_pairs(self, r: int) -> Tuple[Tuple[int, int], ...]:
+        """(source, destination) pairs of matching ``r``: both directions
+        of every matched pair, the reference's ``ppermute`` pairs and the
+        sharded engine's send/recv pairs."""
+        out = []
+        for (i, j) in self.matchings[r]:
+            out.append((i, j))
+            out.append((j, i))
+        return tuple(out)
 
     def as_matrix(self) -> np.ndarray:
         """Reconstruct W (for testing / analytics)."""

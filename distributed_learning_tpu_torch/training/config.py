@@ -221,8 +221,8 @@ class ExperimentConfig:
 
     def build(self, mesh=None, telemetry=None, *, device=None):
         """Construct the ready-to-run :class:`MasterNode` on ``device``
-        (the card unless ``"cpu"`` is asked for).  ``mesh`` and ``remat``
-        reach the trainer, which rejects ``mesh`` while it is unported.
+        (the card unless ``"cpu"`` is asked for).  ``mesh`` (an
+        ``AgentMesh``, one agent a rank) and ``remat`` reach the trainer.
         ``donate_state`` has no counterpart: the port's trainer updates
         its buffers in place and never donates them."""
         from distributed_learning_tpu_torch.training.trainer import MasterNode

@@ -64,8 +64,20 @@ blocks), and the loss trace reports that sum, as the reference's does.
 reference puts ``jax.checkpoint``): the recompute replays the forward's
 dropout masks, leaves BatchNorm running statistics alone and counts no
 flash launch or obs hook, so a run with remat equals one without it bit
-for bit.  Options that are not ported raise ``NotImplementedError``
-naming their ROADMAP.md item.
+for bit.
+
+``mesh`` (an :class:`~distributed_learning_tpu_torch.parallel.multihost.AgentMesh`)
+is the paper's loop with one agent a rank: every rank builds the same
+seeded init, keeps its own agent's parameters, optimizer slots and
+BatchNorm statistics (a model stacked over one agent), draws the whole
+shuffle stream and trains on its own row of it, and mixes through the
+sharded consensus engine.  The per-step traces, the eval accuracies and
+the residual are read across the ranks, so every rank reports what the
+dense trainer reports.  On the card a superstep replays the training
+graph and runs each epoch's gossip eagerly between the replays (gloo
+cannot be captured).  CHOCO, async and robust gossip have no sharded
+route yet and raise ``ValueError`` naming ROADMAP.md item "3b. Sharded
+async, robust and CHOCO gossip".
 """
 
 from __future__ import annotations
@@ -97,6 +109,7 @@ from distributed_learning_tpu_torch.parallel.compression import (
     compressor_from_spec,
 )
 from distributed_learning_tpu_torch.parallel.consensus import AsyncGossipState, ConsensusEngine
+from distributed_learning_tpu_torch.parallel.multihost import AgentMesh
 from distributed_learning_tpu_torch.parallel.robust import as_robust_config
 from distributed_learning_tpu_torch.parallel.schedule import chebyshev_omegas
 from distributed_learning_tpu_torch.parallel.topology import Topology
@@ -388,21 +401,21 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
     return W
 
 
-# Constructor options of the reference that this port does not run yet:
-# option -> (values that mean "off", the ROADMAP.md item that ports it).
-_UNPORTED = {
-    "mesh": ((None,), 'queue 1, "sharded engine on torch.distributed"'),
-}
+_SHARDED_3B = ('with a mesh has no sharded route yet: ROADMAP.md item "3b. Sharded '
+               'async, robust and CHOCO gossip"')
 
 
-def _reject_unported(options: Mapping[str, Any]) -> None:
-    for name, value in options.items():
-        off, item = _UNPORTED[name]
-        if not any(value is v or (type(value) is type(v) and value == v) for v in off):
-            raise NotImplementedError(
-                f"GossipTrainer option {name}={value!r} is not ported yet: "
-                f"ROADMAP.md {item}"
-            )
+def _mesh_device(mesh, device):
+    """The mesh's device (``device`` without a mesh), after checking that
+    ``mesh`` is an ``AgentMesh`` on ``device``."""
+    if mesh is None:
+        return device
+    if not isinstance(mesh, AgentMesh):
+        raise ValueError("mesh must be a parallel.multihost.AgentMesh (one agent a rank), "
+                         f"got {mesh!r}")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
 
 
 def _remat_contexts():
@@ -573,7 +586,8 @@ class GossipTrainer:
         remat: bool = False,
         moe_aux_coef: float = 0.01,
     ):
-        _reject_unported(dict(mesh=mesh))
+        device = _mesh_device(mesh, device)
+        self.mesh = mesh
         self.remat = bool(remat)
         self.moe_aux_coef = float(moe_aux_coef)
         self.device = resolve_device(device)
@@ -582,6 +596,11 @@ class GossipTrainer:
         n = len(self.node_names)
         if n == 0:
             raise ValueError("need at least one node")
+        if mesh is not None and mesh.size != n:
+            raise ValueError(f"mesh has {mesh.size} agents for {n} nodes")
+        # The agents this process holds: its rank's one on a mesh, else all.
+        self._local = [mesh.agent] if mesh is not None else list(range(n))
+        n_local = len(self._local)
         if train_data is None:
             raise ValueError(
                 "train_data (MasterNode: train_loaders) is required: a dict "
@@ -596,6 +615,12 @@ class GossipTrainer:
         self._check_async_robust(async_gossip, robust_mixing, chebyshev=chebyshev,
                                  mix_eps=mix_eps, topology_schedule=topology_schedule,
                                  global_avg_every=global_avg_every, compression=compression)
+        if mesh is not None:
+            for name, on in (("compression", compression is not None),
+                             ("async_gossip", self._async_sim is not None),
+                             ("robust_mixing", self._robust_cfg is not None)):
+                if on:
+                    raise ValueError(f"GossipTrainer {name}= {_SHARDED_3B}")
 
         self._Xs, self._ys = self._stack_data(train_data, batch_size)
         self.augment = bool(augment)
@@ -609,13 +634,13 @@ class GossipTrainer:
         self._pad_value = torch.as_tensor(np.asarray(augment_pad_value), device=self.device)
         if isinstance(model, str):
             model = get_model(
-                model, *model_args, n_agents=n, device=self.device,
+                model, *model_args, n_agents=n_local, device=self.device,
                 seed=seed, input_shape=tuple(self._Xs.shape[2:]),
                 **dict(model_kwargs or {}),
             )
-        if getattr(model, "n_agents", None) != n:
+        if getattr(model, "n_agents", None) != n_local:
             raise ValueError(
-                f"model must be agent-stacked over the {n} nodes "
+                f"model must be agent-stacked over the {n_local} nodes this process holds "
                 f"(n_agents={getattr(model, 'n_agents', None)})"
             )
         if model.flat_params.device != self.device:
@@ -629,7 +654,7 @@ class GossipTrainer:
             # its dropout layers cannot run; here they are switched off.
             model.set_dropout(self.dropout)
         # One generator per agent for the crops and flips.
-        self._aug_gens = [torch.Generator(self.device) for _ in range(n)]
+        self._aug_gens = [torch.Generator(self.device) for _ in range(n_local)]
         self.loss_fn = get_loss(error)
         self.metric_fn = get_metric(error)
         self._make_opt = make_optimizer(optimizer, optimizer_kwargs, learning_rate)
@@ -681,7 +706,7 @@ class GossipTrainer:
                 " connected topology/matrix) for consensus training.",
                 stacklevel=2,
             )
-        self.engine = ConsensusEngine(W, device=self.device)
+        self.engine = ConsensusEngine(W, mesh=mesh, device=self.device)
         # The per-leaf spans of the (N, P) parameter buffer: CHOCO's
         # per-leaf budget and the engine's layout gauges read them.
         named = model.stacked_parameters()
@@ -748,7 +773,7 @@ class GossipTrainer:
         self.network: Dict[Hashable, ConsensusNode] = {
             name: ConsensusNode(name) for name in self.node_names
         }
-        self._agent = torch.arange(n, device=self.device)[:, None]
+        self._agent = torch.arange(n_local, device=self.device)[:, None]
         self._opt: Optional[torch.optim.Optimizer] = None
         # A learning-rate schedule on the card: the 0-dim rate every step reads.
         self._lr: Optional[torch.Tensor] = None
@@ -876,6 +901,8 @@ class GossipTrainer:
 
     # ------------------------------------------------------------------ #
     def _stack_data(self, train_data, batch_size):
+        """The shards of the agents this process holds, each cut to the
+        smallest shard's batch-aligned length (over every node)."""
         lens = [len(train_data[t][0]) for t in self.node_names]
         m = min(lens)
         m -= m % batch_size
@@ -898,8 +925,9 @@ class GossipTrainer:
                     "stacked epoch has a whole number of batches"
                 )
             warnings.warn(msg, stacklevel=3)
-        Xs = np.stack([np.asarray(train_data[t][0][:m]) for t in self.node_names])
-        ys = np.stack([np.asarray(train_data[t][1][:m]) for t in self.node_names])
+        local = [self.node_names[a] for a in self._local]
+        Xs = np.stack([np.asarray(train_data[t][0][:m]) for t in local])
+        ys = np.stack([np.asarray(train_data[t][1][:m]) for t in local])
         return (torch.as_tensor(Xs, device=self.device),
                 torch.as_tensor(ys, device=self.device))
 
@@ -948,14 +976,14 @@ class GossipTrainer:
         if params is None:
             self.model.reset_parameters(self.seed)
         else:
-            self.model.load_stacked(params)
+            self.model.load_stacked(self._local_rows(params, self.model.stacked_parameters()))
         if batch_stats is None:
             self.model.reset_stats()
         else:
-            self.model.load_stats(batch_stats)
+            self.model.load_stats(self._local_rows(batch_stats, self.model.stacked_stats()))
         if hasattr(self.model, "seed_dropout"):
-            self.model.seed_dropout(self.seed)
-        for a, g in enumerate(self._aug_gens):
+            self.model.seed_dropout(self.seed, first_agent=self._local[0])
+        for a, g in zip(self._local, self._aug_gens):
             g.manual_seed(int(np.random.SeedSequence([int(self.seed), 1, a]).generate_state(1)[0]))
         self.model.flat_grads.zero_()
         flat = self.model.flat_params
@@ -984,11 +1012,30 @@ class GossipTrainer:
             self._robust_mass.zero_()
         return self
 
+    def _local_rows(self, tree, ref):
+        """A ``{name: value}`` init for this process's agents: a value
+        stacked over every node keeps its local rows; an unstacked one is
+        broadcast by the model."""
+        n = len(self.node_names)
+        if self.mesh is None:
+            return tree
+        return {k: (v[self._local] if tuple(np.shape(v)) == (n,) + tuple(ref[k].shape[1:])
+                    else v) for k, v in tree.items()}
+
+    def _agents_last(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` with its trailing agent axis over every node: on a mesh
+        each rank's ``(..., 1)`` gathered in agent order (one collective),
+        else ``t`` itself."""
+        if self.mesh is None:
+            return t
+        return self.mesh.all_gather(t.contiguous()).movedim(0, -1).squeeze(-2)
+
     def _epoch_perm(self, epoch_idx: int) -> np.ndarray:
         """Host-side (steps, n, B) shuffle indices for one epoch — one
         ``np.random.default_rng(seed*1000 + epoch)`` stream per epoch, the
-        reference's streams exactly."""
-        n, m = self._Xs.shape[0], self._Xs.shape[1]
+        reference's streams exactly, over every node (a process keeps the
+        rows of its agents, :meth:`_indices`)."""
+        n, m = len(self.node_names), self._Xs.shape[1]
         steps = self.epoch_len
         rng = np.random.default_rng(self.seed * 1000 + epoch_idx)
         idx = np.stack(
@@ -997,8 +1044,10 @@ class GossipTrainer:
         return idx.reshape(n, steps, self.batch_size).swapaxes(0, 1)
 
     def _indices(self, epoch0: int, k: int) -> torch.Tensor:
-        """(k, steps, n, B) indices of ``k`` epochs, one host-to-device copy."""
-        idx = np.stack([self._epoch_perm(epoch0 + j) for j in range(k)]).astype(np.int64)
+        """(k, steps, n, B) indices of ``k`` epochs (this process's agents'
+        rows), one host-to-device copy."""
+        idx = np.stack([self._epoch_perm(epoch0 + j)[:, self._local]
+                        for j in range(k)]).astype(np.int64)
         return torch.as_tensor(idx, device=self.device)
 
     def _lr_slots(self, k: int) -> Optional[torch.Tensor]:
@@ -1246,7 +1295,9 @@ class GossipTrainer:
         fused buffer; returns the rounds run."""
         if plan is None:
             plan = self._plan(self._epochs_done if epoch_idx is None else epoch_idx)
-        W = None if plan.W is None else torch.as_tensor(plan.W, device=self.device)
+        W = plan.W
+        if W is not None and self.mesh is None:
+            W = torch.as_tensor(W, device=self.device)
         om = None if plan.omegas is None else torch.as_tensor(plan.omegas, device=self.device)
         rounds = self._run_gossip(plan.mode, self._times(plan), W, om, plan.tau)
         self._gossip_done(plan.mode)
@@ -1260,7 +1311,7 @@ class GossipTrainer:
         tail and masks it out so one compiled program serves every batch;
         eagerly the tail simply runs at its own size."""
         X, y = self.test_data
-        n = len(self.node_names)
+        n = len(self._local)
         self.model.eval()  # running statistics, no dropout
         total = torch.zeros(n, dtype=torch.float64, device=self.device)
         for s in range(0, len(X), self.eval_batch_size):
@@ -1270,7 +1321,7 @@ class GossipTrainer:
             ys = yb.unsqueeze(0).expand(n, *yb.shape)
             per = self.metric_fn(self.model(xs), ys)  # (n, b)
             total += per.sum(dim=1).to(torch.float64)
-        return (total / max(len(X), 1)).cpu().numpy()
+        return self._agents_last(total / max(len(X), 1)).cpu().numpy()
 
     # -- observability ---------------------------------------------------- #
     def _span(self, name: str):
@@ -1342,8 +1393,8 @@ class GossipTrainer:
 
     def _profile_step(self) -> None:
         model = self.model
-        idx = torch.as_tensor(self._epoch_perm(self._epochs_done)[0].astype(np.int64),
-                              device=self.device)
+        idx = torch.as_tensor(self._epoch_perm(self._epochs_done)[0][self._local]
+                              .astype(np.int64), device=self.device)
         snap = StateSnapshot(lambda: [model.flat_grads, model.flat_stats],
                              self._train_generators)
         try:
@@ -1379,11 +1430,10 @@ class GossipTrainer:
             self.initialize_nodes()
         self._maybe_profile_costs()
         epoch_idx = self._epochs_done
-        n = len(self.node_names)
         plan = self._plan(epoch_idx)  # a schedule that raises leaves the state as it was
         mode = plan.mode
         lr = self._lr_slots(1)
-        trace = torch.empty(self.epoch_len, 3, n, device=self.device)
+        trace = torch.empty(self.epoch_len, 3, len(self._local), device=self.device)
         timer = self._cost_timer
         sampled = timer.tick() if timer is not None else False
         with self._span("trainer.chunk"):
@@ -1401,7 +1451,7 @@ class GossipTrainer:
                 timer.measure(t0, name="trainer.epoch", loop_steps=self.epoch_len,
                               step=self._global_step)
             # One host read for the epoch's (steps, 3, n) traces.
-            arrs = self._flush(trace.cpu().numpy())
+            arrs = self._flush(self._agents_last(trace).cpu().numpy())
         losses, accs, gnorms = arrs["loss"], arrs["acc"], arrs["grad_norm"]
         mass = None
         if mode and self._robust_mass is not None:
@@ -1488,10 +1538,12 @@ class GossipTrainer:
     # -- the epoch superstep ---------------------------------------------- #
     @property
     def _cut(self) -> bool:
-        """Whether a superstep's gossip round count depends on a device
-        value (eps stopping, the adaptive controller): then the gossip runs
-        eagerly between the training replays, with host reads."""
-        return self.mix_eps is not None or self._adaptive_cfg is not None
+        """Whether a superstep's gossip runs eagerly between the training
+        replays: its round count depends on a device value (eps stopping,
+        the adaptive controller, with host reads), or it crosses ranks
+        (a mesh: gloo cannot be captured)."""
+        return (self.mix_eps is not None or self._adaptive_cfg is not None
+                or self.mesh is not None)
 
     def _state_tensors(self) -> List[torch.Tensor]:
         """Every tensor a training step or a gossip program writes that
@@ -1516,7 +1568,7 @@ class GossipTrainer:
         mode, rounds)`` (each ending with the post-mix deviation).  The
         warm-ups run against the real state, which is restored after."""
         if self._graphs is None:
-            n, steps, dev = len(self.node_names), self.epoch_len, self.device
+            n, steps, dev = len(self._local), self.epoch_len, self.device
             self._graphs = GraphSet(dev, self._generators)
             self._static = _Static(
                 idx=torch.zeros(steps, n, self.batch_size, dtype=torch.long, device=dev),
@@ -1594,6 +1646,7 @@ class GossipTrainer:
             self.initialize_nodes()
         self._maybe_profile_costs(k)
         epoch0, n, steps = self._epochs_done, len(self.node_names), self.epoch_len
+        n_local = len(self._local)
         # Every epoch's schedule is called and validated before anything
         # trains: one that raises leaves the state as it was.
         plans = [self._plan(epoch0 + j) for j in range(k)]
@@ -1617,8 +1670,8 @@ class GossipTrainer:
         # Everything the host reads at the end, in one buffer: the
         # (k, steps, 3, n) traces, the (k,) post-mix deviations and the
         # (k,) robust masses.
-        flush = torch.zeros(k, steps * 3 * n + 2, device=self.device)
-        traces = flush[:, :-2].view(k, steps, 3, n)
+        flush = torch.zeros(k, steps * 3 * n_local + 2, device=self.device)
+        traces = flush[:, :-2].view(k, steps, 3, n_local)
         devs, masses = flush[:, -2], flush[:, -1]
         graphs = self.device.type == "cuda"
         timer = self._cost_timer
@@ -1675,10 +1728,12 @@ class GossipTrainer:
                 timer.measure(t0, name="trainer.superstep",
                               profile=get_profile(f"trainer.superstep{k}"),
                               loop_steps=k * steps, step=self._global_step)
+            tr = None if self.mesh is None else self._agents_last(traces).cpu().numpy()
             host = flush.cpu().numpy()
             if graphs:
                 self.superstep_host_syncs.append(syncs[0])
-            tr = host[:, :-2].reshape(k, steps, 3, n)
+            if tr is None:
+                tr = host[:, :-2].reshape(k, steps, 3, n)
             arrs = self._flush(tr)  # the (k, steps, n) traces as one k*steps-step chunk
         devs_host = host[:, -2]
         if self._adaptive_cfg is not None:
@@ -1712,20 +1767,22 @@ class GossipTrainer:
 
     # ------------------------------------------------------------------ #
     def node_parameters(self) -> Dict[Hashable, Dict[str, torch.Tensor]]:
-        """``{node: {param name: tensor}}`` — views of each node's slice."""
+        """``{node: {param name: tensor}}`` — views of each node's slice
+        (on a mesh this rank's node only)."""
         stacked = self.model.stacked_parameters()
         return {
-            name: {k: v[a] for k, v in stacked.items()}
-            for a, name in enumerate(self.node_names)
+            self.node_names[g]: {k: v[a] for k, v in stacked.items()}
+            for a, g in enumerate(self._local)
         }
 
     def node_batch_stats(self) -> Dict[Hashable, Dict[str, torch.Tensor]]:
         """``{node: {statistic name: tensor}}`` — views of each node's
-        BatchNorm running statistics (empty for models without any)."""
+        BatchNorm running statistics (empty for models without any; on a
+        mesh this rank's node only)."""
         stacked = self.model.stacked_stats()
         return {
-            name: {k: v[a] for k, v in stacked.items()}
-            for a, name in enumerate(self.node_names)
+            self.node_names[g]: {k: v[a] for k, v in stacked.items()}
+            for a, g in enumerate(self._local)
         }
 
     def parameter_deviation(self) -> float:

@@ -297,7 +297,7 @@ def test_launch_counts_see_graph_replays(monkeypatch):
     assert record == {("flash_fwd", "wgmma"): 3, ("flash_bwd_dq", "cuda_core"): 1}
     fa.count_replays(record, times=2)
     assert (fwd.launches, fwd.by_body["wgmma"]) == (7, 7)
-    assert (dq.launches, dq.by_body) == (2, {"wgmma": 0, "cuda_core": 2})
+    assert (dq.launches, dq.by_body) == (2, {"wgmma": 0, "cuda_core": 2, "cuda_core_wide": 0})
     capturing[0] = True
     fwd.launch(params, "cuda", "wgmma")  # captured outside a record
     assert fwd.launches == 7

@@ -1,12 +1,14 @@
 """The head-dim rule of the flash-attention wrappers, on the CPU through
 the plain versions: a call of head dim D runs at ``kernel_head_dim(D)``
-(the next of 32, 64, 128 and 256) with Q, K, V, O and dO zero-padded, the
+(the next of 32, 64, 128 and 256, above 256 the next multiple of 128,
+the wide bodies') with Q, K, V, O and dO zero-padded, the
 scale taken from the true D, and O, dQ, dK, dV sliced back.  The card
 runs the same ``padded_*`` helpers around its launches; here they wrap
 the plain versions, which must then equal unpadded plain attention and
 autograd of softmax attention, in float32, to 1e-5.  Head dims 192 and
-256 (the D-256 body) are also held against the JAX package's flash
-attention in interpret mode, which pads them to its 256 lanes, at 1e-5.
+256 (the D-256 body) and 320 and 640 (the wide bodies, at 384 and 640)
+are also held against the JAX package's flash attention in interpret
+mode, which pads them to its 128 lanes, at 1e-5.
 """
 
 import math
@@ -50,13 +52,14 @@ def test_kernel_head_dim_rounds_up_and_names_the_roadmap_item_above_128():
     assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 32, 33, 48, 64, 65, 96, 128, 129, 160,
                                             192, 256)] == [
         32, 32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256]
-    for D in (257, 320):
-        with pytest.raises(ValueError,
-                           match='"flash attention for head dims above 256" of ROADMAP.md'):
-            fa.kernel_head_dim(D)
+    # Above 256 the wide bodies take every multiple of 128: no head dim raises.
+    assert [fa.kernel_head_dim(d) for d in (257, 320, 384, 385, 1000, 1152)] == [
+        384, 384, 384, 512, 1024, 1152]
+    assert [fa.wide_body(fa.kernel_head_dim(d)) for d in (256, 257, 1000)] == [
+        False, True, True]
 
 
-@pytest.mark.parametrize("D", [8, 16, 48, 96, 192, 256])
+@pytest.mark.parametrize("D", [8, 16, 48, 96, 192, 256, 320])
 @pytest.mark.parametrize("causal,window,with_dadj", [
     (True, None, False), (True, 5, False), (False, None, True), (True, None, True)])
 def test_padded_calls_equal_unpadded_plain_attention(D, causal, window, with_dadj):
@@ -110,7 +113,7 @@ def one_intra_op_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 320, 640])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 5)])
 def test_wide_head_dims_match_jax_flash_interpret(D, causal, window, one_intra_op_thread):
     """Output and q/k/v grads of the port's flash attention (its plain

@@ -193,3 +193,35 @@ def test_lm_extras_entry_points_need_the_card_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MoEMLP(1, 8, 4)
     assert TransformerLM(device="cpu", **kw).flat_params.device.type == "cpu"
+
+
+_SHARDED = [
+    "distributed_learning_tpu_torch.parallel.multihost",
+    "distributed_learning_tpu_torch.parallel.consensus",
+    "distributed_learning_tpu_torch.training.trainer",
+]
+
+
+def test_sharded_route_modules_and_the_rank_script_import_no_jax():
+    """The sharded route (multihost, the engine's ``mesh=`` half, the
+    trainer) with its public names, and the gloo rank script of the
+    sharded tests, load no JAX and nothing of the JAX package."""
+    code = "\n".join(
+        ["import importlib, sys", f"sys.path.insert(0, {os.path.join(REPO, 'tests', 'torch_port')!r})"]
+        + [f"importlib.import_module({m!r})" for m in _SHARDED]
+        + ["from distributed_learning_tpu_torch.parallel.multihost import (AgentMesh,"
+           " default_backend, hybrid_agent_mesh, initialize, order_devices_for_ring,"
+           " process_local_agents)",
+           "from distributed_learning_tpu_torch.parallel.consensus import (make_agent_mesh,"
+           " ring_offset_weights, local_ring_mix, local_sq_deviation)",
+           "import sharded_ranks",
+           "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+           " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"
+           " or m.startswith('distributed_learning_tpu.'))",
+           "print('LOADED=' + ','.join(bad))"])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = [line for line in out.stdout.splitlines() if line.startswith("LOADED=")][0]
+    assert loaded == "LOADED=", f"port import loaded {loaded}"

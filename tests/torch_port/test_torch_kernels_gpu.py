@@ -70,6 +70,12 @@ def _max_tile_rel_err(a, b, rows=64):
         (1, 130, 2, 256, torch.float32, True, 37, False),
         (2, 333, 2, 192, torch.bfloat16, False, None, False),
         (1, 100, 2, 192, torch.float32, True, None, True),
+        # Above 256 the wide bodies, at any multiple of 128; 320 pads to 384.
+        (2, 200, 2, 384, torch.bfloat16, True, None, True),
+        (1, 130, 2, 512, torch.float32, False, None, False),
+        (2, 300, 1, 384, torch.bfloat16, True, 50, False),
+        (1, 97, 2, 320, torch.float32, True, None, True),
+        (1, 64, 1, 1152, torch.bfloat16, True, None, False),
     ],
 )
 def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
@@ -115,6 +121,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 512, 2, 128), torch.bfloat16, "wgmma"),
     ((2, 256, 2, 32), torch.float32, "cuda_core"),
     ((1, 256, 2, 256), torch.bfloat16, "cuda_core"),
+    ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide"),
 ])
 def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
     """Two runs give the same bits, and every launch is counted once, on
@@ -130,19 +137,19 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
         runs.append([out.detach()] + list(grads))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    wgmma = body == "wgmma"
     assert {k.name: k.launches for k in fa.KERNELS.values()} == {
         "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-        "flash_bwd_rowterm": 2 if wgmma else 0,
+        "flash_bwd_rowterm": 0 if body == "cuda_core" else 2,
     }
-    assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.KERNELS[name].by_body == {"wgmma": 2 * wgmma, "cuda_core": 2 * (not wgmma)}
+    want = {b: 2 * (b == body) for b in ("wgmma", "cuda_core", "cuda_core_wide")}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body == want
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,body", [(8, "cuda_core"), (16, "cuda_core"), (48, "wgmma"),
-                                    (96, "wgmma"), (192, "cuda_core")])
+                                    (96, "wgmma"), (192, "cuda_core"),
+                                    (320, "cuda_core_wide")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body):
     """``flash_attention`` at a head dim the kernels do not have: the
     gradients of a bf16 call equal the plain versions' at ``TOL``, every
@@ -167,15 +174,18 @@ def test_padded_head_dims_train_through_the_kernels(card, D, body):
         torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert fa.KERNELS[name].by_body[body] == 1
-    assert fa.KERNELS["flash_bwd_rowterm"].launches == (body == "wgmma")
+    assert fa.KERNELS["flash_bwd_rowterm"].launches == (body != "cuda_core")
 
 
 @pytest.mark.gpu
 def test_head_dim_above_128_raises_and_names_its_roadmap_item(card):
-    # Since the D-256 body, the item is "above 256".
+    # The item is closed since the wide bodies: no head dim raises, and
+    # D 320 runs at 384 on the wide body with its own head dim out.
     q = torch.zeros(1, 8, 1, 320, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='"flash attention for head dims above 256" of ROADMAP.md'):
-        fa.flash_attention(q, q, q)
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and fa.KERNELS["flash_fwd"].by_body["cuda_core_wide"] == 1
 
 
 @pytest.mark.gpu
@@ -185,7 +195,7 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
     lib = _build.load_library()
     for which in (0, 1, 2):  # forward, dQ, dK/dV
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            for D in (32, 64, 128, 256):
+            for D in (32, 64, 128, 256, 384, 1152):
                 assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D)
 
 
@@ -208,7 +218,7 @@ def test_dq_given_the_row_term_equals_dq_that_runs_the_pre_pass(card, D, with_da
     assert fa.KERNELS["flash_bwd_rowterm"].launches == 0
     own = fa.flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, True, None)
     assert fa.KERNELS["flash_bwd_rowterm"].launches == 1
-    assert fa.KERNELS["flash_bwd_dq"].by_body == {"wgmma": 2, "cuda_core": 0}
+    assert fa.KERNELS["flash_bwd_dq"].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
     torch.cuda.synchronize()
     assert torch.equal(given, own)
 

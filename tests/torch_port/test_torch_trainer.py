@@ -132,7 +132,8 @@ def test_optimizers_match_optax(name, kwargs):
     ],
 )
 def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # mesh is ported (one agent a rank); what is not an AgentMesh is refused.
+    with pytest.raises(ValueError, match="AgentMesh"):
         GossipTrainer(model="transformer", model_kwargs=LM, device="cpu",
                       weights=Topology.ring(4), **_common(**{option: value}))
 

@@ -19,7 +19,7 @@
 * the telemetry payloads carry ``step_time_s`` / ``mfu`` with the timer
   on, set on sampled chunks only; the step's cost profile counts the
   MLP's products exactly and the MFU follows the loop convention;
-* ``_UNPORTED`` still rejects ``mesh`` (``remat`` is ported).
+* no option is left unported (``mesh`` and ``remat`` run).
 """
 
 import jax
@@ -34,7 +34,7 @@ from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
 from distributed_learning_tpu_torch.obs import cost as tcost
 from distributed_learning_tpu_torch.parallel import Topology
-from distributed_learning_tpu_torch.training.trainer import _UNPORTED, GossipTrainer
+from distributed_learning_tpu_torch.training.trainer import GossipTrainer
 from distributed_learning_tpu_torch.utils.telemetry import RecordingTelemetry
 
 NODES = list(range(4))
@@ -254,9 +254,12 @@ def test_step_profile_counts_the_mlps_products():
 
 
 def test_unported_still_rejects_mesh_and_remat():
-    """Only ``mesh`` is left unported; ``remat`` is ported (LM extras)."""
-    assert sorted(_UNPORTED) == ["mesh"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``mesh`` and ``remat`` are both ported now: no ``_UNPORTED`` table
+    is left, and a mesh that is not an ``AgentMesh`` is refused."""
+    from distributed_learning_tpu_torch.training import trainer
+
+    assert not hasattr(trainer, "_UNPORTED")
+    with pytest.raises(ValueError, match="AgentMesh"):
         GossipTrainer(device="cpu", **_kw(mesh="agents"))
     assert GossipTrainer(device="cpu", **_kw(remat=True)).remat
     with pytest.raises(ValueError, match="obs must be"):
