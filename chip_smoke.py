@@ -330,8 +330,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
              Chebyshev, ``topology_schedule``, Gossip-PGA, ``mix_eps``):
              ``train_epochs(3)`` (training replays, eager rounds) equal
              to 3 eager epochs bit for bit and to the dense trainer's
-             agent (``SHARDED_MIX_ATOL``).  A failing rank stops the
-             others and the phase.
+             agent (``SHARDED_MIX_ATOL``).  (6) ROADMAP item 3b at
+             WRN-28-10 width: ``mix_async`` (tau 1, periods 1, 2, 1, 2),
+             clip (fixed and adaptive), trimmed mean (trim 1, complete
+             graph), async clip and async trim, CHOCO top-k 10% per-leaf
+             and global with error feedback, each against the dense
+             engine (``SHARDED_MIX_ATOL``, masses ``SHARDED_MASS_RTOL``);
+             a dropped partner message and a publication one round stale
+             must fail; each route's D2H, exchange, H2D and arithmetic
+             ms and bytes beside the dense call.  (7) One WRN-28-10
+             epoch with each of CHOCO, async, trim and clip against the
+             dense trainer (as (2)); samples/s.  (8) ring_flash over the
+             4 ranks (B 2, 8 x 128 heads, T 4096, 1024 a rank, bf16),
+             causal and not, forward and backward against kernels A/B/C
+             at full T (phase 2's limits), launches a rank (r + 1 or 4),
+             a wrong source index and a skipped rotation must fail.  (9)
+             ``make_gossip_lm_step`` on the ranks regrouped as agents 2
+             x seq 2 at the LM slice's full width with ring_flash, 3
+             steps, against the two agents in one process with flash at
+             full T (loss ``LOSS_RTOL``, updates ``GRAD_RTOL``); a step's
+             split (compute, K/V rotation, gradient all_reduce, gossip),
+             tokens/s and peak memory; A, B, C and the pre-pass counted
+             (``launches_by_path["seq_parallel"]``); ring and ulysses at
+             a 2-layer cut, one step (loss, the step's gradient).  A
+             failing rank stops the others and the phase.
 
 ``--wide-only`` and ``--sharded-only`` build and run only the wide
 bodies' cases and times, or only phase 34, and end with the card line.
@@ -5010,6 +5032,9 @@ def phase_sharded():
         facts = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
                  for r in range(SHARDED_WORLD)]
     launches = {k: sum(f["lm"]["launches"][k] for f in facts) for k in facts[0]["lm"]["launches"]}
+    seq_launches = {k: sum(f["lm_step"]["ring_flash"]["launches"][k] for f in facts)
+                    for k in launches}
+    step = [f["lm_step"]["ring_flash"] for f in facts]
     lm_s = max(f["lm"]["epoch_seconds"] for f in facts)
     wrn_s = max(f["wrn"]["epoch_seconds"] for f in facts)
     summary = {
@@ -5022,10 +5047,23 @@ def phase_sharded():
         "lm_transport_s": {f"rank{f['rank']}": f["lm"]["transport_s"] for f in facts},
         "wrn_samples_per_s": WRN_AGENTS * WRN_BATCH * WRN_STEPS / wrn_s,
         "lm_epoch_seconds": lm_s, "lm_tokens_per_s": AGENTS * BATCH * SEQ * STEPS / lm_s,
-        "lm_sharded_launches": launches, "seconds": round(time.perf_counter() - t0, 2),
+        "lm_sharded_launches": launches,
+        "item_3b_route_ms": {f"rank{f['rank']}": f["sharded_3b"]["route_ms"] for f in facts},
+        "item_3b_dense_ms": facts[0]["sharded_3b"]["dense_ms"],
+        "wrn_3b_samples_per_s": {k: max(f["wrn_3b"]["epochs"][k]["samples_per_s"]
+                                        for f in facts) for k in facts[0]["wrn_3b"]["epochs"]},
+        "ring_flash_ms": {f"rank{f['rank']}": {t: f["ring_flash"][t]["ring_ms"]
+                                               for t in ("causal", "full")} for f in facts},
+        "lm_step_seconds": max(sum(r["step_seconds"]) for r in step) / SPMD_STEPS,
+        "lm_step_tokens_per_s": min(r["tokens_per_s"] for r in step),
+        "lm_step_split": {f"rank{f['rank']}": f["lm_step"]["ring_flash"]["split"]
+                          for f in facts},
+        "lm_step_peak_memory_bytes": max(r["peak_memory_bytes"] for r in step),
+        "seq_parallel_launches": seq_launches,
+        "seconds": round(time.perf_counter() - t0, 2),
     }
     emit(summary)
-    return launches
+    return launches, seq_launches
 
 
 def _transport_s(mesh) -> dict:
@@ -5330,6 +5368,564 @@ def _sharded_superstep(mesh) -> dict:
     return facts
 
 
+
+# -- Phase 34, part 2: ROADMAP item 3b and sequence parallelism ------- #
+# Limits: each 3b route at WRN-28-10 width against the dense engine on
+# the same stacked state within SHARDED_MIX_ATOL (float32: the sums of a
+# round in another order), the redirected masses within
+# SHARDED_MASS_RTOL (float32 sums over the ranks in another order).
+# The clip radius makes every edge clip: an N(0, 1) delta at this width
+# has norm ~sqrt(2 WRN_PARAMS) ~ 8543.  ring_flash alone (seq 4) against
+# kernels A/B/C run at full T in one process under phase 2's bfloat16
+# limits (TOL); the agents x seq step and its ring / ulysses cut against
+# two agents in one process with attn_impl "flash" at full T, the same
+# Adam and the same Metropolis round: losses within LOSS_RTOL, each
+# agent's update within GRAD_RTOL (the ring's blocks and the full-T
+# kernels round differently, carried through Adam; ring and ulysses
+# round the scores to bfloat16 as the plain path does).
+SHARDED_MASS_RTOL = 1e-5
+SHARDED_3B_ROUNDS = 2
+SHARDED_CLIP_RADIUS = 6000.0
+SHARDED_CLIP_MULTIPLIER = 0.99
+SHARDED_TOPK = 0.1
+SHARDED_PERIODS, SHARDED_TAU = (1, 2, 1, 2), 1
+SPMD_SHAPE = {"agents": 2, "seq": 2}
+SPMD_STEPS, SPMD_CUT_LAYERS, SPMD_LR = 3, 2, 3e-4
+# Gossip SGD on WRN-28-10 with each 3b option, one epoch each.
+WRN_3B = {
+    "choco": {"compression": "topk:0.1", "compression_gamma": 0.2},
+    "async": {"async_gossip": {"staleness_bound": 1, "publish_period": [1, 2, 1, 2]}},
+    "trim": {"robust_mixing": {"kind": "trim", "trim": 1}, "weights": "complete"},
+    "clip": {"robust_mixing": {"kind": "clip", "radius": 2.0, "adaptive": True}},
+}
+
+
+def _timed_transport(mesh, fn):
+    """``fn()``'s result, wall ms and transport parts on ``mesh``'s clock
+    (D2H, exchange or collective, H2D, the rest) and the bytes it sent."""
+    dev = mesh.device
+    torch.cuda.synchronize(dev)
+    mesh.clock.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    c = mesh.clock
+    parts = {"wall_ms": wall, "d2h_ms": c.d2h_s * 1e3, "exchange_ms": c.exchange_s * 1e3,
+             "h2d_ms": c.h2d_s * 1e3}
+    parts["arithmetic_and_rest_ms"] = wall - parts["d2h_ms"] - parts["exchange_ms"] - parts[
+        "h2d_ms"]
+    parts["bytes_sent"] = c.bytes_sent
+    return out, parts
+
+
+def _event_ms(fn):
+    """``fn()``'s result and its milliseconds between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _wrn_leaf_shapes(total: int):
+    """WRN-28-10's convolution kernels as leaf shapes, and one leaf with
+    the rest of the ``total`` parameters (the per-leaf budgets' layout)."""
+    shapes = [(c_out, c_in, k, k) for c_in, c_out, k, _s, _p, _h in wrn_conv_shapes(28, 10)]
+    rest = total - sum(math.prod(s) for s in shapes)
+    return shapes + [(rest,)]
+
+
+def _sharded_3b(mesh) -> dict:
+    """ROADMAP item 3b at WRN-28-10 width on this rank: async gossip,
+    clip (fixed and adaptive), trimmed mean, async clip and trim, and
+    CHOCO top-k (per-leaf, and global with error feedback), each against
+    the dense engine on the same stacked state; a dropped partner
+    message and a one-round-stale publication must fail; each route's
+    transport parts beside the dense call."""
+    from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+    from distributed_learning_tpu_torch.parallel import compression as tc
+
+    n, a, dev = mesh.size, mesh.agent, mesh.device
+    W = {"ring": Topology.ring(n).metropolis_weights(),
+         "complete": Topology.complete(n).metropolis_weights()}
+    sh = {m: ConsensusEngine(w, mesh=mesh) for m, w in W.items()}
+    de = {m: ConsensusEngine(w, device=dev) for m, w in W.items()}
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = {"float32": torch.randn(n, WRN_PARAMS, generator=g, device=dev)}
+    x = {"float32": X["float32"][a:a + 1].clone()}
+    R = SHARDED_3B_ROUNDS
+    clip = {"kind": "clip", "radius": SHARDED_CLIP_RADIUS}
+    trim = {"kind": "trim", "trim": 1}
+    kw = dict(tau=SHARDED_TAU, periods=SHARDED_PERIODS, times=R)
+    routes = {
+        "async": ("ring", lambda e, s: e.mix_async(s, **kw)),
+        "clip": ("ring", lambda e, s: e.mix_robust(s, clip, R)),
+        "clip_adaptive": ("ring", lambda e, s: e.mix_robust(
+            s, {"kind": "clip", "radius": SHARDED_CLIP_MULTIPLIER, "adaptive": True}, R)),
+        "trim": ("complete", lambda e, s: e.mix_robust(s, trim, R)),
+        "async_clip": ("ring", lambda e, s: e.mix_async_robust(s, spec=clip, **kw)),
+        "async_trim": ("complete", lambda e, s: e.mix_async_robust(s, spec=trim, **kw)),
+    }
+    errs, masses, parts, dense_ms, checks = {}, {}, {}, {}, {}
+
+    def row_err(got, want):
+        return max(float((got[k] - want[k][a:a + 1]).abs().max()) for k in got)
+
+    for name, (m, fn) in routes.items():
+        got, parts[name] = _timed_transport(mesh, lambda: fn(sh[m], x))
+        want, dense_ms[name] = _event_ms(lambda: fn(de[m], X))
+        errs[name] = row_err(got[0], want[0])
+        if name.startswith("async"):
+            errs[f"{name}_pub"] = row_err(got[1].pub, want[1].pub)
+        if not name == "async":
+            masses[name] = [float(got[-1]), float(want[-1])]
+            checks[f"{name}_mass"] = (abs(masses[name][0] - masses[name][1])
+                                      <= SHARDED_MASS_RTOL * abs(masses[name][1])
+                                      and masses[name][1] > 0)
+        del got, want
+    # CHOCO top-k 10% on WRN-28-10's leaves (per-leaf, and global with EF).
+    shapes, off, leaves = _wrn_leaf_shapes(WRN_PARAMS), 0, {}
+    for i, shp in enumerate(shapes):
+        size = math.prod(shp)
+        leaves[f"l{i:02d}"] = X["float32"][:, off:off + size].reshape(n, *shp)
+        off += size
+    for name, ckw in (("choco_per_leaf", {}),
+                      ("choco_global_ef", {"budget": "global", "error_feedback": True})):
+        se = tc.ChocoGossipEngine(W["ring"], tc.top_k(SHARDED_TOPK), gamma=0.2, mesh=mesh, **ckw)
+        dce = tc.ChocoGossipEngine(W["ring"], tc.top_k(SHARDED_TOPK), gamma=0.2, device=dev, **ckw)
+        (st, trace), parts[name] = _timed_transport(mesh, lambda: se.run(se.init(leaves), R))
+        (dst, dtrace), dense_ms[name] = _event_ms(lambda: dce.run(dce.init(leaves), R))
+        errs[name] = max(float((st.x[k] - dst.x[k][a:a + 1]).abs().max()) for k in st.x)
+        errs[f"{name}_xhat"] = max(float((st.xhat[k] - dst.xhat[k][a:a + 1]).abs().max())
+                                   for k in st.x)
+        checks[f"{name}_trace"] = bool(((trace - dtrace).abs()
+                                        <= SHARDED_DEV_RTOL * dtrace.abs()).all())
+        del st, dst
+    del leaves
+    for k, e in errs.items():
+        checks[k] = e <= SHARDED_MIX_ATOL
+    # Control 1: agent 0 loses one partner message in a clipped round.
+    orig, dropped = mesh.exchange, []
+
+    def dropping(sends, recvs):
+        orig(sends, recvs)
+        if a == 0 and not dropped:
+            for _, buf in recvs:
+                buf.zero_()
+            dropped.append(True)
+
+    mesh.exchange = dropping
+    try:
+        bad = sh["ring"].mix_robust(x, {"kind": "clip", "radius": SHARDED_CLIP_RADIUS * 2}, 1)[0]
+    finally:
+        mesh.exchange = orig
+    want = de["ring"].mix_robust(X, {"kind": "clip", "radius": SHARDED_CLIP_RADIUS * 2}, 1)[0]
+    ctrl_drop = row_err(bad, want)
+    # Control 2: agent 0 skips its second publication, so its neighbours
+    # mix a copy one round stale.
+    eng, calls = sh["ring"], []
+    real = eng._publish_local_
+
+    def stale(xs, state, periods):
+        calls.append(1)
+        if a == 0 and len(calls) == 2:
+            keep = {k: v.clone() for k, v in state.pub.items()}
+            real(xs, state, periods)
+            for k, v in keep.items():
+                state.pub[k].copy_(v)
+            return
+        real(xs, state, periods)
+
+    eng._publish_local_ = stale
+    try:
+        bad = eng.mix_async(x, **kw)[0]
+    finally:
+        del eng._publish_local_
+    want = de["ring"].mix_async(X, **kw)[0]
+    err = torch.tensor([row_err(bad, want)], device=dev)
+    ctrl_stale = float(mesh.all_reduce(err, "max")[0])
+    checks["dropped_message_rejected"] = a != 0 or ctrl_drop > SHARDED_MIX_ATOL
+    checks["stale_publication_rejected"] = ctrl_stale > SHARDED_MIX_ATOL
+    del bad, want, X, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    facts = {"width": WRN_PARAMS, "rounds": R, "max_abs_err": errs, "masses": masses,
+             "limit": SHARDED_MIX_ATOL, "control_dropped_max_abs_err": ctrl_drop,
+             "control_stale_max_abs_err": ctrl_stale, "route_ms": parts,
+             "dense_ms": dense_ms, "checks": checks}
+    _rank_emit(mesh, "3b", facts)
+    return facts
+
+
+def _sharded_wrn_3b(mesh) -> dict:
+    """One epoch of gossip SGD on WRN-28-10 with each of ``WRN_3B``'s
+    options and one agent a rank, against agent i of the dense trainer's
+    same epoch, run on rank 0 once the sharded trainer is freed."""
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    def master(opts, **kw):
+        opts = dict(opts)
+        if opts.pop("weights", "ring") == "complete":
+            opts["weights"] = Topology.complete(WRN_AGENTS)
+        return make_vision_master(
+            "wide-resnet", WRN_AGENTS, WRN_BATCH, WRN_STEPS, 1, WRN_EVAL, augment=True,
+            depth=28, widen_factor=10, dropout_rate=0.3, dtype=torch.bfloat16,
+            trainer_kwargs=dict(opts, **kw))
+
+    dev, out = mesh.device, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        for name, opts in WRN_3B.items():
+            sm = master(opts, mesh=mesh)
+            torch.cuda.synchronize(dev)
+            mesh.clock.reset()
+            t0 = time.perf_counter()
+            sm.train_epoch()
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            transport = _transport_s(mesh)
+            params = mesh.all_gather(sm.model.flat_params[0])
+            stats = mesh.all_gather(sm.model.flat_stats[0])
+            losses = [list(sm.network[i].stats.train_loss) for i in range(WRN_AGENTS)]
+            masses = list(sm._robust_masses)
+            del sm
+            gc.collect()
+            torch.cuda.empty_cache()
+            facts = {"epoch_seconds": dt, "transport_s": transport,
+                     "samples_per_s": WRN_AGENTS * WRN_BATCH * WRN_STEPS / dt}
+            if mesh.agent == 0:
+                dm = master(opts)
+                dm.train_epoch()
+                dl = np.asarray([dm.network[i].stats.train_loss for i in range(WRN_AGENTS)])
+                loss_rel = float(np.max(np.abs(np.asarray(losses) - dl) / np.abs(dl)))
+                p_err = float((params - dm.model.flat_params).abs().max())
+                ds = dm.model.flat_stats
+                s_rel = max(float((stats[i] - ds[i]).norm() / ds[i].norm())
+                            for i in range(WRN_AGENTS))
+                m_ok = len(masses) == len(dm._robust_masses) and all(
+                    abs(x - y) <= SHARDED_MASS_RTOL * abs(y)
+                    for x, y in zip(masses, dm._robust_masses))
+                facts.update(loss_max_rel_err=loss_rel, params_max_abs_err=p_err,
+                             stats_max_rel_err=s_rel, masses=[masses, list(dm._robust_masses)],
+                             checks={"losses": loss_rel <= PLAIN_LOSS_RTOL,
+                                     "stats": s_rel <= PLAIN_STAT_RTOL,
+                                     "params": p_err <= SHARDED_MIX_ATOL,
+                                     "masses": m_ok})
+                del dm
+            del params, stats
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh.barrier()
+            out[name] = facts
+    torch.use_deterministic_algorithms(False)
+    checks = {f"{k}.{c}": ok for k, f in out.items() for c, ok in f.get("checks", {}).items()}
+    facts = {"epochs": out, "checks": checks}
+    _rank_emit(mesh, "wrn_3b", facts)
+    return facts
+
+
+def _ring_blocks_controls():
+    """Two broken ``_blocks``: the second block labelled with the wrong
+    source, and the first rotation skipped (the own K/V kept under the
+    received source)."""
+    from distributed_learning_tpu_torch.ops import ring_attention as ra
+
+    orig = ra._blocks
+
+    def wrong_src(mesh_, k_, v_):
+        return [(kb, vb, (s + 1) % mesh_.size if i == 1 else s)
+                for i, (kb, vb, s) in enumerate(orig(mesh_, k_, v_))]
+
+    def skipped(mesh_, k_, v_):
+        out = orig(mesh_, k_, v_)
+        return [out[0], (out[0][0], out[0][1], out[1][2])] + out[2:]
+
+    return {"wrong_src": wrong_src, "skipped_rotation": skipped}
+
+
+def _sharded_ring_flash(mesh, fa) -> dict:
+    """ring_flash alone on the 4 ranks as one sequence axis at the LM
+    slice's attention shape (B 2, 8 x 128 heads, T 4096 bf16, 1024 a
+    rank), causal and not: forward and backward gathered to rank 0 and
+    held against kernels A/B/C at full T; the launches a rank; the ring's
+    transport beside the rest.  The controls must fail."""
+    from distributed_learning_tpu_torch.ops import ring_attention as ra
+
+    n, a, dev = mesh.size, mesh.agent, mesh.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    full = [torch.randn(BATCH, SEQ, HEADS, HEAD_DIM, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(4)]
+    t = SEQ // n
+    lim, checks, facts = TOL[torch.bfloat16], {}, {}
+
+    def gathered(x):
+        return torch.cat(list(mesh.all_gather(x.contiguous()).unbind(0)), dim=1)
+
+    for causal in (True, False):
+        tag = "causal" if causal else "full"
+        loc = [x[:, a * t:(a + 1) * t].clone().requires_grad_(True) for x in full[:3]]
+        do = full[3][:, a * t:(a + 1) * t].contiguous()
+        ra.ring_flash_attention(*loc, mesh=mesh, causal=causal).backward(do)  # warm-up
+        for x in loc:
+            x.grad = None
+        fa.reset_launch_counts()
+
+        def run():
+            out = ra.ring_flash_attention(*loc, mesh=mesh, causal=causal)
+            out.backward(do)
+            return out
+
+        out, parts = _timed_transport(mesh, run)
+        launches = {k.name: k.launches for k in fa.KERNELS.values()}
+        live = a + 1 if causal else n
+        expect = {"flash_fwd": live, "flash_bwd_dq": live, "flash_bwd_dkv": live,
+                  "flash_bwd_rowterm": live}
+        # The kernels' own time for this rank's live blocks (CUDA events).
+        kb = full[1][:, :t].contiguous()
+        o_, lse_ = fa.flash_fwd(loc[0].detach(), kb, kb, 1.0 / math.sqrt(HEAD_DIM), causal,
+                                None, with_lse=True)
+        fwd_ms = cuda_ms(lambda: fa.flash_fwd(loc[0].detach(), kb, kb, 0.1, causal, None,
+                                              with_lse=True), 3)
+        bwd_ms = cuda_ms(lambda: fa._layer_backward(loc[0].detach(), kb, kb, o_, do, lse_,
+                                                    lse_, 0.1, causal, None), 3)
+        res = [gathered(x) for x in (out.detach(), loc[0].grad, loc[1].grad, loc[2].grad)]
+        f = {"launches": launches, "expected_launches": expect, "ring_ms": parts,
+             "kernels_ms_per_live_block": {"fwd": fwd_ms, "bwd": bwd_ms},
+             "kernels_ms_live_blocks": live * (fwd_ms + bwd_ms)}
+        checks[f"{tag}_launches"] = launches == expect
+        if a == 0:
+            ref = [x.clone().requires_grad_(True) for x in full[:3]]
+            ro = fa.flash_attention(*ref, causal=causal)
+            ro.backward(full[3])
+            errs = {}
+            for name, got, want, atol in zip(("o", "dq", "dk", "dv"), res,
+                                             [ro.detach()] + [x.grad for x in ref],
+                                             (lim["o"],) + (lim["grad"],) * 3):
+                err, tile, ok = compare(got, want, atol, lim["rtol"], lim["tile"])
+                errs[name] = {"max_abs_err": err, "tile_rel_err": tile}
+                checks[f"{tag}_{name}"] = ok
+            f["errors"] = errs
+            del ref, ro
+        facts[tag] = f
+        del res, out, loc
+    # Controls: the forward with a broken rotation must leave the limits.
+    orig = ra._blocks
+    for name, fake in _ring_blocks_controls().items():
+        loc = [x[:, a * t:(a + 1) * t].contiguous() for x in full[:3]]
+        ra._blocks = fake
+        try:
+            with torch.no_grad():
+                bad = gathered(ra.ring_flash_attention(*loc, mesh=mesh, causal=True))
+        finally:
+            ra._blocks = orig
+        if a == 0:
+            with torch.no_grad():
+                want = fa.flash_attention(*full[:3], causal=True)
+            err, tile, ok = compare(bad, want, lim["o"], lim["rtol"], lim["tile"])
+            facts[f"control_{name}"] = {"max_abs_err": err, "tile_rel_err": tile}
+            checks[f"control_{name}_rejected"] = not ok
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    facts["checks"] = checks
+    _rank_emit(mesh, "ring_flash", facts)
+    return facts
+
+
+def _spmd_model(grid, attn_impl, layers, n_agents=1):
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM
+
+    kw = dict(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS, head_dim=HEAD_DIM,
+              max_len=SEQ, attn_impl=attn_impl, dtype=torch.bfloat16, n_agents=n_agents,
+              device=grid.device, seed=0)
+    if grid is not None and attn_impl not in ("full", "flash"):
+        kw["mesh"] = grid
+    return TransformerLM(**kw)
+
+
+def _spmd_tokens(dev):
+    """Two agents' (B, T) tokens and targets, shifted on the global
+    sequence: each agent counts up from its own start."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    starts = torch.randint(0, VOCAB, (2, BATCH, 1), generator=g, device=dev)
+    seq = (starts + torch.arange(SEQ + 1, device=dev) * 7) % VOCAB
+    return seq[..., :-1], seq[..., 1:]
+
+
+def _spmd_dense(layers, steps, dev):
+    """The comparator: the two agents in one process (attn_impl "flash" at
+    full T), the same Adam and the same Metropolis round each step:
+    ``(per-step mean losses, (2, P) parameters after, (P,) init, (2, P)
+    first step's gradients)``."""
+    import torch.nn.functional as F
+
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    class _Grid:
+        device = dev
+
+    dm = _spmd_model(_Grid, "flash", layers, n_agents=2)
+    p0 = dm.flat_params[0].clone()
+    dm.flat_grads.zero_()
+    dm.flat_params.grad = dm.flat_grads
+    opt = make_optimizer("adam", None, SPMD_LR)(dm.flat_params)
+    X, Y = _spmd_tokens(dev)
+    losses, grads, w = [], None, 1.0 / 3.0
+    for _ in range(steps):
+        dm.flat_grads.zero_()
+        logits = dm(X)
+        ce = F.cross_entropy(logits.reshape(-1, VOCAB), Y.reshape(-1), reduction="none")
+        loss = ce.reshape(2, -1).mean(dim=1)
+        loss.sum().backward()
+        if grads is None:
+            grads = dm.flat_grads.clone()
+        opt.step()
+        with torch.no_grad():
+            p = dm.flat_params
+            p.copy_(p * (1.0 - 2.0 * w) + p.flip(0) * w + p.flip(0) * w)
+        losses.append(float(loss.mean()))
+    out = dm.flat_params.detach().clone()
+    del dm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, out, p0, grads
+
+
+def _spmd_run(grid, attn_impl, layers, steps, fa=None):
+    """``make_gossip_lm_step`` on this rank for ``steps`` steps: the
+    losses, each step's wall seconds and its split (compute, the K/V
+    rotation, the gradient all_reduce over seq, the gossip exchange),
+    the launches a rank, peak memory, and both agents' parameters after
+    (gathered along agents, on rank 0's column) and the first step's
+    gradient (summed over seq)."""
+    from distributed_learning_tpu_torch.training.spmd_lm import (
+        make_gossip_lm_step,
+        stack_agent_states,
+    )
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = grid.device
+    seq, agents = grid["seq"], grid["agents"]
+    a, s = grid.coords["agents"], grid.coords["seq"]
+    model = _spmd_model(grid, attn_impl, layers)
+    opt = stack_agent_states(model, make_optimizer("adam", None, SPMD_LR), seed=0)
+    step = make_gossip_lm_step(grid, model, opt)
+    X, Y = _spmd_tokens(dev)
+    t = SEQ // seq.size
+    x, y = X[a][:, s * t:(s + 1) * t], Y[a][:, s * t:(s + 1) * t]
+    # The gradient all_reduce over seq timed apart from the K/V rotation.
+    real, reduce_s = seq.all_reduce, [0.0]
+
+    def timed_reduce(tensor, op="sum"):
+        t0 = time.perf_counter()
+        out = real(tensor, op)
+        reduce_s[0] += time.perf_counter() - t0
+        return out
+
+    seq.all_reduce = timed_reduce
+    if fa is not None:
+        fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, split, first_grads = [], [], [], None
+    try:
+        for _ in range(steps):
+            seq.clock.reset()
+            agents.clock.reset()
+            reduce_s[0] = 0.0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            if first_grads is None:  # the first step's gradient, summed over seq
+                first_grads = model.flat_grads[0].clone()
+            sc, ac = seq.clock, agents.clock
+            seq_s = sc.d2h_s + sc.exchange_s + sc.h2d_s
+            gossip_s = ac.d2h_s + ac.exchange_s + ac.h2d_s
+            split.append({"compute_s": walls[-1] - max(seq_s, reduce_s[0]) - gossip_s,
+                          "kv_rotation_s": max(seq_s - reduce_s[0], 0.0),
+                          "grad_all_reduce_s": reduce_s[0], "gossip_s": gossip_s})
+    finally:
+        del seq.all_reduce
+    launches = None if fa is None else {k.name: k.launches for k in fa.KERNELS.values()}
+    bodies = None if fa is None else {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = agents.all_gather(model.flat_params[0].detach())
+    grads = agents.all_gather(first_grads)
+    del model, opt, step, first_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": walls, "split": split, "launches": launches,
+            "bodies": bodies, "peak_memory_bytes": peak}, (params, grads)
+
+
+def _sharded_lm_step(mesh, fa) -> dict:
+    """The agents x seq LM step (agents 2 x seq 2) at the LM slice's full
+    width with ring_flash, 3 steps, against the one-process comparator on
+    rank 0 (losses, each agent's update); then ring and ulysses at a
+    2-layer cut, one step each, against the comparator's 2-layer cut
+    (the forward's loss and the step's gradient)."""
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+
+    dev = mesh.device
+    grid = GridMesh(SPMD_SHAPE, dev)
+    a, s = grid.coords["agents"], grid.coords["seq"]
+    checks, facts = {}, {"coords": grid.coords}
+    run, (params, grads) = _spmd_run(grid, "ring_flash", LAYERS, SPMD_STEPS, fa)
+    live = s + 1
+    expect = {"flash_fwd": LAYERS * live * SPMD_STEPS, "flash_bwd_dq": LAYERS * live * SPMD_STEPS,
+              "flash_bwd_dkv": LAYERS * live * SPMD_STEPS,
+              "flash_bwd_rowterm": LAYERS * live * SPMD_STEPS}
+    checks["launches"] = run["launches"] == expect
+    checks["wgmma"] = all(run["bodies"][k]["wgmma"] == run["launches"][k]
+                          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    tokens = SPMD_SHAPE["agents"] * BATCH * SEQ
+    run["tokens_per_s"] = tokens * SPMD_STEPS / sum(run["step_seconds"])
+    run["expected_launches"] = expect
+    facts["ring_flash"] = run
+    cut = {}
+    for impl in ("ring", "ulysses"):
+        cut[impl] = _spmd_run(grid, impl, SPMD_CUT_LAYERS, 1)
+    if mesh.agent == 0:
+        dl, dp, p0, dg = _spmd_dense(LAYERS, SPMD_STEPS, dev)
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(run["losses"], dl))
+        upd = [float((params[i] - dp[i]).norm() / (dp[i] - p0).norm()) for i in range(2)]
+        grel = [float((grads[i] - dg[i]).norm() / dg[i].norm()) for i in range(2)]
+        run.update(dense_losses=dl, loss_max_rel_err=loss_rel, update_rel_err=upd,
+                   first_step_grad_rel_err=grel)
+        checks.update(losses=loss_rel <= LOSS_RTOL, params=max(upd) <= GRAD_RTOL,
+                      first_step_grads=max(grel) <= GRAD_RTOL)
+        del dp, dg
+        dl2, _, _, dg2 = _spmd_dense(SPMD_CUT_LAYERS, 1, dev)
+        for impl, (r, (_p, g)) in cut.items():
+            # One Adam step moves each parameter by about lr sign(g), so an
+            # update read after one step counts sign flips of gradients
+            # near 0; the cut holds the gradient of the step instead.
+            lrel = abs(r["losses"][0] - dl2[0]) / abs(dl2[0])
+            grel = [float((g[i] - dg2[i]).norm() / dg2[i].norm()) for i in range(2)]
+            facts[impl] = dict(r, dense_losses=dl2, loss_max_rel_err=lrel, grad_rel_err=grel)
+            checks[f"{impl}_loss"] = lrel <= LOSS_RTOL
+            checks[f"{impl}_grads"] = max(grel) <= GRAD_RTOL
+        del dg2
+    else:
+        for impl, (r, _pg) in cut.items():
+            facts[impl] = r
+    del params, grads, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    facts["checks"] = checks
+    _rank_emit(mesh, "lm_step", facts)
+    return facts
+
+
+SHARDED_PARTS = ("engine", "wrn", "lm", "tracking", "superstep", "sharded_3b", "wrn_3b",
+                 "ring_flash", "lm_step")
+
+
 def sharded_rank_main(args) -> int:
     """One rank of phase 34: join the group, run every part, write the
     facts for the parent; exit 1 if a check failed."""
@@ -5356,11 +5952,15 @@ def sharded_rank_main(args) -> int:
     facts["lm"] = _sharded_lm(mesh, fa)
     facts["tracking"] = _sharded_tracking(mesh)
     facts["superstep"] = _sharded_superstep(mesh)
+    facts["sharded_3b"] = _sharded_3b(mesh)
+    facts["wrn_3b"] = _sharded_wrn_3b(mesh)
+    facts["ring_flash"] = _sharded_ring_flash(mesh, fa)
+    facts["lm_step"] = _sharded_lm_step(mesh, fa)
     with open(os.path.join(args.sharded_out, f"rank{rank}.json"), "w") as f:
         json.dump(facts, f)
     mesh.barrier()
     torch.distributed.destroy_process_group()
-    failed = [f"{part}.{k}" for part in ("engine", "wrn", "lm", "tracking", "superstep")
+    failed = [f"{part}.{k}" for part in SHARDED_PARTS
               for k, ok in facts[part].get("checks", {}).items() if not ok]
     if failed:
         print(f"rank {rank}: sharded checks failed: {failed}", file=sys.stderr, flush=True)
@@ -5490,7 +6090,7 @@ def main(argv=None) -> int:
     # The comm/ runtime: gossip SGD over loopback TCP between the WRN agents.
     phase_comm_runtime()
     # The sharded engine on torch.distributed: one agent a rank process.
-    sharded_launches = phase_sharded()
+    sharded_launches, seq_launches = phase_sharded()
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -5506,7 +6106,8 @@ def main(argv=None) -> int:
                                  "lm_remat": remat_launches[k.name],
                                  "lm_prefill": prefill_launches[k.name],
                                  "lm_head_dims": head_dim_launches[k.name],
-                                 "lm_sharded": sharded_launches[k.name]},
+                                 "lm_sharded": sharded_launches[k.name],
+                                 "seq_parallel": seq_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -50,9 +50,9 @@ from distributed_learning_tpu_torch.models._stacked import dense
 
 __all__ = ["MoEMLP", "collect_load_balance_loss", "moe_param_spec", "shard_moe_params"]
 
-_EXPERT_SHARDING = ('expert sharding has no port yet: ROADMAP.md item "3b. Sharded async, '
-                    'robust and CHOCO gossip" (with the reference\'s moe_param_spec and '
-                    'shard_moe_params, models/moe.py:310-329)')
+_EXPERT_SHARDING = ('expert sharding has no port yet: ROADMAP.md item "5. tp / pp / fsdp" '
+                    '(with the model\'s manual expert-parallel mode, the reference\'s '
+                    'moe_param_spec and shard_moe_params, models/moe.py:310-329)')
 
 
 def moe_param_spec(path, leaf, expert_axis: str = "expert"):

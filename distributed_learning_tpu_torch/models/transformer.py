@@ -18,8 +18,13 @@ the two trees by name alone.  Parity with flax: LayerNorm epsilon 1e-6
 with statistics in float32, tanh-approximate GELU, compute in ``dtype``
 over float32 parameters, logits cast to float32.
 
-Knobs, as the reference's: ``attn_impl`` ``"full"`` / ``"flash"``;
-``attn_window``; ``pos_emb`` ``"learned"`` or ``"rope"`` (rotary Q/K at
+Knobs, as the reference's: ``attn_impl`` ``"full"`` / ``"flash"``, or the
+sequence-parallel ``"ring"`` / ``"ring_flash"`` / ``"ulysses"``
+(``ops/ring_attention.py``) over the ``seq_axis`` of ``mesh`` (a
+:class:`~distributed_learning_tpu_torch.parallel.multihost.GridMesh`, or
+the axis's own ``AgentMesh``): each rank of the axis holds one block of
+every sequence, and its positions are global (``rank * T_local +
+arange(T_local)``, for the learned table and for rope); ``attn_window``; ``pos_emb`` ``"learned"`` or ``"rope"`` (rotary Q/K at
 global positions, no position table); ``num_kv_heads`` (grouped-query
 attention: ``q_proj`` / ``kv_proj`` replace the fused QKV kernel, and K/V
 are repeated up to H heads just before attention, so the flash kernels
@@ -36,8 +41,8 @@ cache with a position mask (queries grouped as ``(B, T, Hkv, g, Dh)``
 against the Hkv-head cache, no expanded copy); the first call on a fresh
 cache (the prefill) goes through :func:`flash_attention` when
 ``attn_impl="flash"``, the same causal function over the prompt.  MoE
-blocks run drop-free in decode.  :func:`generate` drives it.  The
-sequence-parallel attentions wait (ROADMAP.md).
+blocks run drop-free in decode.  :func:`generate` drives it; decode with
+a sequence-parallel ``attn_impl`` raises, as the reference's does.
 """
 
 from __future__ import annotations
@@ -53,8 +58,12 @@ from torch import nn
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models._stacked import Dense, Dropout, StackedModel, dense
 from distributed_learning_tpu_torch.models.moe import MoEMLP
+from distributed_learning_tpu_torch.ops import ring_attention as ra
 from distributed_learning_tpu_torch.ops.flash_attention import flash_attention
 from distributed_learning_tpu_torch.ops.ring_attention import attention_reference
+
+_SEQ_PARALLEL = {"ring": ra.ring_attention, "ring_flash": ra.ring_flash_attention,
+                 "ulysses": ra.ulysses_attention}
 
 __all__ = ["KVCache", "TransformerLM", "generate", "sample_fn", "truncate_logits",
            "validate_sampling"]
@@ -117,8 +126,10 @@ class _LayerNorm(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, n, d, num_heads, head_dim, attn_impl, window, num_kv_heads, rope):
+    def __init__(self, n, d, num_heads, head_dim, attn_impl, window, num_kv_heads, rope,
+                 seq_mesh=None):
         super().__init__()
+        self.seq_mesh = seq_mesh
         H, Hkv = num_heads, num_kv_heads
         if H % Hkv:
             raise ValueError(f"num_heads {H} must divide by num_kv_heads {Hkv}")
@@ -171,8 +182,10 @@ class _Attention(nn.Module):
             k, v = self._expand_kv(k, v)
             if self.attn_impl == "full":
                 out = attention_reference(q, k, v, causal=True, window=self.window)
-            else:
+            elif self.attn_impl == "flash":
                 out = flash_attention(q, k, v, causal=True, window=self.window)
+            else:
+                out = _SEQ_PARALLEL[self.attn_impl](q, k, v, mesh=self.seq_mesh, causal=True)
         out = out.reshape(N, B, T, H * Dh)
         return dense(out, self.out.reshape(N, H * Dh, d), None, x.dtype)
 
@@ -225,10 +238,11 @@ class _Attention(nn.Module):
 class _Block(nn.Module):
     def __init__(self, n, d, num_heads, head_dim, mlp_ratio, attn_impl, window, num_kv_heads,
                  rope, mlp, num_experts, moe_top_k, moe_capacity_factor, dropout_rate,
-                 generators):
+                 generators, seq_mesh=None):
         super().__init__()
         self.ln1 = _LayerNorm(n, d)
-        self.attn = _Attention(n, d, num_heads, head_dim, attn_impl, window, num_kv_heads, rope)
+        self.attn = _Attention(n, d, num_heads, head_dim, attn_impl, window, num_kv_heads, rope,
+                               seq_mesh)
         self.ln2 = _LayerNorm(n, d)
         if mlp == "moe":
             # On the CPU, as every block parameter, until the model binds
@@ -262,7 +276,10 @@ class TransformerLM(StackedModel):
     agent ``a``'s parameters (and, with dropout in train mode, its own
     generator).  ``forward(tokens, cache)`` is decode mode (see the
     module docstring).  All agents start from one shared init drawn from
-    ``seed`` (the trainer's shared-init contract).
+    ``seed`` (the trainer's shared-init contract).  With a
+    sequence-parallel ``attn_impl`` the tokens are this rank's block of T
+    along ``mesh``'s ``seq_axis``, and every rank of the axis must run the
+    same calls.
     """
 
     def __init__(
@@ -283,17 +300,25 @@ class TransformerLM(StackedModel):
         dropout_rate: float = 0.0,
         pos_emb: str = "learned",
         num_kv_heads: Optional[int] = None,
+        seq_axis: str = "seq",
         *,
+        mesh=None,
         n_agents: int = 1,
         device=None,
         seed: int = 0,
     ):
         super().__init__()
-        if attn_impl not in ("full", "flash"):
-            raise NotImplementedError(
-                f"attn_impl {attn_impl!r} is not ported yet (ring/ring_flash/"
-                "ulysses wait for the torch.distributed route, ROADMAP.md)"
-            )
+        if attn_impl not in ("full", "flash") and attn_impl not in _SEQ_PARALLEL:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.seq_axis = seq_axis
+        self.seq_mesh = None
+        if attn_impl in _SEQ_PARALLEL:
+            if attn_window is not None:
+                raise ValueError(f"window is only supported for full/flash attention, "
+                                 f"not {attn_impl!r}")
+            if mesh is None:
+                raise ValueError(f"attn_impl {attn_impl!r} needs mesh= (its {seq_axis!r} axis)")
+            self.seq_mesh = mesh[seq_axis] if hasattr(mesh, "axes") else mesh
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r} (want learned|rope)")
         if mlp not in ("dense", "moe"):
@@ -315,7 +340,7 @@ class TransformerLM(StackedModel):
         self.blocks = nn.ModuleList(
             _Block(n, d, num_heads, head_dim, mlp_ratio, attn_impl, attn_window,
                    self.num_kv_heads, pos_emb == "rope", mlp, num_experts, moe_top_k,
-                   moe_capacity_factor, self.dropout_rate, self.generators)
+                   moe_capacity_factor, self.dropout_rate, self.generators, self.seq_mesh)
             for _ in range(num_layers)
         )
         self.ln_f = _LayerNorm(n, d)                                  # LayerNorm_0
@@ -356,22 +381,34 @@ class TransformerLM(StackedModel):
         N, B, T = tokens.shape
         if N != self.n_agents:
             raise ValueError(f"tokens carry {N} agents, model has {self.n_agents}")
-        if cache is None:
+        if cache is not None and self.seq_mesh is not None:
+            raise ValueError("decode mode requires full/flash attention")
+        if cache is not None:
+            positions = cache.index + torch.arange(T, device=tokens.device)
+        elif self.seq_mesh is not None:
+            n_shards = self.seq_mesh.size
+            if T * n_shards > self.max_len:
+                raise ValueError(
+                    f"global sequence length {T * n_shards} (local {T} x "
+                    f"{n_shards} shards) exceeds max_len {self.max_len}"
+                )
+            positions = self.seq_mesh.agent * T + torch.arange(T, device=tokens.device)
+        else:
             if T > self.max_len:
                 raise ValueError(
                     f"sequence length {T} exceeds max_len {self.max_len}; "
                     "out-of-range positions would silently clamp"
                 )
             positions = torch.arange(T, device=tokens.device)
-        else:
-            positions = cache.index + torch.arange(T, device=tokens.device)
         emb = self.embed.to(self.dtype)
         agent = torch.arange(N, device=tokens.device)[:, None, None]
         x = emb[agent, tokens]                                        # (N, B, T, d)
         if self.pos_emb == "learned":
             table = self.pos_embed.to(self.dtype)
-            if cache is None:
+            if cache is None and self.seq_mesh is None:
                 x = x + table[:, :T][:, None]
+            elif cache is None:
+                x = x + table[:, positions][:, None]
             else:
                 # A step past the table reads its last row; the attention's
                 # guard makes that step's output NaN anyway.

@@ -51,6 +51,7 @@ __all__ = [
     "pairwise_sq_dists",
     "clip_weight_matrix",
     "adaptive_clip_radius",
+    "masked_median",
     "clipped_mix",
     "trim_counts",
     "trimmed_mix",
@@ -412,30 +413,36 @@ def clip_weight_matrix(W: torch.Tensor, sq_dists: torch.Tensor,
     return W_eff, clipped_mass
 
 
-def adaptive_clip_radius(W: torch.Tensor, sq_dists: torch.Tensor, multiplier) -> torch.Tensor:
-    """Per-receiver clipping radius: ``multiplier`` times the median norm
-    of the receiver's neighbour deltas (NaN distances count as inf), as
-    ``jnp.nanmedian`` computes it: an even count averages the two middle
-    values, in its ``lo * (1 - w) + hi * w`` form.  The masked median is
-    sorted and gathered here (``torch.nanmedian`` takes the lower middle
-    value).  ``multiplier=inf`` gives inf rows; an isolated agent's
-    radius is 0."""
-    W = W.to(torch.float32)
-    n = W.shape[0]
-    support = (W != 0.0) & ~_eye(n, W.device)
-    norm = torch.sqrt(sq_dists.clamp_min(0.0))
-    norm = torch.where(torch.isnan(norm), math.inf, norm)
-    ranked = torch.where(support, norm, math.nan).sort(dim=1).values  # NaN last
-    k = support.sum(dim=1).to(torch.float32)
+def masked_median(values: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """Per row of ``values`` (``(..., m)``), the median of the entries
+    ``support`` keeps, as ``jnp.nanmedian`` computes it: an even count
+    averages the two middle values, in its ``lo * (1 - w) + hi * w``
+    form (``torch.nanmedian`` takes the lower middle value).  A row with
+    no kept entry gives 0."""
+    ranked = torch.where(support, values, math.nan).sort(dim=-1).values  # NaN last
+    k = support.sum(dim=-1).to(torch.float32)
     q = 0.5 * (k - 1.0)
     lo, hi = torch.floor(q), torch.ceil(q)
     w_hi = q - lo
     w_lo = 1.0 - w_hi
     last = k - 1.0
-    lo = torch.minimum(lo, last).clamp_min(0.0).long()[:, None]
-    hi = torch.minimum(hi, last).clamp_min(0.0).long()[:, None]
-    med = ranked.gather(1, lo)[:, 0] * w_lo + ranked.gather(1, hi)[:, 0] * w_hi
-    med = torch.where(torch.isnan(med), 0.0, med)
+    lo = torch.minimum(lo, last).clamp_min(0.0).long()[..., None]
+    hi = torch.minimum(hi, last).clamp_min(0.0).long()[..., None]
+    med = ranked.gather(-1, lo)[..., 0] * w_lo + ranked.gather(-1, hi)[..., 0] * w_hi
+    return torch.where(torch.isnan(med), 0.0, med)
+
+
+def adaptive_clip_radius(W: torch.Tensor, sq_dists: torch.Tensor, multiplier) -> torch.Tensor:
+    """Per-receiver clipping radius: ``multiplier`` times the median norm
+    of the receiver's neighbour deltas (NaN distances count as inf;
+    :func:`masked_median`).  ``multiplier=inf`` gives inf rows; an
+    isolated agent's radius is 0."""
+    W = W.to(torch.float32)
+    n = W.shape[0]
+    support = (W != 0.0) & ~_eye(n, W.device)
+    norm = torch.sqrt(sq_dists.clamp_min(0.0))
+    norm = torch.where(torch.isnan(norm), math.inf, norm)
+    med = masked_median(norm, support)
     mult = float(np.float32(multiplier))
     if math.isinf(mult):
         return torch.full((n,), math.inf, dtype=torch.float32, device=W.device)

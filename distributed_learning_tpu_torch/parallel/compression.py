@@ -32,7 +32,19 @@ P)}`` buffers, per leaf span (``budget="per-leaf"``) or per bucket
 place (:meth:`ChocoGossipEngine.round_`, what the trainer's graphs
 capture) or on a copy (:meth:`ChocoGossipEngine.run`).  Nothing here
 reads a device value back to the host or indexes with a boolean mask.
-The mesh-sharded route of the reference is not ported (ROADMAP.md).
+
+Sharded route (``ChocoGossipEngine(mesh=)``, one agent a rank): the
+state is this rank's agent, ``{dtype: (1, P)}``; the compressor runs on
+that row (per-leaf or global budget, error feedback), and the estimate
+mix is the sharded engine's matching round.  Random draws: every rank
+draws what the dense route draws for all ``n`` agents from its own copy
+of the generator (the whole ``(n, P)`` key block of the global budget,
+or each leaf's keys for every agent in the dense route's order) and
+keeps its agent's row, so agent ``i`` on a mesh keeps the same random-k
+set as agent ``i`` of the dense route (the reference folds the agent
+index into the key instead).  The residual trace and ``max_deviation``
+are read across the ranks; ``consensus.compressed_bytes`` counts this
+rank's bytes.
 
 Each round counts the reference's compressed-gossip accounting on the
 default registry, host-side only: ``consensus.compressed_bytes`` (the
@@ -312,31 +324,47 @@ class FusedCompressor:
 
     # ------------------------------------------------------------------ #
     def compress(self, buffers: Stacked, layout: ops.FusedLayout,
-                 generator: Optional[torch.Generator], *, n: int) -> Stacked:
+                 generator: Optional[torch.Generator], *, n: int,
+                 agent: Optional[int] = None) -> Stacked:
         """Compress the fused correction buffers (new ``{dtype: (rows,
-        P)}`` tensors back)."""
+        P)}`` tensors back).  ``agent`` set: the buffers are that agent's
+        one row of ``n``, and the random kinds draw for all ``n`` agents
+        and keep its row (the dense route's draws)."""
         if self.kind == "identity":
             return dict(buffers)
         if self.kind == "custom" or (self.kind == "random_k" and self.budget == "per-leaf"):
-            return self.per_leaf_views(buffers, layout, generator, n=n)
-        return {name: self._bucket(buffers[name], layout.bucket_spans(name), generator)
+            return self.per_leaf_views(buffers, layout, generator, n=n, agent=agent)
+        return {name: self._bucket(buffers[name], layout.bucket_spans(name), generator,
+                                   n, agent)
                 for name, _w in layout.buckets}
 
     def per_leaf_views(self, buffers: Stacked, layout: ops.FusedLayout,
-                       generator: Optional[torch.Generator], *, n: int) -> Stacked:
+                       generator: Optional[torch.Generator], *, n: int,
+                       agent: Optional[int] = None) -> Stacked:
         """The base compressor on every leaf view of every agent, in
         layout order then agent order (the generator's draws follow that
-        order): exact per-leaf semantics for any kind."""
+        order): exact per-leaf semantics for any kind.  With ``agent``
+        the buffers hold that agent's row only; a kind that may draw
+        (random-k, a custom callable) is called for every agent on that
+        row, in the same order, and keeps the agent's call."""
         out = {name: torch.empty_like(buf) for name, buf in buffers.items()}
+        draws = self.kind in ("random_k", "custom")
         for slot in layout.slots:
             cols = slice(slot.offset, slot.offset + slot.size)
             src, dst = buffers[slot.bucket][:, cols], out[slot.bucket][:, cols]
-            for a in range(n):
-                dst[a].copy_(self.base(src[a].reshape(slot.shape), generator).reshape(-1))
+            if agent is None:
+                for a in range(n):
+                    dst[a].copy_(self.base(src[a].reshape(slot.shape), generator).reshape(-1))
+                continue
+            for a in range(n) if draws else (agent,):
+                val = self.base(src[0].reshape(slot.shape), generator)
+                if a == agent:
+                    dst[0].copy_(val.reshape(-1))
         return out
 
     # ------------------------------------------------------------------ #
-    def _bucket(self, buf: torch.Tensor, spans, generator) -> torch.Tensor:
+    def _bucket(self, buf: torch.Tensor, spans, generator, n: int,
+                agent: Optional[int] = None) -> torch.Tensor:
         P_ = buf.shape[1]
         fraction = self.base.fraction
         if self.kind in ("top_k", "approx_top_k"):
@@ -344,8 +372,9 @@ class FusedCompressor:
                 return self._segment_top_k(buf, spans)
             return _keep(buf, _top_indices(_sel_mag(buf), _k_of(fraction, P_)))
         if self.kind == "random_k":  # global budget (per-leaf runs the views)
-            idx = _random_indices(tuple(buf.shape), _k_of(fraction, P_), generator, buf.device)
-            return _keep(buf, idx)
+            rows = buf.shape[0] if agent is None else n
+            idx = _random_indices((rows, P_), _k_of(fraction, P_), generator, buf.device)
+            return _keep(buf, idx if agent is None else idx[agent:agent + 1])
         if self.kind == "scaled_sign":
             scale = self._scale_cols(buf, spans, lambda sl: sl.abs().sum(dim=1, keepdim=True)
                                      / sl.shape[1])
@@ -462,7 +491,7 @@ class ChocoState(NamedTuple):
 
 
 class ChocoGossipEngine:
-    """CHOCO-GOSSIP over a mixing matrix, dense route.
+    """CHOCO-GOSSIP over a mixing matrix, dense or sharded.
 
     ``W``: (n, n) symmetric row-stochastic mixing matrix; ``compressor``:
     a :class:`Compressor`; ``gamma``: the consensus step size (``gamma ~
@@ -471,14 +500,17 @@ class ChocoGossipEngine:
     per-leaf oracle, base compressor per leaf view and one GEMM per
     leaf); ``budget``: ``"per-leaf"`` or ``"global"`` (fused only);
     ``error_feedback``: bank the mass the compressor drops, ``delta - q``,
-    and offer it again next round (fused only); ``device``: the card
-    unless ``"cpu"`` is asked for.
+    and offer it again next round (fused only); ``mesh``: an
+    :class:`~distributed_learning_tpu_torch.parallel.multihost.AgentMesh`,
+    one agent a rank (the module docstring); ``device``: the card unless
+    ``"cpu"`` is asked for (on a mesh, the mesh's).
     """
 
     def __init__(self, W: np.ndarray, compressor: Compressor, *, gamma: float = 0.3,
                  fused: bool = True, budget: str = "per-leaf", error_feedback: bool = False,
-                 device=None):
-        self.engine = ConsensusEngine(W, device=device)
+                 mesh=None, device=None):
+        self.engine = ConsensusEngine(W, mesh=mesh, device=device)
+        self.mesh = mesh
         self.n = self.engine.n
         self.device = self.engine.device
         self.compressor = compressor
@@ -502,8 +534,12 @@ class ChocoGossipEngine:
     # ------------------------------------------------------------------ #
     def init(self, x0: Stacked, *, seed: int = 0) -> ChocoState:
         """Estimates (and the error-feedback bank) start at zero; the
-        generator is seeded with ``seed``."""
-        x = {k: v.to(self.device).clone() for k, v in x0.items()}
+        generator is seeded with ``seed``.  On a mesh ``x0`` is the stacked
+        ``(n, ...)`` state and this rank keeps its agent's row."""
+        if self.mesh is None:
+            x = {k: v.to(self.device).clone() for k, v in x0.items()}
+        else:
+            x = self.engine.shard(x0)
         zeros = lambda: {k: torch.zeros_like(v) for k, v in x.items()}  # noqa: E731
         gen = torch.Generator(self.device).manual_seed(int(seed))
         return ChocoState(x=x, xhat=zeros(), generator=gen,
@@ -512,12 +548,13 @@ class ChocoGossipEngine:
     def _note_compression(self, layout: ops.FusedLayout, rounds: int) -> None:
         """Compressed-gossip accounting for ``rounds`` rounds on
         ``layout`` (the reference's ``_note_compression``)."""
-        wire = self.fused_compressor.wire_bytes_per_round(layout, self.n)
+        agents = self.n if self.mesh is None else 1  # a rank counts its own bytes
+        wire = self.fused_compressor.wire_bytes_per_round(layout, agents)
         if wire is None:
             return
         reg = get_registry()
         reg.inc("consensus.compressed_bytes", wire * int(rounds))
-        dense = layout.bytes_per_round(self.n)
+        dense = layout.bytes_per_round(agents)
         if dense:
             reg.gauge("consensus.compression_ratio", wire / dense)
 
@@ -527,16 +564,19 @@ class ChocoGossipEngine:
         """One CHOCO round in place on the fused ``{dtype: (N, P)}``
         buffers ``x``, ``xhat`` and (with error feedback) ``ef``, whose
         addresses stay fixed; the temporaries are freed at the end, so a
-        CUDA graph can capture the round."""
+        CUDA graph can capture the round (on a mesh: this rank's
+        ``(1, P)`` buffers, the estimates mixed by the matching round)."""
         self._note_compression(layout, 1)
         delta = {k: x[k] - xhat[k] for k in x}
         if ef is not None:
             for k in delta:
                 delta[k].add_(ef[k])
+        agent = None if self.mesh is None else self.mesh.agent
         if self.fused:
-            q = self.fused_compressor.compress(delta, layout, generator, n=self.n)
+            q = self.fused_compressor.compress(delta, layout, generator, n=self.n, agent=agent)
         else:
-            q = self.fused_compressor.per_leaf_views(delta, layout, generator, n=self.n)
+            q = self.fused_compressor.per_leaf_views(delta, layout, generator, n=self.n,
+                                                     agent=agent)
         if ef is not None:
             for k in ef:
                 torch.sub(delta[k], q[k], out=ef[k])
@@ -544,23 +584,29 @@ class ChocoGossipEngine:
         for k in xhat:
             xhat[k].add_(q[k])
         del q
-        W = self.engine._W_dev
         if self.fused:
-            mixed = ops.dense_mix(xhat, W, out={k: torch.empty_like(v) for k, v in xhat.items()})
+            mixed = self._mix(xhat)
         else:
-            hats = ops.unflatten_stacked(xhat, layout)
-            per_leaf = ops.dense_mix(hats, W, out={k: torch.empty_like(v) for k, v in hats.items()})
-            mixed, _ = ops.flatten_stacked(per_leaf, layout)
+            mixed, _ = ops.flatten_stacked(self._mix(ops.unflatten_stacked(xhat, layout)), layout)
         for k in x:
             # x + gamma (mixed - xhat) with one rounding, as the reference's
             # fused update rounds it.
             x[k].add_(mixed[k].sub_(xhat[k]), alpha=self.gamma)
 
+    def _mix(self, t: Stacked) -> Stacked:
+        """One plain round on the estimates into new tensors: the dense
+        GEMM, or on a mesh the matching round."""
+        out = {k: torch.empty_like(v, memory_format=torch.contiguous_format)
+               for k, v in t.items()}
+        if self.mesh is None:
+            return ops.dense_mix(t, self.engine._W_dev, out=out)
+        return self.engine._local_mix_once(t, out)
+
     def run(self, state: ChocoState, rounds: int) -> Tuple[ChocoState, torch.Tensor]:
         """``rounds`` CHOCO iterations on a copy of the state; returns the
         new state and the ``(rounds,)`` per-round residual trace (max
-        agent deviation of the iterates after each round).  The state's
-        generator advances in place."""
+        agent deviation of the iterates after each round, on a mesh read
+        across the ranks).  The state's generator advances in place."""
         layout = ops.fused_layout(state.x)
         bx, _ = ops.flatten_stacked(state.x, layout)
         bh, _ = ops.flatten_stacked(state.xhat, layout)
@@ -568,7 +614,7 @@ class ChocoGossipEngine:
         trace = torch.empty(int(rounds), device=self.device)
         for r in range(int(rounds)):
             self.round_(bx, bh, bef, layout, state.generator)
-            trace[r] = ops.max_deviation(bx)
+            trace[r] = self.engine.max_deviation(bx)
         return ChocoState(
             x=ops.unflatten_stacked(bx, layout), xhat=ops.unflatten_stacked(bh, layout),
             generator=state.generator,

@@ -53,9 +53,13 @@ residual is an ``all_reduce(MAX)`` of each rank's deviation from the
 all-reduced mean, the exact average one ``all_reduce(SUM)``.  Each
 exchange moves the fused ``{dtype: (1, P)}`` buckets, one message a
 bucket.  The same in-place and copy methods serve both routes; the
-sharded ``consensus.bytes_mixed`` counts the bytes this rank sent.  The
-async, robust and CHOCO rounds have no sharded route yet (ROADMAP.md,
-"3b. Sharded async, robust and CHOCO gossip").
+sharded ``consensus.bytes_mixed`` counts the bytes this rank sent.  An
+async round on a mesh publishes this rank's copy, gathers every agent's
+publication (one ``all_gather`` a bucket) and contracts it with this
+rank's row of the stale-decayed matrix; the carry's ``pub`` is this
+rank's, its ``age`` and ``rnd`` are replicated.  The robust rounds'
+mesh halves are in ``parallel/robust.py``; their redirected mass is
+summed across the ranks with one ``all_reduce`` a call.
 
 Every mix route carries the reference's obs hooks, host-side only (no
 device read): a ``consensus.<route>`` span on the default tracer; the
@@ -119,10 +123,6 @@ class AsyncGossipState(NamedTuple):
     pub: Stacked
     age: torch.Tensor  # (n,) int32
     rnd: torch.Tensor  # () int32
-
-
-_UNSHARDED = ('has no sharded route yet: ROADMAP.md item "3b. Sharded async, robust '
-              'and CHOCO gossip"')
 
 
 def make_agent_mesh(n: int, *, device=None, axis_name: str = "agents") -> AgentMesh:
@@ -283,10 +283,6 @@ class ConsensusEngine:
         self._W_dev = torch.as_tensor(self.W, dtype=torch.float32, device=self.device)
         self._periods_dev: Dict[Tuple[int, ...], torch.Tensor] = {}
         self._edges_dev: Optional[torch.Tensor] = None
-
-    def _unsharded(self, route: str) -> None:
-        if self.mesh is not None:
-            raise ValueError(f"{route} {_UNSHARDED}")
 
     # -- the sharded route's building blocks ----------------------------- #
     def shard(self, stacked):
@@ -651,6 +647,41 @@ class ConsensusEngine:
 
         return round_once
 
+    def _publish_local_(self, x: Stacked, state: AsyncGossipState,
+                        periods: torch.Tensor) -> None:
+        """:meth:`_publish_` on a mesh: this rank copies its live value into
+        its ``pub`` when its period divides the round; every agent's age
+        advances or resets (the ages are replicated on every rank)."""
+        publish = torch.remainder(state.rnd, periods) == 0
+        mine = publish[self.mesh.agent]
+        for key, v in x.items():
+            pv = state.pub[key]
+            torch.where(mine, v, pv, out=pv)
+        state.age.add_(1).masked_fill_(publish, 0)
+
+    def _local_async_round_body(self, periods: torch.Tensor):
+        """Sharded counterpart of :meth:`_async_round_body` (the
+        reference's ``_local_async_round``): publish -> age -> one
+        ``all_gather`` of the published bucket -> ``W_row @ gathered +
+        d (x - pub)`` in float32, ``d`` this rank's stale-decayed self
+        weight."""
+        W, a, n = self._W_dev, self.mesh.agent, self.n
+
+        def round_once(x: Stacked, out: Stacked, state: AsyncGossipState, tau) -> Stacked:
+            self._publish_local_(x, state, periods)
+            W_row = ops.stale_weight_matrix(W, state.age, tau=tau)[a]
+            state.rnd.add_(1)
+            with ops._highest_precision():
+                for key, v in x.items():
+                    pv = state.pub[key]
+                    pf = self.mesh.all_gather(pv[0].contiguous()).float().reshape(n, -1)
+                    acc = torch.matmul(W_row[None], pf)
+                    acc = acc + W_row[a] * (v.reshape(1, -1).float() - pv.reshape(1, -1).float())
+                    out[key].copy_(acc.reshape(v.shape))
+            return out
+
+        return round_once
+
     def mix_async_(self, buffers: Stacked, state: AsyncGossipState, tau, times: int = 1, *,
                    periods, spare: Optional[Spare] = None,
                    layout: Optional[ops.FusedLayout] = None) -> None:
@@ -660,9 +691,12 @@ class ConsensusEngine:
         with the carry threaded through.  ``tau`` is the staleness bound,
         an int or a 0-dim int32 device tensor (one captured graph then
         serves every epoch's bound).  ``tau=0`` with every period 1 is
-        bitwise :meth:`mix_`.  Reads nothing back to the host."""
-        self._unsharded("mix_async")
-        round_once = self._async_round_body(self._periods_tensor(periods))
+        bitwise :meth:`mix_`.  Reads nothing back to the host.  On a mesh
+        each round gathers the published buckets (``state.pub`` is this
+        rank's; ``age`` and ``rnd`` are the same on every rank)."""
+        periods = self._periods_tensor(periods)
+        round_once = (self._async_round_body(periods) if self.mesh is None
+                      else self._local_async_round_body(periods))
         with self._hooks("mix_async", buffers, times, layout):
             self._rounds(buffers, lambda t, _: t < times,
                          lambda x, out: round_once(x, out, state, tau), spare)
@@ -675,13 +709,25 @@ class ConsensusEngine:
         coordinate-median) in place on fused buffers, adding the edge
         weight the defense redirected onto self edges to the 0-dim float32
         device tensor ``mass`` (0.0 at the neutral knobs, where the rounds
-        are bitwise :meth:`mix_`)."""
+        are bitwise :meth:`mix_`).  On a mesh ``mass`` gets the total over
+        the agents (one ``all_reduce`` a call)."""
         from distributed_learning_tpu_torch.parallel import robust
 
-        self._unsharded("mix_robust")
-        with self._hooks("mix_robust", buffers, times, layout):
-            robust.robust_mix_times_program(self, spec)(buffers, times, mass, spare)
+        with self._hooks("mix_robust", buffers, times, layout), self._mass_total(mass) as share:
+            robust.robust_mix_times_program(self, spec)(buffers, times, share, spare)
         get_registry().inc("consensus.robust.rounds", int(times))
+
+    @contextlib.contextmanager
+    def _mass_total(self, mass: torch.Tensor):
+        """The tensor the robust rounds add their redirected mass to:
+        ``mass`` itself on one device; on a mesh this rank's share, summed
+        across the ranks into ``mass`` when the rounds are done."""
+        if self.mesh is None:
+            yield mass
+            return
+        share = torch.zeros((), dtype=torch.float32, device=self.device)
+        yield share
+        mass.add_(self.mesh.all_reduce(share.reshape(1), "sum")[0])
 
     def mix_async_robust_(self, buffers: Stacked, state: AsyncGossipState, spec, tau,
                           times: int = 1, *, periods, mass: torch.Tensor,
@@ -690,13 +736,14 @@ class ConsensusEngine:
         """Robust :meth:`mix_async_`: the robust estimator on top of the
         stale-decayed matrix, each delta measured from the receiver's live
         value to the neighbour's publication; the redirected mass is added
-        to ``mass``.  At the neutral knobs bitwise :meth:`mix_async_`."""
+        to ``mass`` (on a mesh the total over the agents).  At the neutral
+        knobs bitwise :meth:`mix_async_`."""
         from distributed_learning_tpu_torch.parallel import robust
 
-        self._unsharded("mix_async_robust")
-        with self._hooks("mix_async_robust", buffers, times, layout):
+        with (self._hooks("mix_async_robust", buffers, times, layout),
+              self._mass_total(mass) as share):
             robust.robust_async_gossip_times_program(self, spec, periods=periods)(
-                buffers, state, times, tau, mass, spare)
+                buffers, state, times, tau, share, spare)
 
     # -- copies ---------------------------------------------------------- #
     def mix(self, stacked: Stacked, times: int = 1) -> Stacked:

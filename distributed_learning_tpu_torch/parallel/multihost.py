@@ -21,6 +21,13 @@ collectives as they are; with ``gloo`` and a card, each message is copied
 to a pinned host buffer once, exchanged, and copied back once, and the
 arithmetic stays on the card (gloo's send and recv take CPU tensors
 only).  :attr:`AgentMesh.clock` keeps the seconds and bytes of each leg.
+
+Two named axes (:class:`GridMesh`): the reference's ``(agents, seq)``
+device mesh, for the agents x sequence-parallel LM step.  The ranks are
+laid out row-major over the axes; ``grid[axis]`` is an :class:`AgentMesh`
+over this rank's line along that axis (the ranks that share every other
+coordinate with it), with a process subgroup of its own for the
+collectives, the same transport and a clock of its own.
 """
 
 from __future__ import annotations
@@ -28,15 +35,18 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import math
 import os
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = [
     "AgentMesh",
+    "GridMesh",
     "RankDevice",
     "default_backend",
     "hybrid_agent_mesh",
@@ -145,17 +155,28 @@ class AgentMesh:
     ``ranks[i]`` is the global rank that holds agent ``i``; this rank's
     agent is :attr:`agent`, its tensors live on :attr:`device` (``cuda:<local>``
     on a card, ``cpu`` for CPU ranks).  ``axis_name`` and :attr:`shape`
-    mirror the reference's one-axis ``Mesh``."""
+    mirror the reference's one-axis ``Mesh``.  With ``group`` (a process
+    subgroup of exactly ``ranks``, as :class:`GridMesh` makes) the mesh
+    spans those ranks only: its collectives run on the subgroup and its
+    messages go to the global ranks of ``ranks``."""
 
-    def __init__(self, ranks: Sequence[int], device, *, axis_name: str = "agents"):
+    def __init__(self, ranks: Sequence[int], device, *, axis_name: str = "agents",
+                 group=None):
         if not dist.is_initialized():
             raise RuntimeError("AgentMesh needs the process group: call multihost.initialize")
         self.ranks: Tuple[int, ...] = tuple(int(r) for r in ranks)
-        if sorted(self.ranks) != list(range(dist.get_world_size())):
-            raise ValueError(f"ranks {self.ranks} must cover the {dist.get_world_size()} "
+        world = dist.get_world_size()
+        if group is None and sorted(self.ranks) != list(range(world)):
+            raise ValueError(f"ranks {self.ranks} must cover the {world} "
                              "ranks of the group once each")
+        if group is not None and (len(set(self.ranks)) != len(self.ranks)
+                                  or not all(0 <= r < world for r in self.ranks)):
+            raise ValueError(f"ranks {self.ranks} must be distinct ranks of the {world}")
+        self.group = group
         self.size = len(self.ranks)
         self.rank = dist.get_rank()
+        if self.rank not in self.ranks:
+            raise ValueError(f"rank {self.rank} is not in the mesh's ranks {self.ranks}")
         self.agent = self.ranks.index(self.rank)
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -254,7 +275,8 @@ class AgentMesh:
         wire, = self._to_wire([t], "reduce")
         self.clock.bytes_sent += t.numel() * t.element_size()
         t0 = time.perf_counter()
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                        group=self.group)
         self.clock.exchange_s += time.perf_counter() - t0
         self._from_wire([wire], [t])
         return t
@@ -266,9 +288,11 @@ class AgentMesh:
         self.clock.bytes_sent += t.numel() * t.element_size()
         parts = [torch.empty_like(wire) for _ in range(self.size)]
         t0 = time.perf_counter()
-        dist.all_gather(parts, wire)
+        dist.all_gather(parts, wire, group=self.group)
         self.clock.exchange_s += time.perf_counter() - t0
-        by_agent = [parts[r] for r in self.ranks]
+        # A subgroup numbers its ranks in ascending global order.
+        order = sorted(self.ranks)
+        by_agent = [parts[order.index(r)] for r in self.ranks]
         out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=self.device)
         self._from_wire(by_agent, list(out.unbind(0)))
         return out
@@ -277,13 +301,68 @@ class AgentMesh:
         """Agent 0's ``t`` on every rank, in place."""
         wire, = self._to_wire([t], "bcast")
         t0 = time.perf_counter()
-        dist.broadcast(wire, src=self.ranks[0])
+        dist.broadcast(wire, src=self.ranks[0], group=self.group)
         self.clock.exchange_s += time.perf_counter() - t0
         self._from_wire([wire], [t])
         return t
 
+    def all_to_all(self, chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``chunks[i]`` sent to agent ``i``; returns the chunks received,
+        ``out[i]`` from agent ``i`` (this agent's own chunk kept as it is).
+        One exchange with every other agent, so it stages as
+        :meth:`exchange` does (gloo's ``all_to_all`` takes CPU tensors)."""
+        if len(chunks) != self.size:
+            raise ValueError(f"{len(chunks)} chunks for {self.size} agents")
+        out = [c if i == self.agent else torch.empty_like(c, memory_format=torch.contiguous_format)
+               for i, c in enumerate(chunks)]
+        others = [i for i in range(self.size) if i != self.agent]
+        self.exchange([(i, chunks[i].contiguous()) for i in others], [(i, out[i]) for i in others])
+        return out
+
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
+
+
+class GridMesh:
+    """Ranks on named axes, row-major (the last axis varies fastest):
+    ``GridMesh({"agents": 2, "seq": 2}, device)`` over 4 ranks puts agent
+    ``a``'s row on ranks ``2a`` and ``2a + 1``.  ``grid[axis]`` is the
+    :class:`AgentMesh` of this rank's line along ``axis``; :attr:`coords`
+    its position on every axis.  Every rank creates every line's
+    subgroup, axis by axis and line by line in the same order, as
+    ``torch.distributed.new_group`` asks."""
+
+    def __init__(self, shape: Mapping[str, int], device):
+        if not dist.is_initialized():
+            raise RuntimeError("GridMesh needs the process group: call multihost.initialize")
+        self.shape: Dict[str, int] = {str(k): int(v) for k, v in shape.items()}
+        sizes = list(self.shape.values())
+        world = dist.get_world_size()
+        if math.prod(sizes) != world:
+            raise ValueError(f"mesh shape {self.shape} needs {math.prod(sizes)} ranks, the "
+                             f"group has {world}")
+        self.rank = dist.get_rank()
+        grid = np.arange(world).reshape(sizes)
+        self.coords: Dict[str, int] = {
+            k: int(c) for k, c in zip(self.shape, np.unravel_index(self.rank, sizes))}
+        device = torch.device(device)
+        self.axes: Dict[str, AgentMesh] = {}
+        for ax, name in enumerate(self.shape):
+            lines = np.moveaxis(grid, ax, -1).reshape(-1, sizes[ax])
+            for line in lines:
+                ranks = [int(r) for r in line]
+                group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self.axes[name] = AgentMesh(ranks, device, axis_name=name, group=group)
+        self.device = self.axes[next(iter(self.shape))].device
+
+    def __getitem__(self, axis: str) -> AgentMesh:
+        if axis not in self.axes:
+            raise KeyError(f"mesh has no axis {axis!r} (axes {tuple(self.shape)})")
+        return self.axes[axis]
+
+    def __repr__(self) -> str:
+        return f"GridMesh({self.shape}, rank {self.rank} at {self.coords}, {self.device})"
 
 
 def _rank_devices() -> List[RankDevice]:

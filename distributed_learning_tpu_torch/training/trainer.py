@@ -75,9 +75,10 @@ sharded consensus engine.  The per-step traces, the eval accuracies and
 the residual are read across the ranks, so every rank reports what the
 dense trainer reports.  On the card a superstep replays the training
 graph and runs each epoch's gossip eagerly between the replays (gloo
-cannot be captured).  CHOCO, async and robust gossip have no sharded
-route yet and raise ``ValueError`` naming ROADMAP.md item "3b. Sharded
-async, robust and CHOCO gossip".
+cannot be captured).  CHOCO (``ChocoGossipEngine(mesh=)``), async and
+robust gossip run sharded too: the estimates, the error-feedback bank,
+the async carry's ``pub`` and the robust mass are this rank's (the mass
+read as the total over the agents, the carry's ages replicated).
 """
 
 from __future__ import annotations
@@ -401,10 +402,6 @@ def resolve_mixing_matrix(weights: Any, node_names: Sequence[Hashable]) -> np.nd
     return W
 
 
-_SHARDED_3B = ('with a mesh has no sharded route yet: ROADMAP.md item "3b. Sharded '
-               'async, robust and CHOCO gossip"')
-
-
 def _mesh_device(mesh, device):
     """The mesh's device (``device`` without a mesh), after checking that
     ``mesh`` is an ``AgentMesh`` on ``device``."""
@@ -615,13 +612,6 @@ class GossipTrainer:
         self._check_async_robust(async_gossip, robust_mixing, chebyshev=chebyshev,
                                  mix_eps=mix_eps, topology_schedule=topology_schedule,
                                  global_avg_every=global_avg_every, compression=compression)
-        if mesh is not None:
-            for name, on in (("compression", compression is not None),
-                             ("async_gossip", self._async_sim is not None),
-                             ("robust_mixing", self._robust_cfg is not None)):
-                if on:
-                    raise ValueError(f"GossipTrainer {name}= {_SHARDED_3B}")
-
         self._Xs, self._ys = self._stack_data(train_data, batch_size)
         self.augment = bool(augment)
         self.augment_pad_value = augment_pad_value
@@ -739,7 +729,7 @@ class GossipTrainer:
             self._choco = ChocoGossipEngine(
                 self.engine.W, compression, gamma=compression_gamma, fused=self.fused_consensus,
                 budget=str(compression_budget), error_feedback=bool(compression_error_feedback),
-                device=self.device)
+                mesh=mesh, device=self.device)
             flat = model.flat_params
             self._choco_layout = self._param_layout
             # The estimates, the error-feedback bank and the random kinds'

@@ -119,14 +119,35 @@ def _er_schedule(epoch):
     return Topology.erdos_renyi(4, 0.7, seed=epoch + 3).metropolis_weights()
 
 
-# name -> the trainer options of one gossip route (beside the ring).
+# name -> the trainer options of one gossip route (on the ring unless
+# "weights" says otherwise).
 ROUTES = {
     "plain": {},
     "topology_schedule": {"topology_schedule": _er_schedule},
     "chebyshev": {"chebyshev": True, "mix_times": 3},
     "mix_eps": {"mix_eps": 5e-2, "mix_times": 1},
     "global_avg": {"global_avg_every": 2},
+    # ROADMAP item 3b: CHOCO, async and robust gossip.
+    "choco": {"compression": "topk:0.5"},
+    "choco_global_ef": {"compression": "topk:0.3", "compression_budget": "global",
+                        "compression_error_feedback": True},
+    "async": {"async_gossip": {"staleness_bound": 1, "publish_period": [1, 2, 1, 2]}},
+    "clip": {"robust_mixing": {"kind": "clip", "radius": 0.05}},
+    "async_trim": {"async_gossip": {"staleness_bound": 1, "publish_period": [1, 1, 1, 2]},
+                   "robust_mixing": {"kind": "trim", "trim": 1}, "weights": "complete"},
 }
+ROUTES_3B = ("choco", "choco_global_ef", "async", "clip", "async_trim")
+SUPERSTEP_ROUTES = ("plain", "mix_eps", "choco", "async", "async_trim")
+
+
+def route_options(name):
+    """A route's trainer options with its mixing matrix as ``weights``."""
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    opts = dict(ROUTES[name])
+    topo = opts.pop("weights", "ring")
+    opts["weights"] = Topology.ring(4) if topo == "ring" else Topology.complete(4)
+    return opts
 
 
 # ---------------------------------------------------------------------- #
@@ -273,34 +294,28 @@ def battery_trainer(mesh, inp):
     p0 = {k[3:]: inp[k] for k in inp.files if k.startswith("p0_")}
     r = {}
 
-    def trainer(**over):
-        t = GossipTrainer(model="mlp", model_kwargs=MLP, weights=Topology.ring(4), mesh=mesh,
+    def trainer(weights=None, **over):
+        t = GossipTrainer(model="mlp", model_kwargs=MLP,
+                          weights=Topology.ring(4) if weights is None else weights, mesh=mesh,
                           **trainer_common(**over))
         t.initialize_nodes(params=p0)
         return t
 
-    for name, opts in ROUTES.items():
-        t = trainer(**opts)
+    for name in ROUTES:
+        t = trainer(**route_options(name))
         pays = [t.train_epoch() for _ in range(2)]
         r[f"{name}_payloads"] = pays
         r[f"{name}_params"] = {k: v.detach().numpy().copy()
                                for k, v in t.model.stacked_parameters().items()}
         r[f"{name}_losses"] = [list(t.network[a].stats.train_loss) for a in NODES]
         r[f"{name}_deviation"] = t.parameter_deviation()
-    for name in ("plain", "mix_eps"):
-        t = trainer(**ROUTES[name])
+        r[f"{name}_masses"] = list(t._robust_masses)
+    for name in SUPERSTEP_ROUTES:
+        t = trainer(**route_options(name))
         r[f"{name}_superstep"] = t.train_epochs(2)
         r[f"{name}_superstep_params"] = {k: v.detach().numpy().copy()
                                          for k, v in t.model.stacked_parameters().items()}
     raises = {}
-    for name, over in (("compression", {"compression": "top_k:0.5"}),
-                       ("async_gossip", {"async_gossip": {"staleness_bound": 1}}),
-                       ("robust_mixing", {"robust_mixing": "median"})):
-        try:
-            trainer(**over)
-            raises[name] = None
-        except ValueError as err:
-            raises[name] = str(err)
     for name, fn in (("shard_moe_params", moe.shard_moe_params),
                      ("moe_param_spec", moe.moe_param_spec)):
         try:
@@ -345,8 +360,222 @@ def battery_multihost(mesh, inp):
     return r
 
 
+def _mixed_state(n, seed=3):
+    """``tests/test_robust.py``'s mixed-dtype state: float32 "w" and
+    zero "b" beside a bfloat16 "h" (as float32 numpy; "h" is cast)."""
+    rng = np.random.default_rng(seed)
+    return {"w": rng.normal(size=(n, 3, 2)).astype(np.float32),
+            "b": np.zeros((n, 5), np.float32),
+            "h": rng.normal(size=(n, 4)).astype(np.float32)}
+
+
+# name -> (matrix, kind, knobs) of the sharded async and robust routes.
+ASYNC = {"p1212_tau0": ((1, 2, 1, 2), 0), "p1113_tau1": ((1, 1, 1, 3), 1)}
+# The robust rounds held against the JAX package, and the neutral knobs,
+# held bit for bit against the sharded plain round on the ranks.
+ROBUST = {"clip": ("ring", {"kind": "clip", "radius": 1.0}),
+          "clip_adaptive": ("ring", {"kind": "clip", "radius": 0.7, "adaptive": True}),
+          "trim1": ("complete", {"kind": "trim", "trim": 1})}
+NEUTRAL = {"clip_inf": ("ring", {"kind": "clip", "radius": float("inf")}),
+           "clip_inf_adaptive": ("ring", {"kind": "clip", "radius": float("inf"),
+                                          "adaptive": True}),
+           "trim0": ("complete", {"kind": "trim", "trim": 0})}
+ASYNC_ROBUST = {"async_clip": ("ring", {"kind": "clip", "radius": 1.0}),
+                "async_trim": ("complete", {"kind": "trim", "trim": 1})}
+ASYNC_ROBUST_KNOBS = ((1, 2, 1, 3), 2)
+
+
+def _matrix(name, n=4):
+    from distributed_learning_tpu_torch.parallel import Topology
+
+    topo = Topology.ring(n) if name == "ring" else Topology.complete(n)
+    return topo.metropolis_weights()
+
+
+def battery_async_robust(mesh, inp):
+    """The sharded async, robust and async-robust rounds on the mixed
+    state: every route's mixed row, carry and total mass."""
+    import torch
+
+    from distributed_learning_tpu_torch.parallel.consensus import ConsensusEngine
+
+    x0 = _tensors(inp, "x_", bf16=("h",))
+    r = {}
+
+    def row(t):
+        return {k: v.to(torch.float32).numpy() for k, v in t.items()}
+
+    engines = {m: ConsensusEngine(_matrix(m), mesh=mesh) for m in ("ring", "complete")}
+    plain = {m: eng.mix(eng.shard(x0), 1) for m, eng in engines.items()}
+    ring = engines["ring"]
+    for name, (periods, tau) in ASYNC.items():
+        out, st = ring.mix_async(ring.shard(x0), tau=tau, periods=periods, times=3)
+        out2, st2 = ring.mix_async(out, st, tau=tau, periods=periods, times=2)
+        r[f"{name}_x"], r[f"{name}_x2"], r[f"{name}_pub"] = row(out), row(out2), row(st2.pub)
+        r[f"{name}_age"], r[f"{name}_rnd"] = st2.age.numpy(), int(st2.rnd)
+    # One round on the mixed state, three on its float32 leaves (a clip's
+    # scale reads every bucket, so an ulp of the bfloat16 one would reach
+    # the float32 leaves in the next round).
+    x32 = {k: v for k, v in x0.items() if k != "h"}
+    for name, (m, spec) in ROBUST.items():
+        eng = engines[m]
+        for tag, x, times in (("1", x0, 1), ("3", x32, 3)):
+            out, mass = eng.mix_robust(eng.shard(x), spec, times=times)
+            r[f"{name}_x{tag}"], r[f"{name}_mass{tag}"] = row(out), float(mass)
+        r[f"{name}_is_plain"] = all(torch.equal(out[k], plain[m][k]) for k in out)
+    for name, (m, spec) in NEUTRAL.items():
+        out, mass = engines[m].mix_robust(engines[m].shard(x0), spec, times=1)
+        r[f"{name}_is_plain"] = all(torch.equal(out[k], plain[m][k]) for k in out)
+        r[f"{name}_mass1"] = float(mass)
+    periods, tau = ASYNC_ROBUST_KNOBS
+    for name, (m, spec) in ASYNC_ROBUST.items():
+        eng = engines[m]
+        for tag, x, times in (("1", x0, 1), ("3", x32, 3)):
+            out, st, mass = eng.mix_async_robust(eng.shard(x), spec=spec, tau=tau,
+                                                 periods=periods, times=times)
+            r[f"{name}_x{tag}"], r[f"{name}_mass{tag}"] = row(out), float(mass)
+            r[f"{name}_pub{tag}"] = row(st.pub)
+    # Neutral knobs: the async-robust route at radius inf is mix_async.
+    out, _ = ring.mix_async(ring.shard(x0), tau=tau, periods=periods, times=3)
+    neutral, _, m0 = ring.mix_async_robust(ring.shard(x0), spec="clip", tau=tau,
+                                           periods=periods, times=3)
+    r["async_neutral_bitwise"] = all(torch.equal(out[k], neutral[k]) for k in out)
+    r["async_neutral_mass"] = float(m0)
+    return r
+
+
+CHOCO = {"topk_perleaf": dict(spec="topk:0.3"),
+         "topk_global_ef": dict(spec="topk:0.2", budget="global", error_feedback=True,
+                                gamma=0.05),
+         "topk_perleaf_oracle": dict(spec="topk:0.3", fused=False),
+         "randk_perleaf": dict(spec="randk:0.3"),
+         "randk_global_ef": dict(spec="randk:0.3", budget="global", error_feedback=True)}
+CHOCO_ROUNDS = 6
+
+
+def battery_choco(mesh, inp):
+    """``ChocoGossipEngine(mesh=)``: every configuration's run (state,
+    estimates, error-feedback bank, residual trace), the bytes this rank
+    counts, and random-k's kept sets drawn on the rank."""
+    import torch
+
+    from distributed_learning_tpu_torch.obs.registry import MetricsRegistry, use_registry
+    from distributed_learning_tpu_torch.ops import mixing as ops
+    from distributed_learning_tpu_torch.parallel import compression as tc
+
+    x0 = _tensors(inp, "x_")
+    W = _matrix("ring")
+    r = {}
+    for name, cfg in CHOCO.items():
+        cfg = dict(cfg)
+        spec = cfg.pop("spec")
+        eng = tc.ChocoGossipEngine(W, tc.compressor_from_spec(spec), gamma=cfg.pop("gamma", 0.2),
+                                   mesh=mesh, **cfg)
+        reg = MetricsRegistry()
+        with use_registry(reg):
+            st, trace = eng.run(eng.init(x0, seed=3), CHOCO_ROUNDS)
+        for field in ("x", "xhat") + (("ef",) if st.ef is not None else ()):
+            r[f"{name}_{field}"] = {k: v.numpy() for k, v in getattr(st, field).items()}
+        r[f"{name}_trace"] = trace.numpy()
+        r[f"{name}_maxdev"] = eng.max_deviation(st)
+        r[f"{name}_bytes"] = reg.counters.get("consensus.compressed_bytes")
+    # Random-k's kept sets for this agent, from a generator every rank seeds alike.
+    buffers, layout = ops.flatten_stacked({k: v[mesh.agent:mesh.agent + 1] + 10.0
+                                           for k, v in x0.items()})
+    for budget in ("per-leaf", "global"):
+        fc = tc.FusedCompressor(tc.random_k(0.4), budget=budget)
+        q = fc.compress(buffers, layout, torch.Generator().manual_seed(5), n=mesh.size,
+                        agent=mesh.agent)
+        r[f"kept_{budget}"] = (q["float32"] != 0).numpy()
+        # top-k's compressed values on this rank's row.
+        q = tc.FusedCompressor(tc.top_k(0.3), budget=budget).compress(
+            buffers, layout, None, n=mesh.size, agent=mesh.agent)
+        r[f"topk_{budget}"] = q["float32"].numpy()
+    return r
+
+
+def battery_ring(mesh, inp):
+    """``make_ring_attention`` for every strategy, causal and not: the
+    global output and the gradients of ``sum(out * cot)``."""
+    import torch
+
+    from distributed_learning_tpu_torch.ops.ring_attention import make_ring_attention
+
+    q, k, v, cot = (torch.from_numpy(inp[n]) for n in ("q", "k", "v", "cot"))
+    r = {}
+    for strategy in ("ring", "ulysses", "ring_flash"):
+        for causal in (True, False):
+            fn = make_ring_attention(mesh, strategy=strategy, causal=causal)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            (out * cot).sum().backward()
+            tag = f"{strategy}_{'causal' if causal else 'full'}"
+            r[f"{tag}_out"] = out.detach().numpy()
+            for name, t in zip("qkv", leaves):
+                r[f"{tag}_d{name}"] = t.grad.numpy()
+    # The controls: a wrong source index, and a skipped rotation.
+    from distributed_learning_tpu_torch.ops import ring_attention as ra
+
+    orig = ra._blocks
+
+    def wrong_src(mesh_, k_, v_):
+        return [(kb, vb, (s + 1) % mesh_.size if i == 1 else s)
+                for i, (kb, vb, s) in enumerate(orig(mesh_, k_, v_))]
+
+    def skipped(mesh_, k_, v_):
+        out = orig(mesh_, k_, v_)
+        return [out[0], (out[0][0], out[0][1], out[1][2])] + out[2:]
+
+    for name, fake in (("wrong_src", wrong_src), ("skipped_rotation", skipped)):
+        ra._blocks = fake
+        try:
+            with torch.no_grad():
+                r[f"control_{name}"] = make_ring_attention(mesh, strategy="ring_flash")(
+                    q, k, v).numpy()
+        finally:
+            ra._blocks = orig
+    return r
+
+
+SPMD_LM = dict(vocab_size=16, num_layers=2, num_heads=2, head_dim=8, max_len=16)
+SPMD_STEPS = 2
+
+
+def battery_spmd_lm(mesh, inp):
+    """``make_gossip_lm_step`` on the 4 ranks regrouped as agents 2 x seq
+    2: each sequence-parallel attention, ``SPMD_STEPS`` steps from the
+    given init; the losses and this rank's replica after them."""
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.spmd_lm import (
+        make_gossip_lm_step,
+        stack_agent_states,
+    )
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    import torch
+
+    grid = GridMesh({"agents": 2, "seq": 2}, "cpu")
+    a, s = grid.coords["agents"], grid.coords["seq"]
+    X, Y = torch.from_numpy(inp["x"]), torch.from_numpy(inp["y"])
+    t = X.shape[-1] // 2
+    p0 = {k[3:]: inp[k] for k in inp.files if k.startswith("p0_")}
+    r = {"coords": (a, s)}
+    for impl in ("ring", "ring_flash", "ulysses"):
+        model = TransformerLM(**SPMD_LM, attn_impl=impl, mesh=grid, device="cpu")
+        opt = stack_agent_states(model, make_optimizer("adam", None, 3e-3), params=p0, agent=a)
+        step = make_gossip_lm_step(grid, model, opt)
+        r[f"{impl}_losses"] = [float(step(X[a][:, s * t:(s + 1) * t], Y[a][:, s * t:(s + 1) * t]))
+                               for _ in range(SPMD_STEPS)]
+        r[f"{impl}_params"] = {k: v.detach().numpy().copy()
+                               for k, v in model.stacked_parameters().items()}
+    return r
+
+
 BATTERIES = {"engine": battery_engine, "tracking": battery_tracking,
-             "trainer": battery_trainer, "multihost": battery_multihost}
+             "trainer": battery_trainer, "multihost": battery_multihost,
+             "async_robust": battery_async_robust, "choco": battery_choco,
+             "ring": battery_ring, "spmd_lm": battery_spmd_lm}
 
 
 def _main(battery, tmp, coordinator, rank, n):

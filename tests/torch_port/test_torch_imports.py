@@ -198,14 +198,23 @@ def test_lm_extras_entry_points_need_the_card_unless_cpu_is_asked_for():
 _SHARDED = [
     "distributed_learning_tpu_torch.parallel.multihost",
     "distributed_learning_tpu_torch.parallel.consensus",
+    "distributed_learning_tpu_torch.parallel.robust",
+    "distributed_learning_tpu_torch.parallel.compression",
+    "distributed_learning_tpu_torch.ops.mixing",
+    "distributed_learning_tpu_torch.ops.ring_attention",
+    "distributed_learning_tpu_torch.models.transformer",
+    "distributed_learning_tpu_torch.models.moe",
+    "distributed_learning_tpu_torch.training.spmd_lm",
     "distributed_learning_tpu_torch.training.trainer",
 ]
 
 
 def test_sharded_route_modules_and_the_rank_script_import_no_jax():
-    """The sharded route (multihost, the engine's ``mesh=`` half, the
-    trainer) with its public names, and the gloo rank script of the
-    sharded tests, load no JAX and nothing of the JAX package."""
+    """The sharded route (multihost and its two-axis mesh, the engine's
+    ``mesh=`` half with the async, robust and CHOCO rounds, sequence
+    parallel attention, the agents x seq LM step, the trainer) with its
+    public names, and the gloo rank script of the sharded tests, load no
+    JAX and nothing of the JAX package."""
     code = "\n".join(
         ["import importlib, sys", f"sys.path.insert(0, {os.path.join(REPO, 'tests', 'torch_port')!r})"]
         + [f"importlib.import_module({m!r})" for m in _SHARDED]
@@ -214,6 +223,11 @@ def test_sharded_route_modules_and_the_rank_script_import_no_jax():
            " process_local_agents)",
            "from distributed_learning_tpu_torch.parallel.consensus import (make_agent_mesh,"
            " ring_offset_weights, local_ring_mix, local_sq_deviation)",
+           "from distributed_learning_tpu_torch.parallel.multihost import GridMesh",
+           "from distributed_learning_tpu_torch.ops.ring_attention import (ring_attention,"
+           " ulysses_attention, ring_flash_attention, make_ring_attention)",
+           "from distributed_learning_tpu_torch.training.spmd_lm import (make_gossip_lm_step,"
+           " stack_agent_states, reject_dropout_model)",
            "import sharded_ranks",
            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
            " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"
