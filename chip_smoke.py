@@ -3798,6 +3798,7 @@ def decode_step_profile(model, prompt, steps=32) -> dict:
 
 
 DECODE_CASES = (("mha", None), ("gqa", 2))
+DECODE_WARMUP_STEPS = 8
 
 
 def _decode_prompt():
@@ -3810,10 +3811,11 @@ def time_decode(fa, model, prompt):
     """``generate``'s times by the prefill-subtracted protocol
     (``bench_lm.py:112``): after a warm-up, the prefill alone (one token)
     and the whole of ``DECODE_STEPS`` steps.  Returns (prefill seconds,
-    generate seconds, the prefill's launch counts)."""
+    generate seconds, the prefill's launch counts).  The warm-up's decode
+    runs ``DECODE_WARMUP_STEPS`` of the same one-token steps."""
     from distributed_learning_tpu_torch.models.transformer import generate
 
-    for n in (1, DECODE_STEPS):  # warm-up
+    for n in (1, DECODE_WARMUP_STEPS):
         generate(model, prompt, n)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
@@ -5032,6 +5034,12 @@ def phase_sharded():
         facts = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
                  for r in range(SHARDED_WORLD)]
     launches = {k: sum(f["lm"]["launches"][k] for f in facts) for k in facts[0]["lm"]["launches"]}
+    mp_launches = {k: sum(f["model_parallel"][part]["launches"][k] for f in facts
+                          for part in ("tp_step", "fsdp_step"))
+                   + sum(g["launches"][k] for f in facts
+                         for g in f["model_parallel"]["gossip"].values())
+                   for k in launches}
+    mp = [f["model_parallel"] for f in facts]
     seq_launches = {k: sum(f["lm_step"]["ring_flash"]["launches"][k] for f in facts)
                     for k in launches}
     step = [f["lm_step"]["ring_flash"] for f in facts]
@@ -5060,10 +5068,22 @@ def phase_sharded():
                           for f in facts},
         "lm_step_peak_memory_bytes": max(r["peak_memory_bytes"] for r in step),
         "seq_parallel_launches": seq_launches,
+        "tp_step_seconds": max(sum(m["tp_step"]["step_seconds"]) for m in mp) / MP_STEPS,
+        "tp_step_tokens_per_s": min(m["tp_step"]["tokens_per_s"] for m in mp),
+        "tp_step_split": {f"rank{f['rank']}": f["model_parallel"]["tp_step"]["split"]
+                          for f in facts},
+        "fsdp_step_seconds": max(sum(m["fsdp_step"]["step_seconds"]) for m in mp) / MP_STEPS,
+        "fsdp_step_tokens_per_s": min(m["fsdp_step"]["tokens_per_s"] for m in mp),
+        "fsdp_step_split": {f"rank{f['rank']}": f["model_parallel"]["fsdp_step"]["split"]
+                            for f in facts},
+        "tp_decode_ms_per_step": {k: max(m["tp_generate"][k]["ms_per_decode_step"] for m in mp)
+                                  for k in mp[0]["tp_generate"]},
+        "model_parallel_launches": mp_launches,
+        "model_parallel_seconds": max(m["seconds"] for m in mp),
         "seconds": round(time.perf_counter() - t0, 2),
     }
     emit(summary)
-    return launches, seq_launches
+    return launches, seq_launches, mp_launches
 
 
 def _transport_s(mesh) -> dict:
@@ -5922,8 +5942,614 @@ def _sharded_lm_step(mesh, fa) -> dict:
     return facts
 
 
+# ---------------------------------------------------------------------- #
+# Phase 34, ROADMAP item 5a: tensor parallelism with TP decode, FSDP,    #
+# gossip x FSDP / TP and the expert-parallel MoE LM.                     #
+# ---------------------------------------------------------------------- #
+# limits (TOL); the TP and FSDP steps against the same model in one
+# process (global B 4, the same Adam): losses within LOSS_RTOL, the first
+# step's gradient (gathered from the blocks) within GRAD_RTOL.  TP decode
+# runs a float32 copy (DECODE_F32_LOGITS_RTOL on the prefill logits;
+# tokens equal, or a near-tie at the first step that differs).  The
+# expert-parallel LM runs in float32 with the one-process run's routes
+# replayed from the EP run's (route flips bounded by ROUTE_FLIP_F32_RTOL):
+# both then compute one continuous function, and the logits and the
+# step's gradient differ by float32 summation order only (the combine's
+# all_reduce adds two partial sums), ~1e-6 expected; MOE_EP_RTOL is 100x
+# that, and the control (a rank combining the other rank's experts)
+# moves the logits by O(1).
+MP_BATCH, MP_STEPS, MP_LR = 4, 3, 3e-4
+MP_GOSSIP_LAYERS, MP_GOSSIP_BATCH = 2, 2
+MP_W = [[0.75, 0.25], [0.25, 0.75]]
+MP_GEN_BATCH, MP_GEN_PROMPT, MP_GEN_STEPS, MP_GEN_MQA_LAYERS = 4, 128, 32, 2
+MP_GEN_CASES = (("mha", None, LAYERS), ("gqa", 2, LAYERS), ("mqa", 1, MP_GEN_MQA_LAYERS))
+MOE_EP_LAYERS, MOE_EP_BATCH, MOE_EP_RTOL = 2, 2, 1e-4
+
+
+def _mp_model(layers, dev, dtype=torch.bfloat16, **kw):
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM
+
+    kw.setdefault("max_len", SEQ)
+    return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
+                         head_dim=HEAD_DIM, attn_impl="flash", dtype=dtype, device=dev, seed=0,
+                         **kw)
+
+
+def _mp_tokens(dev, lead, seed):
+    """``lead + (SEQ,)`` tokens and their next-token targets: each row
+    counts up by 7 from its own start."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.randint(0, VOCAB, tuple(lead) + (1,), generator=g, device=dev)
+    seq = (starts + torch.arange(SEQ + 1, device=dev) * 7) % VOCAB
+    return seq[..., :-1], seq[..., 1:]
+
+
+def _mp_whole(model, line, flat) -> torch.Tensor:
+    """The whole (P,) vector of a model-parallel model's ``flat`` (1, P
+    local) buffer, its blocks gathered along ``line`` and laid out as the
+    one-process model's buffer."""
+    parts = line.all_gather(flat[0].contiguous())
+    out = []
+    for name, (off, size) in model.param_slices.items():
+        shape = tuple(model.get_parameter(name).shape)
+        blocks = [parts[r, off:off + size].view(shape) for r in range(line.size)]
+        spec = model.layout.get(name, ())
+        if any(spec):
+            dim = 1 + next(d for d, ax in enumerate(spec) if ax is not None)
+            out.append(torch.cat(blocks, dim).reshape(-1))
+        else:
+            out.append(blocks[0].reshape(-1))
+    return torch.cat(out)
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _mp_reference(dev, layers, X, Y, steps, lr=MP_LR, aux=0.0, routes=None, **kw):
+    """The one-process comparator (rank 0): per-step losses and the first
+    step's gradient of the same model and Adam on the whole batch; with
+    ``routes`` the MoE blocks replay them (the route flip gaps kept)."""
+    from distributed_learning_tpu_torch.models.moe import MoEMLP
+    from distributed_learning_tpu_torch.training.tp import bind_optimizer, lm_loss
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    m = _mp_model(layers, dev, **kw)
+    opt = bind_optimizer(m, make_optimizer("adam", None, lr))
+    losses, g0, gaps, logits = [], None, [], None
+    ctx = contextlib.nullcontext()
+    if routes is not None:
+        real, pos = MoEMLP._choose, [0]
+
+        def choose(module, probs):
+            taped = routes[pos[0] % len(routes)]
+            pos[0] += 1
+            gaps.append(route_flip_gaps(probs, real(module, probs), taped).cpu())
+            return taped
+
+        ctx = _patched(MoEMLP, "_choose", choose)
+    with ctx:
+        if routes is not None:
+            with torch.no_grad():
+                logits = m(X[None])[0]
+        for _ in range(steps):
+            m.flat_grads.zero_()
+            loss = lm_loss(m, X, Y, aux)
+            loss.backward()
+            if g0 is None:
+                g0 = m.flat_grads[0].clone()
+            opt.step()
+            losses.append(float(loss))
+    del m, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, g0, (torch.cat(gaps) if gaps else None), logits
+
+
+def _mp_launches(fa):
+    return ({k.name: k.launches for k in fa.KERNELS.values()},
+            {k.name: dict(k.by_body) for k in fa.KERNELS.values()})
+
+
+def _mp_launch_checks(launches, bodies, fwd, bwd) -> dict:
+    expect = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+              "flash_bwd_rowterm": bwd}
+    return {"launches": launches == expect,
+            "wgmma": all(bodies[k]["wgmma"] == launches[k]
+                         for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}, expect
+
+
+def _mp_tp_step(mesh, fa, X, Y) -> tuple:
+    """The TP step on (data 2, model 2), 8 layers, global B 4, 3 steps;
+    the control (every attention's exit all_reduce skipped) at the init.
+    Returns (facts, checks, the first step's whole gradient, losses)."""
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.tp import _rows, lm_loss, make_tp_train_step
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = mesh.device
+    grid = GridMesh({"data": 2, "model": 2}, dev)
+    line = grid["model"]
+    model = _mp_model(LAYERS, dev, tp_axis="model", mesh=grid)
+    with torch.no_grad():
+        saved = [b.attn.tp for b in model.blocks]
+        for b in model.blocks:
+            b.attn.tp = None
+        try:
+            control = float(lm_loss(model, _rows(X, grid["data"]), _rows(Y, grid["data"]), 0.0))
+        finally:
+            for b, t in zip(model.blocks, saved):
+                b.attn.tp = t
+    control = float(grid["data"].all_reduce(torch.tensor([control], device=dev))[0] / 2)
+    step = make_tp_train_step(grid, model, make_optimizer("adam", None, MP_LR))
+    whole = [(o, n) for name, (o, n) in model.param_slices.items() if not any(model.layout[name])]
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, split, g0, equal = [], [], [], None, []
+    for _ in range(MP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(X, Y)))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        c = step.clock
+        split.append({"compute_s": walls[-1] - c["model_s"] - c["data_s"],
+                      "model_all_reduce_s": c["model_s"], "data_all_reduce_s": c["data_s"]})
+        if g0 is None:
+            g0 = _mp_whole(model, line, model.flat_grads)
+        rep = torch.cat([model.flat_params[0, o:o + n] for o, n in whole])
+        rows = line.all_gather(rep)
+        equal.append(bool(torch.equal(rows[0], rows[1])))
+    launches, bodies = _mp_launches(fa)
+    checks, expect = _mp_launch_checks(launches, bodies, LAYERS * MP_STEPS, LAYERS * MP_STEPS)
+    checks["whole_leaves_equal_on_model_line"] = all(equal)
+    full_params = sum(math.prod(s) for s in model.full_shapes.values())
+    state = sum(t.numel() * t.element_size() for st in step.optimizer.state.values()
+                for t in st.values() if isinstance(t, torch.Tensor))
+    facts = {"grid": dict(grid.coords), "losses": losses, "step_seconds": walls, "split": split,
+             "tokens_per_s": MP_BATCH * SEQ * MP_STEPS / sum(walls),
+             "launches": launches, "launches_by_body": bodies, "expected_launches": expect,
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+             "param_and_moment_bytes": model.flat_params.numel() * 4 + state,
+             "replica_param_and_moment_bytes": full_params * 4 * 3,
+             "whole_leaves_bitwise_equal": equal, "control_skipped_exit_loss": control}
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts, checks, g0, losses
+
+
+def _mp_fsdp_step(mesh, fa, X, Y) -> tuple:
+    """The FSDP step on data 4, 8 layers, B 1 a rank, 3 steps; the control
+    (a reduce_scatter that keeps the neighbouring rank's block) on a
+    fresh step.  Returns (facts, checks, first whole gradient, control's
+    whole gradient)."""
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.fsdp import make_fsdp_train_step
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = mesh.device
+    grid = GridMesh({"data": 4}, dev)
+    data = grid["data"]
+
+    def whole(step, buf):
+        g = step.gather_params(buf)
+        return torch.cat([g[n].reshape(-1) for n in step.model.param_slices])
+
+    step = make_fsdp_train_step(grid, _mp_model(LAYERS, dev), make_optimizer("adam", None, MP_LR))
+    gc.collect()
+    torch.cuda.empty_cache()
+    persistent = step.persistent_bytes()
+    param_and_moments = persistent - step.grads.numel() * step.grads.element_size()
+    full_params = step.model.param_count()
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, split, g0 = [], [], [], None
+    for _ in range(MP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(X, Y)))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        t = step.timing
+        split.append({"compute_s": walls[-1] - t["gather_s"] - t["reduce_scatter_s"],
+                      "gather_s": t["gather_s"], "reduce_scatter_s": t["reduce_scatter_s"]})
+        if g0 is None:
+            g0 = whole(step, step.grads)
+    launches, bodies = _mp_launches(fa)
+    # The forward and the backward's recompute each launch A once a layer.
+    checks, expect = _mp_launch_checks(launches, bodies, 2 * LAYERS * MP_STEPS,
+                                       LAYERS * MP_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = data.reduce_scatter
+
+    def neighbours(t):
+        total = data.all_reduce(t.clone(), "sum")
+        k = t.shape[0] // data.size
+        nb = (data.agent + 1) % data.size
+        return total[nb * k:(nb + 1) * k]
+
+    step = make_fsdp_train_step(grid, _mp_model(LAYERS, dev), make_optimizer("adam", None, MP_LR))
+    data.reduce_scatter = neighbours
+    try:
+        step(X, Y)
+    finally:
+        data.reduce_scatter = real
+    control = whole(step, step.grads)
+    facts = {"losses": losses, "step_seconds": walls, "split": split,
+             "tokens_per_s": MP_BATCH * SEQ * MP_STEPS / sum(walls),
+             "launches": launches, "launches_by_body": bodies, "expected_launches": expect,
+             "peak_memory_bytes": peak, "persistent_bytes": persistent,
+             "param_and_moment_bytes": param_and_moments,
+             "replica_param_and_moment_bytes": full_params * 4 * 3,
+             "param_and_moment_share": param_and_moments / (full_params * 4 * 3)}
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts, checks, g0, control
+
+
+def _mp_generate(mesh) -> dict:
+    """TP decode on (data 2, model 2) of float32 copies: MHA and 2 K/V
+    heads at 8 layers, 1 K/V head (the replicated fallback) at 2; B 4, a
+    128-token prompt, 32 greedy steps against the one-process generate;
+    the control (the GQA cache swapped for the neighbouring head group
+    after the prefill) must move the first step's logits past the limit."""
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.tp import make_tp_generate
+
+    dev = mesh.device
+    grid = GridMesh({"data": 2, "model": 2}, dev)
+    line, data = grid["model"], grid["data"]
+    prompt, _ = _mp_tokens(dev, (MP_GEN_BATCH,), 11)
+    prompt = prompt[:, :MP_GEN_PROMPT]
+    b = MP_GEN_BATCH // 2
+    rows = slice(data.agent * b, (data.agent + 1) * b)
+    max_len = MP_GEN_PROMPT + MP_GEN_STEPS
+    out, checks = {}, {}
+    for kind, kv, layers in MP_GEN_CASES:
+        kw = dict(max_len=max_len, num_kv_heads=kv, dtype=torch.float32)
+        model = _mp_model(layers, dev, tp_axis="model", mesh=grid, **kw)
+        gen = make_tp_generate(grid, model)
+        with torch.no_grad():
+            cache = model.init_cache(b)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            prefill = model(prompt[rows][None], cache)[0]
+            torch.cuda.synchronize(dev)
+            prefill_s = time.perf_counter() - t0
+            ctrl = None
+            if kind == "gqa":
+                # The control: this rank's cache replaced by its neighbour's
+                # head group, then the first decode step.
+                for t in cache.keys + cache.values:
+                    t.copy_(line.all_gather(t)[(line.agent + 1) % line.size])
+                tok = prefill[:, -1].argmax(-1)
+                ctrl = model(tok[None, :, None], cache)[0, :, -1]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        toks = gen(prompt, MP_GEN_STEPS)
+        torch.cuda.synchronize(dev)
+        gen_s = time.perf_counter() - t0
+        cache_bytes = model.init_cache(b).nbytes()
+        whole_cache = 2 * layers * MP_GEN_BATCH * max_len * (kv or HEADS) * HEAD_DIM * 4
+        out[kind] = {"layers": layers, "num_kv_heads": kv, "tokens": toks,
+                     "prefill_logits": prefill, "control_logits": ctrl,
+                     "facts": {"prefill_s": prefill_s, "generate_s": gen_s,
+                               "ms_per_decode_step": (gen_s - prefill_s) * 1e3 / MP_GEN_STEPS,
+                               "rank_cache_bytes": cache_bytes,
+                               "whole_cache_bytes": whole_cache,
+                               "cache_share": cache_bytes / whole_cache}}
+        del model, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return grid, prompt, out
+
+
+def _mp_generate_reference(dev, prompt, kind, kv, layers) -> tuple:
+    """The one-process generate's tokens, prefill logits, first decode
+    step's logits and each step's top-2 gap relative to the row's largest
+    |logit| (rank 0)."""
+    from distributed_learning_tpu_torch.models.transformer import generate
+
+    m = _mp_model(layers, dev, max_len=MP_GEN_PROMPT + MP_GEN_STEPS, num_kv_heads=kv,
+                  dtype=torch.float32)
+    with torch.no_grad():
+        toks = generate(m, prompt[None], MP_GEN_STEPS)[0]
+        cache = m.init_cache(MP_GEN_BATCH)
+        logits = m(prompt[None], cache)[0]
+        prefill = logits
+        gaps, first = [], None
+        tok = logits[:, -1].argmax(-1)
+        for t in range(MP_GEN_STEPS):
+            step = m(tok[None, :, None], cache)[0, :, -1]
+            if first is None:
+                first = step
+            top = step.topk(2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]) / step.abs().max(dim=-1).values)
+            tok = step.argmax(-1)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # gaps[t] is the gap of the logits that pick token t + 1; token 0 comes
+    # from the prefill.
+    top = prefill[:, -1].topk(2, dim=-1).values
+    gap0 = (top[:, 0] - top[:, 1]) / prefill[:, -1].abs().max(dim=-1).values
+    return toks, prefill, first, torch.stack([gap0] + gaps[:-1], dim=1)
+
+
+def _mp_gossip(mesh, fa, kind) -> tuple:
+    """Gossip x FSDP on (agents 2, data 2) or gossip x TP on (agents 2,
+    model 2), a 2-layer cut, B 2 an agent, 3 steps; then the mix alone on
+    a random stacked state, and the control (W's rows swapped)."""
+    from distributed_learning_tpu_torch.parallel.multihost import (
+        GridMesh,
+        MeshPosition,
+        local_shard,
+    )
+    from distributed_learning_tpu_torch.training import gossip_fsdp as gf
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = mesh.device
+    inner_axis = "data" if kind == "fsdp" else "model"
+    grid = GridMesh({"agents": 2, inner_axis: 2}, dev)
+    agents = grid["agents"]
+    X, Y = _mp_tokens(dev, (2, MP_GOSSIP_BATCH), 13)
+    adam = make_optimizer("adam", None, MP_LR)
+    if kind == "fsdp":
+        model = _mp_model(MP_GOSSIP_LAYERS, dev)
+        step = gf.make_gossip_fsdp_step(grid, model, adam, MP_W)
+        flat = step.inner.flat
+        views = step.inner.local_params()
+
+        def whole_grads():
+            g = step.inner.gather_params(step.inner.grads)
+            return torch.cat([g[n].reshape(-1) for n in model.param_slices])
+
+        pos = MeshPosition({"data": 2}, {"data": grid.coords["data"]})
+
+        def block(name, full):
+            return local_shard(full, step.inner.specs[name], pos, offset=1)
+
+        def full_shape(name):
+            return tuple(model.get_parameter(name).shape[1:])
+    else:
+        model = _mp_model(MP_GOSSIP_LAYERS, dev, tp_axis="model", mesh=grid)
+        step = gf.make_gossip_tp_step(grid, model, adam, MP_W)
+        flat = model.flat_params
+        views = model.stacked_parameters()
+
+        def whole_grads():
+            return _mp_whole(model, grid["model"], model.flat_grads)
+
+        def block(name, full):
+            spec = model.layout[name]
+            return local_shard(full, spec, model.position, offset=1) if any(spec) else full
+
+        def full_shape(name):
+            return model.full_shapes[name]
+    fa.reset_launch_counts()
+    losses, walls, g0 = [], [], None
+    for _ in range(MP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(X, Y)))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        if g0 is None:
+            g0 = agents.all_gather(whole_grads())
+    launches, _ = _mp_launches(fa)
+    # The mix alone on a random stacked state: this rank's block of each
+    # agent's leaves, mixed, against the block of W @ state.
+    g = torch.Generator(device=dev).manual_seed(17)
+    state = {n: torch.randn((2,) + full_shape(n), generator=g, device=dev) for n in views}
+    W = torch.tensor(MP_W, device=dev)
+    errs = {}
+    for tag, mix_ in (("mix", step.mix_), ("control_swapped_rows",
+                                           gf._gossip(grid, MP_W[::-1], "agents")[0])):
+        with torch.no_grad():
+            saved = flat.clone()
+            a = grid.coords["agents"]
+            for n, v in views.items():
+                v.copy_(block(n, state[n][a:a + 1]))
+            mix_(flat)
+            err = 0.0
+            for n, v in views.items():
+                want = block(n, torch.einsum("ab,b...->a...", W, state[n])[a:a + 1])
+                err = max(err, float((v - want).abs().max()))
+            flat.copy_(saved)
+        errs[tag] = float(mesh.all_reduce(torch.tensor([err], device=dev), "max")[0])
+    facts = {"losses": losses, "step_seconds": walls, "launches": launches,
+             "mix_max_abs_err": errs["mix"],
+             "control_swapped_rows_max_abs_err": errs["control_swapped_rows"]}
+    del step, model, views, flat, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts, g0, X, Y
+
+
+def _mp_gossip_reference(dev, X, Y) -> tuple:
+    """Two one-process agents (an n_agents=2 model, each with its own
+    Adam moments), one W round after each update: mean losses, the first
+    step's (2, P) gradient."""
+    import torch.nn.functional as F
+
+    from distributed_learning_tpu_torch.training.tp import bind_optimizer
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    m = _mp_model(MP_GOSSIP_LAYERS, dev, n_agents=2)
+    opt = bind_optimizer(m, make_optimizer("adam", None, MP_LR))
+    W = torch.tensor(MP_W, device=dev)
+    losses, g0 = [], None
+    for _ in range(MP_STEPS):
+        m.flat_grads.zero_()
+        logits = m(X)
+        ce = F.cross_entropy(logits.reshape(-1, VOCAB), Y.reshape(-1), reduction="none")
+        loss = ce.reshape(2, -1).mean(dim=1)
+        loss.sum().backward()
+        if g0 is None:
+            g0 = m.flat_grads.clone()
+        opt.step()
+        with torch.no_grad():
+            m.flat_params.copy_(W @ m.flat_params)
+        losses.append(float(loss.mean()))
+    del m, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, g0
+
+
+def _mp_moe_ep(mesh) -> tuple:
+    """The expert-parallel extras LM (rope, 2 K/V heads, 4 experts, top-2)
+    on (data 2, expert 2), 2 layers, float32, B 2: the logits of this
+    rank's row and one step's gradient; the routes this rank took; the
+    control's logits (expert rank 1 combining rank 0's experts)."""
+    from distributed_learning_tpu_torch.models.moe import MoEMLP
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.tp import make_tp_train_step
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = mesh.device
+    grid = GridMesh({"data": 2, "expert": 2}, dev)
+    X, Y = _mp_tokens(dev, (MOE_EP_BATCH,), 19)
+    model = _mp_model(MOE_EP_LAYERS, dev, dtype=torch.float32, moe_expert_axis="expert",
+                      mesh=grid, **EXTRAS)
+    step = make_tp_train_step(grid, model, make_optimizer("adam", None, MP_LR),
+                              model_axis="expert", moe_aux_coef=EXTRAS_AUX_COEF)
+    routes, real = [], MoEMLP._choose
+
+    def record(module, probs):
+        choices = real(module, probs)
+        routes.append([c.clone() for c in choices])
+        return choices
+
+    r = grid.coords["data"]
+    row = slice(r, r + 1)
+    with _patched(MoEMLP, "_choose", record):
+        with torch.no_grad():
+            logits = model(X[row][None])[0]
+        loss = float(step(X, Y))
+    grads = _mp_whole(model, grid["expert"], model.flat_grads)
+    real_local = MoEMLP._local_experts
+
+    def others(module):
+        E_loc, e0 = real_local(module)
+        return E_loc, (0 if module.ep is not None and module.ep.agent == 1 else e0)
+
+    with _patched(MoEMLP, "_local_experts", others), torch.no_grad():
+        control = model(X[row][None])[0]
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return X, Y, logits, loss, grads, routes, control
+
+
+def _sharded_model_parallel(mesh, fa) -> dict:
+    """ROADMAP item 5a's five parts on the 4 ranks (each regrouped into a
+    GridMesh) at bench_lm's full width, each against its one-process
+    comparator on rank 0, each with a control that must fail."""
+    dev = mesh.device
+    t_start = time.perf_counter()
+    checks, facts = {}, {}
+    X, Y = _mp_tokens(dev, (MP_BATCH,), 7)
+    tp_facts, tp_checks, tp_g0, tp_losses = _mp_tp_step(mesh, fa, X, Y)
+    fs_facts, fs_checks, fs_g0, fs_control = _mp_fsdp_step(mesh, fa, X, Y)
+    checks.update({f"tp_{k}": v for k, v in tp_checks.items()})
+    checks.update({f"fsdp_{k}": v for k, v in fs_checks.items()})
+    gen_grid, prompt, gen = _mp_generate(mesh)
+    gossip = {kind: _mp_gossip(mesh, fa, kind) for kind in ("fsdp", "tp")}
+    for kind, (f, *_rest) in gossip.items():
+        checks[f"gossip_{kind}_mix"] = f["mix_max_abs_err"] <= SHARDED_MIX_ATOL
+        checks[f"gossip_{kind}_control_fails"] = f["control_swapped_rows_max_abs_err"] \
+            > SHARDED_MIX_ATOL
+    ep = _mp_moe_ep(mesh)
+    if mesh.agent != 0:  # the comparators run on rank 0
+        tp_g0 = fs_g0 = fs_control = None
+    if mesh.agent == 0:
+        ref_losses, ref_g0, _, _ = _mp_reference(dev, LAYERS, X, Y, MP_STEPS)
+        for tag, f, g0 in (("tp", tp_facts, tp_g0), ("fsdp", fs_facts, fs_g0)):
+            f["reference_losses"] = ref_losses
+            f["loss_max_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(f["losses"],
+                                                                           ref_losses))
+            f["first_step_grad_rel_err"] = _rel(g0, ref_g0)
+            checks[f"{tag}_losses"] = f["loss_max_rel_err"] <= LOSS_RTOL
+            checks[f"{tag}_first_step_grads"] = f["first_step_grad_rel_err"] <= GRAD_RTOL
+        tp_facts["control_loss_rel_err"] = abs(tp_facts["control_skipped_exit_loss"]
+                                               - ref_losses[0]) / abs(ref_losses[0])
+        checks["tp_control_fails"] = tp_facts["control_loss_rel_err"] > LOSS_RTOL
+        fs_facts["control_grad_rel_err"] = _rel(fs_control, ref_g0)
+        checks["fsdp_control_fails"] = fs_facts["control_grad_rel_err"] > GRAD_RTOL
+        del ref_g0
+        gen_facts = {}
+        for kind, kv, layers in MP_GEN_CASES:
+            got = gen[kind]
+            toks, prefill, first, gaps = _mp_generate_reference(dev, prompt, kind, kv, layers)
+            b = MP_GEN_BATCH // 2
+            prefill_err = _rel(got["prefill_logits"], prefill[:b])
+            diff = (got["tokens"] != toks)
+            ties = []
+            for i in range(MP_GEN_BATCH):
+                where = torch.nonzero(diff[i])
+                if where.numel():
+                    t = int(where[0])
+                    ties.append({"row": i, "step": t, "reference_top2_gap": float(gaps[i, t])})
+            f = dict(got["facts"], prefill_logits_rel_err=prefill_err, differing_tokens=ties,
+                     tokens_equal=not ties)
+            checks[f"generate_{kind}_prefill"] = prefill_err <= DECODE_F32_LOGITS_RTOL
+            checks[f"generate_{kind}_tokens"] = all(t["reference_top2_gap"]
+                                                    <= DECODE_F32_LOGITS_RTOL for t in ties)
+            if got["control_logits"] is not None:
+                f["control_first_step_rel_err"] = _rel(got["control_logits"], first[:b])
+                checks["generate_control_fails"] = f["control_first_step_rel_err"] \
+                    > DECODE_F32_LOGITS_RTOL
+            gen_facts[kind] = f
+        facts["tp_generate"] = gen_facts
+        for kind, (f, g0, gx, gy) in gossip.items():
+            ref_losses, ref_g0 = _mp_gossip_reference(dev, gx, gy)
+            f["reference_losses"] = ref_losses
+            f["loss_max_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(f["losses"],
+                                                                           ref_losses))
+            f["first_step_grad_rel_err"] = [_rel(g0[i], ref_g0[i]) for i in range(2)]
+            checks[f"gossip_{kind}_losses"] = f["loss_max_rel_err"] <= LOSS_RTOL
+            checks[f"gossip_{kind}_first_step_grads"] = max(f["first_step_grad_rel_err"]) \
+                <= GRAD_RTOL
+        X2, Y2, logits, loss, grads, routes, control = ep
+        ref_losses, ref_g0, gaps, ref_logits = _mp_reference(
+            dev, MOE_EP_LAYERS, X2, Y2, 1, aux=EXTRAS_AUX_COEF, routes=routes,
+            dtype=torch.float32, **EXTRAS)
+        flips = {"routes": sum(c.numel() for rt in routes for c in rt), "flips": int(gaps.numel()),
+                 "max_gap": float(gaps.max()) if gaps.numel() else 0.0,
+                 "limit": ROUTE_FLIP_F32_RTOL}
+        ep_facts = {"loss": loss, "reference_loss": ref_losses[0],
+                    "loss_rel_err": abs(loss - ref_losses[0]) / abs(ref_losses[0]),
+                    "logits_rel_err": _rel(logits, ref_logits[:1]),
+                    "grad_rel_err": _rel(grads, ref_g0), "route_flips": flips,
+                    "control_logits_rel_err": _rel(control, ref_logits[:1])}
+        checks["moe_ep_loss"] = ep_facts["loss_rel_err"] <= MOE_EP_RTOL
+        checks["moe_ep_logits"] = ep_facts["logits_rel_err"] <= MOE_EP_RTOL
+        checks["moe_ep_grads"] = ep_facts["grad_rel_err"] <= MOE_EP_RTOL
+        checks["moe_ep_route_flips"] = flips["max_gap"] <= ROUTE_FLIP_F32_RTOL
+        checks["moe_ep_control_fails"] = ep_facts["control_logits_rel_err"] > MOE_EP_RTOL
+        facts["moe_ep"] = ep_facts
+    else:
+        facts["tp_generate"] = {k: g["facts"] for k, g in gen.items()}
+    facts["tp_step"], facts["fsdp_step"] = tp_facts, fs_facts
+    facts["gossip"] = {k: g[0] for k, g in gossip.items()}
+    facts["seconds"] = time.perf_counter() - t_start
+    del tp_g0, fs_g0, fs_control, gen, gossip, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    facts["checks"] = checks
+    _rank_emit(mesh, "model_parallel", facts)
+    return facts
+
+
 SHARDED_PARTS = ("engine", "wrn", "lm", "tracking", "superstep", "sharded_3b", "wrn_3b",
-                 "ring_flash", "lm_step")
+                 "ring_flash", "lm_step", "model_parallel")
 
 
 def sharded_rank_main(args) -> int:
@@ -5956,6 +6582,7 @@ def sharded_rank_main(args) -> int:
     facts["wrn_3b"] = _sharded_wrn_3b(mesh)
     facts["ring_flash"] = _sharded_ring_flash(mesh, fa)
     facts["lm_step"] = _sharded_lm_step(mesh, fa)
+    facts["model_parallel"] = _sharded_model_parallel(mesh, fa)
     with open(os.path.join(args.sharded_out, f"rank{rank}.json"), "w") as f:
         json.dump(facts, f)
     mesh.barrier()
@@ -6030,7 +6657,16 @@ def main(argv=None) -> int:
             phase_sharded()
         print_card()
         return 0
+    # Seconds of each group of phases, in the done line.
+    phase_seconds, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_seconds[name] = round(now - last[0], 2)
+        last[0] = now
+
     main_errs, d256_errs, wide_errs = phase_kernels(fa)
+    mark("kernels")
     master, launches, bodies = phase_slice(fa)
     if args.profile:
         phase_profile(master, args.out)
@@ -6043,6 +6679,7 @@ def main(argv=None) -> int:
     times_wide = phase_times_wide(fa)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("slice_plain_times")
     # The paper's own path: no hand-written kernel on it.
     phase_conv_layout()
     master = phase_vision_slice(fa)
@@ -6053,24 +6690,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_vision_plain()
     phase_zoo()
+    mark("vision")
     # The epoch superstep: graph replays against the eager epochs.
     out = args.out if args.profile else None
     dense_timing = phase_superstep(out)
     ss_launches, lm_tokens_per_s = phase_lm_superstep(fa, out)
     phase_superstep_routes()
+    mark("superstep")
     # CHOCO compressed gossip, its routes, and checkpoint/resume.
     phase_choco_slice(dense_timing)
     phase_choco_routes()
     phase_checkpoint()
+    mark("choco_checkpoint")
     # Async and Byzantine-robust gossip: WRN slices and the routes.
     phase_async_slice(dense_timing)
     phase_robust_slice(dense_timing)
     phase_robust_routes()
+    mark("async_robust")
     # Gradient tracking and EXTRA on the LM, push-sum, pairwise, interop.
     tracking_launches = phase_tracking_slice(fa)
     phase_tracking_routes()
     phase_pushsum_pairwise()
     phase_mixer_interop()
+    mark("tracking_pushsum_interop")
     # The observability layer, LM eval and the training CLI.
     obs_jsonl = phase_obs_superstep(dense_timing)
     obs_lm = phase_obs_lm(fa)
@@ -6078,19 +6720,24 @@ def main(argv=None) -> int:
     eval_launches = phase_lm_eval(fa, obs_lm)
     phase_cli(obs_jsonl)
     shutil.rmtree(_smoke_dir(SMOKE_OBS), ignore_errors=True)
+    mark("obs_eval_cli")
     # The LM extras, remat and the serving path.
     extras_launches = phase_lm_extras(fa, {"superstep_tokens_per_s": lm_tokens_per_s,
                                            "mfu": dense_mfu})
     phase_lm_extras_plain(fa)
     remat_launches = phase_lm_remat(fa)
     prefill_launches = phase_lm_decode(fa)
+    mark("extras_remat_decode")
     # A head dim the kernels run zero-padded, and the comm/ wire layer.
     head_dim_launches = phase_lm_head_dims(fa)
     phase_wire()
+    mark("head_dims_wire")
     # The comm/ runtime: gossip SGD over loopback TCP between the WRN agents.
     phase_comm_runtime()
+    mark("comm_runtime")
     # The sharded engine on torch.distributed: one agent a rank process.
-    sharded_launches, seq_launches = phase_sharded()
+    sharded_launches, seq_launches, mp_launches = phase_sharded()
+    mark("sharded")
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -6107,7 +6754,8 @@ def main(argv=None) -> int:
                                  "lm_prefill": prefill_launches[k.name],
                                  "lm_head_dims": head_dim_launches[k.name],
                                  "lm_sharded": sharded_launches[k.name],
-                                 "seq_parallel": seq_launches[k.name]},
+                                 "seq_parallel": seq_launches[k.name],
+                                 "model_parallel": mp_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6124,7 +6772,8 @@ def main(argv=None) -> int:
                               **{f: times_wide[k.name][f] for f in
                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         })
-    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2),
+          "phase_seconds": phase_seconds})
     emit({"kernels": kernels})
     print_card()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,13 @@ transpose.
 
 The port keeps flax's per-agent shapes (kernels ``(in, out)``), so the
 mapping is a renaming by the tables below; nothing is transposed.
+
+**Model-parallel layouts** (:func:`flax_to_torch_shards`): a rank of a
+tensor-, expert- or data-parallel grid holds blocks of the leaves, the
+blocks the reference's ``PartitionSpec`` puts on the device of its index
+(``"tp"``: ``training/tp.py``'s rules; ``"ep"``: ``models/moe.py``'s
+``moe_param_spec``; ``"fsdp"``: ``training/fsdp.py``'s ``fsdp_spec``),
+so a test loads one full init on both sides.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
-__all__ = ["flax_to_torch", "torch_to_flax"]
+__all__ = ["flax_to_torch", "flax_to_torch_shards", "lm_flax_path", "torch_to_flax"]
 
 _TOP = {
     ("Embed_0", "embedding"): "embed",
@@ -166,3 +173,50 @@ def torch_to_flax(params: Mapping[str, Any], n_agents: Optional[int] = None) -> 
             node = node.setdefault(key, {})
         node[path[-1]] = arr
     return tree
+
+
+def lm_flax_path(name: str) -> tuple:
+    """The flax path of a TransformerLM parameter of the port
+    (``blocks.0.fc1.kernel`` -> ``("_Block_0", "Dense_0", "kernel")``)."""
+    if name.startswith("blocks."):
+        _, idx, rest = name.split(".", 2)
+        return (f"_Block_{idx}",) + {v: k for k, v in _BLOCK.items()}[rest]
+    return {v: k for k, v in _TOP.items()}[name]
+
+
+def flax_to_torch_shards(params: Mapping[str, Any], mesh, layout: str, *,
+                         n_agents: Optional[int] = None, agents_axis: str = "agents",
+                         model_axis: str = "model", data_axis: str = "data",
+                         expert_axis: str = "expert") -> Dict[str, np.ndarray]:
+    """A full TransformerLM flax tree to this rank's blocks under
+    ``layout`` (``"tp"``, ``"ep"`` or ``"fsdp"``) on ``mesh`` (a
+    ``GridMesh`` or a ``multihost.MeshPosition``), as port names.  With
+    ``n_agents`` the leaves are stacked and the rank keeps its agent's row
+    along ``agents_axis`` too (a (1, ...) block)."""
+    import torch
+
+    from distributed_learning_tpu_torch.models.moe import moe_param_spec
+    from distributed_learning_tpu_torch.parallel.multihost import local_shard
+    from distributed_learning_tpu_torch.training.fsdp import fsdp_spec
+    from distributed_learning_tpu_torch.training.tp import (
+        divisible_or_replicated,
+        transformer_tp_rules,
+    )
+
+    out: Dict[str, np.ndarray] = {}
+    for name, arr in flax_to_torch(params, n_agents=n_agents).items():
+        path = lm_flax_path(name)
+        leaf = torch.empty(arr.shape[1:] if n_agents is not None else arr.shape, device="meta")
+        if layout == "tp":
+            spec = divisible_or_replicated(transformer_tp_rules(path, leaf, model_axis), leaf,
+                                           mesh, model_axis)
+        elif layout == "ep":
+            spec = moe_param_spec(path, leaf, expert_axis)
+        elif layout == "fsdp":
+            spec = fsdp_spec(leaf, mesh.shape[data_axis], data_axis)
+        else:
+            raise ValueError(f"unknown layout {layout!r} (want tp|ep|fsdp)")
+        if n_agents is not None:
+            spec = (agents_axis,) + tuple(spec)
+        out[name] = np.ascontiguousarray(local_shard(arr, spec, mesh))
+    return out

@@ -200,6 +200,16 @@ class StackedModel(nn.Module):
         fan_in = math.prod(shape[1:]) if len(shape) == 4 else shape[0]
         return 1.0 / math.sqrt(fan_in)
 
+    def _full_shape(self, name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """One agent's whole ``name`` (a model that holds a block of some
+        parameters, as a model-parallel rank does, draws the whole and
+        keeps its block)."""
+        return shape
+
+    def _local_block(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This model's block of one agent's whole ``name``."""
+        return full
+
     def reset_parameters(self, seed: int) -> None:
         """One init (normal kernels, zero biases, unit norm scales)
         broadcast to every agent.  Values differ from flax's draws; tests
@@ -214,8 +224,10 @@ class StackedModel(nn.Module):
                 if name.endswith("bias"):
                     p.fill_(0.0)
                     continue
-                std = self._init_std(name, tuple(shape))
-                p.copy_((torch.randn(shape, generator=gen) * std).expand_as(p))
+                full = self._full_shape(name, tuple(shape))
+                std = self._init_std(name, tuple(full))
+                draw = self._local_block(name, torch.randn(full, generator=gen) * std)
+                p.copy_(draw.expand_as(p))
 
     def reset_stats(self) -> None:
         """Running statistics at mean 0 and variance 1 for every agent

@@ -32,8 +32,20 @@ tokens in the batch.
 Parameters are float32 masters like every parameter of the port (the
 reference declares the expert kernels in ``dtype``); the gate is
 computed in the model's ``dtype``, as flax's ``nn.Dense(dtype=...)``
-does.  Expert sharding (``shard_moe_params``, ``moe_param_spec``) waits
-for the sharded engine (ROADMAP.md).
+does.
+
+Expert parallelism (the reference's manual ``expert_axis`` mode,
+``moe.py:110-131``): with ``expert_mesh`` (an ``AgentMesh`` of the expert
+axis) the module holds the ``E/n`` experts of its rank, routes against
+the global expert set from the replicated gate, runs its experts on the
+(replicated) tokens, keeps its experts' columns of the dispatch and the
+combine weights, and combines with one ``all_reduce`` over the axis.  The
+tokens and the combine weights enter the experts' region through
+Megatron's f (their gradient summed over the axis), so the routing and
+its load-balance term stay replicated.  :func:`moe_param_spec` and
+:func:`shard_moe_params` place the stacked expert kernels over the axis.
+With ``batch_mesh`` (the axis a step splits the batch over) the module
+routes the batch gathered over it and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -47,24 +59,36 @@ from torch import nn
 
 from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models._stacked import dense
+from distributed_learning_tpu_torch.parallel.multihost import (
+    PartitionSpec,
+    copy_to_axis,
+    gather_along_axis,
+    local_shard,
+    path_names,
+    reduce_from_axis,
+    tree_map_with_path,
+)
 
 __all__ = ["MoEMLP", "collect_load_balance_loss", "moe_param_spec", "shard_moe_params"]
 
-_EXPERT_SHARDING = ('expert sharding has no port yet: ROADMAP.md item "5. tp / pp / fsdp" '
-                    '(with the model\'s manual expert-parallel mode, the reference\'s '
-                    'moe_param_spec and shard_moe_params, models/moe.py:310-329)')
 
-
-def moe_param_spec(path, leaf, expert_axis: str = "expert"):
-    """The reference's per-leaf expert placement; not ported yet (every
-    agent of the port holds all its experts), so it raises."""
-    raise ValueError(_EXPERT_SHARDING)
+def moe_param_spec(path, leaf, expert_axis: str = "expert") -> PartitionSpec:
+    """Stacked expert kernels and biases split their leading expert axis
+    over ``expert_axis``; the gate and everything else stay whole
+    (``moe.py:310``)."""
+    names = path_names(path)
+    if names and names[-1] in ("w_up", "b_up", "w_dn", "b_dn"):
+        return PartitionSpec(expert_axis, *([None] * (len(leaf.shape) - 1)))
+    return PartitionSpec()
 
 
 def shard_moe_params(params, mesh, expert_axis: str = "expert"):
-    """The reference's expert-sharded placement of an MoE parameter tree;
-    not ported yet, so it raises."""
-    raise ValueError(_EXPERT_SHARDING)
+    """This rank's block of every leaf of an MoE-bearing parameter tree
+    (nested mappings, or ``{dotted name: array}``) under
+    :func:`moe_param_spec` on ``mesh`` (``moe.py:319``)."""
+    return tree_map_with_path(
+        lambda path, leaf: local_shard(leaf, moe_param_spec(path, leaf, expert_axis), mesh),
+        params)
 
 
 def collect_load_balance_loss(model: nn.Module) -> Optional[torch.Tensor]:
@@ -103,21 +127,32 @@ class MoEMLP(nn.Module):
     pairs that found no slot (0 on the drop-free path)."""
 
     def __init__(self, n: int, d: int, num_experts: int, mlp_ratio: int = 4,
-                 capacity_factor: float = 1.25, top_k: int = 1, *, device=None):
+                 capacity_factor: float = 1.25, top_k: int = 1, *, device=None,
+                 expert_mesh=None):
         super().__init__()
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k {top_k} not in [1, {num_experts}]")
         E, h = int(num_experts), int(mlp_ratio) * d
         self.num_experts, self.top_k = E, int(top_k)
         self.capacity_factor = float(capacity_factor)
+        E_loc = E
+        if expert_mesh is not None:
+            if E % expert_mesh.size:
+                raise ValueError(f"num_experts {E} must be divisible by the "
+                                 f"{expert_mesh.axis_name!r} axis size {expert_mesh.size}")
+            E_loc = E // expert_mesh.size
         dev = resolve_device(device)
         self.gate = nn.Parameter(torch.zeros(n, d, E, device=dev))
-        self.w_up = nn.Parameter(torch.zeros(n, E, d, h, device=dev))
-        self.b_up = nn.Parameter(torch.zeros(n, E, h, device=dev))
-        self.w_dn = nn.Parameter(torch.zeros(n, E, h, d, device=dev))
-        self.b_dn = nn.Parameter(torch.zeros(n, E, d, device=dev))
+        self.w_up = nn.Parameter(torch.zeros(n, E_loc, d, h, device=dev))
+        self.b_up = nn.Parameter(torch.zeros(n, E_loc, h, device=dev))
+        self.w_dn = nn.Parameter(torch.zeros(n, E_loc, h, d, device=dev))
+        self.b_dn = nn.Parameter(torch.zeros(n, E_loc, d, device=dev))
         self.aux: Optional[torch.Tensor] = None
         self.dropped_fraction: Optional[torch.Tensor] = None
+        # The axis the batch is split over, and the expert axis (this
+        # rank's experts are E_loc = w_up.shape[1] from agent * E_loc).
+        self.batch_mesh = None
+        self.ep = expert_mesh
 
     def capacity(self, tokens: int) -> int:
         """Slots per expert for ``tokens`` tokens of one agent."""
@@ -148,7 +183,19 @@ class MoEMLP(nn.Module):
             gates = [g / gsum for g in gates]
         return probs, choices, gates
 
+    def _local_experts(self):
+        """``(E_loc, e0)``: how many experts this rank holds and the first
+        one's global index."""
+        E_loc = self.w_up.shape[1]
+        return E_loc, (self.ep.agent * E_loc if self.ep is not None else 0)
+
     def forward(self, x: torch.Tensor, drop_tokens: bool = True) -> torch.Tensor:
+        rows = None
+        bm = self.batch_mesh
+        if bm is not None and bm.size > 1:
+            # Route the global batch, as the reference's partitioner does.
+            rows = slice(bm.agent * x.shape[1], (bm.agent + 1) * x.shape[1])
+            x = gather_along_axis(x, bm, 1)
         N, B, T, d = x.shape
         E = self.num_experts
         S = B * T
@@ -157,14 +204,22 @@ class MoEMLP(nn.Module):
         experts = torch.arange(E, device=x.device)
         first = (choices[0][..., None] == experts).to(torch.float32)  # (N, S, E)
         self.aux = E * (first.mean(dim=1) * probs.mean(dim=1)).sum(dim=-1)
+        if self.ep is not None:
+            # Enter the experts' region: each rank's experts see the same
+            # tokens and gates, whose gradients are summed over the axis.
+            tokens = copy_to_axis(tokens, self.ep)
+            gates = list(copy_to_axis(torch.stack(gates), self.ep).unbind(0))
         if drop_tokens:
             out = self._dispatch(tokens, choices, gates, experts)
         else:
             out = self._dense_dropfree(tokens, choices, gates, experts)
-        return out.reshape(N, B, T, d).to(x.dtype)
+        if self.ep is not None:
+            out = reduce_from_axis(out, self.ep)
+        out = out.reshape(N, B, T, d).to(x.dtype)
+        return out if rows is None else out[:, rows]
 
     def _experts(self, buf: torch.Tensor) -> torch.Tensor:
-        """The expert MLPs in float32 on ``buf`` (N*E, C, d)."""
+        """The expert MLPs in float32 on ``buf`` (N*E_loc, C, d)."""
         N, E = self.w_up.shape[:2]
         act = torch.bmm(buf, self.w_up.reshape(N * E, *self.w_up.shape[2:]))
         act = F.gelu(act + self.b_up.reshape(N * E, 1, -1), approximate="tanh")
@@ -174,6 +229,7 @@ class MoEMLP(nn.Module):
     def _dispatch(self, tokens, choices, gates, experts):
         N, S, d = tokens.shape
         E, k = self.num_experts, self.top_k
+        E_loc, e0 = self._local_experts()
         C = self.capacity(S)
         agent = torch.arange(N, device=tokens.device)[:, None]
         token_ids = torch.arange(S, device=tokens.device).expand(N, S)
@@ -193,14 +249,18 @@ class MoEMLP(nn.Module):
             slots.append(torch.where(keep, slot, E * C))          # E*C: a zero row below
             kept.append(keep)
         padded = torch.cat([tokens.float(), tokens.new_zeros(N, 1, d, dtype=torch.float32)], 1)
-        buf = padded[agent, slot_token[:, :E * C]].reshape(N * E, C, d)
-        out_e = self._experts(buf).reshape(N, E * C, d)
+        # This rank's experts' slots (all of them without an expert axis).
+        buf = padded[agent, slot_token[:, e0 * C:(e0 + E_loc) * C]].reshape(N * E_loc, C, d)
+        out_e = self._experts(buf).reshape(N, E_loc * C, d)
         out_e = torch.cat([out_e, out_e.new_zeros(N, 1, d)], 1)
         out = None
-        for g, keep, slot in zip(gates, kept, slots):
+        for g, keep, slot, e in zip(gates, kept, slots, choices):
+            if E_loc != E:
+                keep = keep & (e >= e0) & (e < e0 + E_loc)
+                slot = torch.where(keep, slot - e0 * C, E_loc * C)
             term = (g * keep)[..., None] * out_e[agent, slot]
             out = term if out is None else out + term
-        n_kept = kept[0].sum(dim=1)
+        n_kept = kept[0].sum(dim=1)  # global: every expert's kept tokens
         for keep in kept[1:]:
             n_kept = n_kept + keep.sum(dim=1)
         self.dropped_fraction = 1.0 - n_kept.to(torch.float32) / (S * k)
@@ -208,6 +268,7 @@ class MoEMLP(nn.Module):
 
     def _dense_dropfree(self, tokens, choices, gates, experts):
         N, S, d = tokens.shape
+        E_loc, e0 = self._local_experts()
         xt = tokens.float()
         act = torch.einsum("nsd,nedh->nseh", xt, self.w_up) + self.b_up[:, None]
         act = F.gelu(act, approximate="tanh")
@@ -216,5 +277,7 @@ class MoEMLP(nn.Module):
         for g, e in zip(gates, choices):
             term = g[..., None] * (e[..., None] == experts).to(torch.float32)
             weight = term if weight is None else weight + term
+        # (N, S, E) over the global experts: this rank's columns.
+        weight = weight[..., e0:e0 + E_loc]
         self.dropped_fraction = torch.zeros(N, device=tokens.device)
         return torch.einsum("nse,nsed->nsd", weight, out_e)

@@ -43,6 +43,40 @@ cache (the prefill) goes through :func:`flash_attention` when
 ``attn_impl="flash"``, the same causal function over the prompt.  MoE
 blocks run drop-free in decode.  :func:`generate` drives it; decode with
 a sequence-parallel ``attn_impl`` raises, as the reference's does.
+
+Model parallelism inside one replica (one replica a rank, ``n_agents=1``,
+on the axes of a :class:`~distributed_learning_tpu_torch.parallel.
+multihost.GridMesh`):
+
+* ``tp_axis`` is the Megatron split (arXiv:1909.08053), laid out by
+  ``training/tp.py``'s ``transformer_tp_rules`` with its divisibility
+  fallback, so a rank holds the block of each parameter that the
+  reference's GSPMD placement puts on the device of its index: the QKV
+  kernel's (or ``q_proj``'s) ``H/n`` heads and the out-projection's rows,
+  ``kv_proj``'s ``Hkv/n`` heads (the whole ``kv_proj`` when ``Hkv`` does
+  not divide: every rank then picks its query heads' groups out of all
+  ``Hkv``), the MLP's ``4d/n`` up columns and down rows.  Attention runs
+  on the local heads (the flash kernels on ``(B, T, H/n, Dh)``); each
+  region opens with Megatron's f (identity, gradient summed over the
+  axis) and closes with g (one ``all_reduce`` of the partial product,
+  then the replicated bias).  ``Dense_0``'s bias stays whole, as the
+  rules replicate 1-D leaves, and each rank adds its columns' slice; its
+  gradient (and a replicated ``kv_proj``'s) is partial on each rank, so
+  the step sums :attr:`TransformerLM.tp_partial_grads` over the axis.
+  MoE blocks run replicated, as the rules leave expert kernels whole.
+  Decode keeps the local ``Hkv/n`` heads (or all ``Hkv`` under the
+  fallback) in the cache.  The reference's manual mode raises for decode
+  and MoE (``transformer.py:115``, ``:339``) because ``pp_lm`` runs it
+  inside pipeline stages; the port's pipeline comes with ROADMAP item 5b,
+  and this mode serves ``training/tp.py``'s step and ``make_tp_generate``.
+* ``moe_expert_axis`` holds ``E/n`` experts a rank (``models/moe.py``'s
+  expert-parallel mode, placed by ``moe_param_spec``).
+
+Either model draws its init at the whole shapes from ``seed`` and keeps
+its block, so it equals the sharded one-process model of that seed.
+:meth:`TransformerLM.set_batch_mesh` names the axis a step splits the
+batch over: MoE blocks then route the gathered global batch, as the
+reference's partitioner computes the routing of a data-sharded batch.
 """
 
 from __future__ import annotations
@@ -59,6 +93,12 @@ from distributed_learning_tpu_torch.device import resolve_device
 from distributed_learning_tpu_torch.models._stacked import Dense, Dropout, StackedModel, dense
 from distributed_learning_tpu_torch.models.moe import MoEMLP
 from distributed_learning_tpu_torch.ops import ring_attention as ra
+from distributed_learning_tpu_torch.parallel.multihost import (
+    MeshPosition,
+    copy_to_axis,
+    local_shard,
+    reduce_from_axis,
+)
 from distributed_learning_tpu_torch.ops.flash_attention import flash_attention
 from distributed_learning_tpu_torch.ops.ring_attention import attention_reference
 
@@ -135,6 +175,12 @@ class _Attention(nn.Module):
             raise ValueError(f"num_heads {H} must divide by num_kv_heads {Hkv}")
         self.num_heads, self.num_kv_heads, self.head_dim = H, Hkv, head_dim
         self.attn_impl, self.window, self.rope = attn_impl, window, rope
+        # The heads this rank holds (all of them unless the model splits
+        # them over its tp axis, :meth:`shard_heads`).
+        self.tp = None
+        self.h_local, self.kv_local = H, Hkv
+        self.kv_index: Optional[List[int]] = None
+        self._kv_index_t: Optional[torch.Tensor] = None
         if Hkv == H:
             # flax DenseGeneral_0 (d, 3, H, Dh).
             self.qkv = nn.Parameter(torch.zeros(n, d, 3, H, head_dim))
@@ -144,10 +190,24 @@ class _Attention(nn.Module):
         # flax DenseGeneral_1 (H, Dh, d).
         self.out = nn.Parameter(torch.zeros(n, H, head_dim, d))
 
+    def shard_heads(self, tp, kv_sharded: bool) -> None:
+        """Run on this rank's ``H/n`` query heads of ``tp``'s axis (the
+        parameters already hold them), with ``Hkv/n`` K/V heads or, when
+        ``kv_sharded`` is false, all ``Hkv``: local query head ``j`` then
+        reads K/V head ``(agent * H/n + j) // (H/Hkv)``."""
+        H, Hkv = self.num_heads, self.num_kv_heads
+        self.tp = tp
+        self.h_local = H // tp.size
+        if kv_sharded:
+            self.kv_local = Hkv // tp.size
+        else:
+            g = H // Hkv
+            self.kv_index = [(tp.agent * self.h_local + j) // g for j in range(self.h_local)]
+
     def _project(self, x):
         N, B, T, d = x.shape
-        H, Hkv, Dh = self.num_heads, self.num_kv_heads, self.head_dim
-        if Hkv == H:
+        H, Hkv, Dh = self.h_local, self.kv_local, self.head_dim
+        if self.num_kv_heads == self.num_heads:
             qkv = dense(x, self.qkv.reshape(N, d, 3 * H * Dh), None, x.dtype)
             qkv = qkv.reshape(N * B, T, 3, H, Dh)
             # Strided views: the kernels read them in place.
@@ -164,15 +224,22 @@ class _Attention(nn.Module):
 
     def _expand_kv(self, k, v):
         """Repeat each of the Hkv K/V heads for its group of H/Hkv query
-        heads (a no-op without GQA)."""
-        g = self.num_heads // self.num_kv_heads
+        heads (a no-op without GQA); under the replicated-K/V fallback,
+        pick each local query head's K/V head."""
+        if self.kv_index is not None:
+            if self._kv_index_t is None or self._kv_index_t.device != k.device:
+                self._kv_index_t = torch.tensor(self.kv_index, dtype=torch.long, device=k.device)
+            return k.index_select(2, self._kv_index_t), v.index_select(2, self._kv_index_t)
+        g = self.h_local // self.kv_local
         if g == 1:
             return k, v
         return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
     def forward(self, x, positions, cache: Optional[KVCache] = None, layer: int = 0):
         N, B, T, d = x.shape
-        H, Dh = self.num_heads, self.head_dim
+        H, Dh = self.h_local, self.head_dim
+        if self.tp is not None:
+            x = copy_to_axis(x, self.tp)
         q, k, v = self._project(x)
         if self.rope:
             q, k = self._rotate(q, k, positions)
@@ -187,7 +254,9 @@ class _Attention(nn.Module):
             else:
                 out = _SEQ_PARALLEL[self.attn_impl](q, k, v, mesh=self.seq_mesh, causal=True)
         out = out.reshape(N, B, T, H * Dh)
-        return dense(out, self.out.reshape(N, H * Dh, d), None, x.dtype)
+        y = dense(out, self.out.reshape(N, H * Dh, d), None, x.dtype)
+        # The local heads' partial product, totalled over the tp axis.
+        return y if self.tp is None else reduce_from_axis(y, self.tp)
 
     @staticmethod
     def _write_cache(ck, cv, k, v, i):
@@ -214,6 +283,10 @@ class _Attention(nn.Module):
             )
         i = cache.index
         self._write_cache(ck, cv, k, v, i)
+        if self.kv_index is not None:
+            # The replicated cache holds every K/V head: read the local
+            # query heads' ones.
+            ck, cv = self._expand_kv(ck, cv)
         if cache.fresh and self.attn_impl == "flash":
             # The prefill: causal attention over the prompt, what the
             # masked product over the cache's first T slots computes.
@@ -254,6 +327,8 @@ class _Block(nn.Module):
             self.fc2 = Dense(n, mlp_ratio * d, d)
         # Residual-branch dropout (the GPT placement), train mode only.
         self.drop = Dropout(dropout_rate, generators) if dropout_rate > 0 else None
+        # The tp axis when the MLP holds its columns and rows of it.
+        self.mlp_tp = None
 
     def _drop(self, h):
         return h if self.drop is None else self.drop(h)
@@ -263,8 +338,19 @@ class _Block(nn.Module):
         h = self.ln2(x)
         if hasattr(self, "moe"):
             return x + self._drop(self.moe(h, drop_tokens=cache is None))
-        h = F.gelu(self.fc1(h), approximate="tanh")
-        return x + self._drop(self.fc2(h))
+        if self.mlp_tp is None:
+            h = F.gelu(self.fc1(h), approximate="tanh")
+            return x + self._drop(self.fc2(h))
+        # Megatron's column-then-row MLP: this rank's up columns (and its
+        # slice of the whole up bias), gelu, its down rows, one all_reduce,
+        # then the down bias once.
+        tp = self.mlp_tp
+        cols = self.fc1.kernel.shape[-1]
+        h = copy_to_axis(h, tp)
+        bias = self.fc1.bias[:, tp.agent * cols:(tp.agent + 1) * cols]
+        h = F.gelu(dense(h, self.fc1.kernel, bias, h.dtype), approximate="tanh")
+        y = reduce_from_axis(dense(h, self.fc2.kernel, None, h.dtype), tp)
+        return x + self._drop(y + self.fc2.bias.to(y.dtype)[:, None, None, :])
 
 
 class TransformerLM(StackedModel):
@@ -301,6 +387,8 @@ class TransformerLM(StackedModel):
         pos_emb: str = "learned",
         num_kv_heads: Optional[int] = None,
         seq_axis: str = "seq",
+        tp_axis: Optional[str] = None,
+        moe_expert_axis: Optional[str] = None,
         *,
         mesh=None,
         n_agents: int = 1,
@@ -319,6 +407,17 @@ class TransformerLM(StackedModel):
             if mesh is None:
                 raise ValueError(f"attn_impl {attn_impl!r} needs mesh= (its {seq_axis!r} axis)")
             self.seq_mesh = mesh[seq_axis] if hasattr(mesh, "axes") else mesh
+        # The model-parallel axes (one replica a rank).
+        self.tp_axis, self.moe_expert_axis = tp_axis, moe_expert_axis
+        self.parallel = {}
+        for axis in (tp_axis, moe_expert_axis):
+            if axis is None:
+                continue
+            if mesh is None:
+                raise ValueError(f"model-parallel axis {axis!r} needs mesh=")
+            self.parallel[axis] = mesh[axis] if hasattr(mesh, "axes") else mesh
+        if self.parallel and int(n_agents) != 1:
+            raise ValueError("tp_axis / moe_expert_axis hold one replica a rank (n_agents=1)")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r} (want learned|rope)")
         if mlp not in ("dense", "moe"):
@@ -345,8 +444,77 @@ class TransformerLM(StackedModel):
         )
         self.ln_f = _LayerNorm(n, d)                                  # LayerNorm_0
         self.head = Dense(n, d, vocab_size)                          # Dense_0
+        self.layout, self.full_shapes, self.tp_partial_grads = {}, {}, []
+        if self.parallel:
+            self._shard_to_layout()
         self.reset_parameters(seed)
         self._bind_flat(device)
+
+    # -- model parallelism --------------------------------------------- #
+    def _shard_to_layout(self) -> None:
+        """Place every parameter as the reference's rules do (the tp rules
+        with their divisibility fallback, then the expert rule), keep this
+        rank's block of each, and set each module's mode from it."""
+        from distributed_learning_tpu_torch.convert import lm_flax_path
+        from distributed_learning_tpu_torch.models.moe import moe_param_spec
+        from distributed_learning_tpu_torch.training.tp import (
+            divisible_or_replicated,
+            transformer_tp_rules,
+        )
+
+        tp = self.parallel.get(self.tp_axis)
+        ep = self.parallel.get(self.moe_expert_axis)
+        self.position = MeshPosition({k: m.size for k, m in self.parallel.items()},
+                                      {k: m.agent for k, m in self.parallel.items()})
+        sharded = set()
+        for name, p in list(self.named_parameters()):
+            full = tuple(p.shape[1:])
+            leaf = torch.empty(full, device="meta")
+            path = lm_flax_path(name)
+            spec = ()
+            if tp is not None:
+                spec = divisible_or_replicated(transformer_tp_rules(path, leaf, self.tp_axis),
+                                               leaf, self.position, self.tp_axis)
+            if ep is not None and not any(spec):
+                spec = moe_param_spec(path, leaf, self.moe_expert_axis)
+            self.full_shapes[name] = full
+            self.layout[name] = spec
+            if any(spec):
+                sharded.add(name)
+                owner, _, attr = name.rpartition(".")
+                block = local_shard(p.detach(), spec, self.position, offset=1)
+                setattr(self.get_submodule(owner), attr, nn.Parameter(block.clone()))
+        for i, blk in enumerate(self.blocks):
+            pre = f"blocks.{i}."
+            attn = blk.attn
+            heads = pre + ("attn.qkv" if hasattr(attn, "qkv") else "attn.q_proj")
+            if heads in sharded:
+                kv_sharded = hasattr(attn, "qkv") or pre + "attn.kv_proj" in sharded
+                attn.shard_heads(tp, kv_sharded)
+                if not kv_sharded:
+                    self.tp_partial_grads.append(pre + "attn.kv_proj")
+            if pre + "fc1.kernel" in sharded:
+                blk.mlp_tp = tp
+                self.tp_partial_grads.append(pre + "fc1.bias")
+            if pre + "moe.w_up" in sharded:
+                blk.moe.ep = ep
+
+    def _full_shape(self, name, shape):
+        return self.full_shapes.get(name, shape)
+
+    def _local_block(self, name, full):
+        spec = self.layout.get(name)
+        return local_shard(full, spec, self.position) if spec and any(spec) else full
+
+    def set_batch_mesh(self, mesh) -> None:
+        """The batch is split over ``mesh`` (an ``AgentMesh``, or None):
+        MoE blocks route the batch gathered over it and keep their rows
+        of the result, as the reference routes a data-sharded batch (the
+        capacity queue and the load-balance statistics are the global
+        batch's)."""
+        for m in self.modules():
+            if isinstance(m, MoEMLP):
+                m.batch_mesh = mesh
 
     def _init_std(self, name, shape):
         """Normal embeddings (std ``1/sqrt(d)``), LeCun-normal kernels
@@ -369,7 +537,8 @@ class TransformerLM(StackedModel):
     def init_cache(self, batch_size: int) -> KVCache:
         """A fresh decode cache for (N, ``batch_size``) sequences of up to
         ``max_len`` tokens."""
-        shape = (self.n_agents * batch_size, self.max_len, self.num_kv_heads, self.head_dim)
+        kv_heads = self.blocks[0].attn.kv_local if len(self.blocks) else self.num_kv_heads
+        shape = (self.n_agents * batch_size, self.max_len, kv_heads, self.head_dim)
         dev = self.flat_params.device
         return KVCache(
             keys=[torch.zeros(shape, dtype=self.dtype, device=dev) for _ in self.blocks],
@@ -377,6 +546,25 @@ class TransformerLM(StackedModel):
             index=torch.zeros((), dtype=torch.long, device=dev))
 
     # -- forward ------------------------------------------------------- #
+    def embed_tokens(self, embed, pos_embed, tokens, positions, decode: bool = False):
+        """The token embedding (and the learned positions) of ``tokens``
+        (N, B, T) at ``positions`` with the tables given (the model's own,
+        or gathered ones), in the compute dtype."""
+        N, T = tokens.shape[0], tokens.shape[-1]
+        agent = torch.arange(N, device=tokens.device)[:, None, None]
+        x = embed.to(self.dtype)[agent, tokens]                       # (N, B, T, d)
+        if self.pos_emb == "learned":
+            table = pos_embed.to(self.dtype)
+            if not decode and self.seq_mesh is None:
+                x = x + table[:, :T][:, None]
+            elif not decode:
+                x = x + table[:, positions][:, None]
+            else:
+                # A step past the table reads its last row; the attention's
+                # guard makes that step's output NaN anyway.
+                x = x + table[:, positions.clamp(max=self.max_len - 1)][:, None]
+        return x
+
     def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None) -> torch.Tensor:
         N, B, T = tokens.shape
         if N != self.n_agents:
@@ -400,19 +588,8 @@ class TransformerLM(StackedModel):
                     "out-of-range positions would silently clamp"
                 )
             positions = torch.arange(T, device=tokens.device)
-        emb = self.embed.to(self.dtype)
-        agent = torch.arange(N, device=tokens.device)[:, None, None]
-        x = emb[agent, tokens]                                        # (N, B, T, d)
-        if self.pos_emb == "learned":
-            table = self.pos_embed.to(self.dtype)
-            if cache is None and self.seq_mesh is None:
-                x = x + table[:, :T][:, None]
-            elif cache is None:
-                x = x + table[:, positions][:, None]
-            else:
-                # A step past the table reads its last row; the attention's
-                # guard makes that step's output NaN anyway.
-                x = x + table[:, positions.clamp(max=self.max_len - 1)][:, None]
+        x = self.embed_tokens(self.embed, getattr(self, "pos_embed", None), tokens, positions,
+                              cache is not None)
         for layer, blk in enumerate(self.blocks):
             x = blk(x, positions, cache, layer)
         if cache is not None:
@@ -479,13 +656,19 @@ def sample_fn(temperature: float, top_k: Optional[int] = None, top_p: Optional[f
     (:func:`truncate_logits`) by the Gumbel-max rule with uniforms from
     ``generator``.  The draws cannot follow the reference's
     ``jax.random.categorical`` bits: the same distribution, other
-    samples.  Nothing is read back to the host."""
+    samples.  Nothing is read back to the host.  With ``rows`` (a slice
+    of the batch axis, dim 1) the logits are those rows of a ``batch``-row
+    batch: the uniforms are drawn for the whole batch and the rows kept,
+    so a rank holding some rows draws what one process would."""
 
-    def pick(logits, generator, dtype):
+    def pick(logits, generator, dtype, rows=None, batch=None):
         if temperature <= 0.0:
             return logits.argmax(dim=-1).to(dtype)
         scaled = truncate_logits(logits, temperature, top_k, top_p)
-        u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+        shape = scaled.shape if rows is None else (scaled.shape[0], batch) + scaled.shape[2:]
+        u = torch.rand(shape, generator=generator, device=scaled.device)
+        if rows is not None:
+            u = u[:, rows]
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
         return (scaled + gumbel).argmax(dim=-1).to(dtype)
 

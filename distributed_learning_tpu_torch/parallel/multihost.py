@@ -28,6 +28,19 @@ laid out row-major over the axes; ``grid[axis]`` is an :class:`AgentMesh`
 over this rank's line along that axis (the ranks that share every other
 coordinate with it), with a process subgroup of its own for the
 collectives, the same transport and a clock of its own.
+
+Placements (:class:`PartitionSpec`, :func:`shard_slice`,
+:func:`local_shard`): the reference lays a parameter over a mesh with a
+``PartitionSpec`` and XLA's partitioner gives each device its block.
+Here a spec is the same tuple of axis names (``None`` for a dimension
+kept whole), and this rank's block of a full tensor is the slice the
+reference's spec puts on the device of the same index (ranks row-major,
+as ``Mesh(np.array(devices).reshape(...))`` orders its devices).  The
+model-parallel collectives with autograd (:func:`copy_to_axis`,
+:func:`reduce_from_axis`, :func:`gather_along_axis`) are the Megatron
+f/g pair and the all-gather whose gradient is a reduce-scatter: PyTorch
+on gloo has no partitioner, so the port writes each collective where
+the reference's partitioner would place it.
 """
 
 from __future__ import annotations
@@ -47,12 +60,22 @@ import torch.distributed as dist
 __all__ = [
     "AgentMesh",
     "GridMesh",
+    "MeshPosition",
+    "P",
+    "PartitionSpec",
     "RankDevice",
+    "copy_to_axis",
     "default_backend",
+    "gather_along_axis",
     "hybrid_agent_mesh",
     "initialize",
+    "local_shard",
     "order_devices_for_ring",
+    "path_names",
     "process_local_agents",
+    "reduce_from_axis",
+    "shard_slice",
+    "tree_map_with_path",
 ]
 
 _log = logging.getLogger(__name__)
@@ -134,6 +157,87 @@ def order_devices_for_ring(devices: Sequence) -> list:
                                           d.id))
 
 
+class PartitionSpec(tuple):
+    """A placement: entry ``i`` names the mesh axis that dimension ``i``
+    is split over, or ``None`` for a dimension kept whole; dimensions past
+    the last entry are whole.  A tuple, so ``tuple(spec)`` compares with a
+    ``jax.sharding.PartitionSpec`` of the same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPosition:
+    """A rank's place on named axes without a process group: ``shape``
+    ``{axis: size}`` and ``coords`` ``{axis: index}`` (what
+    :class:`GridMesh` and :class:`AgentMesh` also carry)."""
+
+    shape: Mapping[str, int]
+    coords: Mapping[str, int]
+
+    @classmethod
+    def of_rank(cls, shape: Mapping[str, int], rank: int) -> "MeshPosition":
+        """Rank ``rank`` of a row-major grid of ``shape``."""
+        sizes = [int(v) for v in shape.values()]
+        idx = np.unravel_index(int(rank), sizes)
+        return cls(dict(shape), {k: int(c) for k, c in zip(shape, idx)})
+
+
+def shard_slice(full, spec: Sequence, shape: Mapping[str, int], coords: Mapping[str, int],
+                offset: int = 0):
+    """The block of ``full`` at ``coords`` under ``spec``: dimension
+    ``offset + i`` is cut into ``shape[spec[i]]`` equal blocks and block
+    ``coords[spec[i]]`` kept (a tuple entry splits over its axes row-major,
+    as JAX does).  ``offset`` skips leading dimensions the spec does not
+    cover (an agent axis).  A view for tensors and numpy arrays alike."""
+    index = [slice(None)] * len(full.shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        n, c = 1, 0
+        for a in names:
+            n, c = n * int(shape[a]), c * int(shape[a]) + int(coords[a])
+        size = full.shape[offset + i]
+        if size % n:
+            raise ValueError(f"dimension {offset + i} of {tuple(full.shape)} does not split "
+                             f"into {n} blocks ({spec})")
+        k = size // n
+        index[offset + i] = slice(c * k, (c + 1) * k)
+    return full[tuple(index)]
+
+
+def path_names(path) -> List[str]:
+    """The keys of a parameter path as strings: a tuple of keys (strings,
+    or JAX's path entries with a ``key``) or a dotted name."""
+    if isinstance(path, str):
+        return path.split(".")
+    return [str(getattr(k, "key", k)) for k in path]
+
+
+def tree_map_with_path(fn, tree, prefix: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over nested mappings, the same nesting returned;
+    a key with dots counts as that many path entries (so ``{dotted name:
+    leaf}`` maps like the nested tree it names)."""
+    if not isinstance(tree, Mapping):
+        return fn(prefix, tree)
+    return {k: tree_map_with_path(fn, v, prefix + tuple(str(k).split(".")))
+            for k, v in tree.items()}
+
+
+def local_shard(full, spec: Sequence, mesh, offset: int = 0):
+    """This rank's block of ``full`` under ``spec`` on ``mesh`` (a
+    :class:`GridMesh`, an :class:`AgentMesh` or a :class:`MeshPosition`)."""
+    return shard_slice(full, spec, mesh.shape, mesh.coords, offset)
+
+
 @dataclasses.dataclass
 class TransportClock:
     """Seconds and bytes of the transport's legs on this rank: device to
@@ -191,6 +295,10 @@ class AgentMesh:
     @property
     def shape(self) -> Dict[str, int]:
         return {self.axis_name: self.size}
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {self.axis_name: self.agent}
 
     def __repr__(self) -> str:
         return (f"AgentMesh(agent {self.agent} of {self.size}, rank {self.rank}, "
@@ -297,6 +405,28 @@ class AgentMesh:
         self._from_wire(by_agent, list(out.unbind(0)))
         return out
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (leading dimension ``size * k``) summed over the agents,
+        and this agent's block of ``k`` rows of the sum: one
+        ``reduce_scatter``, staged through one pinned host buffer as
+        :meth:`all_reduce` is (block ``i`` goes to agent ``i``)."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"leading dimension {t.shape[0]} does not split over "
+                             f"{self.size} agents")
+        wire, = self._to_wire([t], "rscatter")
+        self.clock.bytes_sent += t.numel() * t.element_size()
+        blocks = list(wire.chunk(self.size))
+        order = sorted(self.ranks)  # a subgroup numbers its ranks in ascending global order
+        inputs = [blocks[self.ranks.index(r)] for r in order]
+        recv = (self._host(("rscatter_out",), blocks[0]) if self.staged
+                else torch.empty_like(blocks[0]))
+        t0 = time.perf_counter()
+        dist.reduce_scatter(recv, inputs, op=dist.ReduceOp.SUM, group=self.group)
+        self.clock.exchange_s += time.perf_counter() - t0
+        out = torch.empty(blocks[0].shape, dtype=t.dtype, device=self.device)
+        self._from_wire([recv], [out])
+        return out
+
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Agent 0's ``t`` on every rank, in place."""
         wire, = self._to_wire([t], "bcast")
@@ -356,6 +486,9 @@ class GridMesh:
                     self.axes[name] = AgentMesh(ranks, device, axis_name=name, group=group)
         self.device = self.axes[next(iter(self.shape))].device
 
+    def __contains__(self, axis: str) -> bool:
+        return axis in self.axes
+
     def __getitem__(self, axis: str) -> AgentMesh:
         if axis not in self.axes:
             raise KeyError(f"mesh has no axis {axis!r} (axes {tuple(self.shape)})")
@@ -363,6 +496,73 @@ class GridMesh:
 
     def __repr__(self) -> str:
         return f"GridMesh({self.shape}, rank {self.rank} at {self.coords}, {self.device})"
+
+
+# ---------------------------------------------------------------------- #
+# Collectives with autograd (model parallelism inside one replica)        #
+# ---------------------------------------------------------------------- #
+class _CopyToAxis(torch.autograd.Function):
+    """Megatron's f: identity forward, gradient summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), "sum"), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """Megatron's g: the partial products summed over the axis, the
+    gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.contiguous().clone(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlongAxis(torch.autograd.Function):
+    """Every agent's ``x`` concatenated along ``dim`` in agent order; the
+    gradient of this agent's block is the sum over the agents of theirs
+    (one ``reduce_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return torch.cat(mesh.all_gather(x.contiguous()).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        blocks = torch.stack(g.chunk(mesh.size, ctx.dim))
+        return mesh.reduce_scatter(blocks)[0], None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh: AgentMesh) -> torch.Tensor:
+    """Enter a region whose ranks along ``mesh`` each compute a part from
+    the same ``x``: ``x`` itself forward, its gradient summed over the
+    ranks backward.  Every rank of the line must call it in the same
+    order."""
+    return _CopyToAxis.apply(x, mesh)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: AgentMesh) -> torch.Tensor:
+    """Leave such a region: the ranks' partial ``x`` summed (one
+    ``all_reduce``), the gradient passed through unchanged."""
+    return _ReduceFromAxis.apply(x, mesh)
+
+
+def gather_along_axis(x: torch.Tensor, mesh: AgentMesh, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (one ``all_gather``);
+    the gradient of this rank's block is the sum of the ranks' gradients
+    of it (one ``reduce_scatter``)."""
+    return _GatherAlongAxis.apply(x, mesh, dim)
 
 
 def _rank_devices() -> List[RankDevice]:

@@ -35,21 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from distributed_learning_tpu_torch.models.moe import collect_load_balance_loss
+from distributed_learning_tpu_torch.training.fsdp import reject_dropout_model
 
 __all__ = ["make_gossip_lm_step", "reject_dropout_model", "stack_agent_states"]
-
-
-def reject_dropout_model(model) -> None:
-    """Refuse a dropout-configured model instead of silently training it
-    unregularised: these step builders draw no dropout masks (the
-    reference's ``training/fsdp.py`` precondition; ``GossipTrainer`` is
-    the path that draws them)."""
-    if getattr(model, "dropout_rate", 0.0):
-        raise ValueError(
-            "model has dropout_rate > 0 but this train step does not "
-            "thread dropout rngs; train via GossipTrainer or set "
-            "dropout_rate=0"
-        )
 
 
 def stack_agent_states(model, tx: Callable[[torch.Tensor], torch.optim.Optimizer], *,

@@ -75,6 +75,23 @@ class Ranks:
         return self._results
 
 
+def one_intra_op_thread():
+    """Generator for a module-scoped fixture: torch's CPU work on one
+    intra-op thread while the module runs, the count restored after.  A
+    worker of a parallel test run otherwise starts as many threads as the
+    machine has cores, and six such workers oversubscribe it (the port's
+    tests took 2.4x as long that way, 896 s against 375 s at one thread);
+    one thread also fixes the CPU GEMMs' summation order."""
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
 def run_ranks(battery: str, n: int, inputs: dict) -> list:
     """The results of ``battery`` on ``n`` gloo CPU ranks, in rank order."""
     return Ranks(battery, n, inputs).results()
@@ -283,11 +300,8 @@ def battery_tracking(mesh, inp):
 
 
 def battery_trainer(mesh, inp):
-    """``GossipTrainer(mesh=)`` on every route of :data:`ROUTES`, the
-    superstep, and the options a mesh rejects."""
-    import torch
-
-    from distributed_learning_tpu_torch.models import moe
+    """``GossipTrainer(mesh=)`` on every route of :data:`ROUTES` and the
+    superstep."""
     from distributed_learning_tpu_torch.parallel import Topology
     from distributed_learning_tpu_torch.training.trainer import GossipTrainer
 
@@ -315,15 +329,6 @@ def battery_trainer(mesh, inp):
         r[f"{name}_superstep"] = t.train_epochs(2)
         r[f"{name}_superstep_params"] = {k: v.detach().numpy().copy()
                                          for k, v in t.model.stacked_parameters().items()}
-    raises = {}
-    for name, fn in (("shard_moe_params", moe.shard_moe_params),
-                     ("moe_param_spec", moe.moe_param_spec)):
-        try:
-            fn(None, mesh)
-            raises[name] = None
-        except ValueError as err:
-            raises[name] = str(err)
-    r["raises"] = raises
     return r
 
 
@@ -572,10 +577,170 @@ def battery_spmd_lm(mesh, inp):
     return r
 
 
+# ROADMAP item 5a: tensor parallelism, FSDP, gossip x FSDP / TP, experts.
+PAR_LM = dict(vocab_size=32, num_layers=1, num_heads=4, head_dim=8, max_len=16)
+PAR_KV = {"mha": None, "gqa": 2, "mqa": 1}
+PAR_MOE = dict(mlp="moe", num_experts=4, moe_top_k=2)
+# SGD in these oracles: the steps take any optimizer factory (the port's
+# Adam is held to optax in test_torch_adam.py), and the JAX side's Adam
+# steps cost 2-3x SGD's to compile, the bulk of the module's time.
+PAR_STEPS, PAR_LR, PAR_AUX = 2, 0.1, 0.01
+PAR_PROMPT, PAR_GEN_STEPS = 8, 6
+PAR_SAMPLING = dict(temperature=0.7, top_k=8, top_p=0.9)
+PAR_W = [[0.75, 0.25], [0.25, 0.75]]
+
+
+def battery_tp_fsdp(mesh, inp):
+    """The model-parallel routes on the 4 ranks regrouped: the TP step and
+    TP decode on (data 2, model 2) for MHA, GQA and MQA; FSDP on data 4
+    (dense and MoE); gossip x FSDP on (agents 2, data 2) and gossip x TP
+    on (agents 2, model 2); the expert-parallel MoE LM on (data 2, expert
+    2).  Each from the given full init, converted to this rank's blocks."""
+    import torch
+
+    from distributed_learning_tpu_torch.convert import flax_to_torch_shards, torch_to_flax
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM, generate
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.fsdp import make_fsdp_train_step
+    from distributed_learning_tpu_torch.training.gossip_fsdp import (
+        make_gossip_fsdp_step,
+        make_gossip_tp_step,
+    )
+    from distributed_learning_tpu_torch.training.tp import (
+        constrain_decode_cache,
+        make_tp_generate,
+        make_tp_train_step,
+    )
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    X, Y, prompt = (torch.from_numpy(inp[k]) for k in ("x", "y", "prompt"))
+    GX, GY = torch.from_numpy(inp["gx"]), torch.from_numpy(inp["gy"])
+    sgd = make_optimizer("sgd", None, PAR_LR)
+    r = {}
+
+    def full(prefix):
+        return {k: v.numpy() for k, v in _tensors(inp, prefix).items()}
+
+    def params(model):
+        return {k: v.detach().numpy().copy() for k, v in model.stacked_parameters().items()}
+
+    grid = GridMesh({"data": 2, "model": 2}, "cpu")
+    r["tp_coords"] = dict(grid.coords)
+    for kind, kv in PAR_KV.items():
+        whole = full(f"tp_{kind}_")
+        cfg = dict(PAR_LM, num_kv_heads=kv)
+
+        def sharded():
+            m = TransformerLM(**cfg, tp_axis="model", mesh=grid, device="cpu")
+            m.load_stacked(flax_to_torch_shards(torch_to_flax(whole), grid, "tp"))
+            return m
+
+        m = sharded()
+        step = make_tp_train_step(grid, m, sgd, moe_aux_coef=PAR_AUX)
+        r[f"tp_{kind}_losses"] = [float(step(X, Y)) for _ in range(PAR_STEPS)]
+        r[f"tp_{kind}_params"] = params(m)
+        r[f"tp_{kind}_partial"] = list(m.tp_partial_grads)
+        g = sharded()
+        gen = make_tp_generate(grid, g)
+        r[f"gen_{kind}"] = gen(prompt, PAR_GEN_STEPS).numpy()
+        one = TransformerLM(**cfg, device="cpu")
+        one.load_stacked(whole)
+        got = gen(prompt, PAR_GEN_STEPS, key=torch.Generator().manual_seed(42), **PAR_SAMPLING)
+        want = generate(one, prompt[None], PAR_GEN_STEPS, key=torch.Generator().manual_seed(42),
+                        **PAR_SAMPLING)[0]
+        r[f"sampled_{kind}"] = (got.numpy(), want.numpy())
+        b = prompt.shape[0] // grid.shape["data"]
+        r[f"cache_{kind}"] = [tuple(t.shape) for t in g.init_cache(b).keys + g.init_cache(b).values]
+        whole_cache = one.init_cache(prompt.shape[0])
+        r[f"constrained_{kind}"] = [tuple(t.shape) for t in
+                                    constrain_decode_cache(whole_cache, grid).keys]
+    grid4 = GridMesh({"data": 4}, "cpu")
+    for kind, extra in (("dense", {}), ("moe", PAR_MOE)):
+        whole = full(f"fsdp_{kind}_")
+        m = TransformerLM(**PAR_LM, **extra, device="cpu")
+        m.load_stacked(whole)
+        step = make_fsdp_train_step(grid4, m, sgd, moe_aux_coef=PAR_AUX)
+        gathered = step.gather_params()
+        r[f"fsdp_{kind}_gathered_bitwise"] = all(
+            np.array_equal(gathered[k].numpy()[0], v) for k, v in whole.items())
+        r[f"fsdp_{kind}_losses"] = [float(step(X, Y)) for _ in range(PAR_STEPS)]
+        r[f"fsdp_{kind}_params"] = {k: v.numpy().copy() for k, v in step.local_params().items()}
+    stacked = full("gossip_")
+    for kind, shape in (("fsdp", {"agents": 2, "data": 2}), ("tp", {"agents": 2, "model": 2})):
+        g2 = GridMesh(shape, "cpu")
+        a = g2.coords["agents"]
+        if kind == "fsdp":
+            m = TransformerLM(**PAR_LM, device="cpu")
+            m.load_stacked({k: v[a:a + 1] for k, v in stacked.items()})
+            step = make_gossip_fsdp_step(g2, m, sgd, PAR_W, moe_aux_coef=PAR_AUX)
+        else:
+            m = TransformerLM(**PAR_LM, tp_axis="model", mesh=g2, device="cpu")
+            m.load_stacked(flax_to_torch_shards(torch_to_flax(stacked), g2, "tp", n_agents=2))
+            step = make_gossip_tp_step(g2, m, sgd, PAR_W, moe_aux_coef=PAR_AUX)
+        r[f"gossip_{kind}_coords"] = dict(g2.coords)
+        r[f"gossip_{kind}_losses"] = [float(step(GX, GY)) for _ in range(PAR_STEPS)]
+        r[f"gossip_{kind}_params"] = ({k: v.numpy().copy()
+                                       for k, v in step.inner.local_params().items()}
+                                      if kind == "fsdp" else params(m))
+    g3 = GridMesh({"data": 2, "expert": 2}, "cpu")
+    whole = full("ep_")
+    m = TransformerLM(**PAR_LM, **PAR_MOE, moe_expert_axis="expert", mesh=g3, device="cpu")
+    m.load_stacked(flax_to_torch_shards(torch_to_flax(whole), g3, "ep"))
+    step = make_tp_train_step(g3, m, sgd, model_axis="expert", moe_aux_coef=PAR_AUX)
+    b = X.shape[0] // 2
+    with torch.no_grad():
+        rows = X[g3.coords["data"] * b:(g3.coords["data"] + 1) * b]
+        r["ep_logits"] = m(rows[None])[0].numpy()
+    r["ep_coords"] = dict(g3.coords)
+    r["ep_loss"] = float(step(X, Y))
+    r["ep_grads"] = {k: v.grad.numpy().copy() for k, v in m.stacked_parameters().items()}
+    r.update(_expert_layer_errors(g3["expert"]))
+    return r
+
+
+def _expert_layer_errors(ep):
+    """A lone ``MoEMLP(expert_mesh=ep)`` holding its rank's experts of a
+    whole layer against that layer, both routes (capacity dispatch and
+    decode's drop-free path): the largest differences of the output, the
+    gate's gradient and this rank's experts' gradients."""
+    import torch
+
+    from distributed_learning_tpu_torch.models.moe import MoEMLP, shard_moe_params
+
+    g = torch.Generator().manual_seed(3)
+    whole = MoEMLP(1, 8, 4, 4, 1.25, 2, device="cpu")
+    with torch.no_grad():
+        for p in whole.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    x = torch.randn(1, 2, 8, 8, generator=g)
+    cot = torch.randn(1, 2, 8, 8, generator=g)
+    mine = MoEMLP(1, 8, 4, 4, 1.25, 2, device="cpu", expert_mesh=ep)
+    blocks = shard_moe_params({k: v.detach()[0] for k, v in whole.named_parameters()}, ep,
+                              ep.axis_name)
+    with torch.no_grad():
+        for k, v in mine.named_parameters():
+            v.copy_(blocks[k][None])
+    out = {}
+    for route, drop in (("dispatch", True), ("dropfree", False)):
+        errs = {}
+        for layer in (whole, mine):
+            layer.zero_grad()
+        y_whole, y_mine = whole(x, drop), mine(x, drop)
+        (y_whole * cot).sum().backward()
+        (y_mine * cot).sum().backward()
+        errs["out"] = float((y_whole - y_mine).abs().max())
+        wgrads = shard_moe_params({k: v.grad[0] for k, v in whole.named_parameters()}, ep,
+                                  ep.axis_name)
+        errs.update({k: float((wgrads[k] - v.grad[0]).abs().max())
+                     for k, v in mine.named_parameters()})
+        out[f"ep_layer_{route}"] = errs
+    return out
+
+
 BATTERIES = {"engine": battery_engine, "tracking": battery_tracking,
              "trainer": battery_trainer, "multihost": battery_multihost,
              "async_robust": battery_async_robust, "choco": battery_choco,
-             "ring": battery_ring, "spmd_lm": battery_spmd_lm}
+             "ring": battery_ring, "spmd_lm": battery_spmd_lm, "tp_fsdp": battery_tp_fsdp}
 
 
 def _main(battery, tmp, coordinator, rank, n):

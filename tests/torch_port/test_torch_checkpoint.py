@@ -21,6 +21,9 @@ from distributed_learning_tpu.training.trainer import GossipTrainer as JaxTraine
 from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training import checkpoint as ckpt
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 NODES = list(range(4))
 
 

@@ -34,6 +34,9 @@ from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.obs import MetricsRegistry
 from distributed_learning_tpu_torch.training import config as tconfig
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 FLAG_SETS = [
     [],

@@ -15,6 +15,9 @@ from distributed_learning_tpu.training import eval as jeval
 from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.models import TransformerLM
 from distributed_learning_tpu_torch.training import eval as teval
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T, L, H, DH = 64, 32, 2, 2, 16
 CFG = dict(vocab_size=V, num_layers=L, num_heads=H, head_dim=DH, max_len=T)

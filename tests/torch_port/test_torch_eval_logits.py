@@ -22,6 +22,7 @@ Held, after the 3 epochs:
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from distributed_learning_tpu.data import normalize as jax_normalize
@@ -32,6 +33,9 @@ from distributed_learning_tpu.training.trainer import GossipTrainer as JaxTraine
 from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 NODES = list(range(4))
 B, STEPS, EPOCHS = 8, 4, 3

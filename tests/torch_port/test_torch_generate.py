@@ -33,6 +33,9 @@ from distributed_learning_tpu.models.transformer import validate_sampling as jax
 from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.models import TransformerLM
 from distributed_learning_tpu_torch.models import transformer as tr
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, L = 64, 24
 BASE = dict(vocab_size=V, num_layers=2, num_heads=4, head_dim=8, max_len=L)

@@ -206,15 +206,21 @@ _SHARDED = [
     "distributed_learning_tpu_torch.models.moe",
     "distributed_learning_tpu_torch.training.spmd_lm",
     "distributed_learning_tpu_torch.training.trainer",
+    "distributed_learning_tpu_torch.training.tp",
+    "distributed_learning_tpu_torch.training.fsdp",
+    "distributed_learning_tpu_torch.training.gossip_fsdp",
+    "distributed_learning_tpu_torch.convert",
 ]
 
 
 def test_sharded_route_modules_and_the_rank_script_import_no_jax():
     """The sharded route (multihost and its two-axis mesh, the engine's
     ``mesh=`` half with the async, robust and CHOCO rounds, sequence
-    parallel attention, the agents x seq LM step, the trainer) with its
-    public names, and the gloo rank script of the sharded tests, load no
-    JAX and nothing of the JAX package."""
+    parallel attention, the agents x seq LM step, the trainer, and item
+    5a's tensor parallelism, FSDP, gossip x FSDP / TP, expert sharding
+    and sharded conversion) with its public names, and the gloo rank
+    script of the sharded tests, load no JAX and nothing of the JAX
+    package."""
     code = "\n".join(
         ["import importlib, sys", f"sys.path.insert(0, {os.path.join(REPO, 'tests', 'torch_port')!r})"]
         + [f"importlib.import_module({m!r})" for m in _SHARDED]
@@ -228,6 +234,20 @@ def test_sharded_route_modules_and_the_rank_script_import_no_jax():
            " ulysses_attention, ring_flash_attention, make_ring_attention)",
            "from distributed_learning_tpu_torch.training.spmd_lm import (make_gossip_lm_step,"
            " stack_agent_states, reject_dropout_model)",
+           "from distributed_learning_tpu_torch.parallel.multihost import (P, PartitionSpec,"
+           " MeshPosition, shard_slice, local_shard, copy_to_axis, reduce_from_axis,"
+           " gather_along_axis, tree_map_with_path)",
+           "from distributed_learning_tpu_torch.training.tp import (transformer_tp_rules,"
+           " shard_transformer_params, make_tp_train_step, constrain_decode_cache,"
+           " make_tp_generate)",
+           "from distributed_learning_tpu_torch.training.fsdp import (fsdp_spec,"
+           " shard_params_fsdp, make_fsdp_train_step, reject_dropout_model)",
+           "from distributed_learning_tpu_torch.training.gossip_fsdp import ("
+           "make_gossip_fsdp_step, shard_stacked_fsdp, make_gossip_tp_step, shard_stacked_tp)",
+           "from distributed_learning_tpu_torch.models.moe import moe_param_spec,"
+           " shard_moe_params",
+           "from distributed_learning_tpu_torch.convert import flax_to_torch_shards,"
+           " lm_flax_path",
            "import sharded_ranks",
            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
            " or m.startswith('jaxlib') or m == 'distributed_learning_tpu'"

@@ -36,6 +36,9 @@ from distributed_learning_tpu_torch.models import TransformerLM
 from distributed_learning_tpu_torch.models.moe import collect_load_balance_loss
 from distributed_learning_tpu_torch.models.transformer import _rope
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T = 64, 16
 BASE = dict(vocab_size=V, num_layers=2, num_heads=4, head_dim=8, max_len=T)

@@ -20,6 +20,7 @@ and the CLI's ``--remat`` trains, to the losses of the run without it."""
 import contextlib
 
 import numpy as np
+import pytest
 import torch
 
 from distributed_learning_tpu_torch import cli as tcli
@@ -27,6 +28,9 @@ from distributed_learning_tpu_torch.obs import MetricsRegistry, use_registry
 from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training import trainer as trainer_mod
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 NODES = list(range(4))
 V, T = 32, 16

@@ -17,8 +17,7 @@ the CPU (4 ranks, spawned once for the module), on a small MLP.
   reported numbers, 1e-5 relative on the robust masses.  The port's
   dense trainer holds these options to the JAX package's trainer in
   ``test_torch_trainer_choco.py`` and ``test_torch_trainer_async_robust.py``.
-* Expert sharding raises ``ValueError`` naming ROADMAP.md item "5. tp /
-  pp / fsdp", and a mesh that is not an ``AgentMesh`` is refused.
+* A mesh that is not an ``AgentMesh`` is refused.
 """
 
 import jax
@@ -41,7 +40,6 @@ from sharded_ranks import (
     trainer_common,
 )
 
-ITEM_5 = 'ROADMAP.md item "5. tp / pp / fsdp"'
 MIX_TOL = 2e-6
 MASS_RTOL = 1e-5
 
@@ -117,15 +115,6 @@ def test_superstep_equals_the_eager_epochs(world, route):
     got, want = _params(res, f"{route}_superstep_params"), _params(res, f"{route}_params")
     for name in got:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-
-
-@pytest.mark.parametrize("option", ["shard_moe_params", "moe_param_spec"])
-def test_routes_left_for_item_3b_raise(world, option):
-    """What a mesh still refuses: expert sharding, now left for ROADMAP.md
-    item 5 (model parallelism inside one agent) and named by its title.
-    The CHOCO, async and robust options run (the route cases above)."""
-    for r in world[-1]:
-        assert r["raises"][option] is not None and ITEM_5 in r["raises"][option]
 
 
 @pytest.mark.parametrize("mesh", ["agents", object()])

@@ -29,6 +29,9 @@ from distributed_learning_tpu_torch.parallel import (
     GradientTrackingEngine,
     Topology,
 )
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 N, TAU, ALPHA, STEPS = 4, 1e-2, 0.5, 200
 TOL = 1e-5

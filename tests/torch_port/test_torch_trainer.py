@@ -26,6 +26,9 @@ from distributed_learning_tpu_torch.training.trainer import (
     make_optimizer,
 )
 from distributed_learning_tpu_torch.utils import RecordingTelemetry
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T = 32, 16
 NODES = list(range(4))

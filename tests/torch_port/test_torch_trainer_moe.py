@@ -8,6 +8,7 @@ through Adam); a trainer with ``moe_aux_coef=0`` differs."""
 
 import jax
 import numpy as np
+import pytest
 
 from distributed_learning_tpu.models.transformer import TransformerLM as JaxLM
 from distributed_learning_tpu.parallel import Topology as JaxTopology
@@ -16,6 +17,9 @@ from distributed_learning_tpu_torch.convert import flax_to_torch
 from distributed_learning_tpu_torch.models import TransformerLM
 from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T = 64, 16
 BASE = dict(vocab_size=V, num_layers=2, num_heads=4, head_dim=8, max_len=T)

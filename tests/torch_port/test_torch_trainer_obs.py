@@ -36,6 +36,9 @@ from distributed_learning_tpu_torch.obs import cost as tcost
 from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer
 from distributed_learning_tpu_torch.utils.telemetry import RecordingTelemetry
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 NODES = list(range(4))
 RING = Topology.ring(4).metropolis_weights()

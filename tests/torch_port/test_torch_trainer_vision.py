@@ -45,6 +45,9 @@ from distributed_learning_tpu_torch.parallel import Topology
 from distributed_learning_tpu_torch.training.trainer import GossipTrainer, MasterNode
 
 import chip_smoke
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 NODES = list(range(4))
 B, STEPS = 8, 2

@@ -13,6 +13,9 @@ from distributed_learning_tpu.models.transformer import TransformerLM as JaxLM
 from distributed_learning_tpu_torch.convert import flax_to_torch, torch_to_flax
 from distributed_learning_tpu_torch.models import TransformerLM, get_model
 from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T, L, H, DH = 64, 64, 2, 2, 32
 CFG = dict(vocab_size=V, num_layers=L, num_heads=H, head_dim=DH, max_len=T)

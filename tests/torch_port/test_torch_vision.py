@@ -52,6 +52,9 @@ from distributed_learning_tpu_torch.models.vision import (
     ResNet,
     WideResNet,
 )
+from sharded_ranks import one_intra_op_thread
+
+one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 N, B = 2, 4
 LOGIT_RTOL, GRAD_RTOL, STAT_RTOL = 2e-5, 1e-9, 1e-5
