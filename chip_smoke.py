@@ -200,7 +200,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
              backward launch): ms by CUDA events, tokens/s, perplexity
              <= vocab; the 2-layer LM through kernel A against plain
              attention from one seed (1e-3 relative).
-26. cli    — ``cli.main`` in process: WRN-28-10 on synthetic CIFAR, 4
+26. cli    — ``cli.main`` in process: WRN-10-10 on synthetic CIFAR, 4
              nodes x B 256, 4096 images, supersteps of 2: 2 epochs and
              ``--resume`` to 3 against an uninterrupted 3-epoch run, the
              checkpoints equal bit for bit; ``--testOnly``; ``obs-report``
@@ -352,8 +352,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
              split (compute, K/V rotation, gradient all_reduce, gossip),
              tokens/s and peak memory; A, B, C and the pre-pass counted
              (``launches_by_path["seq_parallel"]``); ring and ulysses at
-             a 2-layer cut, one step (loss, the step's gradient).  A
-             failing rank stops the others and the phase.
+             a 2-layer cut, one step (loss, the step's gradient).  (10)
+             ROADMAP item 5a at full width on the ranks regrouped: the TP
+             step on data 2 x model 2 (2 steps, global B 4) and the FSDP
+             step on data 4 against one process (loss ``LOSS_RTOL``, the
+             first step's gathered gradient ``GRAD_RTOL``), TP decode of
+             float32 copies (MHA, 2 K/V heads, 1 K/V head) against
+             ``generate``, gossip x FSDP and gossip x TP (2 layers), the
+             expert-parallel MoE LM on data 2 x expert 2 in float32 with
+             its routes replayed (``MOE_EP_RTOL``), each with a control
+             (``launches_by_path["model_parallel"]``).  (11) The pipeline
+             (ROADMAP items 5b / 5c): on stage 4 at full width (2 layers a
+             stage, 1 a chunk for the interleaved schedule, V 2), M 8
+             microbatches of one sequence, adam, 2 steps, GPipe, GPipe
+             with ``remat_stage``, 1F1B and interleaved, each against the
+             one-process model on the same 8 sequences (each step's loss
+             ``LOSS_RTOL``, the first step's gradient per leaf
+             ``GRAD_RTOL``); launches a rank a step A 16 / 32 / 32 / 32,
+             B, C and the pre-pass 16, all wgmma
+             (``launches_by_path["pipeline"]``, with the compositions');
+             1F1B's peak memory below GPipe's; two controls that must fail
+             (every stage seeding its backward from the head; each input
+             filed one stash slot off); a step's split (stage compute,
+             hops, end broadcasts, reductions over the other axes),
+             tokens/s and the measured bubble share beside (S - 1) / (M + S
+             - 1).  Then 1F1B at 4 layers, M 4 of 2 sequences, one step, on
+             stage 2 x seq 2 (ring_flash), stage 2 x model 2 and data 2 x
+             stage 2 (the same limits), and on stage 2 x expert 2 the
+             extras' MoE at 2 layers in float32, its routes replayed
+             (``MOE_EP_RTOL``, flips ``ROUTE_FLIP_F32_RTOL``).  A failing
+             rank stops the others and the phase.
 
 ``--wide-only`` and ``--sharded-only`` build and run only the wide
 bodies' cases and times, or only phase 34, and end with the card line.
@@ -3290,17 +3318,20 @@ def _tree_diffs(a, b, where=""):
     return [] if a == b else [where]
 
 
-# The CLI phase's model and data flags (the baseline notebook's WRN-28-10
-# at the WRN slice's batch), and flags every training run gets (none on
-# the card: the CLI's default device is the card).
-CLI_MODEL = ["--net_type", "wide-resnet", "--depth", "28", "--widen_factor", "10",
+# The CLI phase's model and data flags (the baseline notebook's WRN at
+# width 10 and the WRN slice's batch, its depth cut from 28 to 10: what the
+# phase holds — resume == uninterrupted bit for bit, --testOnly, obs-report
+# — does not depend on depth, and the whole script must stay within its
+# time limit), and flags every training run gets (none on the card: the
+# CLI's default device is the card).
+CLI_MODEL = ["--net_type", "wide-resnet", "--depth", "10", "--widen_factor", "10",
              "--dropout", "0.3", "--dataset", "cifar10"]
 CLI_DATA = ["--nodes", "4", "--batch-size", "256", "--n-train", "4096"]
 CLI_EVERY_RUN: list = []
 
 
 def phase_cli(obs_jsonl):
-    """``cli.main`` in process, WRN-28-10 on synthetic CIFAR (4 nodes x B
+    """``cli.main`` in process, WRN-10-10 on synthetic CIFAR (4 nodes x B
     256, 4096 training images, supersteps of 2): 2 epochs with a
     checkpoint, ``--resume`` to 3, against an uninterrupted 3-epoch run
     (the checkpoints equal bit for bit, under deterministic algorithms);
@@ -4426,7 +4457,7 @@ RUNTIME_SCALE = 1.0 + 2.0 ** -10
 # WIRE_MIX_ATOL on the same input every epoch.
 RUNTIME_EPOCH2_ATOL = 2.0 ** -7
 RUNTIME_EPOCHS = 2
-RUNTIME_BF16_K = 2  # bf16-wire run_round iterations
+RUNTIME_BF16_K = 1  # bf16-wire run_round iterations
 RUNTIME_CHOCO_ITERS, RUNTIME_CHOCO_GAMMA = 2, 0.2
 RUNTIME_STRAGGLER = {"tau": 1, "deadline_s": 3.0, "fast_rounds": 1, "slow_rounds": 1}
 RUNTIME_FAULT = {"seed": 12, "drop_p": 0.25, "dup_p": 0.25, "reorder_p": 0.25, "rounds": 2}
@@ -5042,6 +5073,8 @@ def phase_sharded():
     mp = [f["model_parallel"] for f in facts]
     seq_launches = {k: sum(f["lm_step"]["ring_flash"]["launches"][k] for f in facts)
                     for k in launches}
+    pp_launches = {k: sum(f["pipeline"]["launches"][k] for f in facts) for k in launches}
+    pp = [f["pipeline"] for f in facts]
     step = [f["lm_step"]["ring_flash"] for f in facts]
     lm_s = max(f["lm"]["epoch_seconds"] for f in facts)
     wrn_s = max(f["wrn"]["epoch_seconds"] for f in facts)
@@ -5080,10 +5113,24 @@ def phase_sharded():
                                   for k in mp[0]["tp_generate"]},
         "model_parallel_launches": mp_launches,
         "model_parallel_seconds": max(m["seconds"] for m in mp),
+        "pipeline_step_seconds": {k: max(max(p["schedules"][k]["step_seconds"]) for p in pp)
+                                  for k in pp[0]["schedules"]},
+        "pipeline_tokens_per_s": {k: min(p["schedules"][k]["tokens_per_s"] for p in pp)
+                                  for k in pp[0]["schedules"]},
+        "pipeline_peak_memory_bytes": {k: max(p["schedules"][k]["peak_memory_bytes"] for p in pp)
+                                       for k in pp[0]["schedules"]},
+        "pipeline_bubble_share": {f"rank{f['rank']}": {k: f["pipeline"]["schedules"][k]["bubble_share"]
+                                                       for k in pp[0]["schedules"]}
+                                  for f in facts},
+        "pipeline_bubble_share_schedule": pp[0]["schedules"]["gpipe"]["bubble_share_schedule"],
+        "pipeline_split": {f"rank{f['rank']}": {k: f["pipeline"]["schedules"][k]["split"][-1]
+                                                for k in pp[0]["schedules"]} for f in facts},
+        "pipeline_launches": pp_launches,
+        "pipeline_seconds": max(p["seconds"] for p in pp),
         "seconds": round(time.perf_counter() - t0, 2),
     }
     emit(summary)
-    return launches, seq_launches, mp_launches
+    return launches, seq_launches, mp_launches, pp_launches
 
 
 def _transport_s(mesh) -> dict:
@@ -5958,10 +6005,10 @@ def _sharded_lm_step(mesh, fa) -> dict:
 # all_reduce adds two partial sums), ~1e-6 expected; MOE_EP_RTOL is 100x
 # that, and the control (a rank combining the other rank's experts)
 # moves the logits by O(1).
-MP_BATCH, MP_STEPS, MP_LR = 4, 3, 3e-4
+MP_BATCH, MP_STEPS, MP_LR = 4, 2, 3e-4
 MP_GOSSIP_LAYERS, MP_GOSSIP_BATCH = 2, 2
 MP_W = [[0.75, 0.25], [0.25, 0.75]]
-MP_GEN_BATCH, MP_GEN_PROMPT, MP_GEN_STEPS, MP_GEN_MQA_LAYERS = 4, 128, 32, 2
+MP_GEN_BATCH, MP_GEN_PROMPT, MP_GEN_STEPS, MP_GEN_MQA_LAYERS = 4, 128, 16, 2
 MP_GEN_CASES = (("mha", None, LAYERS), ("gqa", 2, LAYERS), ("mqa", 1, MP_GEN_MQA_LAYERS))
 MOE_EP_LAYERS, MOE_EP_BATCH, MOE_EP_RTOL = 2, 2, 1e-4
 
@@ -5970,9 +6017,9 @@ def _mp_model(layers, dev, dtype=torch.bfloat16, **kw):
     from distributed_learning_tpu_torch.models.transformer import TransformerLM
 
     kw.setdefault("max_len", SEQ)
+    kw.setdefault("attn_impl", "flash")
     return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
-                         head_dim=HEAD_DIM, attn_impl="flash", dtype=dtype, device=dev, seed=0,
-                         **kw)
+                         head_dim=HEAD_DIM, dtype=dtype, device=dev, seed=0, **kw)
 
 
 def _mp_tokens(dev, lead, seed):
@@ -6060,7 +6107,7 @@ def _mp_launch_checks(launches, bodies, fwd, bwd) -> dict:
 
 
 def _mp_tp_step(mesh, fa, X, Y) -> tuple:
-    """The TP step on (data 2, model 2), 8 layers, global B 4, 3 steps;
+    """The TP step on (data 2, model 2), 8 layers, global B 4, 2 steps;
     the control (every attention's exit all_reduce skipped) at the init.
     Returns (facts, checks, the first step's whole gradient, losses)."""
     from distributed_learning_tpu_torch.parallel.multihost import GridMesh
@@ -6120,7 +6167,7 @@ def _mp_tp_step(mesh, fa, X, Y) -> tuple:
 
 
 def _mp_fsdp_step(mesh, fa, X, Y) -> tuple:
-    """The FSDP step on data 4, 8 layers, B 1 a rank, 3 steps; the control
+    """The FSDP step on data 4, 8 layers, B 1 a rank, 2 steps; the control
     (a reduce_scatter that keeps the neighbouring rank's block) on a
     fresh step.  Returns (facts, checks, first whole gradient, control's
     whole gradient)."""
@@ -6195,7 +6242,7 @@ def _mp_fsdp_step(mesh, fa, X, Y) -> tuple:
 def _mp_generate(mesh) -> dict:
     """TP decode on (data 2, model 2) of float32 copies: MHA and 2 K/V
     heads at 8 layers, 1 K/V head (the replicated fallback) at 2; B 4, a
-    128-token prompt, 32 greedy steps against the one-process generate;
+    128-token prompt, 16 greedy steps against the one-process generate;
     the control (the GQA cache swapped for the neighbouring head group
     after the prefill) must move the first step's logits past the limit."""
     from distributed_learning_tpu_torch.parallel.multihost import GridMesh
@@ -6283,7 +6330,7 @@ def _mp_generate_reference(dev, prompt, kind, kv, layers) -> tuple:
 
 def _mp_gossip(mesh, fa, kind) -> tuple:
     """Gossip x FSDP on (agents 2, data 2) or gossip x TP on (agents 2,
-    model 2), a 2-layer cut, B 2 an agent, 3 steps; then the mix alone on
+    model 2), a 2-layer cut, B 2 an agent, 2 steps; then the mix alone on
     a random stacked state, and the control (W's rows swapped)."""
     from distributed_learning_tpu_torch.parallel.multihost import (
         GridMesh,
@@ -6548,8 +6595,345 @@ def _sharded_model_parallel(mesh, fa) -> dict:
     return facts
 
 
+# ---------------------------------------------------------------------- #
+# Phase 34, ROADMAP items 5b / 5c: the pipeline (training/pp*.py).       #
+# ---------------------------------------------------------------------- #
+# Stage 4 at the LM slice's full width: 2 layers a stage (1 a chunk for
+# the interleaved schedule, V 2), M 8 microbatches of one sequence (the
+# dense slice's 8 sequences), adam, 2 steps, each schedule against the
+# one-process model on the same 8 sequences (LOSS_RTOL on each step's
+# loss, GRAD_RTOL on each leaf's first-step gradient).  The compositions
+# at 4 layers, 1F1B, M 4 of 2 sequences, one step; the MoE one at 2
+# layers in float32 with the one-process run's routes replayed from the
+# pipeline's (MOE_EP_RTOL, flips ROUTE_FLIP_F32_RTOL, as moe_ep).
+PP_STAGES, PP_M, PP_STEPS, PP_V = 4, 8, 2, 2
+PP_COMP_LAYERS, PP_COMP_M, PP_COMP_MB = 4, 4, 2
+PP_MOE_LAYERS, PP_MOE_M = 2, 4
+PP_SCHEDULES = ("gpipe", "remat", "1f1b", "interleaved")
+PP_COMPOSITIONS = (("seq", {"stage": 2, "seq": 2}), ("model", {"stage": 2, "model": 2}),
+                   ("data", {"data": 2, "stage": 2}))
+# Per step and rank at stage 4 (2 layers x 8 microbatches): A once a layer
+# and microbatch, twice where the backward recomputes (remat, 1F1B,
+# interleaved); B, C and the pre-pass once.
+PP_LAUNCHES = {"gpipe": (16, 16), "remat": (32, 16), "1f1b": (32, 16), "interleaved": (32, 16)}
+
+
+def _pp_step(schedule, grid, model, tx, **kw):
+    from distributed_learning_tpu_torch.training import pp_lm
+
+    if schedule in ("gpipe", "remat"):
+        return pp_lm.make_lm_pipeline_train_step(grid, model, tx,
+                                                 remat_stage=schedule == "remat", **kw)
+    if schedule == "1f1b":
+        return pp_lm.make_lm_1f1b_train_step(grid, model, tx, **kw)
+    return pp_lm.make_lm_interleaved_train_step(grid, model, tx, PP_V, PP_M, **kw)
+
+
+def _pp_grads(step, grid) -> dict:
+    """``{name: whole gradient}`` of every parameter of the pipelined
+    model on the rank at coordinate 0 of every axis but the stage axis
+    (``None`` elsewhere): blocks split over ``model`` / ``expert`` joined
+    along that line, then every stage's gathered along the stage line."""
+    import torch.distributed as dist
+
+    model = step.model
+    split = next((a for a in ("model", "expert") if a in grid.shape), None)
+    names = list(model.param_slices)
+    local = {n: step.grads[0, o:o + k].view(model.get_parameter(n).shape[1:])
+             for n, (o, k) in model.param_slices.items()}
+    if split is not None:
+        line = grid[split]
+        parts = line.all_gather(step.grads[0].contiguous())
+        for n, (o, k) in model.param_slices.items():
+            spec = model.layout.get(n, ())
+            if any(spec):
+                dim = next(d for d, ax in enumerate(spec) if ax is not None)
+                local[n] = torch.cat([parts[r, o:o + k].view(local[n].shape)
+                                      for r in range(line.size)], dim)
+    stage = grid["stage"]
+    flat = torch.cat([local[n].reshape(-1) for n in names])
+    lists = [None] * stage.size
+    dist.all_gather_object(lists, (names, [tuple(local[n].shape) for n in names]),
+                           group=stage.group)
+    flats = stage.all_gather(flat)
+    if any(grid.coords[a] for a in grid.shape if a != "stage") or stage.agent != 0:
+        return None
+    out = {}
+    for (ns, shapes), f in zip(lists, flats):
+        off = 0
+        for n, shp in zip(ns, shapes):
+            k = math.prod(shp)
+            out.setdefault(n, f[off:off + k].view(shp).clone())
+            off += k
+    return out
+
+
+def _pp_reference(dev, layers, X, Y, steps, dtype=torch.bfloat16, aux=0.0, routes=None,
+                  microbatches=1, **kw) -> tuple:
+    """The one-process comparator (rank 0): per-step losses and the first
+    step's ``{name: gradient}`` of the same model and Adam on the whole
+    batch (``microbatches`` > 1: the mean of per-microbatch losses, as
+    the pipeline routes an MoE model's microbatches apart; ``routes``
+    ``{(layer, microbatch): choices}`` replayed, their flip gaps kept)."""
+    from distributed_learning_tpu_torch.models.moe import MoEMLP
+    from distributed_learning_tpu_torch.training.tp import bind_optimizer, lm_loss
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    m = _mp_model(layers, dev, dtype=dtype, **kw)
+    opt = bind_optimizer(m, make_optimizer("adam", None, MP_LR))
+    layer_of = {id(b.moe): i for i, b in enumerate(m.blocks) if hasattr(b, "moe")}
+    losses, g0, gaps, cur = [], None, [], [0]
+    ctx = contextlib.nullcontext()
+    if routes is not None:
+        real = MoEMLP._choose
+
+        def choose(module, probs):
+            taped = routes[(layer_of[id(module)], cur[0])]
+            gaps.append(route_flip_gaps(probs, real(module, probs), taped).cpu())
+            return taped
+
+        ctx = _patched(MoEMLP, "_choose", choose)
+    with ctx:
+        for _ in range(steps):
+            m.flat_grads.zero_()
+            total = 0.0
+            for i, (x, y) in enumerate(zip(X.chunk(microbatches), Y.chunk(microbatches))):
+                cur[0] = i
+                loss = lm_loss(m, x, y, aux) / microbatches
+                loss.backward()
+                total += float(loss)
+            if g0 is None:
+                g0 = {n: p.grad[0].clone() for n, p in m.stacked_parameters().items()}
+            opt.step()
+            losses.append(total)
+    del m, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, g0, (torch.cat(gaps) if gaps else None)
+
+
+def _pp_leaf_errs(got: dict, want: dict) -> dict:
+    return {n: _rel(got[n], want[n]) for n in want}
+
+
+def _pp_run(grid, fa, schedule, model, X, Y, steps, **kw) -> tuple:
+    """One pipelined schedule for ``steps`` Adam steps: facts (losses, wall
+    seconds, the split, tokens/s, bubble share, peak memory, launches)
+    and the first step's gathered gradient."""
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    dev = grid.device
+    step = _pp_step(schedule, grid, model, make_optimizer("adam", None, MP_LR), **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, split, g0 = [], [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(X, Y)))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        split.append(dict(step.timing))
+        if i == 0:  # every rank gathers (rank 0 alone keeps the result)
+            g0 = _pp_grads(step, grid)
+    launches, bodies = _mp_launches(fa)
+    S = grid.shape["stage"]
+    M = X.shape[0]
+    facts = {"grid": dict(grid.coords), "layers": step.layers, "losses": losses,
+             "step_seconds": walls, "split": split, "stats": dict(step.stats),
+             "tokens_per_s": X.numel() * steps / sum(walls),
+             "bubble_share": [1.0 - s["stage_s"] / w for s, w in zip(split, walls)],
+             "bubble_share_schedule": (S - 1) / (M + S - 1),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+             "launches": launches, "launches_by_body": bodies}
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts, g0
+
+
+def _pp_control(grid, tag, X, Y) -> dict:
+    """One 1F1B step at stage 4 with a fault in (every stage seeding its
+    backward from the head; each input filed one stash slot off): the
+    first step's gathered gradient."""
+    from distributed_learning_tpu_torch.training import pp
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    real_put = pp._Stash.put
+    fault = (_patched(pp, "_is_head_stage", lambda v, n: True) if tag == "head_every_stage"
+             else _patched(pp._Stash, "put", lambda self, m, a: real_put(self, m + 1, a)))
+    step = _pp_step("1f1b", grid, _mp_model(LAYERS, grid.device),
+                    make_optimizer("adam", None, MP_LR))
+    with fault:
+        step(X, Y)
+    g = _pp_grads(step, grid)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return g
+
+
+def _pp_moe_ep(grid, fa, X, Y) -> tuple:
+    """Stage 2 x expert 2: the extras' MoE options (no dropout) at 2
+    layers in float32, 1F1B, one step; the routes each block took in its
+    recompute, by (layer, microbatch)."""
+    from distributed_learning_tpu_torch.models.moe import MoEMLP
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    model = _mp_model(PP_MOE_LAYERS, grid.device, dtype=torch.float32, mesh=grid,
+                      moe_expert_axis="expert", **EXTRAS)
+    layer_of = {id(b.moe): i for i, b in enumerate(model.blocks)}
+    step = _pp_step("1f1b", grid, model, make_optimizer("adam", None, MP_LR),
+                    expert_axis="expert", moe_aux_coef=EXTRAS_AUX_COEF)
+    routes, state = {}, {"m": -1, "on": False}
+    real_rec, real_choose = step.runner.recompute, MoEMLP._choose
+
+    def recompute(c, a):  # the recomputes run in microbatch order
+        state["m"] += 1
+        state["on"] = True
+        try:
+            return real_rec(c, a)
+        finally:
+            state["on"] = False
+
+    def choose(module, probs):
+        ch = real_choose(module, probs)
+        if state["on"]:
+            routes[(layer_of[id(module)], state["m"])] = [c.clone() for c in ch]
+        return ch
+
+    step.runner.recompute = recompute
+    fa.reset_launch_counts()
+    with _patched(MoEMLP, "_choose", choose):
+        loss = float(step(X, Y))
+    launches, _ = _mp_launches(fa)
+    g0 = _pp_grads(step, grid)
+    import torch.distributed as dist
+
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {k: [c.cpu() for c in v] for k, v in routes.items()})
+    merged = {}
+    for d in everyone:
+        merged.update({k: [c.to(grid.device) for c in v] for k, v in d.items()})
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "launches": launches}, g0, merged
+
+
+def _sharded_pipeline(mesh, fa) -> dict:
+    """ROADMAP items 5b / 5c on the 4 ranks: GPipe, GPipe with remat, 1F1B
+    and interleaved at stage 4, full width, against the one-process model;
+    the two controls; the compositions (stage 2 x seq 2 with ring_flash,
+    x model 2, data 2 x stage 2, x expert 2 with MoE)."""
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+
+    dev = mesh.device
+    t_start = time.perf_counter()
+    checks, facts = {}, {}
+    X, Y = _mp_tokens(dev, (PP_M,), 23)
+    Xm, Ym = X[:, None], Y[:, None]                      # (M, 1, T): one sequence each
+    grid = GridMesh({"stage": PP_STAGES}, dev)
+    runs, grads = {}, {}
+    total = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_rowterm"), 0)
+    for schedule in PP_SCHEDULES:
+        f, g0 = _pp_run(grid, fa, schedule, _mp_model(LAYERS, dev), Xm, Ym, PP_STEPS)
+        fwd, bwd = PP_LAUNCHES[schedule]
+        c, f["expected_launches"] = _mp_launch_checks(f["launches"], f["launches_by_body"],
+                                                      fwd * PP_STEPS, bwd * PP_STEPS)
+        checks.update({f"{schedule}_{k}": v for k, v in c.items()})
+        for k in total:
+            total[k] += f["launches"][k]
+        runs[schedule], grads[schedule] = f, g0
+    checks["1f1b_peak_below_gpipe"] = runs["1f1b"]["peak_memory_bytes"] \
+        < runs["gpipe"]["peak_memory_bytes"]
+    controls = {tag: _pp_control(grid, tag, Xm, Ym) for tag in ("head_every_stage", "slot_off")}
+    comp = {}
+    for tag, shape in PP_COMPOSITIONS:
+        g = GridMesh(shape, dev)
+        kw = {"seq": dict(attn_impl="ring_flash", mesh=g), "model": dict(tp_axis="model", mesh=g),
+              "data": {}}[tag]
+        Xc = X[:PP_COMP_M * PP_COMP_MB].reshape(PP_COMP_M, PP_COMP_MB, -1)
+        Yc = Y[:PP_COMP_M * PP_COMP_MB].reshape(PP_COMP_M, PP_COMP_MB, -1)
+        f, g0 = _pp_run(g, fa, "1f1b", _mp_model(PP_COMP_LAYERS, dev, **kw), Xc, Yc, 1,
+                        **({"tp_axis": "model"} if tag == "model" else {}))
+        # 2 layers a stage x 4 microbatches, A twice (1F1B); ring_flash
+        # launches once a live ring block: seq position s has s + 1.
+        live = g.coords["seq"] + 1 if tag == "seq" else 1
+        c, f["expected_launches"] = _mp_launch_checks(f["launches"], f["launches_by_body"],
+                                                      16 * live, 8 * live)
+        checks.update({f"{tag}_{k}": v for k, v in c.items()})
+        for k in total:
+            total[k] += f["launches"][k]
+        comp[tag] = (f, g0)
+    gm = GridMesh({"stage": 2, "expert": 2}, dev)
+    Xe = X[:PP_MOE_M].reshape(PP_MOE_M, 1, -1)
+    Ye = Y[:PP_MOE_M].reshape(PP_MOE_M, 1, -1)
+    moe, moe_g0, routes = _pp_moe_ep(gm, fa, Xe, Ye)
+    for k in total:
+        total[k] += moe["launches"][k]
+    if mesh.agent == 0:
+        ref_losses, ref_g0, _ = _pp_reference(dev, LAYERS, X, Y, PP_STEPS)
+        for schedule, f in runs.items():
+            errs = _pp_leaf_errs(grads[schedule], ref_g0)
+            f["loss_max_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                        zip(f["losses"], ref_losses))
+            f["first_step_grad_max_leaf_rel_err"] = max(errs.values())
+            f["worst_leaf"] = max(errs, key=errs.get)
+            f["reference_losses"] = ref_losses
+            checks[f"{schedule}_losses"] = f["loss_max_rel_err"] <= LOSS_RTOL
+            checks[f"{schedule}_first_step_grads"] = f["first_step_grad_max_leaf_rel_err"] \
+                <= GRAD_RTOL
+        for tag, g in controls.items():
+            # The whole first-step gradient: a control may leave a leaf with
+            # no gradient at all.
+            err = _rel(torch.cat([g[n].reshape(-1) for n in ref_g0]),
+                       torch.cat([ref_g0[n].reshape(-1) for n in ref_g0]))
+            facts[f"control_{tag}_grad_rel_err"] = err
+            checks[f"control_{tag}_fails"] = err > GRAD_RTOL
+        del ref_g0, grads, controls
+        ref_losses, ref_g0, _ = _pp_reference(dev, PP_COMP_LAYERS, X[:PP_COMP_M * PP_COMP_MB],
+                                              Y[:PP_COMP_M * PP_COMP_MB], 1)
+        for tag, (f, g0) in comp.items():
+            errs = _pp_leaf_errs(g0, ref_g0)
+            f["loss_rel_err"] = abs(f["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+            f["first_step_grad_max_leaf_rel_err"] = max(errs.values())
+            checks[f"{tag}_loss"] = f["loss_rel_err"] <= LOSS_RTOL
+            checks[f"{tag}_first_step_grads"] = f["first_step_grad_max_leaf_rel_err"] <= GRAD_RTOL
+        ref_losses, ref_g0, gaps = _pp_reference(
+            dev, PP_MOE_LAYERS, X[:PP_MOE_M], Y[:PP_MOE_M], 1, dtype=torch.float32,
+            aux=EXTRAS_AUX_COEF, routes=routes, microbatches=PP_MOE_M, **EXTRAS)
+        flat_ref = torch.cat([ref_g0[n].reshape(-1) for n in ref_g0])
+        flat_got = torch.cat([moe_g0[n].reshape(-1) for n in ref_g0])
+        moe.update(reference_loss=ref_losses[0],
+                   loss_rel_err=abs(moe["loss"] - ref_losses[0]) / abs(ref_losses[0]),
+                   grad_rel_err=_rel(flat_got, flat_ref),
+                   route_flips={"routes": sum(c.numel() for v in routes.values() for c in v),
+                                "flips": int(gaps.numel()),
+                                "max_gap": float(gaps.max()) if gaps.numel() else 0.0,
+                                "limit": ROUTE_FLIP_F32_RTOL})
+        checks["moe_ep_loss"] = moe["loss_rel_err"] <= MOE_EP_RTOL
+        checks["moe_ep_grads"] = moe["grad_rel_err"] <= MOE_EP_RTOL
+        checks["moe_ep_route_flips"] = moe["route_flips"]["max_gap"] <= ROUTE_FLIP_F32_RTOL
+        del ref_g0
+    facts["schedules"] = runs
+    facts["compositions"] = {k: v[0] for k, v in comp.items()}
+    facts["moe_ep"] = moe
+    facts["launches"] = total
+    facts["seconds"] = time.perf_counter() - t_start
+    del comp, moe_g0, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    facts["checks"] = checks
+    _rank_emit(mesh, "pipeline", facts)
+    return facts
+
+
 SHARDED_PARTS = ("engine", "wrn", "lm", "tracking", "superstep", "sharded_3b", "wrn_3b",
-                 "ring_flash", "lm_step", "model_parallel")
+                 "ring_flash", "lm_step", "model_parallel", "pipeline")
 
 
 def sharded_rank_main(args) -> int:
@@ -6583,6 +6967,7 @@ def sharded_rank_main(args) -> int:
     facts["ring_flash"] = _sharded_ring_flash(mesh, fa)
     facts["lm_step"] = _sharded_lm_step(mesh, fa)
     facts["model_parallel"] = _sharded_model_parallel(mesh, fa)
+    facts["pipeline"] = _sharded_pipeline(mesh, fa)
     with open(os.path.join(args.sharded_out, f"rank{rank}.json"), "w") as f:
         json.dump(facts, f)
     mesh.barrier()
@@ -6736,7 +7121,7 @@ def main(argv=None) -> int:
     phase_comm_runtime()
     mark("comm_runtime")
     # The sharded engine on torch.distributed: one agent a rank process.
-    sharded_launches, seq_launches, mp_launches = phase_sharded()
+    sharded_launches, seq_launches, mp_launches, pp_launches = phase_sharded()
     mark("sharded")
     kernels = []
     for k in fa.KERNELS.values():
@@ -6755,7 +7140,8 @@ def main(argv=None) -> int:
                                  "lm_head_dims": head_dim_launches[k.name],
                                  "lm_sharded": sharded_launches[k.name],
                                  "seq_parallel": seq_launches[k.name],
-                                 "model_parallel": mp_launches[k.name]},
+                                 "model_parallel": mp_launches[k.name],
+                                 "pipeline": pp_launches[k.name]},
             "body": "+".join(b for b, n in bodies[k.name].items() if n),
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -13,14 +13,15 @@ On a CPU tensor every kernel wrapper takes its plain PyTorch version; on
 a CUDA tensor it launches the hand-written Hopper kernel.
 
 The top-level names are the reference's (``dlt.Topology``,
-``dlt.ConsensusEngine``, ...), resolved on first use; its
-``make_agent_mesh`` belongs to the sharded route, which is not ported
-yet.
+``dlt.ConsensusEngine``, ``dlt.make_agent_mesh`` of the sharded route,
+...), resolved on first use, and ``__version__``.
 """
 
 import importlib
 
 from distributed_learning_tpu_torch.device import resolve_device
+
+__version__ = "0.1.0"
 
 _LAZY = {
     "Topology": "distributed_learning_tpu_torch.parallel.topology",
@@ -28,6 +29,7 @@ _LAZY = {
     "spectral_gap": "distributed_learning_tpu_torch.parallel.topology",
     "ConsensusEngine": "distributed_learning_tpu_torch.parallel.consensus",
     "Mixer": "distributed_learning_tpu_torch.parallel.consensus",
+    "make_agent_mesh": "distributed_learning_tpu_torch.parallel.consensus",
     "find_optimal_weights": "distributed_learning_tpu_torch.parallel.fast_averaging",
     "solve_fastest_mixing": "distributed_learning_tpu_torch.parallel.fast_averaging",
     "PushSumEngine": "distributed_learning_tpu_torch.parallel.pushsum",
@@ -49,4 +51,4 @@ def __dir__():
     return sorted(set(globals()) | set(_LAZY))
 
 
-__all__ = ["resolve_device", *_LAZY]
+__all__ = ["resolve_device", *_LAZY, "__version__"]

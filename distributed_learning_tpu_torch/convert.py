@@ -37,6 +37,11 @@ blocks the reference's ``PartitionSpec`` puts on the device of its index
 (``"tp"``: ``training/tp.py``'s rules; ``"ep"``: ``models/moe.py``'s
 ``moe_param_spec``; ``"fsdp"``: ``training/fsdp.py``'s ``fsdp_spec``),
 so a test loads one full init on both sides.
+
+**Pipeline layouts** (:func:`flax_stage_block`, :func:`pipeline_to_flax`):
+a JAX ``pp_lm`` tree (``outer`` and the stacked stage layout) to what one
+rank of the port's pipeline holds, and the ranks' parameters back to one
+flax tree through ``pp_lm.merge_lm_params``.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
-__all__ = ["flax_to_torch", "flax_to_torch_shards", "lm_flax_path", "torch_to_flax"]
+__all__ = ["flax_stage_block", "flax_to_torch", "flax_to_torch_shards", "lm_flax_path",
+           "pipeline_to_flax", "torch_to_flax"]
 
 _TOP = {
     ("Embed_0", "embedding"): "embed",
@@ -220,3 +226,69 @@ def flax_to_torch_shards(params: Mapping[str, Any], mesh, layout: str, *,
             spec = (agents_axis,) + tuple(spec)
         out[name] = np.ascontiguousarray(local_shard(arr, spec, mesh))
     return out
+
+
+def flax_stage_block(model, outer: Mapping[str, Any], stages: Mapping[str, Any], mesh, *,
+                     n_chunks: Optional[int] = None, stage_axis: str = "stage",
+                     layout: Optional[str] = None, **axes) -> Dict[str, np.ndarray]:
+    """A JAX pipeline's parameters — ``outer`` and the stacked ``stages``
+    in ``pp_lm.stage_layout``'s (S, L/S, ...) or, with ``n_chunks``,
+    ``interleaved_stage_layout``'s (S, V, Lc, ...) form (numpy leaves) —
+    to what this rank of ``mesh`` (a ``GridMesh`` or a
+    ``multihost.MeshPosition``) holds in the port's pipeline, as port
+    names: the embeddings and the head whole, and the blocks of its stage
+    (global indices), each cut by :func:`flax_to_torch_shards`'s
+    ``layout`` (``"tp"`` or ``"ep"``) where the stage is also split over
+    the model or expert axis.  ``model`` gives the layer count."""
+    from distributed_learning_tpu_torch.training.pp_lm import merge_lm_params, stage_layers
+
+    S = mesh.shape[stage_axis]
+    whole = merge_lm_params(model, outer, stages, n_stages=S, n_chunks=n_chunks)
+    conv = (flax_to_torch_shards(whole, mesh, layout, **axes) if layout is not None
+            else flax_to_torch(whole))
+    kept = {i for chunk in stage_layers(model.num_layers, S, mesh.coords[stage_axis], n_chunks)
+            for i in chunk}
+    return {k: v for k, v in conv.items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) in kept}
+
+
+def pipeline_to_flax(model, rank_params, shape: Mapping[str, int], *,
+                     stage_axis: str = "stage",
+                     split_axes=("model", "expert")) -> Dict[str, Any]:
+    """The ranks' pipeline parameters back to one flax tree:
+    ``rank_params[r]`` is rank ``r``'s ``{port name: (1, ...) array}``
+    (its ``PipelineLMStep.local_params()``, ranks row-major over
+    ``shape``); ``model`` is a one-process ``TransformerLM`` of the same
+    configuration, whose parameters give the whole shapes.  A block held
+    in parts along a model or expert axis (``split_axes``) is joined along
+    the dimension its part is short in; every stage's blocks are stacked
+    into ``pp_lm.stage_layout``'s form and merged by ``merge_lm_params``."""
+    from distributed_learning_tpu_torch.parallel.multihost import MeshPosition
+    from distributed_learning_tpu_torch.training.pp_lm import (
+        merge_lm_params,
+        split_lm_params,
+        stage_layout,
+    )
+
+    split = next((a for a in split_axes if a in shape), None)
+    whole: Dict[str, np.ndarray] = {}
+    for name, p in model.stacked_parameters().items():
+        full = tuple(p.shape[1:])
+        holders = [r for r, params in enumerate(rank_params) if name in params]
+        if not holders:
+            raise KeyError(f"no rank holds {name}")
+        arr = np.asarray(rank_params[holders[0]][name])[0]
+        if arr.shape == full:
+            whole[name] = arr
+            continue
+        dim = next(d for d in range(len(full)) if arr.shape[d] != full[d])
+        first = MeshPosition.of_rank(shape, holders[0]).coords
+        parts = {}
+        for r in holders:
+            c = MeshPosition.of_rank(shape, r).coords
+            if all(c[a] == first[a] for a in shape if a != split):
+                parts[c[split]] = np.asarray(rank_params[r][name])[0]
+        whole[name] = np.concatenate([parts[i] for i in sorted(parts)], dim)
+    outer, stacked = split_lm_params(model, torch_to_flax(whole))
+    S = shape[stage_axis]
+    return merge_lm_params(model, outer, stage_layout(stacked, S), n_stages=S)

@@ -22,6 +22,7 @@ from distributed_learning_tpu_torch.parallel.consensus import (
     AsyncGossipState,
     ConsensusEngine,
     Mixer,
+    make_agent_mesh,
 )
 from distributed_learning_tpu_torch.parallel.extra import ExtraEngine, ExtraState
 from distributed_learning_tpu_torch.parallel.fast_averaging import (
@@ -74,6 +75,7 @@ __all__ = [
     "identity",
     "int8_quant",
     "is_connected",
+    "make_agent_mesh",
     "push_sum_matrix",
     "random_k",
     "scaled_sign",

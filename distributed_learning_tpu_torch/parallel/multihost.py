@@ -166,6 +166,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # Unpickled as P(*entries), not P(entries).
+        return tuple(self)
+
     def __repr__(self) -> str:
         return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
 
@@ -427,11 +431,11 @@ class AgentMesh:
         self._from_wire([recv], [out])
         return out
 
-    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Agent 0's ``t`` on every rank, in place."""
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Agent ``src``'s ``t`` on every rank, in place."""
         wire, = self._to_wire([t], "bcast")
         t0 = time.perf_counter()
-        dist.broadcast(wire, src=self.ranks[0], group=self.group)
+        dist.broadcast(wire, src=self.ranks[src], group=self.group)
         self.clock.exchange_s += time.perf_counter() - t0
         self._from_wire([wire], [t])
         return t

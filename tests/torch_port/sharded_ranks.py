@@ -737,10 +737,269 @@ def _expert_layer_errors(ep):
     return out
 
 
+# ROADMAP items 5b / 5c: the pipeline (training/pp*.py).
+PP_S, PP_L, PP_D, PP_MB = 4, 2, 16, 4   # the generic tanh stack: stages x layers, width
+PP_V, PP_VD = 2, 8                       # interleaved chunks, their width
+
+
+def pp_stack_fn(p, act):
+    """The reference tests' stage: ``tanh(act @ W + b)`` over its layers."""
+    import torch
+
+    for W, b in zip(p["W"], p["b"]):
+        act = torch.tanh(act @ W + b)
+    return act
+
+
+def pp_chunk_fn(p, act):
+    import torch
+
+    return torch.tanh(act @ p["W"] + p["b"])
+
+
+def pp_mse(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def battery_pp(mesh, inp):
+    """The generic executors on stage 4 (GPipe apply with its gradient,
+    with and without ``remat_stage``; 1F1B for M 3 and 12; interleaved
+    (S 4, V 2, M 6)), interleaved on data 2 x stage 2 (V 2, M 4), the
+    two controls (every stage seeding from the head; an input filed one
+    stash slot off) and the refusal of a wrong microbatch count."""
+    import torch
+
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training import pp, pp_interleaved as ppi
+
+    t = {k: torch.from_numpy(inp[k]) for k in inp.files}
+    r = {}
+    grid = GridMesh({"stage": PP_S}, "cpu")
+    params = {"W": t["W"], "b": t["b"]}
+    for remat in (False, True):
+        apply = pp.make_pipeline_apply(grid, pp_stack_fn, remat_stage=remat)
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        x = t["x"].clone().requires_grad_(True)
+        out = apply(p, x)
+        (out * t["co"]).sum().backward()
+        r[f"gpipe_{remat}"] = {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+                               **{f"g_{k}": v.grad.numpy() for k, v in p.items()},
+                               "stats": dict(apply.stats)}
+    step = pp.make_1f1b_train_step(grid, pp_stack_fn, pp_mse)
+    for m in (3, 12):
+        grads, loss = step(params, t[f"x{m}"], t[f"y{m}"])
+        r[f"1f1b_{m}"] = {"loss": float(loss), "stats": dict(step.stats),
+                          **{f"g_{k}": v.numpy() for k, v in grads.items()}}
+    real_head, real_put = pp._is_head_stage, pp._Stash.put
+    for tag in ("head_every_stage", "slot_off"):
+        if tag == "head_every_stage":
+            pp._is_head_stage = lambda v, n: True
+        else:
+            pp._Stash.put = lambda self, m, a: real_put(self, m + 1, a)
+        try:
+            grads, loss = step(params, t["x12"], t["y12"])
+        finally:
+            pp._is_head_stage, pp._Stash.put = real_head, real_put
+        r[f"control_{tag}"] = {"loss": float(loss), **{f"g_{k}": v.numpy()
+                                                        for k, v in grads.items()}}
+    cparams = {"W": t["cW"], "b": t["cb"]}
+    istep = ppi.make_interleaved_1f1b_train_step(grid, pp_chunk_fn, pp_mse, n_chunks=PP_V,
+                                                 n_microbatches=6)
+    grads, loss = istep(cparams, t["cx6"], t["cy6"])
+    r["inter_4"] = {"loss": float(loss), **{f"g_{k}": v.numpy() for k, v in grads.items()}}
+    try:
+        istep(cparams, t["cx4"], t["cy4"])
+    except ValueError as e:
+        r["refused_microbatch_count"] = str(e)
+    g2 = GridMesh({"data": 2, "stage": 2}, "cpu")
+    dparams = {"W": t["dW"], "b": t["db"]}
+    istep = ppi.make_interleaved_1f1b_train_step(g2, pp_chunk_fn, pp_mse, n_chunks=PP_V,
+                                                 n_microbatches=4)
+    grads, loss = istep(dparams, t["cx4"], t["cy4"])
+    r["inter_dp"] = {"loss": float(loss), "coords": dict(g2.coords),
+                     **{f"g_{k}": v.numpy() for k, v in grads.items()}}
+    r["coords"] = dict(grid.coords)
+    return r
+
+
+PP_LM = dict(vocab_size=32, head_dim=8, max_len=8, mlp_ratio=2)
+PP_LM_M, PP_LM_MB, PP_LM_T, PP_COEF = 3, 2, 8, 0.5
+# name -> (model configuration with its seed).
+PP_CONFIGS = {
+    "dense": dict(num_layers=4, num_heads=2, seed=0),
+    "rope": dict(num_layers=4, num_heads=2, pos_emb="rope", seed=1),
+    "deep": dict(num_layers=8, num_heads=2, seed=2),
+    "gqa": dict(num_layers=4, num_heads=4, num_kv_heads=2, seed=3),
+    "moe": dict(num_layers=4, num_heads=2, mlp="moe", num_experts=4, seed=4),
+}
+# (case, grid shape, configuration, schedule, model options, step options).
+PP_LM_CASES = [
+    ("gpipe", {"stage": 4}, "dense", "gpipe", {}, {}),
+    ("gpipe_remat", {"stage": 4}, "dense", "remat", {}, {}),
+    ("gpipe_rope", {"stage": 4}, "rope", "gpipe", {}, {}),
+    ("1f1b", {"stage": 4}, "dense", "1f1b", {}, {}),
+    ("1f1b_rope", {"stage": 4}, "rope", "1f1b", {}, {}),
+    ("inter", {"stage": 4}, "deep", "inter", {}, {}),
+    ("gpipe_moe", {"stage": 4}, "moe", "gpipe", {}, {"moe_aux_coef": PP_COEF}),
+    ("1f1b_moe", {"stage": 4}, "moe", "1f1b", {}, {"moe_aux_coef": PP_COEF}),
+    ("inter_moe", {"stage": 2, "data": 2}, "moe", "inter", {}, {"moe_aux_coef": PP_COEF}),
+    ("gpipe_tp", {"stage": 2, "model": 2}, "dense", "gpipe", {"tp_axis": "model"},
+     {"tp_axis": "model"}),
+    ("1f1b_tp_gqa", {"stage": 2, "model": 2}, "gqa", "1f1b", {"tp_axis": "model"},
+     {"tp_axis": "model"}),
+    ("inter_tp", {"stage": 2, "model": 2}, "dense", "inter", {"tp_axis": "model"},
+     {"tp_axis": "model"}),
+    ("gpipe_ring", {"stage": 2, "seq": 2}, "dense", "gpipe", {"attn_impl": "ring"}, {}),
+    ("1f1b_ring_flash", {"stage": 2, "seq": 2}, "rope", "1f1b", {"attn_impl": "ring_flash"}, {}),
+    ("inter_ulysses", {"stage": 2, "seq": 2}, "dense", "inter", {"attn_impl": "ulysses"}, {}),
+    ("1f1b_ep", {"stage": 2, "expert": 2}, "moe", "1f1b", {"moe_expert_axis": "expert"},
+     {"moe_aux_coef": PP_COEF, "expert_axis": "expert"}),
+    ("inter_ep", {"stage": 2, "expert": 2}, "moe", "inter", {"moe_expert_axis": "expert"},
+     {"moe_aux_coef": PP_COEF, "expert_axis": "expert"}),
+    ("1f1b_dp", {"data": 2, "stage": 2}, "dense", "1f1b", {}, {}),
+    ("gpipe_dp", {"data": 2, "stage": 2}, "dense", "gpipe", {}, {}),
+]
+
+
+def pp_lm_model(config, grid=None, **over):
+    """A CPU ``TransformerLM`` of configuration ``config`` (its seed
+    included) with ``over`` applied, on ``grid`` when an option names an
+    axis of it."""
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM
+
+    kw = dict(PP_LM, **PP_CONFIGS[config])
+    kw.update(over)
+    seed = kw.pop("seed")
+    on_mesh = any(k in over for k in ("tp_axis", "moe_expert_axis")) or \
+        over.get("attn_impl") in ("ring", "ring_flash", "ulysses")
+    return TransformerLM(**kw, mesh=grid if on_mesh else None, device="cpu", seed=seed)
+
+
+def pp_lm_step(schedule, grid, model, tx, n_microbatches=PP_LM_M, **kw):
+    from distributed_learning_tpu_torch.training import pp_lm
+
+    if schedule in ("gpipe", "remat"):
+        return pp_lm.make_lm_pipeline_train_step(grid, model, tx, remat_stage=schedule == "remat",
+                                                 **kw)
+    if schedule == "1f1b":
+        return pp_lm.make_lm_1f1b_train_step(grid, model, tx, **kw)
+    return pp_lm.make_lm_interleaved_train_step(grid, model, tx, PP_V, n_microbatches, **kw)
+
+
+def _refusal(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def battery_pp_lm(mesh, inp):
+    """Every ``PP_LM_CASES`` step (one SGD step at lr 1 from the seed's
+    init): the loss, this rank's parameters after it (and at init for two
+    cases), the stash or graph counts; then the builders' refusals."""
+    import torch
+
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    tok, y = torch.from_numpy(inp["tok"]), torch.from_numpy(inp["y"])
+    sgd = make_optimizer("sgd", None, 1.0)
+    r, grids = {}, {}
+    for name, shape, config, schedule, mkw, skw in PP_LM_CASES:
+        key = tuple(shape.items())
+        if key not in grids:
+            grids[key] = GridMesh(shape, "cpu")
+        grid = grids[key]
+        step = pp_lm_step(schedule, grid, pp_lm_model(config, grid, **mkw), sgd, **skw)
+        init = {k: v.detach().numpy().copy() for k, v in step.local_params().items()}
+        loss = float(step(tok, y))
+        r[name] = {"loss": loss, "coords": dict(grid.coords), "stats": dict(step.stats),
+                   "layers": step.layers,
+                   "params": {k: v.detach().numpy().copy()
+                              for k, v in step.local_params().items()}}
+        if name in ("gpipe", "1f1b_tp_gqa", "inter"):
+            r[name]["init"] = init
+        if name in ("1f1b_tp_gqa", "inter_tp", "1f1b_ep"):
+            r[name]["specs"] = step.parts.build_param_specs(n_chunks=step.n_chunks)
+    g4, g_tp, g_ep = grids[(("stage", 4),)], grids[(("stage", 2), ("model", 2))], \
+        grids[(("stage", 2), ("expert", 2))]
+    refused = {
+        "dropout": lambda: pp_lm_step("gpipe", g4, pp_lm_model("dense", dropout_rate=0.1), sgd),
+        "layers": lambda: pp_lm_step("gpipe", g4, pp_lm_model("dense", num_layers=6), sgd),
+        "layers_chunks": lambda: pp_lm_step("inter", g4, pp_lm_model("dense"), sgd),
+        "seq_axis": lambda: pp_lm_step("1f1b", g4, pp_lm_model("dense", g4["stage"],
+                                                               attn_impl="ring"), sgd),
+        "tp_moe": lambda: pp_lm_step("gpipe", g_tp, pp_lm_model("moe", g_tp, tp_axis="model"),
+                                     sgd, tp_axis="model"),
+        "tp_mesh": lambda: pp_lm_step("gpipe", g_tp, pp_lm_model("dense", g_tp, tp_axis="model"),
+                                      sgd, tp_axis="nope"),
+        "tp_heads": lambda: pp_lm_step("gpipe", g_tp, pp_lm_model("dense", g_tp, num_heads=3,
+                                                                  tp_axis="model"),
+                                       sgd, tp_axis="model"),
+        "tp_mqa": lambda: pp_lm_step("1f1b", g_tp, pp_lm_model("gqa", g_tp, num_kv_heads=1,
+                                                               tp_axis="model"),
+                                     sgd, tp_axis="model"),
+        "tp_unbuilt": lambda: pp_lm_step("gpipe", g_tp, pp_lm_model("dense"), sgd,
+                                         tp_axis="model"),
+        "ep_dense": lambda: pp_lm_step("gpipe", g_ep, pp_lm_model("dense"), sgd,
+                                       expert_axis="expert"),
+        "ep_mesh": lambda: pp_lm_step("gpipe", g_ep, pp_lm_model("moe"), sgd,
+                                      expert_axis="nope"),
+        "microbatches": lambda: pp_lm_step("inter", g_tp, pp_lm_model("dense", g_tp,
+                                                                      tp_axis="model"),
+                                           sgd, tp_axis="model")(tok[:2], y[:2]),
+    }
+    r["refused"] = {k: _refusal(fn) for k, fn in refused.items()}
+    return r
+
+
+# dp x pp x sp x tp on 16 ranks (test_pp_lm_4d.py's sizes), and on the
+# same ranks dp x pp x tp (the data rows over two axes) and pp x sp x ep.
+PP4D_LM = dict(vocab_size=32, num_layers=4, num_heads=4, head_dim=8, max_len=8, mlp_ratio=2)
+PP4D_M, PP4D_MB, PP4D_T, PP4D_SEED = 3, 4, 8, 0
+PP4D_ADAM_STEPS = 4
+
+
+def battery_pp_4d(mesh, inp):
+    """16 ranks: the 4-D 1F1B step (data 2, stage 2, seq 2, model 2) with
+    ring attention and the 3-D one (data 2, stage 2, model 2, a second
+    data axis 2) with full attention, one SGD step at lr 1 each; then pp x
+    sp x ep (data 2, stage 2, seq 2, expert 2) with Adam, its losses."""
+    import torch
+
+    from distributed_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_learning_tpu_torch.parallel.multihost import GridMesh
+    from distributed_learning_tpu_torch.training import pp_lm
+    from distributed_learning_tpu_torch.training.trainer import make_optimizer
+
+    tok, y = torch.from_numpy(inp["tok"]), torch.from_numpy(inp["y"])
+    r = {}
+    for name, shape, impl in (("4d", {"data": 2, "stage": 2, "seq": 2, "model": 2}, "ring"),
+                              ("3d", {"data": 2, "stage": 2, "model": 2, "rows": 2}, "full")):
+        grid = GridMesh(shape, "cpu")
+        model = TransformerLM(**PP4D_LM, attn_impl=impl, tp_axis="model", mesh=grid,
+                              device="cpu", seed=PP4D_SEED)
+        step = pp_lm.make_lm_1f1b_train_step(grid, model, make_optimizer("sgd", None, 1.0),
+                                             tp_axis="model")
+        r[name] = {"loss": float(step(tok, y)), "coords": dict(grid.coords),
+                   "params": {k: v.detach().numpy().copy()
+                              for k, v in step.local_params().items()}}
+    grid = GridMesh({"data": 2, "stage": 2, "seq": 2, "expert": 2}, "cpu")
+    model = TransformerLM(**PP4D_LM, attn_impl="ring", mlp="moe", num_experts=4,
+                          moe_expert_axis="expert", mesh=grid, device="cpu", seed=PP4D_SEED)
+    step = pp_lm.make_lm_1f1b_train_step(grid, model, make_optimizer("adam", None, 3e-3),
+                                         expert_axis="expert", moe_aux_coef=0.01)
+    r["sp_ep"] = {"losses": [float(step(tok, y)) for _ in range(PP4D_ADAM_STEPS)],
+                  "w_up": tuple(model.get_parameter(f"blocks.{step.layers[0][0]}.moe.w_up").shape)}
+    return r
+
+
 BATTERIES = {"engine": battery_engine, "tracking": battery_tracking,
              "trainer": battery_trainer, "multihost": battery_multihost,
              "async_robust": battery_async_robust, "choco": battery_choco,
-             "ring": battery_ring, "spmd_lm": battery_spmd_lm, "tp_fsdp": battery_tp_fsdp}
+             "ring": battery_ring, "spmd_lm": battery_spmd_lm, "tp_fsdp": battery_tp_fsdp,
+             "pp": battery_pp, "pp_lm": battery_pp_lm, "pp_4d": battery_pp_4d}
 
 
 def _main(battery, tmp, coordinator, rank, n):

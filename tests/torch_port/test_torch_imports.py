@@ -259,3 +259,39 @@ def test_sharded_route_modules_and_the_rank_script_import_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     loaded = [line for line in out.stdout.splitlines() if line.startswith("LOADED=")][0]
     assert loaded == "LOADED=", f"port import loaded {loaded}"
+
+
+def _reference_all(relpath: str) -> list:
+    """The names of a JAX-package module's ``__all__``, read from its
+    source by ``ast`` (no JAX is imported); a starred entry is skipped."""
+    import ast
+
+    with open(os.path.join(REPO, "distributed_learning_tpu", relpath)) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts
+                    if not isinstance(e, ast.Starred)]
+    raise AssertionError(f"{relpath} has no __all__")
+
+
+@pytest.mark.parametrize("relpath, module", [
+    ("__init__.py", "distributed_learning_tpu_torch"),
+    ("parallel/__init__.py", "distributed_learning_tpu_torch.parallel"),
+])
+def test_package_tops_export_every_reference_name(relpath, module):
+    """The port's top-level and ``parallel`` ``__all__`` hold every name of
+    the reference's, and each resolves (``make_agent_mesh`` and
+    ``__version__`` included)."""
+    import importlib
+
+    want = _reference_all(relpath)
+    mod = importlib.import_module(module)
+    missing = sorted(set(want) - set(mod.__all__))
+    assert not missing, f"{module}.__all__ lacks {missing}"
+    for name in want:
+        assert getattr(mod, name) is not None, name
+    if module == "distributed_learning_tpu_torch":
+        assert mod.__version__ == "0.1.0"
+        assert mod.make_agent_mesh.__module__ == "distributed_learning_tpu_torch.parallel.consensus"
