@@ -4,7 +4,7 @@ one NVIDIA card: the quickest proof that the port builds and trains there.
 
     python3 chip_smoke.py [--profile] [--out DIR]
     python3 chip_smoke.py --decode-timing N | --step-timing N
-    python3 chip_smoke.py [--wide-only] [--sharded-only]
+    python3 chip_smoke.py [--wide-only] [--d256-only] [--sharded-only]
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -21,10 +21,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
              window of 100 over T 1000, non-causal T 333), the CUDA-core
              bodies (float32, bf16 head dim 32) and head dims the kernels
-             run zero-padded (8, 16, 48, 96; float32 16); the D-256
-             CUDA-core bodies (32-row tiles) at the slice's model width as
-             4 heads x 256 (B 2, T 4096, with the tile controls), ragged
-             and windowed, float32, and head dim 192 zero-padded to 256;
+             run zero-padded (8, 16, 48, 96; float32 16); head dim 256
+             (bf16: dQ and dK/dV on their wgmma bodies, the forward on the
+             CUDA-core body's 32-row tiles; float32 all CUDA-core) at the
+             slice's model width as 4 heads x 256 (B 2, T 4096, with the
+             tile controls), windowed and ragged, non-causal and ragged,
+             float32, and head dim 192 zero-padded to 256, with the bodies
+             the bf16 cases launched checked;
              the wide bodies (head dims above 256, walked in 128-column
              chunks) at the slice's width as 2 heads x 512 (with the
              tile controls and the lse cotangent), 320 run at 384, 1152
@@ -45,8 +48,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              on this card, its plain version's time, and
              ``scaled_dot_product_attention``'s time as a yardstick (for
              the pre-pass a ``vecdot``); then the same at 4 heads x 256
-             (``times_d256``, the D-256 bodies) and 2 heads x 512
-             (``times_wide``, the wide bodies).
+             (``times_d256``, the D-256 bodies), 2 heads x 512
+             (``times_wide``, the wide bodies), in float32 at the slice's
+             width and at 4 heads x 256 (``times_f32``, ``times_f32_d256``:
+             the float32 CUDA-core bodies, SDPA in float32 their
+             yardstick) and at 32 heads x 32 (``times_d32``).
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
@@ -249,6 +255,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
              dropped-key-tile control, then 4 epochs of 1 step trained both
              ways from the same weights (losses within
              ``SMALL_LM_LOSS_RTOL``); kernel launches counted.
+    lm_head_dim_256 — the slice's LM at 4 heads x 256
+             (``TransformerLM(attn_impl="flash", num_heads=4,
+             head_dim=256)``, d_model 1024, vocab 8192, T 4096, bf16 over
+             float32): one step of 2 agents x 2 layers against plain
+             attention under phase 4's limits with the dropped-key-tile
+             control, then one eager epoch of the full slice (8 layers, 4
+             agents on a ring, B 2, 3 steps and a round): tokens/s, peak
+             memory, launches by body (the forward on its CUDA-core body,
+             dQ and dK/dV on their wgmma bodies with the pre-pass).
 32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
              36,489,290 float32 parameters, Metropolis ring): both native
              libraries built into ``_build/``; each agent's parameters
@@ -383,12 +398,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (``MOE_EP_RTOL``, flips ``ROUTE_FLIP_F32_RTOL``).  A failing
              rank stops the others and the phase.
 
-``--wide-only`` and ``--sharded-only`` build and run only the wide
-bodies' cases and times, or only phase 34, and end with the card line.
+``--wide-only``, ``--d256-only`` and ``--sharded-only`` build and run
+only the wide bodies' cases and times, only the head-dim-256 and 192
+cases of phase 2 and ``times_d256``, or only phase 34, and end with the
+card line.
 
-Then a ``kernels`` JSON line (each kernel also carries its D-256 body's
-error, time, bound, plain and library times under ``head_dim_256``, and
-the wide body's under ``head_dim_wide``),
+Then a ``kernels`` JSON line (each kernel also carries its D-256 bodies'
+error, time, bound, plain and library times under ``head_dim_256``, the
+wide body's under ``head_dim_wide``, and the times of its float32 and
+head-dim-32 bodies under ``float32``, ``float32_head_dim_256`` and
+``head_dim_32``),
 the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -419,6 +438,8 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # CUDA cores, for the pre-pass's float32 reduction
 PEAK_HBM_BYTES = 3.35e12
+# Score bytes a plain attention version may hold at once in kernel_times.
+PLAIN_SCORE_BYTES = 24e9
 
 # The slice's model: the JAX package's full-scale LM (benchmarks/bench_lm.py).
 AGENTS, LAYERS, HEADS, HEAD_DIM, VOCAB, SEQ, BATCH = 4, 8, 8, 128, 8192, 4096, 2
@@ -534,9 +555,12 @@ def phase_build() -> None:
     smem = {f"{name}<{D}>": lib.dlt_flash_wgmma_smem_bytes(which, D)
             for which, name in ((0, "flash_fwd_kernel_sm90"), (1, "flash_dq_kernel_sm90"),
                                 (2, "flash_dkv_kernel_sm90"))
-            for D in (64, 128)}
+            for D in (64, 128, 256) if lib.dlt_flash_wgmma_smem_bytes(which, D) > 0}
+    ptxas = ptxas_summary(_build.ptxas_report())
+    # The target is no spill anywhere; a spill is reported, not fatal.
+    spills = {k: v for k, v in ptxas.items() if not v.endswith(" 0 spill bytes")}
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
-          "seconds": round(seconds, 3), "ptxas": ptxas_summary(_build.ptxas_report()),
+          "seconds": round(seconds, 3), "ptxas": ptxas, "spills": spills,
           "wgmma_dynamic_smem_bytes": smem})
 
 
@@ -647,7 +671,7 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     res["max_abs_err"] = {k: v[0] for k, v in errs.items()}
     res["max_tile_rel_err"] = {k: v[1] for k, v in errs.items()
                                if k not in ("fwd_lse.lse", "rowterm")}
-    res["body"] = fa._body(q)
+    res["body"] = _bodies(fa, D, dtype)
     res["kernel_head_dim"] = fa.kernel_head_dim(D)
     res["ok"] = all(v[2] for v in errs.values()) and all(res.get("controls_rejected", {}).values())
     emit({"phase": "kernels", **res})
@@ -686,18 +710,49 @@ def phase_kernels(fa):
     _compare_case(fa, "head_dim_48", 2, 768, 4, 48, bf16, True, None, False)
     _compare_case(fa, "head_dim_96_non_causal_dadj", 2, 384, 2, 96, bf16, False, None, True)
     _compare_case(fa, "f32_head_dim_16_window", 2, 333, 2, 16, f32, True, 64, False)
-    # Head dim 256 (the CUDA-core bodies' 32-row tiles) at the slice's
-    # model width as 4 heads of 256, with the tile controls; ragged,
-    # windowed and float32 cases; 192 runs zero-padded to 256.
-    d256 = _compare_case(fa, "head_dim_256_slice_width", BATCH, SEQ, D256_HEADS, D256_HEAD_DIM,
-                         bf16, True, None, True, controls=True)
-    _compare_case(fa, "head_dim_256_window_ragged", 2, 1000, 2, 256, bf16, True, 100, False)
-    _compare_case(fa, "f32_head_dim_256_dadj", 2, 333, 2, 256, f32, True, None, True)
-    _compare_case(fa, "head_dim_192", 2, 768, 4, 192, bf16, True, None, False)
-    _compare_case(fa, "f32_head_dim_192_non_causal_dadj", 2, 384, 2, 192, f32, False, None, True)
+    d256 = phase_kernels_d256(fa)
     wide = phase_kernels_wide(fa)
     torch.cuda.empty_cache()
     return main, d256, wide
+
+
+# The LM slice's model width (8 x 128) as 4 heads of 256.
+D256_HEADS, D256_HEAD_DIM = 4, 256
+
+
+def _bodies(fa, D, dtype) -> dict:
+    """The body each kernel runs for a call of head dim ``D`` in ``dtype``
+    (the pre-pass has one body)."""
+    q = torch.empty(0, 0, 0, D, dtype=dtype)
+    return {**{n: fa._body(q, n) for n in fa._KERNEL_NAMES}, "flash_bwd_rowterm": "cuda_core"}
+
+
+def phase_kernels_d256(fa):
+    """Head dim 256 at the slice's model width as 4 heads of 256 (with the
+    tile controls and the lse cotangent), windowed and ragged, non-causal
+    and ragged, and 192 zero-padded to 256: in bf16 dQ and dK/dV run their
+    wgmma bodies (32-key tiles; 64-key blocks with dK and dV split between
+    the consumers) and the forward the CUDA-core body's 32-row tiles, which
+    the launch counts must show; float32 runs the CUDA-core bodies."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    fa.reset_launch_counts()
+    d256 = _compare_case(fa, "head_dim_256_slice_width", BATCH, SEQ, D256_HEADS, D256_HEAD_DIM,
+                         bf16, True, None, True, controls=True)
+    _compare_case(fa, "head_dim_256_window_ragged", 2, 1000, 2, 256, bf16, True, 100, False)
+    _compare_case(fa, "head_dim_256_non_causal_ragged_dadj", 2, 129, 2, 256, bf16, False, None,
+                  True)
+    _compare_case(fa, "head_dim_192", 2, 768, 4, 192, bf16, True, None, False)
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    _compare_case(fa, "f32_head_dim_256_dadj", 2, 333, 2, 256, f32, True, None, True)
+    _compare_case(fa, "f32_head_dim_192_non_causal_dadj", 2, 384, 2, 192, f32, False, None, True)
+    emit({"phase": "kernels_d256_bodies", "bf16_launches_by_body": bodies})
+    fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
+    if not (fwd["cuda_core"] > 0 and fwd["wgmma"] == 0
+            and all(b["wgmma"] > 0 and b["cuda_core"] == 0 for b in (dq, dkv))):
+        raise AssertionError(f"bf16 head dim 256 bodies {bodies}: want the CUDA-core forward "
+                             "and the wgmma dQ and dK/dV")
+    torch.cuda.empty_cache()
+    return d256
 
 
 # The wide bodies (head dims above 256, the next multiple of 128): the
@@ -1001,46 +1056,45 @@ def phase_plain(fa):
 # ---------------------------------------------------------------------- #
 # Phase 5: times                                                         #
 # ---------------------------------------------------------------------- #
-def phase_times(fa):
-    times = kernel_times(fa, AGENTS * BATCH, SEQ, HEADS, HEAD_DIM)
-    emit({"phase": "times", "shape": [AGENTS * BATCH, SEQ, HEADS, HEAD_DIM], "dtype": "bfloat16",
-          "causal": True, **_rounded(times)})
+def _times_phase(fa, phase, H, D, dtype=torch.bfloat16):
+    """``kernel_times`` at the slice's launch shape with its width as H
+    heads of D, emitted with the body each kernel ran."""
+    times = kernel_times(fa, AGENTS * BATCH, SEQ, H, D, dtype)
+    emit({"phase": phase, "shape": [AGENTS * BATCH, SEQ, H, D],
+          "dtype": str(dtype).split(".")[-1], "causal": True, "bodies": _bodies(fa, D, dtype),
+          **_rounded(times)})
     return times
-
-
-# The LM slice's model width (8 x 128) as 4 heads of 256: the CUDA-core
-# D-256 bodies (bf16) at the slice's launch shape otherwise.
-D256_HEADS, D256_HEAD_DIM = 4, 256
 
 
 def phase_times_d256(fa):
-    times = kernel_times(fa, AGENTS * BATCH, SEQ, D256_HEADS, D256_HEAD_DIM)
-    emit({"phase": "times_d256", "shape": [AGENTS * BATCH, SEQ, D256_HEADS, D256_HEAD_DIM],
-          "dtype": "bfloat16", "causal": True,
-          "bodies": {n: ("wgmma" if fa.wgmma_body(torch.bfloat16, D256_HEAD_DIM) else "cuda_core")
-                     for n in times}, **_rounded(times)})
-    return times
+    """The D-256 bodies (bf16: the CUDA-core forward, the wgmma dQ and
+    dK/dV) at 4 heads of 256."""
+    return _times_phase(fa, "times_d256", D256_HEADS, D256_HEAD_DIM)
 
 
 def phase_times_wide(fa):
     """The wide bodies at the slice's launch shape with its width as 2
     heads of 512."""
-    times = kernel_times(fa, AGENTS * BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM)
-    emit({"phase": "times_wide", "shape": [AGENTS * BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM],
-          "dtype": "bfloat16", "causal": True, "body": "cuda_core_wide", **_rounded(times)})
-    return times
+    return _times_phase(fa, "times_wide", WIDE_HEADS, WIDE_HEAD_DIM)
 
 
-def kernel_times(fa, B, T, H, D):
-    """Each kernel at (B, T, H, D), bf16, causal: CUDA-event ms, its bound
-    on this card, its plain version's ms and one PyTorch call's ms."""
+# The slice's model width as 32 heads of 32: the bf16 D-32 CUDA-core bodies
+# (which head dims 8 and 16 also run, zero-padded).
+D32_HEADS = HEADS * HEAD_DIM // 32
+
+
+def kernel_times(fa, B, T, H, D, dtype=torch.bfloat16):
+    """Each kernel at (B, T, H, D), causal, in ``dtype``: CUDA-event ms,
+    its bound on this card, its plain version's ms and one PyTorch call's
+    ms.  The products' bound is the tensor cores' bf16 peak, or in float32
+    the CUDA cores' (wgmma has no float32-exact product)."""
     import torch.nn.functional as F
 
-    q, k, v, do = _qkv(B, T, H, D, torch.bfloat16, seed=11)
+    q, k, v, do = _qkv(B, T, H, D, dtype, seed=11)
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, scale, True, None, with_lse=True)
     pairs = B * H * T * (T + 1) // 2  # live (row, col) pairs of the causal mask
-    elem = B * T * H * D * 2          # bytes of one bf16 (B, T, H, D) tensor
+    elem = B * T * H * D * q.element_size()  # bytes of one (B, T, H, D) tensor
     row = B * H * T * 4               # bytes of one float32 (B, H, T) tensor
     rowterm = fa.flash_bwd_rowterm(o, do, None)
     # (flops, bytes): each input read once, each output written once.
@@ -1053,7 +1107,7 @@ def kernel_times(fa, B, T, H, D):
         # O and dO in, the row term out.
         "flash_bwd_rowterm": (2 * B * T * H * D, 2 * elem + row),
     }
-    peak = dict.fromkeys(work, PEAK_BF16_FLOPS)
+    peak = dict.fromkeys(work, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
     peak["flash_bwd_rowterm"] = PEAK_FP32_FLOPS
     kernel_fn = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True, None, with_lse=True),
@@ -1063,14 +1117,29 @@ def kernel_times(fa, B, T, H, D):
                                                   rowterm=rowterm),
         "flash_bwd_rowterm": lambda: fa.flash_bwd_rowterm(o, do, None),
     }
+    # The plain versions hold about four float32 (B, H, T, T) score tensors
+    # at once; where those pass PLAIN_SCORE_BYTES they run over equal head
+    # chunks, one call each (the same work; the time is the sum).
+    n_chunks = next(n for n in range(1, H + 1)
+                    if H % n == 0 and 4 * B * (H // n) * T * T * 4 <= PLAIN_SCORE_BYTES)
+    heads = [slice(c * H // n_chunks, (c + 1) * H // n_chunks) for c in range(n_chunks)]
+
+    def chunked(fn, *ts):
+        # ts: (B, T, H, D) tensors, then lse as (B, H, T).
+        return lambda: [fn(*(t[:, :, h] for t in ts[:-1]), ts[-1][:, h]) for h in heads]
+
     plain_fn = {
-        "flash_fwd": lambda: fa.plain_fwd(q, k, v, scale, True, None, with_lse=True),
-        "flash_bwd_dq": lambda: fa.plain_bwd_dq(q, k, v, o, do, lse, None, scale, True, None),
-        "flash_bwd_dkv": lambda: fa.plain_bwd_dkv(q, k, v, o, do, lse, None, scale, True, None),
+        "flash_fwd": chunked(lambda q, k, v, _: fa.plain_fwd(q, k, v, scale, True, None, True),
+                             q, k, v, lse),
+        "flash_bwd_dq": chunked(lambda q, k, v, o, do, lse: fa.plain_bwd_dq(
+            q, k, v, o, do, lse, None, scale, True, None), q, k, v, o, do, lse),
+        "flash_bwd_dkv": chunked(lambda q, k, v, o, do, lse: fa.plain_bwd_dkv(
+            q, k, v, o, do, lse, None, scale, True, None), q, k, v, o, do, lse),
         "flash_bwd_rowterm": lambda: fa.plain_bwd_rowterm(o, do, None),
     }
     # Yardstick only: one PyTorch call per function (SDPA forward; SDPA's
-    # backward, which computes dQ, dK and dV in one call, for B and C).
+    # backward, which computes dQ, dK and dV in one call, for B and C), in
+    # the kernels' dtype.
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 5)
@@ -1097,7 +1166,7 @@ def kernel_times(fa, B, T, H, D):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[name],
-            "flops": flops, "bytes": nbytes,
+            "flops": flops, "bytes": nbytes, "plain_head_chunks": n_chunks,
         }
         torch.cuda.empty_cache()
     del q, k, v, do, o, lse, rowterm, qh, kh, vh, doh
@@ -4058,6 +4127,60 @@ def phase_lm_head_dims(fa):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 31, continued: the LM at head dim 256                            #
+# ---------------------------------------------------------------------- #
+# The slice's LM with its model width (d_model 1024) as 4 heads of 256.
+D256_LM = {"heads": D256_HEADS, "head_dim": D256_HEAD_DIM}
+
+
+def phase_lm_head_dim_256(fa):
+    """``TransformerLM(attn_impl="flash", num_heads=4, head_dim=256)`` at
+    the slice's configuration otherwise: one step of 2 agents x 2 layers
+    against plain attention (phase 4's limits and control), then one
+    eager epoch of the full slice (8 layers, 4 agents on a ring, B 2, 3
+    steps and a round), where the forward runs its CUDA-core body and dQ
+    and dK/dV their wgmma bodies with the pre-pass.  Returns the epoch's
+    launch counts."""
+    facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
+                            dims=D256_LM)
+    master = make_trainer("flash", LAYERS, AGENTS, 1, STEPS, dims=D256_LM)
+    n_eval = math.ceil(len(master.test_data[0]) / master.eval_batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    p = master.train_epoch()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launches(fa)
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    expect = {"flash_fwd": LAYERS * (STEPS + n_eval), "flash_bwd_dq": LAYERS * STEPS,
+              "flash_bwd_dkv": LAYERS * STEPS, "flash_bwd_rowterm": LAYERS * STEPS}
+    epoch = {"train_loss": p["train_loss"].tolist(), "epoch_seconds": round(dt, 4),
+             "train_tokens_per_s_incl_eval_and_mix": round(AGENTS * BATCH * SEQ * STEPS / dt, 1),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "params_per_agent": master.model.param_count(), "launches": launches,
+             "by_body": bodies, "expected_launches": expect}
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_head_dim_256", "config": {"vocab": VOCAB, "seq": SEQ, **D256_LM},
+          "agents": AGENTS, "layers": LAYERS, "batch_per_agent": BATCH, "steps": STEPS,
+          "one_step": facts, "epoch": epoch})
+    if not facts["ok"]:
+        raise AssertionError("head dim 256: kernel path and plain path disagree, or the "
+                             "control was not rejected")
+    if not all(math.isfinite(x) for x in epoch["train_loss"]):
+        raise AssertionError(f"head dim 256 epoch loss not finite: {epoch['train_loss']}")
+    fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
+    if not (launches == expect and fwd["cuda_core"] == expect["flash_fwd"]
+            and dq["wgmma"] == dkv["wgmma"] == LAYERS * STEPS):
+        raise AssertionError(f"head dim 256 launches {launches} {bodies}: want {expect}, the "
+                             "forward on its CUDA-core body, dQ and dK/dV on wgmma")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
 # Phase 32: the comm/ wire layer on the card's WRN-28-10 agents          #
 # ---------------------------------------------------------------------- #
 # The float32 wire carries the parameters exactly, so its ring round
@@ -6512,7 +6635,10 @@ def _sharded_model_parallel(mesh, fa) -> dict:
         checks[f"gossip_{kind}_mix"] = f["mix_max_abs_err"] <= SHARDED_MIX_ATOL
         checks[f"gossip_{kind}_control_fails"] = f["control_swapped_rows_max_abs_err"] \
             > SHARDED_MIX_ATOL
+    fa.reset_launch_counts()
     ep = _mp_moe_ep(mesh)
+    # Float32: every launch on the CUDA-core bodies.
+    facts["moe_ep_launches_by_body"] = _mp_launches(fa)[1]
     if mesh.agent != 0:  # the comparators run on rank 0
         tp_g0 = fs_g0 = fs_control = None
     if mesh.agent == 0:
@@ -7004,6 +7130,8 @@ def main(argv=None) -> int:
                     help="only build and run the sharded phase (34)")
     ap.add_argument("--wide-only", action="store_true",
                     help="only build, hold and time the wide (D > 256) bodies")
+    ap.add_argument("--d256-only", action="store_true",
+                    help="only build, hold (D 256 and 192) and time (D 256) the D-256 bodies")
     # Set by the sharded phase for its rank processes.
     ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -7034,10 +7162,13 @@ def main(argv=None) -> int:
         step_timing(args.step_timing)
         print_card()
         return 0
-    if args.wide_only or args.sharded_only:
+    if args.wide_only or args.d256_only or args.sharded_only:
         if args.wide_only:
             phase_kernels_wide(fa)
             phase_times_wide(fa)
+        if args.d256_only:
+            phase_kernels_d256(fa)
+            phase_times_d256(fa)
         if args.sharded_only:
             phase_sharded()
         print_card()
@@ -7059,9 +7190,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_plain(fa)
-    times = phase_times(fa)
+    times = _times_phase(fa, "times", HEADS, HEAD_DIM)
     times_d256 = phase_times_d256(fa)
     times_wide = phase_times_wide(fa)
+    # The float32 CUDA-core bodies (the TP decode's float32 prefill and the
+    # float32 MoE LMs run them; at D 256 dQ and dK/dV serve float32 only),
+    # and the bf16 D-32 ones.
+    times_f32 = _times_phase(fa, "times_f32", HEADS, HEAD_DIM, torch.float32)
+    times_f32_d256 = _times_phase(fa, "times_f32_d256", D256_HEADS, D256_HEAD_DIM,
+                                  torch.float32)
+    times_d32 = _times_phase(fa, "times_d32", D32_HEADS, 32)
     gc.collect()
     torch.cuda.empty_cache()
     mark("slice_plain_times")
@@ -7115,14 +7253,19 @@ def main(argv=None) -> int:
     mark("extras_remat_decode")
     # A head dim the kernels run zero-padded, and the comm/ wire layer.
     head_dim_launches = phase_lm_head_dims(fa)
+    d256_launches = phase_lm_head_dim_256(fa)
+    mark("head_dims")
     phase_wire()
-    mark("head_dims_wire")
+    mark("wire")
     # The comm/ runtime: gossip SGD over loopback TCP between the WRN agents.
     phase_comm_runtime()
     mark("comm_runtime")
     # The sharded engine on torch.distributed: one agent a rank process.
     sharded_launches, seq_launches, mp_launches, pp_launches = phase_sharded()
     mark("sharded")
+    bodies_d256 = _bodies(fa, D256_HEAD_DIM, torch.bfloat16)
+    bodies_f32 = _bodies(fa, HEAD_DIM, torch.float32)
+    bodies_d32 = _bodies(fa, 32, torch.bfloat16)
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -7138,6 +7281,7 @@ def main(argv=None) -> int:
                                  "lm_remat": remat_launches[k.name],
                                  "lm_prefill": prefill_launches[k.name],
                                  "lm_head_dims": head_dim_launches[k.name],
+                                 "lm_head_dim_256": d256_launches[k.name],
                                  "lm_sharded": sharded_launches[k.name],
                                  "seq_parallel": seq_launches[k.name],
                                  "model_parallel": mp_launches[k.name],
@@ -7146,11 +7290,23 @@ def main(argv=None) -> int:
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            # The D-256 body (CUDA cores) at 4 heads x 256, held and timed
-            # in the kernels and times_d256 phases; not on the main path.
-            "head_dim_256": {"body": "cuda_core", "max_abs_err": d256_errs[k.name],
+            # The D-256 bodies at 4 heads x 256 (bf16: A on CUDA cores, B
+            # and C on wgmma), held and timed in the kernels and times_d256
+            # phases; lm_head_dim_256 launches them.
+            "head_dim_256": {"body": bodies_d256[k.name], "max_abs_err": d256_errs[k.name],
                              **{f: times_d256[k.name][f] for f in
                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            # The float32 bodies (CUDA cores) at the slice's launch shape
+            # and at 4 heads x 256, and the bf16 head-dim-32 bodies at 32
+            # heads x 32.
+            **{tag: {"body": bodies_t[k.name], "dtype": dt, "heads": hh, "head_dim": dd,
+                     **{f: tt[k.name][f] for f in
+                        ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+               for tag, tt, bodies_t, dt, hh, dd in (
+                   ("float32", times_f32, bodies_f32, "float32", HEADS, HEAD_DIM),
+                   ("float32_head_dim_256", times_f32_d256, bodies_f32, "float32", D256_HEADS,
+                    D256_HEAD_DIM),
+                   ("head_dim_32", times_d32, bodies_d32, "bfloat16", D32_HEADS, 32))},
             # The wide body (CUDA cores, head dims above 256) at 2 heads x
             # 512, held and timed in the kernels and times_wide phases.
             "head_dim_wide": {"body": "cuda_core_wide", "head_dim": WIDE_HEAD_DIM,

@@ -1,12 +1,13 @@
 // Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
-// on the tensor cores, bfloat16 with head dim 64 or 128, and the
-// backward's pre-pass.
+// on the tensor cores, bfloat16 with head dim 64 or 128 (all three) and
+// 256 (B and C), and the backward's pre-pass.
 //
-//   flash_fwd_kernel_sm90     <- _flash_kernel      (launched by _fwd_call)
-//   flash_dq_kernel_sm90      <- _flash_dq_kernel   (launched by _bwd_call)
-//   flash_dkv_kernel_sm90     <- _flash_dkv_kernel  (launched by _bwd_call)
-//   flash_bwd_rowterm_kernel     pre-pass of both backward kernels:
-//                                rowterm = dadj - rowsum(dO * O), once per row
+//   flash_fwd_kernel_sm90        <- _flash_kernel      (launched by _fwd_call)
+//   flash_dq_kernel_sm90         <- _flash_dq_kernel   (launched by _bwd_call)
+//   flash_dkv_kernel_sm90        <- _flash_dkv_kernel  (launched by _bwd_call),
+//   flash_dkv_split_kernel_sm90     head dim 64/128 and 256
+//   flash_bwd_rowterm_kernel        pre-pass of both backward kernels:
+//                                   rowterm = dadj - rowsum(dO * O), once per row
 //   (all in distributed_learning_tpu/ops/flash_attention.py)
 //
 // They compute what the CUDA-core bodies in flash_attention.cu compute:
@@ -41,6 +42,17 @@
 // The dQ kernel keeps one block per 128-query tile and the dK/dV kernel
 // one per 128-key tile; each block writes only its own rows: no atomics,
 // the same bits run to run.
+//
+// Head dim 256 (B and C only): the D-128 templates do not fit there.  Their
+// shared memory would be 256 KB (over the 227 KB a block may have), and
+// C's consumer would hold 64 x 256 of both dK and dV, 256 registers a
+// thread.  So dQ keeps its frame with 32-key tiles (192 KB; S and dP
+// shrink to 16 registers each beside the 128 of dQ), and dK/dV takes a
+// 64-key block whose two consumers hold different outputs
+// (flash_dkv_split_kernel_sm90): warpgroup 0 forms P^T and holds dV,
+// warpgroup 1 forms dP^T and holds dK, and P^T passes from the first to
+// the second through a 16 KB float32 buffer, so dS^T is formed from the
+// unrounded P as everywhere else.  Both run every product at N = 256.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -65,11 +77,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Forward: 128 query rows per block (64 per consumer), 128-key tiles.
 constexpr int kFwdBQ = 128, kFwdBK = 128;
-// dQ: 128 query rows per block (64 per consumer), 64-key tiles, so S, dP
-// (m64n64 each) and the 64 x D dQ accumulator fit the consumers' registers.
-constexpr int kDqBQ = 128, kDqBK = 64;
-// dK/dV: 128 keys per block (64 per consumer), 64-query tiles.
+// dQ: 128 query rows per block (64 per consumer), 64-key tiles (32 at
+// head dim 256), so S, dP (m64nBK each) and the 64 x D dQ accumulator fit
+// the consumers' registers and the tiles fit shared memory.
+constexpr int kDqBQ = 128;
+template <int D>
+__host__ __device__ constexpr int dq_bk() { return D == 256 ? 32 : 64; }
+// dK/dV: 128 keys per block (64 per consumer), 64-query tiles; at head
+// dim 256 (the split kernel) 64 keys per block, both consumers on them.
 constexpr int kDkvBK = 128, kDkvBQ = 64;
+constexpr int kSplitBK = 64, kSplitBQ = 64;
 
 __device__ __forceinline__ bool keep(const FlashParams& p, int row, int col) {
   bool ok = row < p.T && col < p.T;  // the ragged edge of both tiles
@@ -102,10 +119,23 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 template <int D>
 __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2], const uint32_t (&a)[4],
                                             uint64_t b) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_rs_n256(d, a, b, 1);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, b, 1);
   } else {
     wgmma_rs_n64(d, a, b, 1);
+  }
+}
+
+// The score products: N = 32 or 64 keys (dQ) or queries (dK/dV).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_nk(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  } else {
+    wgmma_ss_n64(d, a, b, scale_d);
   }
 }
 
@@ -405,8 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DqSmem {
-  static constexpr int kQ = (D / 64) * kDqBQ * kLine;   // the Q or the dO tile
-  static constexpr int kKV = (D / 64) * kDqBK * kLine;  // one K or V tile
+  static constexpr int kQ = (D / 64) * kDqBQ * kLine;        // the Q or the dO tile
+  static constexpr int kKV = (D / 64) * dq_bk<D>() * kLine;  // one K or V tile
   static constexpr int kDO = kQ, kK = 2 * kQ, kV = kK + kStages * kKV, kBar = kV + kStages * kKV;
   static constexpr int kBytes = kBar + 64 + 1024;  // barriers, alignment slack
 };
@@ -418,6 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
   using L = DqSmem<D>;
+  constexpr int BK = dq_bk<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint8_t* q_s = smem;
@@ -437,7 +468,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     k_hi = min(p.T, q0 + kDqBQ);
     if (p.window > 0) k_lo = max(0, q0 - (p.window - 1));
   }
-  const int kt_lo = k_lo / kDqBK, n_kt = (k_hi + kDqBK - 1) / kDqBK - kt_lo;
+  const int kt_lo = k_lo / BK, n_kt = (k_hi + BK - 1) / BK - kt_lo;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -464,12 +495,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load_4d(do_s + c * kDqBQ * kLine, &tm_do, full_q, c * 64, h, q0, b);
       }
       for (int i = 0; i < n_kt; ++i) {
-        const int s = i % kStages, k0 = (kt_lo + i) * kDqBK;
+        const int s = i % kStages, k0 = (kt_lo + i) * BK;
         if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * L::kKV);
         for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(k_s + s * L::kKV + c * kDqBK * kLine, &tm_k, &full[s], c * 64, h, k0, b);
-          tma_load_4d(v_s + s * L::kKV + c * kDqBK * kLine, &tm_v, &full[s], c * 64, h, k0, b);
+          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full[s], c * 64, h, k0, b);
+          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full[s], c * 64, h, k0, b);
         }
       }
     }
@@ -501,40 +532,40 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(full_q, 0);
     for (int i = 0; i < n_kt; ++i) {
-      const int s = i % kStages, k0 = (kt_lo + i) * kDqBK;
+      const int s = i % kStages, k0 = (kt_lo + i) * BK;
       const uint32_t k_base = smem_addr(k_s + s * L::kKV), v_base = smem_addr(v_s + s * L::kKV);
       // A key tile that none of this warpgroup's rows sees.
       const bool dead = wrow0 >= p.T ||
                         (p.causal && (k0 > wrow0 + 63 ||
-                                      (p.window > 0 && k0 + kDqBK - 1 < wrow0 - (p.window - 1))));
+                                      (p.window > 0 && k0 + BK - 1 < wrow0 - (p.window - 1))));
       mbar_wait(&full[s], (i / kStages) & 1);
       if (!dead) {
-        // S = Q K^T, then dP = dO V^T, 64 rows x 64 keys each.
-        float st[32], dp[32];
+        // S = Q K^T, then dP = dO V^T, 64 rows x BK keys each.
+        float st[BK / 2], dp[BK / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(st, desc_sw128(q_base + kmajor_step(kk, kDqBQ), 16, 1024),
-                       desc_sw128(k_base + kmajor_step(kk, kDqBK), 16, 1024), kk > 0);
+          wgmma_ss_nk<BK>(st, desc_sw128(q_base + kmajor_step(kk, kDqBQ), 16, 1024),
+                          desc_sw128(k_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(dp, desc_sw128(do_base + kmajor_step(kk, kDqBQ), 16, 1024),
-                       desc_sw128(v_base + kmajor_step(kk, kDqBK), 16, 1024), kk > 0);
+          wgmma_ss_nk<BK>(dp, desc_sw128(do_base + kmajor_step(kk, kDqBQ), 16, 1024),
+                          desc_sw128(v_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(st);
 
         // P = exp(scale S - lse), 0 where masked, while dP is on the tensor cores.
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             st[4 * j + e] = ex2(fmaf(st[4 * j + e], scale_log2, -lse2[e >> 1]));
         }
-        if (needs_mask(p, wrow0, 64, k0, kDqBK)) {
+        if (needs_mask(p, wrow0, 64, k0, BK)) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               if (!keep(p, row0 + 8 * (e >> 1), k0 + 8 * j + c_lo + (e & 1))) st[4 * j + e] = 0.f;
@@ -545,19 +576,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         // dS = P (dP + rowterm), rounded to bf16 as the A operand of dS K.
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[4 * j + e] = st[4 * j + e] * (dp[4 * j + e] + rt[e >> 1]);
         }
-        uint32_t sf[4][4];
+        uint32_t sf[BK / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) to_frag(dp, kk, sf[kk]);
+        for (int kk = 0; kk < BK / 16; ++kk) to_frag(dp, kk, sf[kk]);
 
         // dQ += dS K: K is the MN-major B operand (keys are the depth).
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kDqBK / 16; ++kk)
-          wgmma_rs_nd<D>(dq, sf[kk], desc_sw128(k_base + kk * 16 * kLine, kDqBK * kLine, 1024));
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs_nd<D>(dq, sf[kk], desc_sw128(k_base + kk * 16 * kLine, BK * kLine, 1024));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -779,6 +810,218 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// C at head dim 256: one 64-key block, both consumers on its keys, each
+// holding one output (64 x 256 float32, 128 registers a thread):
+//   warpgroup 0: S^T = K Q^T -> P^T; dV += P^T dO
+//   warpgroup 1: dP^T = V dO^T; dS^T = P^T (dP^T + rowterm[q]); dK += dS^T Q
+// P^T goes from warpgroup 0 to warpgroup 1 in float32 through shared
+// memory under two named barriers (full, empty), so each warpgroup runs
+// two products a Q tile and none is repeated.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvSplitSmem {
+  static constexpr int kKV = (D / 64) * kSplitBK * kLine;  // the K or V tile
+  static constexpr int kQ = (D / 64) * kSplitBQ * kLine;   // one Q or dO tile
+  static constexpr int kV = kKV, kQs = 2 * kKV, kDO = kQs + kStages * kQ;
+  static constexpr int kPt = kDO + kStages * kQ;            // P^T, float32
+  static constexpr int kVec = kPt + kSplitBK * kSplitBQ * 4;  // lse and rowterm, per stage
+  static constexpr int kBar = kVec + 2 * kStages * kSplitBQ * 4;
+  static constexpr int kBytes = kBar + 64 + 1024;
+};
+
+// Named barriers of the split kernel (1 and 2 are the epilogues').
+constexpr int kPtFull = 3, kPtEmpty = 4, kSplitDone = 5;
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_split_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
+  using L = DkvSplitSmem<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + L::kV;
+  uint8_t* q_s = smem + L::kQs;
+  uint8_t* do_s = smem + L::kDO;
+  float4* pt_s = reinterpret_cast<float4*>(smem + L::kPt);   // [8][128 threads] x 4
+  float* lse_s = reinterpret_cast<float*>(smem + L::kVec);  // [stage][64], times log2(e)
+  float* rt_s = lse_s + kStages * kSplitBQ;                 // [stage][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int k0 = static_cast<int>(blockIdx.x) * kSplitBK;  // early keys see the most queries
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // Query rows that can see a key of this tile.  Both consumers own all 64
+  // keys, so every Q tile of the walk is live for both: the walk starts at
+  // the tile of q = k0 (causal) and ends before the first tile past the
+  // window of key k0 + 63.
+  int q_lo = 0, q_hi = p.T;
+  if (p.causal) {
+    q_lo = k0;
+    if (p.window > 0) q_hi = min(p.T, k0 + kSplitBK - 1 + p.window);
+  }
+  const int qt_lo = q_lo / kSplitBQ, n_qt = (q_hi + kSplitBQ - 1) / kSplitBQ - qt_lo;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes, one with the TMA bytes
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer warp: K and V once, then Q, dO, lse and rowterm per Q tile.
+    reg_dealloc<kProducerRegs>();
+    if (t < 32) {
+      if (t == 0) {
+        tma_prefetch_map(&tm_q);
+        tma_prefetch_map(&tm_do);
+        mbar_expect_tx(full_kv, 2 * L::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(k_s + c * kSplitBK * kLine, &tm_k, full_kv, c * 64, h, k0, b);
+          tma_load_4d(v_s + c * kSplitBK * kLine, &tm_v, full_kv, c * 64, h, k0, b);
+        }
+      }
+      const int64_t vec0 = static_cast<int64_t>(bh) * p.T;
+      for (int i = 0; i < n_qt; ++i) {
+        const int s = i % kStages, q0 = (qt_lo + i) * kSplitBQ;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        for (int r = t; r < kSplitBQ; r += 32) {
+          const int tq = q0 + r;
+          lse_s[s * kSplitBQ + r] = tq < p.T ? p.lse[vec0 + tq] * kLog2e : 0.f;
+          rt_s[s * kSplitBQ + r] = tq < p.T ? p.rowterm[vec0 + tq] : 0.f;
+        }
+        if (t == 0) {
+          mbar_expect_tx(&full[s], 2 * L::kQ);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(q_s + s * L::kQ + c * kSplitBQ * kLine, &tm_q, &full[s], c * 64, h, q0,
+                        b);
+            tma_load_4d(do_s + s * L::kQ + c * kSplitBQ * kLine, &tm_do, &full[s], c * 64, h,
+                        q0, b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // Consumers: both own keys [k0, k0 + 64); warpgroup 0 keeps their dV
+    // in registers for the whole walk, warpgroup 1 their dK.  This thread
+    // holds key rows r_lo and r_lo + 8, query columns 8 j + c_lo + {0, 1}
+    // of every 64 x 64 score tile, the same places in both warpgroups.
+    reg_alloc<kConsumerRegs>();
+    const int lane = t % 32;
+    const int r_lo = 16 * (t / 32) + lane / 4, c_lo = 2 * (lane % 4);
+    const int key0 = k0 + r_lo;
+    // The A operand of this warpgroup's score product: K (S^T) or V (dP^T).
+    const uint32_t a_base = smem_addr(wg == 0 ? k_s : v_s);
+    const float scale_log2 = p.scale * kLog2e;
+
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(full_kv, 0);
+    for (int i = 0; i < n_qt; ++i) {
+      const int s = i % kStages, q0 = (qt_lo + i) * kSplitBQ;
+      const uint32_t q_base = smem_addr(q_s + s * L::kQ), do_base = smem_addr(do_s + s * L::kQ);
+      mbar_wait(&full[s], (i / kStages) & 1);
+
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), 64 keys x 64 queries.
+      float sc[32];
+      const uint32_t bq_base = wg == 0 ? q_base : do_base;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_sw128(a_base + kmajor_step(kk, kSplitBK), 16, 1024),
+                     desc_sw128(bq_base + kmajor_step(kk, kSplitBQ), 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      if (wg == 0) {
+        // P^T = exp(scale S^T - lse[q]), 0 where masked.
+        const float* lse_v = lse_s + s * kSplitBQ;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -lse_v[8 * j + c_lo + (e & 1)]));
+        }
+        if (needs_mask(p, q0, kSplitBQ, k0, kSplitBK)) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!keep(p, q0 + 8 * j + c_lo + (e & 1), key0 + 8 * (e >> 1))) sc[4 * j + e] = 0.f;
+          }
+        }
+        // Hand P^T over once warpgroup 1 has read the previous one.
+        if (i > 0) named_sync(kPtEmpty, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          pt_s[j * 128 + t] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+        __threadfence_block();
+        named_arrive(kPtFull, 256);
+      } else {
+        // dS^T = P^T (dP^T + rowterm[q]), from warpgroup 0's unrounded P^T.
+        const float* rt_v = rt_s + s * kSplitBQ;
+        named_sync(kPtFull, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 pv = pt_s[j * 128 + t];
+          const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = pe[e] * (sc[4 * j + e] + rt_v[8 * j + c_lo + (e & 1)]);
+        }
+        if (i + 1 < n_qt) {
+          __threadfence_block();
+          named_arrive(kPtEmpty, 256);
+        }
+      }
+
+      // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): the A
+      // operand rounded to bf16, the Q-tile operand MN-major (queries are
+      // the depth), N = 256.
+      uint32_t frag[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_frag(sc, kk, frag[kk]);
+      const uint32_t b_base = wg == 0 ? do_base : q_base;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSplitBQ / 16; ++kk)
+        wgmma_rs_nd<D>(acc, frag[kk], desc_sw128(b_base + kk * 16 * kLine, kSplitBQ * kLine, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(frag);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: once neither warpgroup reads K or V any more, dV is staged
+    // in the V tile and scale * dK in the K tile, then 16-byte stores.
+    named_sync(kSplitDone, 256);
+    uint8_t* stage = wg == 0 ? v_s : k_s;
+    const float mul = wg == 0 ? 1.f : p.scale;
+    fence_proxy_async();
+    stage_rows<D>(stage, kSplitBK * kLine, acc, mul, mul, r_lo, c_lo);
+    named_sync(1 + wg, 128);
+    store_rows<D>(static_cast<bf16*>(wg == 0 ? p.dv : p.dk), stage, kSplitBK * kLine, p, b, h, k0,
+                  t);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Pre-pass of B and C: rowterm[b, h, t] = dadj[b, h, t] - sum_d dO[b, t, h, d] O[b, t, h, d]
 // in float32, reading O and dO once (16 bytes a load, min(D / VEC, 32)
 // threads a row, so a row's threads share a warp).  Bound by bytes.
@@ -884,8 +1127,8 @@ cudaError_t bwd_dq(const FlashParams& p, cudaStream_t stream) {
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
   CUtensorMap mq, mk, mv, mdo;
   if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kDqBQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, kDqBK) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, kDqBK) ||
+      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, dq_bk<D>()) ||
+      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, dq_bk<D>()) ||
       !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, kDqBQ))
     return cudaErrorInvalidValue;
   constexpr int smem = DqSmem<D>::kBytes;
@@ -897,22 +1140,45 @@ cudaError_t bwd_dq(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The dK/dV body of a head dim: 128-key blocks split between the
+// consumers (64, 128), or 64-key blocks with the outputs split (256).
+template <int D>
+constexpr bool dkv_split() { return D == 256; }
+
+template <int D>
+int dkv_smem_bytes() {
+  if constexpr (dkv_split<D>()) {
+    return DkvSplitSmem<D>::kBytes;
+  } else {
+    return DkvSmem<D>::kBytes;
+  }
+}
+
 template <int D>
 cudaError_t dkv(const FlashParams& p, cudaStream_t stream) {
+  constexpr int BK = dkv_split<D>() ? kSplitBK : kDkvBK;
+  constexpr int BQ = dkv_split<D>() ? kSplitBQ : kDkvBQ;
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
   CUtensorMap mq, mk, mv, mdo;
-  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kDkvBQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, kDkvBK) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, kDkvBK) ||
-      !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, kDkvBQ))
+  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, BQ) ||
+      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, BK) ||
+      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, BK) ||
+      !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, BQ))
     return cudaErrorInvalidValue;
-  constexpr int smem = DkvSmem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel_sm90<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + kDkvBK - 1) / kDkvBK, p.B * p.H);
-  flash_dkv_kernel_sm90<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, p);
-  return cudaGetLastError();
+  const int smem = dkv_smem_bytes<D>();
+  const dim3 grid((p.T + BK - 1) / BK, p.B * p.H);
+  auto launch = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, p);
+    return cudaGetLastError();
+  };
+  if constexpr (dkv_split<D>()) {
+    return launch(flash_dkv_split_kernel_sm90<D>);
+  } else {
+    return launch(flash_dkv_kernel_sm90<D>);
+  }
 }
 
 template <typename T, int D>
@@ -993,7 +1259,11 @@ cudaError_t flash_dq_sm90(const FlashParams& p, cudaStream_t stream) {
       !tma_ok(p.v, p.v_sb, p.v_st, p.v_sh) || reinterpret_cast<uintptr_t>(p.dout) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(p.dq) % 16 != 0 || p.rowterm == nullptr || p.lse == nullptr)
     return cudaErrorInvalidValue;
-  return p.D == 64 ? bwd_dq<64>(p, stream) : bwd_dq<128>(p, stream);
+  switch (p.D) {
+    case 64: return bwd_dq<64>(p, stream);
+    case 128: return bwd_dq<128>(p, stream);
+    default: return bwd_dq<256>(p, stream);
+  }
 }
 
 cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
@@ -1002,13 +1272,19 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
       reinterpret_cast<uintptr_t>(p.dk) % 16 != 0 || reinterpret_cast<uintptr_t>(p.dv) % 16 != 0 ||
       p.rowterm == nullptr || p.lse == nullptr)
     return cudaErrorInvalidValue;
-  return p.D == 64 ? dkv<64>(p, stream) : dkv<128>(p, stream);
+  switch (p.D) {
+    case 64: return dkv<64>(p, stream);
+    case 128: return dkv<128>(p, stream);
+    default: return dkv<256>(p, stream);
+  }
 }
 
 int flash_sm90_smem_bytes(int which, int D) {
+  if (D != 64 && D != 128 && !(D == 256 && which != 0)) return -1;  // no wgmma body
   if (which == 0) return D == 64 ? FwdSmem<64>::kBytes : FwdSmem<128>::kBytes;
-  if (which == 1) return D == 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
-  return D == 64 ? DkvSmem<64>::kBytes : DkvSmem<128>::kBytes;
+  if (which == 1)
+    return D == 64 ? DqSmem<64>::kBytes : D == 128 ? DqSmem<128>::kBytes : DqSmem<256>::kBytes;
+  return D == 64 ? dkv_smem_bytes<64>() : D == 128 ? dkv_smem_bytes<128>() : dkv_smem_bytes<256>();
 }
 
 cudaError_t flash_rowterm(const FlashParams& p, cudaStream_t stream) {

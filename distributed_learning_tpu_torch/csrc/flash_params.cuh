@@ -33,12 +33,14 @@ struct FlashParams {
 };
 
 // The kernel that dispatch(which, ...) launches: which 0 forward, 1 dQ,
-// 2 dK/dV.  The wgmma/TMA bodies take bfloat16 with head dim 64 or 128;
-// wgmma has no float32-exact product, so float32 inputs and head dim 32
-// stay on the CUDA-core bodies.  All three kernels share the predicate;
+// 2 dK/dV.  The wgmma/TMA bodies take bfloat16 with head dim 64 or 128
+// (all three kernels) or 256 (dQ and dK/dV; the forward's D-256 tiles do
+// not fit shared memory yet); wgmma has no float32-exact product, so
+// float32 inputs and head dim 32 stay on the CUDA-core bodies.
 // ops/flash_attention.py's wgmma_body() mirrors it.
 inline bool uses_wgmma_body(int which, int dtype, int D) {
-  return (which >= 0 && which <= 2) && dtype == 1 && (D == 64 || D == 128);
+  return (which >= 0 && which <= 2) && dtype == 1 &&
+         (D == 64 || D == 128 || (D == 256 && which != 0));
 }
 
 // Defined in flash_attention_sm90.cu; each returns cudaGetLastError().
@@ -48,5 +50,6 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream);
 // The backward's pre-pass: rowterm = dadj - rowsum(dO * O), any dtype, head
 // dims 32, 64, 128 and any multiple of 128.
 cudaError_t flash_rowterm(const FlashParams& p, cudaStream_t stream);
-// Dynamic shared memory of the wgmma forward (which 0), dQ (1) or dK/dV (2) body.
+// Dynamic shared memory of the wgmma forward (which 0), dQ (1) or dK/dV (2)
+// body at head dim D; -1 where there is no such body.
 int flash_sm90_smem_bytes(int which, int D);

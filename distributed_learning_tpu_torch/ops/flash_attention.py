@@ -16,23 +16,24 @@ counts its launches, per body:
 
 All three kernels have three bodies: ``"wgmma"`` (tensor cores,
 TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64
-or 128; ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32 and
-head dims 32 and 256, where wgmma has no float32-exact product or no
-body; and ``"cuda_core_wide"`` (the same file) for every multiple of 128
-above 256, which walks the head dim in 128-column chunks and keeps its
-running O, dQ, dK and dV rows in a float32 scratch the wrapper allocates,
-so no head dim is too large for it.  The kernels take head dims 32, 64,
+or 128, and for dQ and dK/dV in bfloat16 at 256; ``"cuda_core"``
+(``csrc/flash_attention.cu``) for float32, head dim 32 and the bfloat16
+forward at 256, where wgmma has no float32-exact product or no body; and
+``"cuda_core_wide"`` (the same file) for every multiple of 128 above 256,
+which walks the head dim in 128-column chunks and keeps its running O,
+dQ, dK and dV rows in a float32 scratch the wrapper allocates, so no head
+dim is too large for it.  The kernels take head dims 32, 64,
 128, 256 and the multiples of 128 above; a call of another head dim runs
 at the next of them (:func:`kernel_head_dim`), as the reference's
 ``_prep_blocks`` pads to its lanes: Q, K, V (and O, dO)
 zero-padded, the scale the caller's (from the true D), O, dQ, dK and dV
 sliced back.  Zero columns leave Q.K^T, rowsum(dO * O) and the padded
 output columns exactly zero, so the kernels need no change.  The C++
-dispatcher picks the body by (dtype, D) alone; :func:`wgmma_body`
+dispatcher picks the body by (kernel, dtype, D) alone; :func:`wgmma_body`
 mirrors it.  A bfloat16 view that TMA cannot read (base or a stride not
 a multiple of 16 bytes) raises instead of taking another body.  A
-layer's backward on the wgmma or the wide body runs the pre-pass once
-and hands its result to both backward kernels.
+layer's backward whose dQ or dK/dV runs the wgmma or the wide body runs
+the pre-pass once and hands its result to both backward kernels.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs its plain version, which repeats the kernel's arithmetic
@@ -181,11 +182,22 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def wgmma_body(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the kernels (forward, dQ and dK/dV alike) take their
-    wgmma/TMA body for this input: bfloat16 with head dim 64 or 128.
-    Mirrors ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
-    return dtype == torch.bfloat16 and head_dim in (64, 128)
+_KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def wgmma_body(dtype: torch.dtype, head_dim: int, kernel: Optional[str] = None) -> bool:
+    """Whether ``kernel`` (``"flash_fwd"``, ``"flash_bwd_dq"`` or
+    ``"flash_bwd_dkv"``) takes its wgmma/TMA body for this input:
+    bfloat16 with head dim 64 or 128, and dQ and dK/dV in bfloat16 at
+    256.  Without ``kernel``, whether all three do.  Mirrors
+    ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
+    if kernel is None:
+        return all(wgmma_body(dtype, head_dim, name) for name in _KERNEL_NAMES)
+    if kernel not in _KERNEL_NAMES:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of {_KERNEL_NAMES}")
+    if dtype != torch.bfloat16:
+        return False
+    return head_dim in (64, 128) or (head_dim == 256 and kernel != "flash_fwd")
 
 
 def kernel_head_dim(D: int) -> int:
@@ -386,18 +398,25 @@ def reset_launch_counts() -> None:
         k.reset()
 
 
-def _body(q) -> str:
-    """The body a call on ``q`` runs, at the kernels' head dim."""
+def _body(q, kernel: str) -> str:
+    """The body ``kernel`` runs for a call on ``q``, at the kernels' head dim."""
     D = kernel_head_dim(q.shape[-1])
-    if wgmma_body(q.dtype, D):
+    if wgmma_body(q.dtype, D, kernel):
         return "wgmma"
     return "cuda_core_wide" if wide_body(D) else "cuda_core"
+
+
+def _needs_rowterm(q) -> bool:
+    """Whether a backward on ``q`` reads the pre-pass's row term: when its
+    dQ or its dK/dV runs the wgmma or the wide body (the CUDA-core bodies
+    compute the row term themselves), whatever body the forward runs."""
+    return any(_body(q, name) != "cuda_core" for name in ("flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def _scratch(q, n: int):
     """The wide bodies' float32 (B, H, T, D) scratch, ``n`` of them (None
     each for another body)."""
-    if _body(q) != "cuda_core_wide":
+    if not wide_body(kernel_head_dim(q.shape[-1])):
         return (None,) * n
     B, T, H, D = q.shape
     return tuple(torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
@@ -438,7 +457,7 @@ def _flash_fwd(q, k, v, scale, causal, window, with_lse):
 
 def _launch_fwd(q, k, v, scale, causal, window, with_lse):
     B, T, H, D = q.shape
-    body = _body(q)
+    body = _body(q, _FWD.name)
     if body == "wgmma":
         _check_tma(q=q, k=k, v=v)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -464,11 +483,11 @@ def _bwd_inputs(q, o, do, lse, dadj, rowterm):
     return o, do, lse, dadj, rowterm
 
 
-def _bwd_rowterm(q, k, v, o, do, dadj, rowterm):
-    """The row term a backward kernel reads: on the wgmma body (after the
-    TMA rule) and the wide body the pre-pass's result, run here unless the
-    caller passes it; on the CUDA-core body None, which computes its own."""
-    body = _body(q)
+def _bwd_rowterm(q, k, v, o, do, dadj, rowterm, body):
+    """The row term a backward kernel on ``body`` reads: on the wgmma body
+    (after the TMA rule) and the wide body the pre-pass's result, run here
+    unless the caller passes it; on the CUDA-core body None, which
+    computes its own."""
     if body == "cuda_core":
         return None
     if body == "wgmma":
@@ -487,11 +506,12 @@ def flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None)
 
 
 def _launch_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
-    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
+    body = _body(q, _DQ.name)
+    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm, body)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     acc, = _scratch(q, 1)
     _DQ.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
-                       dadj=dadj, rowterm=rowterm, dq=dq, acc=acc), q.device, _body(q))
+                       dadj=dadj, rowterm=rowterm, dq=dq, acc=acc), q.device, body)
     return dq
 
 
@@ -534,23 +554,24 @@ def flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=None
 
 
 def _launch_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
-    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm)
+    body = _body(q, _DKV.name)
+    rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm, body)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     acc, acc2 = _scratch(q, 2)
     _DKV.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
                         dadj=dadj, rowterm=rowterm, dk=dk, dv=dv, acc=acc, acc2=acc2),
-                q.device, _body(q))
+                q.device, body)
     return dk, dv
 
 
 def _layer_backward(q, k, v, o, do, lse, dadj, scale, causal, window):
     """``(dq, dk, dv)`` of one attention call: the pre-pass runs once (on
-    the CPU its plain version; on the CUDA-core body not at all) and both
-    backward kernels read its row term."""
+    the CPU its plain version; where dQ and dK/dV both run the CUDA-core
+    body not at all) and both backward kernels read its row term."""
     with counted_as(_flops(q, causal, window, 10)):
         rowterm = None
-        if q.device.type == "cpu" or _body(q) != "cuda_core":
+        if q.device.type == "cpu" or _needs_rowterm(q):
             rowterm = flash_bwd_rowterm(o, do, dadj)
         dq = flash_bwd_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm=rowterm)
         dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, dadj, scale, causal, window,

@@ -1,0 +1,129 @@
+"""Which body each flash-attention kernel runs, on the CPU: the forward
+(A), dQ (B) and dK/dV (C) choose their body each by (kernel, dtype, head
+dim), as ``uses_wgmma_body`` in ``csrc/flash_params.cuh`` does.  In
+bfloat16 at head dim 256 (and 192, run zero-padded to it) B and C take
+their wgmma bodies while A stays on its CUDA-core body, so a layer's
+backward runs the pre-pass by B's and C's body, not A's.
+
+No kernel runs here: the launch path up to the kernel call is driven on
+CPU tensors with ``_Kernel.launch`` replaced by a recorder.
+"""
+
+import pytest
+import torch
+
+from distributed_learning_tpu_torch.ops import flash_attention as fa
+
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _want(dtype, D):
+    """(A, B, C) bodies of a call of head dim D."""
+    Dk = fa.kernel_head_dim(D)
+    if Dk > 256:
+        return ("cuda_core_wide",) * 3
+    if dtype == torch.float32 or Dk == 32:
+        return ("cuda_core",) * 3
+    if Dk == 256:
+        return ("cuda_core", "wgmma", "wgmma")
+    return ("wgmma",) * 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256, 320, 512])
+def test_each_kernel_takes_its_own_body(D, dtype):
+    q = torch.zeros(1, 4, 1, D, dtype=dtype)
+    want = _want(dtype, D)
+    assert tuple(fa._body(q, name) for name in KERNELS) == want
+    Dk = fa.kernel_head_dim(D)
+    assert tuple(fa.wgmma_body(dtype, Dk, name) for name in KERNELS) == tuple(
+        b == "wgmma" for b in want)
+    # Without a kernel: whether all three take wgmma.
+    assert fa.wgmma_body(dtype, Dk) is all(b == "wgmma" for b in want)
+
+
+def test_an_unknown_kernel_name_raises():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        fa.wgmma_body(torch.bfloat16, 256, "flash_bwd")
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Each ``_Kernel.launch`` call as (kernel name, body, params)."""
+    calls = []
+
+    def launch(self, params, device, body="cuda_core"):
+        calls.append((self.name, body, params))
+
+    monkeypatch.setattr(fa._Kernel, "launch", launch)
+    return calls
+
+
+def _bwd_inputs(D, T=40, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(D)
+    q, k, v, o, do = (torch.randn(2, T, 2, D, generator=g).to(dtype) for _ in range(5))
+    lse = torch.randn(2, 2, T, generator=g)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("D", [256, 192])
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_d256_backward_launch_takes_wgmma_and_a_row_term(recorded, D, which):
+    """``_launch_dq`` / ``_launch_dkv`` at head dim 256 in bf16 (192 through
+    the padding helpers) record the wgmma body and hand the kernel the
+    pre-pass's row term, run here since the caller passed none."""
+    q, k, v, o, do, lse = _bwd_inputs(D)
+    launch, padded = {"dq": (fa._launch_dq, fa.padded_bwd_dq),
+                      "dkv": (fa._launch_dkv, fa.padded_bwd_dkv)}[which]
+    padded(launch, q, k, v, o, do, lse, None, D ** -0.5, True, None, None)
+    assert [(name, body) for name, body, _ in recorded] == [(f"flash_bwd_{which}", "wgmma")]
+    params = recorded[0][2]
+    assert params.rowterm is not None and params.D == 256
+    assert params.acc is None and params.acc2 is None  # no wide-body scratch
+
+
+def test_d256_forward_launch_stays_on_cuda_cores(recorded):
+    q, k, v, *_ = _bwd_inputs(256)
+    fa._launch_fwd(q, k, v, 0.0625, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "cuda_core")]
+
+
+def test_cuda_core_backward_is_handed_no_row_term(recorded):
+    q, k, v, o, do, lse = _bwd_inputs(256, dtype=torch.float32)
+    fa._launch_dq(q, k, v, o, do, lse, None, 0.0625, True, None, None)
+    assert recorded[0][1] == "cuda_core" and recorded[0][2].rowterm is None
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_d256_backward_on_a_view_tma_cannot_read_raises(recorded, which):
+    """As at head dims 64 and 128: no quiet fall back to CUDA cores."""
+    buf = torch.zeros(2 * 8 * 264, dtype=torch.bfloat16)
+    q = buf.as_strided((1, 8, 2, 256), (8 * 264, 264, 4, 1))  # 8-byte head stride
+    o = do = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8)
+    launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        launch(q, q, q, o, do, lse, None, 0.0625, True, None, None)
+    assert recorded == []
+
+
+@pytest.mark.parametrize("dtype,D,runs", [
+    (torch.bfloat16, 256, True),   # A on CUDA cores, B and C on wgmma
+    (torch.bfloat16, 192, True),
+    (torch.bfloat16, 128, True),
+    (torch.bfloat16, 32, False),
+    (torch.float32, 256, False),
+    (torch.bfloat16, 512, True),   # the wide bodies read it too
+])
+def test_layer_backward_runs_the_pre_pass_by_the_backward_bodies(dtype, D, runs):
+    assert fa._needs_rowterm(torch.zeros(1, 1, 1, D, dtype=dtype)) is runs
+
+
+@pytest.mark.parametrize("bodies,runs", [
+    ({"flash_fwd": "wgmma", "flash_bwd_dq": "cuda_core", "flash_bwd_dkv": "cuda_core"}, False),
+    ({"flash_fwd": "cuda_core", "flash_bwd_dq": "cuda_core", "flash_bwd_dkv": "wgmma"}, True),
+    ({"flash_fwd": "cuda_core", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "cuda_core"}, True),
+])
+def test_pre_pass_choice_ignores_the_forward_body(monkeypatch, bodies, runs):
+    monkeypatch.setattr(fa, "_body", lambda q, kernel: bodies[kernel])
+    assert fa._needs_rowterm(torch.zeros(1, 1, 1, 64)) is runs

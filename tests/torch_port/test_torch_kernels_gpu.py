@@ -65,7 +65,9 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 333, 2, 96, torch.bfloat16, False, None, False),
         (1, 130, 2, 16, torch.float32, True, None, True),
         (1, 130, 2, 48, torch.float32, False, None, False),
-        # Head dim 256 runs the CUDA-core bodies' 32-row tiles; 192 pads to it.
+        # Head dim 256: in bf16 the forward runs the CUDA-core body's 32-row
+        # tiles and dQ, dK/dV their wgmma bodies; float32 all CUDA-core;
+        # 192 pads to it.
         (2, 200, 2, 256, torch.bfloat16, True, None, True),
         (1, 130, 2, 256, torch.float32, True, 37, False),
         (2, 333, 2, 192, torch.bfloat16, False, None, False),
@@ -116,16 +118,18 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype,body", [
-    ((2, 256, 2, 64), torch.bfloat16, "wgmma"),
-    ((2, 512, 2, 128), torch.bfloat16, "wgmma"),
-    ((2, 256, 2, 32), torch.float32, "cuda_core"),
-    ((1, 256, 2, 256), torch.bfloat16, "cuda_core"),
-    ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide"),
+@pytest.mark.parametrize("shape,dtype,body,bwd_body", [
+    ((2, 256, 2, 64), torch.bfloat16, "wgmma", "wgmma"),
+    ((2, 512, 2, 128), torch.bfloat16, "wgmma", "wgmma"),
+    ((2, 256, 2, 32), torch.float32, "cuda_core", "cuda_core"),
+    ((1, 256, 2, 256), torch.bfloat16, "cuda_core", "wgmma"),
+    ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide", "cuda_core_wide"),
 ])
-def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
+def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_body):
     """Two runs give the same bits, and every launch is counted once, on
-    the body that ``wgmma_body`` names."""
+    the body that ``wgmma_body`` names for its kernel: ``body`` for the
+    forward, ``bwd_body`` for dQ and dK/dV (the pre-pass runs unless both
+    are on CUDA cores)."""
     g = torch.Generator(device=card).manual_seed(1)
     q, k, v = (torch.randn(*shape, generator=g, device=card,
                            dtype=dtype, requires_grad=True) for _ in range(3))
@@ -139,22 +143,25 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body):
         assert torch.equal(a, b)
     assert {k.name: k.launches for k in fa.KERNELS.values()} == {
         "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-        "flash_bwd_rowterm": 0 if body == "cuda_core" else 2,
+        "flash_bwd_rowterm": 0 if bwd_body == "cuda_core" else 2,
     }
-    want = {b: 2 * (b == body) for b in ("wgmma", "cuda_core", "cuda_core_wide")}
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.KERNELS[name].by_body == want
+    for name, b in (("flash_fwd", body), ("flash_bwd_dq", bwd_body),
+                    ("flash_bwd_dkv", bwd_body)):
+        assert fa.KERNELS[name].by_body == {
+            x: 2 * (x == b) for x in ("wgmma", "cuda_core", "cuda_core_wide")}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,body", [(8, "cuda_core"), (16, "cuda_core"), (48, "wgmma"),
-                                    (96, "wgmma"), (192, "cuda_core"),
-                                    (320, "cuda_core_wide")])
-def test_padded_head_dims_train_through_the_kernels(card, D, body):
+@pytest.mark.parametrize("D,body,bwd_body", [
+    (8, "cuda_core", "cuda_core"), (16, "cuda_core", "cuda_core"), (48, "wgmma", "wgmma"),
+    (96, "wgmma", "wgmma"), (192, "cuda_core", "wgmma"),
+    (320, "cuda_core_wide", "cuda_core_wide")])
+def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
     """``flash_attention`` at a head dim the kernels do not have: the
     gradients of a bf16 call equal the plain versions' at ``TOL``, every
-    kernel launches once on the body of the padded head dim, and the
-    outputs keep the true head dim."""
+    kernel launches once on its body at the padded head dim (``body`` for
+    the forward, ``bwd_body`` for dQ and dK/dV), and the outputs keep the
+    true head dim."""
     g = torch.Generator(device=card).manual_seed(D)
     q, k, v = (torch.randn(2, 256, 2, D, generator=g, device=card).to(torch.bfloat16)
                .requires_grad_(True) for _ in range(3))
@@ -172,9 +179,10 @@ def test_padded_head_dims_train_through_the_kernels(card, D, body):
                       *zip((dk, dv), fa.plain_bwd_dkv(q, k, v, po, do, plse, None, scale,
                                                       True, None))):
         torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.KERNELS[name].by_body[body] == 1
-    assert fa.KERNELS["flash_bwd_rowterm"].launches == (body != "cuda_core")
+    assert fa.KERNELS["flash_fwd"].by_body[body] == 1
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body[bwd_body] == 1
+    assert fa.KERNELS["flash_bwd_rowterm"].launches == (bwd_body != "cuda_core")
 
 
 @pytest.mark.gpu
@@ -193,10 +201,14 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
     from distributed_learning_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    for which in (0, 1, 2):  # forward, dQ, dK/dV
+    for which, name in enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             for D in (32, 64, 128, 256, 384, 1152):
-                assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D)
+                assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D,
+                                                                                       name)
+                # A wgmma body has a shared-memory size; no other body does.
+                assert (lib.dlt_flash_wgmma_smem_bytes(which, D) > 0) == (
+                    D in (64, 128) or (D == 256 and which != 0))
 
 
 @pytest.mark.gpu
@@ -221,6 +233,43 @@ def test_dq_given_the_row_term_equals_dq_that_runs_the_pre_pass(card, D, with_da
     assert fa.KERNELS["flash_bwd_dq"].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
     torch.cuda.synchronize()
     assert torch.equal(given, own)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,causal,window,with_dadj", [
+    (2, 129, 2, True, None, False),     # one row past a 128-query tile
+    (2, 1000, 2, True, 100, False),     # a window, ragged
+    (1, 1000, 2, True, None, True),     # ragged, the lse cotangent
+    (2, 129, 2, False, None, True),     # non-causal, ragged, the lse cotangent
+    (2, 512, 2, False, None, False),    # non-causal
+    (1, 2048, 4, True, 300, False),     # a window over several key blocks
+])
+def test_d256_backward_wgmma_bodies_match_plain_and_repeat(card, B, T, H, causal, window,
+                                                           with_dadj):
+    """bf16 dQ and dK/dV at head dim 256 on their wgmma bodies (32-key
+    tiles; 64-key blocks with dK and dV split between the consumers):
+    within ``TOL`` of the plain versions on the same inputs, and the same
+    bits when run again."""
+    g = torch.Generator(device=card).manual_seed(T + H)
+    qkv = torch.randn(B, T, 3, H, 256, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(B, T, H, 256, generator=g, device=card).to(torch.bfloat16)
+    dadj = torch.randn(B, H, T, generator=g, device=card) if with_dadj else None
+    scale = 256 ** -0.5
+    tol = TOL[torch.bfloat16]
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    args = (q, k, v, po, do, plse, dadj, scale, causal, window)
+    fa.reset_launch_counts()
+    runs = [(fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.KERNELS["flash_bwd_dq"].by_body["wgmma"] == 2
+    assert fa.KERNELS["flash_bwd_dkv"].by_body["wgmma"] == 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = (fa.plain_bwd_dq(*args), *fa.plain_bwd_dkv(*args))
+    for got, want in zip(runs[0], plain):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
+        assert _max_tile_rel_err(got, want) <= tol["tile"]
 
 
 @pytest.mark.gpu
