@@ -22,8 +22,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              window of 100 over T 1000, non-causal T 333), the CUDA-core
              bodies (float32, bf16 head dim 32) and head dims the kernels
              run zero-padded (8, 16, 48, 96; float32 16); head dim 256
-             (bf16: dQ and dK/dV on their wgmma bodies, the forward on the
-             CUDA-core body's 32-row tiles; float32 all CUDA-core) at the
+             (bf16: all three on their wgmma bodies, the forward with
+             64-key tiles; float32 all CUDA-core) at the
              slice's model width as 4 heads x 256 (B 2, T 4096, with the
              tile controls), windowed and ragged, non-causal and ragged,
              float32, and head dim 192 zero-padded to 256, with the bodies
@@ -262,8 +262,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              attention under phase 4's limits with the dropped-key-tile
              control, then one eager epoch of the full slice (8 layers, 4
              agents on a ring, B 2, 3 steps and a round): tokens/s, peak
-             memory, launches by body (the forward on its CUDA-core body,
-             dQ and dK/dV on their wgmma bodies with the pre-pass).
+             memory, launches by body (the forward, dQ and dK/dV on their
+             wgmma bodies, the backward with the pre-pass).
 32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
              36,489,290 float32 parameters, Metropolis ring): both native
              libraries built into ``_build/``; each agent's parameters
@@ -556,11 +556,15 @@ def phase_build() -> None:
             for which, name in ((0, "flash_fwd_kernel_sm90"), (1, "flash_dq_kernel_sm90"),
                                 (2, "flash_dkv_kernel_sm90"))
             for D in (64, 128, 256) if lib.dlt_flash_wgmma_smem_bytes(which, D) > 0}
-    ptxas = ptxas_summary(_build.ptxas_report())
+    report = _build.ptxas_report()
+    ptxas = ptxas_summary(report)
     # The target is no spill anywhere; a spill is reported, not fatal.
     spills = {k: v for k, v in ptxas.items() if not v.endswith(" 0 spill bytes")}
+    # C7520 (warpgroup.wait injected) would serialise a wgmma pipeline.
+    c7520 = [line.strip() for line in report.splitlines() if "C7520" in line]
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
           "seconds": round(seconds, 3), "ptxas": ptxas, "spills": spills,
+          "fwd_d256": ptxas.get("flash_fwd_kernel_sm90<256>"), "c7520": c7520,
           "wgmma_dynamic_smem_bytes": smem})
 
 
@@ -595,6 +599,15 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     check("fwd_lse.o", o, po, "o")
     errs["fwd_lse.lse"] = compare(lse, plse, 1e-4, 1e-5, 0.0)
     check("fwd.o", o2, po, "o")
+    rejected = {}
+    if controls:
+        # The limits must reject a forward that leaves the first Q tile at
+        # zero, as they reject such a dQ below.
+        broken = o.clone()
+        broken[:, :TILE_ROWS] = 0
+        rejected["o_first_tile_zeroed"] = not compare(
+            broken, po, tol["o"], tol["rtol"], tol["tile"])[2]
+        del broken
     del o, o2, lse
     dadj = None
     if with_lse_grad:
@@ -604,7 +617,6 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
     dq = fa.flash_bwd_dq(q, k, v, po, do, plse, dadj, scale, causal, window)
     torch.cuda.synchronize()
     check("dq", dq, pdq, "grad")
-    rejected = {}
     if controls:
         # The limits must reject a dQ kernel that leaves the first Q tile
         # at zero: its few live keys under the causal mask make it the
@@ -730,10 +742,11 @@ def _bodies(fa, D, dtype) -> dict:
 def phase_kernels_d256(fa):
     """Head dim 256 at the slice's model width as 4 heads of 256 (with the
     tile controls and the lse cotangent), windowed and ragged, non-causal
-    and ragged, and 192 zero-padded to 256: in bf16 dQ and dK/dV run their
-    wgmma bodies (32-key tiles; 64-key blocks with dK and dV split between
-    the consumers) and the forward the CUDA-core body's 32-row tiles, which
-    the launch counts must show; float32 runs the CUDA-core bodies."""
+    and ragged, and 192 zero-padded to 256: in bf16 all three run their
+    wgmma bodies (the forward with 64-key tiles, dQ with 32-key tiles,
+    dK/dV with 64-key blocks whose dK and dV are split between the
+    consumers), which the launch counts must show; float32 runs the
+    CUDA-core bodies."""
     bf16, f32 = torch.bfloat16, torch.float32
     fa.reset_launch_counts()
     d256 = _compare_case(fa, "head_dim_256_slice_width", BATCH, SEQ, D256_HEADS, D256_HEAD_DIM,
@@ -747,10 +760,9 @@ def phase_kernels_d256(fa):
     _compare_case(fa, "f32_head_dim_192_non_causal_dadj", 2, 384, 2, 192, f32, False, None, True)
     emit({"phase": "kernels_d256_bodies", "bf16_launches_by_body": bodies})
     fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
-    if not (fwd["cuda_core"] > 0 and fwd["wgmma"] == 0
-            and all(b["wgmma"] > 0 and b["cuda_core"] == 0 for b in (dq, dkv))):
-        raise AssertionError(f"bf16 head dim 256 bodies {bodies}: want the CUDA-core forward "
-                             "and the wgmma dQ and dK/dV")
+    if not all(b["wgmma"] > 0 and b["cuda_core"] == 0 for b in (fwd, dq, dkv)):
+        raise AssertionError(f"bf16 head dim 256 bodies {bodies}: want the wgmma forward, dQ "
+                             "and dK/dV")
     torch.cuda.empty_cache()
     return d256
 
@@ -1067,8 +1079,8 @@ def _times_phase(fa, phase, H, D, dtype=torch.bfloat16):
 
 
 def phase_times_d256(fa):
-    """The D-256 bodies (bf16: the CUDA-core forward, the wgmma dQ and
-    dK/dV) at 4 heads of 256."""
+    """The D-256 bodies (bf16: the wgmma forward, dQ and dK/dV) at 4
+    heads of 256."""
     return _times_phase(fa, "times_d256", D256_HEADS, D256_HEAD_DIM)
 
 
@@ -4138,9 +4150,9 @@ def phase_lm_head_dim_256(fa):
     the slice's configuration otherwise: one step of 2 agents x 2 layers
     against plain attention (phase 4's limits and control), then one
     eager epoch of the full slice (8 layers, 4 agents on a ring, B 2, 3
-    steps and a round), where the forward runs its CUDA-core body and dQ
-    and dK/dV their wgmma bodies with the pre-pass.  Returns the epoch's
-    launch counts."""
+    steps and a round), where the forward, dQ and dK/dV run their wgmma
+    bodies, the backward with the pre-pass.  Returns the epoch's launch
+    counts."""
     facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
                             dims=D256_LM)
     master = make_trainer("flash", LAYERS, AGENTS, 1, STEPS, dims=D256_LM)
@@ -4173,10 +4185,10 @@ def phase_lm_head_dim_256(fa):
     if not all(math.isfinite(x) for x in epoch["train_loss"]):
         raise AssertionError(f"head dim 256 epoch loss not finite: {epoch['train_loss']}")
     fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
-    if not (launches == expect and fwd["cuda_core"] == expect["flash_fwd"]
+    if not (launches == expect and fwd["wgmma"] == expect["flash_fwd"]
             and dq["wgmma"] == dkv["wgmma"] == LAYERS * STEPS):
         raise AssertionError(f"head dim 256 launches {launches} {bodies}: want {expect}, the "
-                             "forward on its CUDA-core body, dQ and dK/dV on wgmma")
+                             "forward, dQ and dK/dV on wgmma")
     return launches
 
 
@@ -7290,8 +7302,8 @@ def main(argv=None) -> int:
             "max_abs_err": main_errs[k.name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            # The D-256 bodies at 4 heads x 256 (bf16: A on CUDA cores, B
-            # and C on wgmma), held and timed in the kernels and times_d256
+            # The D-256 bodies at 4 heads x 256 (bf16: A, B and C on
+            # wgmma), held and timed in the kernels and times_d256
             # phases; lm_head_dim_256 launches them.
             "head_dim_256": {"body": bodies_d256[k.name], "max_abs_err": d256_errs[k.name],
                              **{f: times_d256[k.name][f] for f in

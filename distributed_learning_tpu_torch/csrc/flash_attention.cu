@@ -7,11 +7,10 @@
 //   flash_dq_kernel    <- _flash_dq_kernel  (launched by _bwd_call)
 //   flash_dkv_kernel   <- _flash_dkv_kernel (launched by _bwd_call)
 // Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
-// bfloat16 with head dim 64 or 128, and dQ and dK/dV for bfloat16 at 256;
-// dispatch() picks it by (kernel, dtype, D) alone (uses_wgmma_body in
-// flash_params.cuh).  The bodies here serve float32 inputs, head dim 32,
-// the bfloat16 forward and float32 at 256, and (the wide bodies) every
-// multiple of 128 above 256.
+// bfloat16 with head dim 64, 128 or 256; dispatch() picks it by (kernel,
+// dtype, D) alone (uses_wgmma_body in flash_params.cuh).  The bodies here
+// serve float32 inputs, head dim 32, float32 at 256, and (the wide
+// bodies) every multiple of 128 above 256.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -1023,21 +1022,17 @@ template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ = tile_rows<D>(), BK = tile_rows<D>();
   const int q_tiles = (p.T + BQ - 1) / BQ, k_tiles = (p.T + BK - 1) / BK;
-  // bf16 with D 64 or 128 runs the wgmma bodies, and so do its dQ and
-  // dK/dV at D 256, so these are not built for them.
+  // bf16 with D 64, 128 or 256 runs the wgmma bodies, so these are not
+  // built for it.
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (bf16 && (D == 64 || D == 128)) {
+  if constexpr (bf16 && (D == 64 || D == 128 || D == 256)) {
     return cudaErrorInvalidValue;
   } else {
     if (which == 0)
       return launch(flash_fwd_kernel<T, D, BQ, BK>, fwd_smem<D, BQ, BK>(), q_tiles, p, stream);
-    if constexpr (bf16 && D == 256) {
-      return cudaErrorInvalidValue;
-    } else {
-      if (which == 1)
-        return launch(flash_dq_kernel<T, D, BQ, BK>, dq_smem<D, BQ, BK>(), q_tiles, p, stream);
-      return launch(flash_dkv_kernel<T, D, BQ, BK>, dkv_smem<D, BQ, BK>(), k_tiles, p, stream);
-    }
+    if (which == 1)
+      return launch(flash_dq_kernel<T, D, BQ, BK>, dq_smem<D, BQ, BK>(), q_tiles, p, stream);
+    return launch(flash_dkv_kernel<T, D, BQ, BK>, dkv_smem<D, BQ, BK>(), k_tiles, p, stream);
   }
 }
 
@@ -1081,8 +1076,8 @@ int dlt_flash_bwd_rowterm(const FlashParams* p, void* stream) {
 }
 // 1 if dispatch(which, ...) takes the wgmma/TMA body for this dtype and head dim.
 int dlt_flash_uses_wgmma(int which, int dtype, int D) { return uses_wgmma_body(which, dtype, D); }
-// Dynamic shared memory a wgmma body launches with (which 0, 1 or 2; D 64 or
-// 128, and 256 for which 1 and 2); -1 where there is no such body.
+// Dynamic shared memory a wgmma body launches with (which 0, 1 or 2; D 64,
+// 128 or 256); -1 where there is no such body.
 int dlt_flash_wgmma_smem_bytes(int which, int D) { return flash_sm90_smem_bytes(which, D); }
 int dlt_flash_struct_size() { return static_cast<int>(sizeof(FlashParams)); }
 

@@ -1,6 +1,6 @@
 // Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
-// on the tensor cores, bfloat16 with head dim 64 or 128 (all three) and
-// 256 (B and C), and the backward's pre-pass.
+// on the tensor cores, bfloat16 with head dim 64, 128 or 256, and the
+// backward's pre-pass.
 //
 //   flash_fwd_kernel_sm90        <- _flash_kernel      (launched by _fwd_call)
 //   flash_dq_kernel_sm90         <- _flash_dq_kernel   (launched by _bwd_call)
@@ -43,16 +43,19 @@
 // one per 128-key tile; each block writes only its own rows: no atomics,
 // the same bits run to run.
 //
-// Head dim 256 (B and C only): the D-128 templates do not fit there.  Their
-// shared memory would be 256 KB (over the 227 KB a block may have), and
-// C's consumer would hold 64 x 256 of both dK and dV, 256 registers a
-// thread.  So dQ keeps its frame with 32-key tiles (192 KB; S and dP
-// shrink to 16 registers each beside the 128 of dQ), and dK/dV takes a
-// 64-key block whose two consumers hold different outputs
+// Head dim 256: the D-128 frames do not fit there.  Their shared memory
+// would be 320 KB (forward) or 256 KB (dQ), over the 227 KB a block may
+// have, and C's consumer would hold 64 x 256 of both dK and dV, 256
+// registers a thread.  So the forward and dQ keep their frames with
+// 64-key and 32-key tiles (forward 193 KB: the Q tile and two stages of
+// K and V; S shrinks to 32 registers beside the 128 of O, and P to 16;
+// dQ 192 KB, S and dP 16 registers each beside the 128 of dQ), and dK/dV
+// takes a 64-key block whose two consumers hold different outputs
 // (flash_dkv_split_kernel_sm90): warpgroup 0 forms P^T and holds dV,
 // warpgroup 1 forms dP^T and holds dK, and P^T passes from the first to
 // the second through a 16 KB float32 buffer, so dS^T is formed from the
-// unrounded P as everywhere else.  Both run every product at N = 256.
+// unrounded P as everywhere else.  All three run O, dQ, dK and dV at
+// N = 256.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,8 +78,12 @@ constexpr int kLine = 128;  // bytes of one swizzled tile row (64 bf16)
 constexpr float kNegInf = -1e30f;  // large-but-finite, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Forward: 128 query rows per block (64 per consumer), 128-key tiles.
-constexpr int kFwdBQ = 128, kFwdBK = 128;
+// Forward: 128 query rows per block (64 per consumer), 128-key tiles (64
+// at head dim 256, so two stages of K and V fit shared memory beside the
+// Q tile, and S (m64nBK) fits the consumers' registers beside O).
+constexpr int kFwdBQ = 128;
+template <int D>
+__host__ __device__ constexpr int fwd_bk() { return D == 256 ? 64 : 128; }
 // dQ: 128 query rows per block (64 per consumer), 64-key tiles (32 at
 // head dim 256), so S, dP (m64nBK each) and the 64 x D dQ accumulator fit
 // the consumers' registers and the tiles fit shared memory.
@@ -128,14 +135,16 @@ __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2], const uint32_t (&
   }
 }
 
-// The score products: N = 32 or 64 keys (dQ) or queries (dK/dV).
+// The score products: N = 32, 64 or 128 keys (forward, dQ) or queries (dK/dV).
 template <int N>
 __device__ __forceinline__ void wgmma_ss_nk(float (&d)[N / 2], uint64_t a, uint64_t b,
                                             int scale_d) {
   if constexpr (N == 32) {
     wgmma_ss_n32(d, a, b, scale_d);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_ss_n64(d, a, b, scale_d);
+  } else {
+    wgmma_ss_n128(d, a, b, scale_d);
   }
 }
 
@@ -196,7 +205,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const uint8_t* stage, int 
 template <int D>
 struct FwdSmem {
   static constexpr int kQ = (D / 64) * kFwdBQ * kLine;   // the Q tile
-  static constexpr int kKV = (D / 64) * kFwdBK * kLine;  // one K or V tile
+  static constexpr int kKV = (D / 64) * fwd_bk<D>() * kLine;  // one K or V tile
   static constexpr int kK = kQ, kV = kK + kStages * kKV, kBar = kV + kStages * kKV;
   static constexpr int kBytes = kBar + 128 + 1024;  // barriers, alignment slack
 };
@@ -207,6 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
   using L = FwdSmem<D>;
+  constexpr int BK = fwd_bk<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint8_t* q_s = smem;
@@ -227,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     k_hi = min(p.T, q0 + kFwdBQ);
     if (p.window > 0) k_lo = max(0, q0 - (p.window - 1));
   }
-  const int kt_lo = k_lo / kFwdBK, n_kt = (k_hi + kFwdBK - 1) / kFwdBK - kt_lo;
+  const int kt_lo = k_lo / BK, n_kt = (k_hi + BK - 1) / BK - kt_lo;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -253,16 +263,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < D / 64; ++c)
         tma_load_4d(q_s + c * kFwdBQ * kLine, &tm_q, full_q, c * 64, h, q0, b);
       for (int i = 0; i < n_kt; ++i) {
-        const int s = i % kStages, k0 = (kt_lo + i) * kFwdBK;
+        const int s = i % kStages, k0 = (kt_lo + i) * BK;
         const uint32_t ph = ((i / kStages) - 1) & 1;
         if (i >= kStages) mbar_wait(&empty_k[s], ph);
         mbar_expect_tx(&full_k[s], L::kKV);
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(k_s + s * L::kKV + c * kFwdBK * kLine, &tm_k, &full_k[s], c * 64, h, k0, b);
+          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full_k[s], c * 64, h, k0, b);
         if (i >= kStages) mbar_wait(&empty_v[s], ph);
         mbar_expect_tx(&full_v[s], L::kKV);
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(v_s + s * L::kKV + c * kFwdBK * kLine, &tm_v, &full_v[s], c * 64, h, k0, b);
+          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full_v[s], c * 64, h, k0, b);
       }
     }
   } else {
@@ -279,18 +289,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    float sc[64];       // S, then P, of the newest tile
-    uint32_t pf[8][4];  // P of the previous tile as bf16, the A operand of P.V
+    float sc[BK / 2];         // S, then P, of the newest tile
+    uint32_t pf[BK / 16][4];  // P of the previous tile as bf16, the A operand of P.V
 
-    // S = Q K^T for tile i, 64 x 128 per warpgroup (not waited for).
+    // S = Q K^T for tile i, 64 x BK per warpgroup (not waited for).
     auto issue_s = [&](int i) {
       const int s = i % kStages;
       const uint32_t k_base = smem_addr(k_s + s * L::kKV);
       mbar_wait(&full_k[s], (i / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sc, desc_sw128(q_base + kmajor_step(kk, kFwdBQ), 16, 1024),
-                      desc_sw128(k_base + kmajor_step(kk, kFwdBK), 16, 1024), kk > 0);
+        wgmma_ss_nk<BK>(sc, desc_sw128(q_base + kmajor_step(kk, kFwdBQ), 16, 1024),
+                        desc_sw128(k_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
       wgmma_commit();
     };
     // O += P V for tile i: V is the MN-major B operand (keys are the depth).
@@ -299,29 +309,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t v_base = smem_addr(v_s + s * L::kKV);
       mbar_wait(&full_v[s], (i / kStages) & 1);
 #pragma unroll
-      for (int kk = 0; kk < kFwdBK / 16; ++kk)
-        wgmma_rs_nd<D>(o, pf[kk], desc_sw128(v_base + kk * 16 * kLine, kFwdBK * kLine, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_nd<D>(o, pf[kk], desc_sw128(v_base + kk * 16 * kLine, BK * kLine, 1024));
       wgmma_commit();
     };
-    // Online softmax of tile i in registers (a row's 128 columns lie in the
+    // Online softmax of tile i in registers (a row's BK columns lie in the
     // 4 threads of a quad): sc becomes P, m moves to the new row max; the
     // factor that rescales the previous O and l is returned in corr.
     auto softmax = [&](int i, float (&corr)[2], float (&sum)[2]) {
-      const int k0 = (kt_lo + i) * kFwdBK;
+      const int k0 = (kt_lo + i) * BK;
       float mx[2] = {m[0], m[1]};
-      const bool masked = needs_mask(p, wrow0, 64, k0, kFwdBK);
+      const bool masked = needs_mask(p, wrow0, 64, k0, BK);
 #pragma unroll
-      for (int j = 0; j < 64; ++j) sc[j] *= p.scale;
+      for (int j = 0; j < BK / 2; ++j) sc[j] *= p.scale;
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (!keep(p, row0 + 8 * (e >> 1), k0 + 8 * j + c_lo + (e & 1))) sc[4 * j + e] = kNegInf;
         }
       }
 #pragma unroll
-      for (int j = 0; j < 64; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      for (int j = 0; j < BK / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
       float ml[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -336,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sum[r] = 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float pv = ex2(fmaf(sc[4 * j + e], kLog2e, -ml[e >> 1]));
@@ -354,7 +364,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     // of tile i runs while P_{i-1} V_{i-1} is on the tensor cores, and K_i's
     // stage is released as soon as S_i is done.  Ping-pong: the two
     // warpgroups take turns to issue their products (named barriers 3 and
-    // 4), so one's softmax also runs while the other's products do.
+    // 4), so one's softmax also runs while the other's products do.  Both
+    // warpgroups walk the same tiles: at head dim 256 the last causal tile
+    // (keys q0 + 64 ... q0 + 127) holds no key that warpgroup 0's rows see,
+    // and it runs masked (P = 0 and corr = 1, its row max being finite by
+    // then), so every turn_wait meets a turn_pass and every stage gets its
+    // kConsumers * 4 arrivals.
     auto turn_wait = [&] { named_sync(3 + wg, 256); };
     auto turn_pass = [&] { named_arrive(3 + (wg ^ 1), 256); };
     if (wg == 1) named_arrive(3, 256);  // warpgroup 0 goes first
@@ -371,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = sum[r];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) to_frag(sc, kk, pf[kk]);
+    for (int kk = 0; kk < BK / 16; ++kk) to_frag(sc, kk, pf[kk]);
     for (int i = 1; i < n_kt; ++i) {
       turn_wait();
       wgmma_fence();
@@ -396,7 +411,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         o[4 * j + 3] *= corr[1];
       }
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) to_frag(sc, kk, pf[kk]);
+      for (int kk = 0; kk < BK / 16; ++kk) to_frag(sc, kk, pf[kk]);
     }
     turn_wait();
     wgmma_fence();
@@ -1110,8 +1125,8 @@ template <int D>
 cudaError_t fwd(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kFwdBQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, kFwdBK) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, kFwdBK))
+      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, fwd_bk<D>()) ||
+      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, fwd_bk<D>()))
     return cudaErrorInvalidValue;
   constexpr int smem = FwdSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<D>,
@@ -1251,7 +1266,11 @@ cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
   if (!tma_ok(p.q, p.q_sb, p.q_st, p.q_sh) || !tma_ok(p.k, p.k_sb, p.k_st, p.k_sh) ||
       !tma_ok(p.v, p.v_sb, p.v_st, p.v_sh) || reinterpret_cast<uintptr_t>(p.o) % 16 != 0)
     return cudaErrorInvalidValue;
-  return p.D == 64 ? fwd<64>(p, stream) : fwd<128>(p, stream);
+  switch (p.D) {
+    case 64: return fwd<64>(p, stream);
+    case 128: return fwd<128>(p, stream);
+    default: return fwd<256>(p, stream);
+  }
 }
 
 cudaError_t flash_dq_sm90(const FlashParams& p, cudaStream_t stream) {
@@ -1280,8 +1299,9 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
 }
 
 int flash_sm90_smem_bytes(int which, int D) {
-  if (D != 64 && D != 128 && !(D == 256 && which != 0)) return -1;  // no wgmma body
-  if (which == 0) return D == 64 ? FwdSmem<64>::kBytes : FwdSmem<128>::kBytes;
+  if (D != 64 && D != 128 && D != 256) return -1;  // no wgmma body
+  if (which == 0)
+    return D == 64 ? FwdSmem<64>::kBytes : D == 128 ? FwdSmem<128>::kBytes : FwdSmem<256>::kBytes;
   if (which == 1)
     return D == 64 ? DqSmem<64>::kBytes : D == 128 ? DqSmem<128>::kBytes : DqSmem<256>::kBytes;
   return D == 64 ? dkv_smem_bytes<64>() : D == 128 ? dkv_smem_bytes<128>() : dkv_smem_bytes<256>();

@@ -157,14 +157,13 @@ def test_attention_reference_matches_jax():
     (torch.bfloat16, 32, False),
     (torch.float32, 64, False),
     (torch.float32, 128, False),
-    (torch.bfloat16, 256, False),
+    (torch.bfloat16, 256, True),
     (torch.float32, 256, False),
 ])
 def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
-    """bf16 with D 64 or 128 takes the wgmma/TMA body of all three
+    """bf16 with D 64, 128 or 256 takes the wgmma/TMA body of all three
     kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) and D 32
-    the CUDA-core bodies of all three; bf16 D 256 the wgmma dQ and dK/dV
-    but the CUDA-core forward, so not all three
+    the CUDA-core bodies of all three
     (``test_torch_flash_body_dispatch.py`` holds each kernel's body)."""
     assert fa.wgmma_body(dtype, D) is wgmma
 

@@ -1,9 +1,9 @@
 """Which body each flash-attention kernel runs, on the CPU: the forward
 (A), dQ (B) and dK/dV (C) choose their body each by (kernel, dtype, head
 dim), as ``uses_wgmma_body`` in ``csrc/flash_params.cuh`` does.  In
-bfloat16 at head dim 256 (and 192, run zero-padded to it) B and C take
-their wgmma bodies while A stays on its CUDA-core body, so a layer's
-backward runs the pre-pass by B's and C's body, not A's.
+bfloat16 at head dim 256 (and 192, run zero-padded to it) all three take
+their wgmma bodies, while float32 there keeps the CUDA-core bodies; a
+layer's backward runs the pre-pass by B's and C's body, not A's.
 
 No kernel runs here: the launch path up to the kernel call is driven on
 CPU tensors with ``_Kernel.launch`` replaced by a recorder.
@@ -24,8 +24,6 @@ def _want(dtype, D):
         return ("cuda_core_wide",) * 3
     if dtype == torch.float32 or Dk == 32:
         return ("cuda_core",) * 3
-    if Dk == 256:
-        return ("cuda_core", "wgmma", "wgmma")
     return ("wgmma",) * 3
 
 
@@ -82,8 +80,20 @@ def test_d256_backward_launch_takes_wgmma_and_a_row_term(recorded, D, which):
     assert params.acc is None and params.acc2 is None  # no wide-body scratch
 
 
-def test_d256_forward_launch_stays_on_cuda_cores(recorded):
-    q, k, v, *_ = _bwd_inputs(256)
+@pytest.mark.parametrize("D", [256, 192])
+def test_d256_forward_launch_stays_on_cuda_cores(recorded, D):
+    """The forward at head dim 256 in bf16 (192 through the padding
+    helper) records the wgmma body, with lse and no wide-body scratch."""
+    q, k, v, *_ = _bwd_inputs(D)
+    o, lse = fa.padded_fwd(fa._launch_fwd, q, k, v, D ** -0.5, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "wgmma")]
+    params = recorded[0][2]
+    assert params.D == 256 and params.acc is None
+    assert o.shape == q.shape and lse.shape == (2, 2, 40)
+
+
+def test_f32_d256_forward_launch_stays_on_cuda_cores(recorded):
+    q, k, v, *_ = _bwd_inputs(256, dtype=torch.float32)
     fa._launch_fwd(q, k, v, 0.0625, True, None, True)
     assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "cuda_core")]
 
@@ -94,21 +104,25 @@ def test_cuda_core_backward_is_handed_no_row_term(recorded):
     assert recorded[0][1] == "cuda_core" and recorded[0][2].rowterm is None
 
 
-@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
 def test_d256_backward_on_a_view_tma_cannot_read_raises(recorded, which):
-    """As at head dims 64 and 128: no quiet fall back to CUDA cores."""
+    """As at head dims 64 and 128: no quiet fall back to CUDA cores, for
+    the forward as for dQ and dK/dV."""
     buf = torch.zeros(2 * 8 * 264, dtype=torch.bfloat16)
     q = buf.as_strided((1, 8, 2, 256), (8 * 264, 264, 4, 1))  # 8-byte head stride
     o = do = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8)
-    launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        launch(q, q, q, o, do, lse, None, 0.0625, True, None, None)
+        if which == "fwd":
+            fa._launch_fwd(q, q, q, 0.0625, True, None, True)
+        else:
+            launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
+            launch(q, q, q, o, do, lse, None, 0.0625, True, None, None)
     assert recorded == []
 
 
 @pytest.mark.parametrize("dtype,D,runs", [
-    (torch.bfloat16, 256, True),   # A on CUDA cores, B and C on wgmma
+    (torch.bfloat16, 256, True),   # A, B and C on wgmma
     (torch.bfloat16, 192, True),
     (torch.bfloat16, 128, True),
     (torch.bfloat16, 32, False),

@@ -65,9 +65,8 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 333, 2, 96, torch.bfloat16, False, None, False),
         (1, 130, 2, 16, torch.float32, True, None, True),
         (1, 130, 2, 48, torch.float32, False, None, False),
-        # Head dim 256: in bf16 the forward runs the CUDA-core body's 32-row
-        # tiles and dQ, dK/dV their wgmma bodies; float32 all CUDA-core;
-        # 192 pads to it.
+        # Head dim 256: in bf16 the forward (64-key tiles), dQ and dK/dV run
+        # their wgmma bodies; float32 all CUDA-core; 192 pads to it.
         (2, 200, 2, 256, torch.bfloat16, True, None, True),
         (1, 130, 2, 256, torch.float32, True, 37, False),
         (2, 333, 2, 192, torch.bfloat16, False, None, False),
@@ -122,7 +121,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 256, 2, 64), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 512, 2, 128), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 256, 2, 32), torch.float32, "cuda_core", "cuda_core"),
-    ((1, 256, 2, 256), torch.bfloat16, "cuda_core", "wgmma"),
+    ((1, 256, 2, 256), torch.bfloat16, "wgmma", "wgmma"),
     ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide", "cuda_core_wide"),
 ])
 def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_body):
@@ -154,7 +153,7 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_bod
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,body,bwd_body", [
     (8, "cuda_core", "cuda_core"), (16, "cuda_core", "cuda_core"), (48, "wgmma", "wgmma"),
-    (96, "wgmma", "wgmma"), (192, "cuda_core", "wgmma"),
+    (96, "wgmma", "wgmma"), (192, "wgmma", "wgmma"),
     (320, "cuda_core_wide", "cuda_core_wide")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
     """``flash_attention`` at a head dim the kernels do not have: the
@@ -208,7 +207,7 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
                                                                                        name)
                 # A wgmma body has a shared-memory size; no other body does.
                 assert (lib.dlt_flash_wgmma_smem_bytes(which, D) > 0) == (
-                    D in (64, 128) or (D == 256 and which != 0))
+                    D in (64, 128, 256))
 
 
 @pytest.mark.gpu
@@ -270,6 +269,42 @@ def test_d256_backward_wgmma_bodies_match_plain_and_repeat(card, B, T, H, causal
     for got, want in zip(runs[0], plain):
         torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
         assert _max_tile_rel_err(got, want) <= tol["tile"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,causal,window,with_lse", [
+    (2, 512, 2, True, None, True),      # causal
+    (2, 512, 2, True, None, False),
+    (2, 1000, 2, True, 100, True),      # a window, ragged
+    (1, 1000, 2, True, 300, False),     # a window over several key tiles, ragged
+    (2, 333, 2, False, None, True),     # non-causal, ragged
+    (2, 129, 2, False, None, False),
+])
+def test_d256_forward_wgmma_body_matches_plain_and_repeats(card, B, T, H, causal, window,
+                                                           with_lse):
+    """The bf16 forward at head dim 256 on its wgmma body (64-key tiles):
+    O within ``TOL`` of the plain version on the same inputs, element by
+    element and tile by tile, lse within 1e-4, and the same bits when run
+    again."""
+    g = torch.Generator(device=card).manual_seed(T + H + 1)
+    qkv = torch.randn(B, T, 3, H, 256, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 256 ** -0.5
+    tol = TOL[torch.bfloat16]
+    fa.reset_launch_counts()
+    runs = [fa.flash_fwd(q, k, v, scale, causal, window, with_lse=with_lse) for _ in range(2)]
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o.float(), po.float(), atol=tol["o"], rtol=tol["rtol"])
+    assert _max_tile_rel_err(o, po) <= tol["tile"]
+    if with_lse:
+        assert torch.equal(lse, lse2)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    else:
+        assert lse is None and lse2 is None
 
 
 @pytest.mark.gpu
