@@ -4,13 +4,14 @@ one NVIDIA card: the quickest proof that the port builds and trains there.
 
     python3 chip_smoke.py [--profile] [--out DIR]
     python3 chip_smoke.py --decode-timing N | --step-timing N
-    python3 chip_smoke.py [--wide-only] [--d256-only] [--sharded-only]
+    python3 chip_smoke.py [--wide-only] [--d256-only] [--d32-only] [--sharded-only]
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. build   — compile ``csrc/*.cu`` with nvcc, one process per source, all
              together; prints the seconds and each kernel's registers and
-             spills as ptxas reports them.
+             spills as ptxas reports them (the D-256 and D-32 forwards'
+             apart, the latter with its shared memory).
 2. kernels — each flash-attention kernel and the backward's pre-pass
              against its plain PyTorch version on the same card tensors:
              the slice's launch shape (4 agents x B 2 x 8 heads, T 4096,
@@ -19,9 +20,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
              zeroed), the lse cotangent (``dadj``) path, a
              windowed ragged case, a non-causal case, head-dim-64 cases,
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
-             window of 100 over T 1000, non-causal T 333), the CUDA-core
-             bodies (float32, bf16 head dim 32) and head dims the kernels
-             run zero-padded (8, 16, 48, 96; float32 16); head dim 256
+             window of 100 over T 1000, non-causal T 333) and head dims the
+             kernels run zero-padded (48, 96; float32 16); head dim 32 (bf16:
+             the forward on its wgmma body with 64-byte rows, dQ and dK/dV
+             on CUDA cores; float32 all CUDA-core) at the slice's model
+             width and T as 32 heads x 32 (B 1, with the tile controls and
+             the lse cotangent), windowed and ragged, non-causal and ragged,
+             and 8 and 16 zero-padded to 32, with the bodies the bf16 cases
+             launched checked; head dim 256
              (bf16: all three on their wgmma bodies, the forward with
              64-key tiles; float32 all CUDA-core) at the
              slice's model width as 4 heads x 256 (B 2, T 4096, with the
@@ -52,7 +58,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (``times_wide``, the wide bodies), in float32 at the slice's
              width and at 4 heads x 256 (``times_f32``, ``times_f32_d256``:
              the float32 CUDA-core bodies, SDPA in float32 their
-             yardstick) and at 32 heads x 32 (``times_d32``).
+             yardstick) and at 32 heads x 32 (``times_d32``: the wgmma
+             forward, the CUDA-core dQ and dK/dV).  A bound is the largest
+             of the bytes, the products and (below head dim 64 the largest)
+             the exponentials over the special-function units' rate.
    profile — with ``--profile``: one ``torch.profiler`` window over one
              more epoch of the slice (steps, gossip, eval), device time by
              kernel name; the full table is written to ``--out``.
@@ -254,7 +263,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              against plain attention under phase 4's limits with the
              dropped-key-tile control, then 4 epochs of 1 step trained both
              ways from the same weights (losses within
-             ``SMALL_LM_LOSS_RTOL``); kernel launches counted.
+             ``SMALL_LM_LOSS_RTOL``); kernel launches counted (the forward
+             on wgmma, dQ and dK/dV on CUDA cores).
     lm_head_dim_256 — the slice's LM at 4 heads x 256
              (``TransformerLM(attn_impl="flash", num_heads=4,
              head_dim=256)``, d_model 1024, vocab 8192, T 4096, bf16 over
@@ -264,6 +274,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
              agents on a ring, B 2, 3 steps and a round): tokens/s, peak
              memory, launches by body (the forward, dQ and dK/dV on their
              wgmma bodies, the backward with the pre-pass).
+    lm_head_dim_32 — the slice's LM at 32 heads x 32 (``num_heads=32,
+             head_dim=32``, d_model 1024, vocab 8192, bf16 over float32):
+             ``generate`` at lm_decode's configuration (B 2, prefill 2048,
+             MHA): the prefill's seconds, tokens/s and launches (kernel A
+             on wgmma once a layer), kernel A's ms at the prefill's shape,
+             the logits of the prefill and 32 steps against a full forward
+             over 2,080 positions (``DECODE_LOGITS_RTOL``, greedy tokens
+             against its argmax); one step of 2 agents x 2 layers at T 2048
+             (cut so plain attention's scores fit) against plain attention
+             under phase 4's limits with the dropped-key-tile control; one
+             eager epoch of the full slice: tokens/s, peak memory, launches
+             by body (the forward on wgmma, dQ and dK/dV on CUDA cores, no
+             pre-pass) and the epoch split by kernel time.
 32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
              36,489,290 float32 parameters, Metropolis ring): both native
              libraries built into ``_build/``; each agent's parameters
@@ -398,16 +421,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (``MOE_EP_RTOL``, flips ``ROUTE_FLIP_F32_RTOL``).  A failing
              rank stops the others and the phase.
 
-``--wide-only``, ``--d256-only`` and ``--sharded-only`` build and run
-only the wide bodies' cases and times, only the head-dim-256 and 192
-cases of phase 2 and ``times_d256``, or only phase 34, and end with the
-card line.
+``--wide-only``, ``--d256-only``, ``--d32-only`` and ``--sharded-only``
+build and run only the wide bodies' cases and times, only the
+head-dim-256 and 192 cases of phase 2 and ``times_d256``, only the
+head-dim-32, 16 and 8 cases of phase 2 and ``times_d32``, or only phase
+34, and end with the card line.
 
 Then a ``kernels`` JSON line (each kernel also carries its D-256 bodies'
 error, time, bound, plain and library times under ``head_dim_256``, the
-wide body's under ``head_dim_wide``, and the times of its float32 and
-head-dim-32 bodies under ``float32``, ``float32_head_dim_256`` and
-``head_dim_32``),
+wide body's under ``head_dim_wide``, the times of its float32 bodies
+under ``float32`` and ``float32_head_dim_256``, and its head-dim-32
+bodies' error and times under ``head_dim_32``),
 the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -438,6 +462,10 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # CUDA cores, for the pre-pass's float32 reduction
 PEAK_HBM_BYTES = 3.35e12
+# The special-function unit's exponentials: 16 ex2 a clock on each SM at
+# the clock PEAK_BF16_FLOPS assumes (989e12 / (132 SMs x 4,096 FLOPs a
+# clock) = 1.83 GHz); each live (query, key) pair of A, B and C costs one.
+EX2_PER_SM_CLOCK, PEAK_CLOCK_HZ = 16, 1.83e9
 # Score bytes a plain attention version may hold at once in kernel_times.
 PLAIN_SCORE_BYTES = 24e9
 
@@ -555,7 +583,7 @@ def phase_build() -> None:
     smem = {f"{name}<{D}>": lib.dlt_flash_wgmma_smem_bytes(which, D)
             for which, name in ((0, "flash_fwd_kernel_sm90"), (1, "flash_dq_kernel_sm90"),
                                 (2, "flash_dkv_kernel_sm90"))
-            for D in (64, 128, 256) if lib.dlt_flash_wgmma_smem_bytes(which, D) > 0}
+            for D in (32, 64, 128, 256) if lib.dlt_flash_wgmma_smem_bytes(which, D) > 0}
     report = _build.ptxas_report()
     ptxas = ptxas_summary(report)
     # The target is no spill anywhere; a spill is reported, not fatal.
@@ -564,7 +592,10 @@ def phase_build() -> None:
     c7520 = [line.strip() for line in report.splitlines() if "C7520" in line]
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
           "seconds": round(seconds, 3), "ptxas": ptxas, "spills": spills,
-          "fwd_d256": ptxas.get("flash_fwd_kernel_sm90<256>"), "c7520": c7520,
+          "fwd_d256": ptxas.get("flash_fwd_kernel_sm90<256>"),
+          "fwd_d32": {"ptxas": ptxas.get("flash_fwd_kernel_sm90<32>"),
+                      "dynamic_smem_bytes": smem.get("flash_fwd_kernel_sm90<32>")},
+          "c7520": c7520,
           "wgmma_dynamic_smem_bytes": smem})
 
 
@@ -712,24 +743,22 @@ def phase_kernels(fa):
     _compare_case(fa, "window_under_a_tile", 2, 1000, 2, 128, bf16, True, 100, False)
     _compare_case(fa, "head_dim_64_non_causal_dadj", 2, 384, 2, 64, bf16, False, None, True)
     _compare_case(fa, "non_causal_ragged", 2, 333, 2, 128, bf16, False, None, False)
-    # The CUDA-core bodies.
-    _compare_case(fa, "f32_head_dim_32", 2, 333, 2, 32, f32, True, None, True)
-    _compare_case(fa, "bf16_head_dim_32", 2, 200, 2, 32, bf16, True, None, True)
     # Head dims the kernels do not have, zero-padded to the next of 32, 64
-    # and 128: 8 and 16 on the CUDA-core bodies, 48 and 96 on wgmma.
-    _compare_case(fa, "head_dim_8", 2, 200, 2, 8, bf16, True, None, False)
-    _compare_case(fa, "head_dim_16_dadj", 2, 512, 4, 16, bf16, True, None, True)
+    # and 128: 48 and 96 on wgmma (8 and 16 in phase_kernels_d32).
     _compare_case(fa, "head_dim_48", 2, 768, 4, 48, bf16, True, None, False)
     _compare_case(fa, "head_dim_96_non_causal_dadj", 2, 384, 2, 96, bf16, False, None, True)
     _compare_case(fa, "f32_head_dim_16_window", 2, 333, 2, 16, f32, True, 64, False)
+    d32 = phase_kernels_d32(fa)
     d256 = phase_kernels_d256(fa)
     wide = phase_kernels_wide(fa)
     torch.cuda.empty_cache()
-    return main, d256, wide
+    return main, d32, d256, wide
 
 
-# The LM slice's model width (8 x 128) as 4 heads of 256.
+# The LM slice's model width (8 x 128) as 4 heads of 256, and as 32 heads
+# of 32 (the head dim that 8, 16 and 24 run zero-padded at).
 D256_HEADS, D256_HEAD_DIM = 4, 256
+D32_HEADS = HEADS * HEAD_DIM // 32
 
 
 def _bodies(fa, D, dtype) -> dict:
@@ -765,6 +794,35 @@ def phase_kernels_d256(fa):
                              "and dK/dV")
     torch.cuda.empty_cache()
     return d256
+
+
+def phase_kernels_d32(fa):
+    """Head dim 32 at the slice's model width and T as 32 heads of 32 (B 1,
+    so the plain versions fit; with the tile controls and the lse
+    cotangent), windowed and ragged, non-causal and ragged, and 8 and 16
+    zero-padded to 32: in bf16 the forward runs its wgmma body (64-byte
+    rows and swizzle) and dQ and dK/dV their CUDA-core bodies, which the
+    launch counts must show; float32 runs the CUDA-core bodies."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    fa.reset_launch_counts()
+    d32 = _compare_case(fa, "head_dim_32_slice_width", 1, SEQ, D32_HEADS, 32, bf16, True, None,
+                        True, controls=True)
+    _compare_case(fa, "bf16_head_dim_32", 2, 200, 2, 32, bf16, True, None, True)
+    _compare_case(fa, "head_dim_32_window_ragged", 2, 1000, 2, 32, bf16, True, 100, False)
+    _compare_case(fa, "head_dim_32_non_causal_ragged_dadj", 2, 333, 2, 32, bf16, False, None,
+                  True)
+    _compare_case(fa, "head_dim_8", 2, 200, 2, 8, bf16, True, None, False)
+    _compare_case(fa, "head_dim_16_dadj", 2, 512, 4, 16, bf16, True, None, True)
+    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    _compare_case(fa, "f32_head_dim_32", 2, 333, 2, 32, f32, True, None, True)
+    emit({"phase": "kernels_d32_bodies", "bf16_launches_by_body": bodies})
+    fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
+    if not (fwd["wgmma"] > 0 and fwd["cuda_core"] == 0
+            and all(b["cuda_core"] > 0 and b["wgmma"] == 0 for b in (dq, dkv))):
+        raise AssertionError(f"bf16 head dim 32/16/8 bodies {bodies}: want the wgmma forward, "
+                             "dQ and dK/dV on CUDA cores")
+    torch.cuda.empty_cache()
+    return d32
 
 
 # The wide bodies (head dims above 256, the next multiple of 128): the
@@ -1090,16 +1148,20 @@ def phase_times_wide(fa):
     return _times_phase(fa, "times_wide", WIDE_HEADS, WIDE_HEAD_DIM)
 
 
-# The slice's model width as 32 heads of 32: the bf16 D-32 CUDA-core bodies
-# (which head dims 8 and 16 also run, zero-padded).
-D32_HEADS = HEADS * HEAD_DIM // 32
+def phase_times_d32(fa):
+    """Head dim 32 (which 8, 16 and 24 run zero-padded) at 32 heads of
+    32: the bf16 wgmma forward, the CUDA-core dQ and dK/dV."""
+    return _times_phase(fa, "times_d32", D32_HEADS, 32)
 
 
 def kernel_times(fa, B, T, H, D, dtype=torch.bfloat16):
     """Each kernel at (B, T, H, D), causal, in ``dtype``: CUDA-event ms,
     its bound on this card, its plain version's ms and one PyTorch call's
-    ms.  The products' bound is the tensor cores' bf16 peak, or in float32
-    the CUDA cores' (wgmma has no float32-exact product)."""
+    ms.  The bound is the largest of the bytes over HBM's rate, the
+    products over the tensor cores' bf16 peak (in float32 the CUDA
+    cores': wgmma has no float32-exact product) and the exponentials,
+    one a live pair in A, B and C, over the special-function units' rate
+    (it binds below head dim 64)."""
     import torch.nn.functional as F
 
     q, k, v, do = _qkv(B, T, H, D, dtype, seed=11)
@@ -1121,6 +1183,9 @@ def kernel_times(fa, B, T, H, D, dtype=torch.bfloat16):
     }
     peak = dict.fromkeys(work, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
     peak["flash_bwd_rowterm"] = PEAK_FP32_FLOPS
+    ex2_rate = torch.cuda.get_device_properties(0).multi_processor_count * EX2_PER_SM_CLOCK \
+        * PEAK_CLOCK_HZ
+    exps = {name: (pairs if name != "flash_bwd_rowterm" else 0) for name in work}
     kernel_fn = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True, None, with_lse=True),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, o, do, lse, None, scale, True, None,
@@ -1169,16 +1234,19 @@ def kernel_times(fa, B, T, H, D, dtype=torch.bfloat16):
     times = {}
     for name in kernel_fn:
         flops, nbytes = work[name]
-        t_ops, t_bytes = flops / peak[name] * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        terms = {"operations": flops / peak[name] * 1e3, "bytes": nbytes / PEAK_HBM_BYTES * 1e3,
+                 "exp": exps[name] / ex2_rate * 1e3}
+        bound_by = max(terms, key=terms.get)
         ms = cuda_ms(kernel_fn[name], 5)
         times[name] = {
             "ms": ms,
             "tflops": flops / ms / 1e9,
             "plain_ms": cuda_ms(plain_fn[name], 2),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": terms[bound_by],
+            "bound_by": bound_by,
             "library_ms": library[name],
-            "flops": flops, "bytes": nbytes, "plain_head_chunks": n_chunks,
+            "flops": flops, "bytes": nbytes, "exps": exps[name],
+            "bound_terms_ms": terms, "plain_head_chunks": n_chunks,
         }
         torch.cuda.empty_cache()
     del q, k, v, do, o, lse, rowterm, qh, kh, vh, doh
@@ -3831,11 +3899,11 @@ def phase_lm_remat(fa):
 
 
 def _decode_model(layers, num_kv_heads=None, max_len=DECODE_PREFILL + DECODE_STEPS,
-                  dtype=torch.bfloat16, **kw):
+                  dtype=torch.bfloat16, heads=HEADS, head_dim=HEAD_DIM, **kw):
     from distributed_learning_tpu_torch.models import TransformerLM
 
-    return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
-                         head_dim=HEAD_DIM, max_len=max_len, attn_impl="flash",
+    return TransformerLM(vocab_size=VOCAB, num_layers=layers, num_heads=heads,
+                         head_dim=head_dim, max_len=max_len, attn_impl="flash",
                          dtype=dtype, num_kv_heads=num_kv_heads, n_agents=1,
                          device=DEVICE, seed=3, **kw)
 
@@ -3919,12 +3987,13 @@ def _decode_prompt():
                            device=DEVICE)
 
 
-def time_decode(fa, model, prompt):
+def time_decode(fa, model, prompt, steps=DECODE_STEPS):
     """``generate``'s times by the prefill-subtracted protocol
     (``bench_lm.py:112``): after a warm-up, the prefill alone (one token)
-    and the whole of ``DECODE_STEPS`` steps.  Returns (prefill seconds,
-    generate seconds, the prefill's launch counts).  The warm-up's decode
-    runs ``DECODE_WARMUP_STEPS`` of the same one-token steps."""
+    and the whole of ``steps`` steps (none when ``steps`` is 0).  Returns
+    (prefill seconds, generate seconds or None, the prefill's launch
+    counts).  The warm-up's decode runs ``DECODE_WARMUP_STEPS`` of the
+    same one-token steps."""
     from distributed_learning_tpu_torch.models.transformer import generate
 
     for n in (1, DECODE_WARMUP_STEPS):
@@ -3936,8 +4005,10 @@ def time_decode(fa, model, prompt):
     torch.cuda.synchronize()
     dt_prefill = time.perf_counter() - t0
     launches = _launches(fa)
+    if not steps:
+        return dt_prefill, None, launches
     t0 = time.perf_counter()
-    generate(model, prompt, DECODE_STEPS)
+    generate(model, prompt, steps)
     torch.cuda.synchronize()
     return dt_prefill, time.perf_counter() - t0, launches
 
@@ -4132,10 +4203,41 @@ def phase_lm_head_dims(fa):
         raise AssertionError(f"head dim 16 training disagrees with plain attention: {trained}")
     per = SMALL_LM_LAYERS * SMALL_LM_EPOCHS
     if not (launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == per
-            and bodies["flash_fwd"]["cuda_core"] >= per and not bodies["flash_fwd"]["wgmma"]):
-        raise AssertionError(f"head dim 16 launches {launches} {bodies}: want the CUDA-core "
-                             "bodies once a layer and step")
+            and bodies["flash_bwd_dq"]["cuda_core"] == bodies["flash_bwd_dkv"]["cuda_core"] == per
+            and bodies["flash_fwd"]["wgmma"] >= per and not bodies["flash_fwd"]["cuda_core"]):
+        raise AssertionError(f"head dim 16 launches {launches} {bodies}: want the wgmma forward "
+                             "and the CUDA-core dQ and dK/dV once a layer and step")
     return launches
+
+
+def lm_epoch(fa, dims, rowterm) -> dict:
+    """One eager epoch of the full slice (8 layers, 4 agents on a ring, B
+    2, 3 steps and a round) with ``dims`` in place of the slice's widths:
+    seconds, tokens/s, peak memory, launches by kernel and body, and the
+    launches it should make (the pre-pass once a layer backward when
+    ``rowterm``)."""
+    master = make_trainer("flash", LAYERS, AGENTS, 1, STEPS, dims=dims)
+    n_eval = math.ceil(len(master.test_data[0]) / master.eval_batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    p = master.train_epoch()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    epoch = {"train_loss": p["train_loss"].tolist(), "epoch_seconds": dt,
+             "train_tokens_per_s_incl_eval_and_mix": AGENTS * BATCH * SEQ * STEPS / dt,
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "params_per_agent": master.model.param_count(), "launches": _launches(fa),
+             "by_body": {k.name: dict(k.by_body) for k in fa.KERNELS.values()},
+             "expected_launches": {"flash_fwd": LAYERS * (STEPS + n_eval),
+                                   "flash_bwd_dq": LAYERS * STEPS,
+                                   "flash_bwd_dkv": LAYERS * STEPS,
+                                   "flash_bwd_rowterm": LAYERS * STEPS if rowterm else 0}}
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    return epoch
 
 
 # ---------------------------------------------------------------------- #
@@ -4155,27 +4257,8 @@ def phase_lm_head_dim_256(fa):
     counts."""
     facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
                             dims=D256_LM)
-    master = make_trainer("flash", LAYERS, AGENTS, 1, STEPS, dims=D256_LM)
-    n_eval = math.ceil(len(master.test_data[0]) / master.eval_batch_size)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    p = master.train_epoch()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = _launches(fa)
-    bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
-    expect = {"flash_fwd": LAYERS * (STEPS + n_eval), "flash_bwd_dq": LAYERS * STEPS,
-              "flash_bwd_dkv": LAYERS * STEPS, "flash_bwd_rowterm": LAYERS * STEPS}
-    epoch = {"train_loss": p["train_loss"].tolist(), "epoch_seconds": round(dt, 4),
-             "train_tokens_per_s_incl_eval_and_mix": round(AGENTS * BATCH * SEQ * STEPS / dt, 1),
-             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-             "params_per_agent": master.model.param_count(), "launches": launches,
-             "by_body": bodies, "expected_launches": expect}
-    del master
-    gc.collect()
-    torch.cuda.empty_cache()
+    epoch = lm_epoch(fa, D256_LM, rowterm=True)
+    launches, bodies, expect = epoch["launches"], epoch["by_body"], epoch["expected_launches"]
     emit({"phase": "lm_head_dim_256", "config": {"vocab": VOCAB, "seq": SEQ, **D256_LM},
           "agents": AGENTS, "layers": LAYERS, "batch_per_agent": BATCH, "steps": STEPS,
           "one_step": facts, "epoch": epoch})
@@ -4190,6 +4273,89 @@ def phase_lm_head_dim_256(fa):
         raise AssertionError(f"head dim 256 launches {launches} {bodies}: want {expect}, the "
                              "forward, dQ and dK/dV on wgmma")
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# Phase 31, continued: the LM at head dim 32                             #
+# ---------------------------------------------------------------------- #
+# The slice's LM with its model width (d_model 1024) as 32 heads of 32, the
+# head dim that the reference's default (16) and the examples' (8) run at.
+D32_LM = {"heads": D32_HEADS, "head_dim": 32}
+# Its step against plain attention runs at T 2048: the plain path's float32
+# scores of one agent, (B 2, 32, T, T), are 4.3 GB at T 4096 and it holds
+# several a layer; at T 2048 one is 1.1 GB.
+D32_PLAIN_SEQ = 2048
+
+
+def phase_lm_head_dim_32(fa, times_d32):
+    """``TransformerLM(attn_impl="flash", num_heads=32, head_dim=32)`` at
+    the slice's configuration otherwise.  (1) Serving: ``generate`` at
+    lm_decode's configuration (B 2, prefill 2048, MHA): the prefill's
+    seconds by the prefill-subtracted protocol (no timed steps), its
+    tokens/s and launches (kernel A once a layer, on wgmma), kernel A's
+    own ms at the prefill's shape; the logits of the prefill and
+    ``DECODE_CHECK_STEPS`` steps against a full forward over the 2,080
+    positions (a ragged T), the greedy tokens against its argmax.  (2)
+    One step of 2 agents x 2 layers at T ``D32_PLAIN_SEQ`` against plain
+    attention (phase 4's limits and control).  (3) One eager epoch of the
+    full slice (8 layers, 4 agents on a ring, B 2, 3 steps and a round):
+    tokens/s, peak memory, launches by body (the forward on wgmma, dQ and
+    dK/dV on CUDA cores, no pre-pass) and the epoch split by kernel time
+    (launches x ``times_d32``'s ms).  Returns the epoch's and the
+    prefill's launch counts."""
+    prompt = _decode_prompt()
+    model = _decode_model(LAYERS, heads=D32_HEADS, head_dim=32)
+    dt_prefill, _, prefill_launches = time_decode(fa, model, prompt, steps=0)
+    prefill_bodies = dict(fa.KERNELS["flash_fwd"].by_body)
+    fa.reset_launch_counts()
+    check = decode_vs_full(model, prompt, DECODE_CHECK_STEPS)
+    check_bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    del model
+    q, k, v, _ = _qkv(DECODE_BATCH, DECODE_PREFILL, D32_HEADS, 32, torch.bfloat16, seed=5)
+    a_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, 32 ** -0.5, True, None, with_lse=True), 10)
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = {"batch": DECODE_BATCH, "prefill": DECODE_PREFILL, "prefill_s": dt_prefill,
+               "prefill_tokens_per_s": DECODE_BATCH * DECODE_PREFILL / dt_prefill,
+               "prefill_launches": prefill_launches, "prefill_flash_fwd_by_body": prefill_bodies,
+               "kernel_a_ms_at_prefill_shape": a_ms, "kernel_a_ms_per_prefill": LAYERS * a_ms,
+               "logits_rtol": DECODE_LOGITS_RTOL, "check": check,
+               "check_launches_by_body": check_bodies}
+
+    facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
+                            dims={**D32_LM, "seq": D32_PLAIN_SEQ})
+
+    epoch = lm_epoch(fa, D32_LM, rowterm=False)
+    launches, bodies, expect = epoch["launches"], epoch["by_body"], epoch["expected_launches"]
+    split = {name: launches[name] * times_d32[name]["ms"] for name in fa._KERNEL_NAMES}
+    split["rest"] = epoch["epoch_seconds"] * 1e3 - sum(split.values())
+    epoch["split_ms_by_kernel_time"] = split
+    emit({"phase": "lm_head_dim_32", "config": {"vocab": VOCAB, "seq": SEQ, **D32_LM},
+          "agents": AGENTS, "layers": LAYERS, "batch_per_agent": BATCH, "steps": STEPS,
+          "serving": serving, "one_step_seq": D32_PLAIN_SEQ, "one_step": facts, "epoch": epoch})
+    if not (check["max_rel_err"] <= DECODE_LOGITS_RTOL and check["tokens_agree"]):
+        raise AssertionError(f"head dim 32 decode disagrees with the full forward: {check}")
+    want_prefill = {"flash_fwd": LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "flash_bwd_rowterm": 0}
+    if prefill_launches != want_prefill or prefill_bodies["wgmma"] != LAYERS:
+        raise AssertionError(f"head dim 32 prefill launches {prefill_launches} "
+                             f"{prefill_bodies}: want kernel A on wgmma once a layer")
+    fwd_check = check_bodies["flash_fwd"]
+    if not (fwd_check["wgmma"] >= 2 * LAYERS and fwd_check["cuda_core"] == 0):
+        raise AssertionError(f"head dim 32 decode check launched {check_bodies}: want every "
+                             "forward on wgmma")
+    if not facts["ok"]:
+        raise AssertionError("head dim 32: kernel path and plain path disagree, or the "
+                             "control was not rejected")
+    if not all(math.isfinite(x) for x in epoch["train_loss"]):
+        raise AssertionError(f"head dim 32 epoch loss not finite: {epoch['train_loss']}")
+    fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
+    if not (launches == expect and fwd["wgmma"] == expect["flash_fwd"]
+            and dq["cuda_core"] == dkv["cuda_core"] == LAYERS * STEPS):
+        raise AssertionError(f"head dim 32 launches {launches} {bodies}: want {expect}, the "
+                             "forward on wgmma, dQ and dK/dV on CUDA cores, no pre-pass")
+    return launches, prefill_launches
 
 
 # ---------------------------------------------------------------------- #
@@ -7144,6 +7310,8 @@ def main(argv=None) -> int:
                     help="only build, hold and time the wide (D > 256) bodies")
     ap.add_argument("--d256-only", action="store_true",
                     help="only build, hold (D 256 and 192) and time (D 256) the D-256 bodies")
+    ap.add_argument("--d32-only", action="store_true",
+                    help="only build, hold (D 32, 16 and 8) and time (D 32) the D-32 bodies")
     # Set by the sharded phase for its rank processes.
     ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -7174,13 +7342,16 @@ def main(argv=None) -> int:
         step_timing(args.step_timing)
         print_card()
         return 0
-    if args.wide_only or args.d256_only or args.sharded_only:
+    if args.wide_only or args.d256_only or args.d32_only or args.sharded_only:
         if args.wide_only:
             phase_kernels_wide(fa)
             phase_times_wide(fa)
         if args.d256_only:
             phase_kernels_d256(fa)
             phase_times_d256(fa)
+        if args.d32_only:
+            phase_kernels_d32(fa)
+            phase_times_d32(fa)
         if args.sharded_only:
             phase_sharded()
         print_card()
@@ -7193,7 +7364,7 @@ def main(argv=None) -> int:
         phase_seconds[name] = round(now - last[0], 2)
         last[0] = now
 
-    main_errs, d256_errs, wide_errs = phase_kernels(fa)
+    main_errs, d32_errs, d256_errs, wide_errs = phase_kernels(fa)
     mark("kernels")
     master, launches, bodies = phase_slice(fa)
     if args.profile:
@@ -7207,11 +7378,11 @@ def main(argv=None) -> int:
     times_wide = phase_times_wide(fa)
     # The float32 CUDA-core bodies (the TP decode's float32 prefill and the
     # float32 MoE LMs run them; at D 256 dQ and dK/dV serve float32 only),
-    # and the bf16 D-32 ones.
+    # and the bf16 D-32 ones (A on wgmma, B and C on CUDA cores).
     times_f32 = _times_phase(fa, "times_f32", HEADS, HEAD_DIM, torch.float32)
     times_f32_d256 = _times_phase(fa, "times_f32_d256", D256_HEADS, D256_HEAD_DIM,
                                   torch.float32)
-    times_d32 = _times_phase(fa, "times_d32", D32_HEADS, 32)
+    times_d32 = phase_times_d32(fa)
     gc.collect()
     torch.cuda.empty_cache()
     mark("slice_plain_times")
@@ -7266,6 +7437,7 @@ def main(argv=None) -> int:
     # A head dim the kernels run zero-padded, and the comm/ wire layer.
     head_dim_launches = phase_lm_head_dims(fa)
     d256_launches = phase_lm_head_dim_256(fa)
+    d32_launches, d32_prefill_launches = phase_lm_head_dim_32(fa, times_d32)
     mark("head_dims")
     phase_wire()
     mark("wire")
@@ -7294,6 +7466,8 @@ def main(argv=None) -> int:
                                  "lm_prefill": prefill_launches[k.name],
                                  "lm_head_dims": head_dim_launches[k.name],
                                  "lm_head_dim_256": d256_launches[k.name],
+                                 "lm_head_dim_32": d32_launches[k.name],
+                                 "lm_head_dim_32_prefill": d32_prefill_launches[k.name],
                                  "lm_sharded": sharded_launches[k.name],
                                  "seq_parallel": seq_launches[k.name],
                                  "model_parallel": mp_launches[k.name],
@@ -7310,7 +7484,7 @@ def main(argv=None) -> int:
                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
             # The float32 bodies (CUDA cores) at the slice's launch shape
             # and at 4 heads x 256, and the bf16 head-dim-32 bodies at 32
-            # heads x 32.
+            # heads x 32 (A on wgmma, held in phase 2 at that width).
             **{tag: {"body": bodies_t[k.name], "dtype": dt, "heads": hh, "head_dim": dd,
                      **{f: tt[k.name][f] for f in
                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
@@ -7326,6 +7500,7 @@ def main(argv=None) -> int:
                               **{f: times_wide[k.name][f] for f in
                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         })
+        kernels[-1]["head_dim_32"]["max_abs_err"] = d32_errs[k.name]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2),
           "phase_seconds": phase_seconds})
     emit({"kernels": kernels})

@@ -7,9 +7,10 @@
 //   flash_dq_kernel    <- _flash_dq_kernel  (launched by _bwd_call)
 //   flash_dkv_kernel   <- _flash_dkv_kernel (launched by _bwd_call)
 // Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
-// bfloat16 with head dim 64, 128 or 256; dispatch() picks it by (kernel,
-// dtype, D) alone (uses_wgmma_body in flash_params.cuh).  The bodies here
-// serve float32 inputs, head dim 32, float32 at 256, and (the wide
+// bfloat16 with head dim 64, 128 or 256, and the forward one at head dim
+// 32 too; dispatch() picks it by (kernel, dtype, D) alone
+// (uses_wgmma_body in flash_params.cuh).  The bodies here serve float32
+// inputs, bf16 dQ and dK/dV at head dim 32, float32 at 256, and (the wide
 // bodies) every multiple of 128 above 256.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
@@ -1022,14 +1023,19 @@ template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ = tile_rows<D>(), BK = tile_rows<D>();
   const int q_tiles = (p.T + BQ - 1) / BQ, k_tiles = (p.T + BK - 1) / BK;
-  // bf16 with D 64, 128 or 256 runs the wgmma bodies, so these are not
-  // built for it.
+  // bf16 with D 64, 128 or 256 runs the wgmma bodies, and so does the
+  // bf16 forward at D 32, so these are not built for them.
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   if constexpr (bf16 && (D == 64 || D == 128 || D == 256)) {
     return cudaErrorInvalidValue;
   } else {
-    if (which == 0)
-      return launch(flash_fwd_kernel<T, D, BQ, BK>, fwd_smem<D, BQ, BK>(), q_tiles, p, stream);
+    if (which == 0) {
+      if constexpr (bf16 && D == 32) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch(flash_fwd_kernel<T, D, BQ, BK>, fwd_smem<D, BQ, BK>(), q_tiles, p, stream);
+      }
+    }
     if (which == 1)
       return launch(flash_dq_kernel<T, D, BQ, BK>, dq_smem<D, BQ, BK>(), q_tiles, p, stream);
     return launch(flash_dkv_kernel<T, D, BQ, BK>, dkv_smem<D, BQ, BK>(), k_tiles, p, stream);
@@ -1077,7 +1083,7 @@ int dlt_flash_bwd_rowterm(const FlashParams* p, void* stream) {
 // 1 if dispatch(which, ...) takes the wgmma/TMA body for this dtype and head dim.
 int dlt_flash_uses_wgmma(int which, int dtype, int D) { return uses_wgmma_body(which, dtype, D); }
 // Dynamic shared memory a wgmma body launches with (which 0, 1 or 2; D 64,
-// 128 or 256); -1 where there is no such body.
+// 128 or 256, and which 0 at D 32); -1 where there is no such body.
 int dlt_flash_wgmma_smem_bytes(int which, int D) { return flash_sm90_smem_bytes(which, D); }
 int dlt_flash_struct_size() { return static_cast<int>(sizeof(FlashParams)); }
 

@@ -1,6 +1,6 @@
 // Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
-// on the tensor cores, bfloat16 with head dim 64, 128 or 256, and the
-// backward's pre-pass.
+// on the tensor cores, bfloat16 with head dim 64, 128 or 256 (the forward
+// also 32), and the backward's pre-pass.
 //
 //   flash_fwd_kernel_sm90        <- _flash_kernel      (launched by _fwd_call)
 //   flash_dq_kernel_sm90         <- _flash_dq_kernel   (launched by _bwd_call)
@@ -23,9 +23,10 @@
 //   * every product is a wgmma (m64nNk16, bf16 in, float32 accumulate);
 //     P and dS go from the float32 accumulator to the register A operand
 //     of the next product and never touch shared memory;
-//   * Q, K, V and dO tiles arrive by TMA (128-byte swizzle) through a
-//     2-stage ring of mbarriers, straight from the (B, T, H, D) views,
-//     so the strided views of the fused QKV projection need no copy;
+//   * Q, K, V and dO tiles arrive by TMA (128-byte swizzle; 64-byte at
+//     head dim 32) through a 2-stage ring of mbarriers, straight from the
+//     (B, T, H, D) views, so the strided views of the fused QKV
+//     projection need no copy;
 //   * one producer warp issues the loads; two consumer warpgroups of 64
 //     rows each run the products, with setmaxnreg moving registers from
 //     the producer warpgroup (24) to the consumers (240);
@@ -56,6 +57,14 @@
 // the second through a 16 KB float32 buffer, so dS^T is formed from the
 // unrounded P as everywhere else.  All three run O, dQ, dK and dV at
 // N = 256.
+//
+// Head dim 32 (the forward only; dQ and dK/dV stay on the CUDA-core
+// bodies): a bf16 row is 64 bytes, so the frame's tiles have one 64-byte
+// line a row with 64-byte swizzle (line<D>(), col_blocks<D>(): Q 8 KB,
+// each K and V stage 8 KB, 42,112 bytes in all), the same 128-key tiles,
+// ring and ping-pong as D 128, and O at N = 32.  There the exponentials,
+// one ex2 per live pair on the special-function unit (16 a clock per
+// SM), take about twice the time of the two products, so they bound it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,9 +83,41 @@ constexpr int kConsumers = 2;                     // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kStages = 2;  // depth of the K/V (forward, dQ) and Q/dO (dK/dV) rings
-constexpr int kLine = 128;  // bytes of one swizzled tile row (64 bf16)
 constexpr float kNegInf = -1e30f;  // large-but-finite, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The shared-memory frame of head dim D (sm90.cuh's header): a tile is
+// col_blocks<D>() column blocks of tile_cols<D>() bf16 columns, one
+// swizzled line of line<D>() bytes a row; 128-byte lines and swizzle at
+// D >= 64, one 64-byte line with 64-byte swizzle at D 32.
+template <int D>
+__host__ __device__ constexpr int line() { return D < 64 ? 64 : 128; }
+template <int D>
+__host__ __device__ constexpr int tile_cols() { return line<D>() / 2; }
+template <int D>
+__host__ __device__ constexpr int col_blocks() { return D < 64 ? 1 : D / 64; }
+
+// A wgmma descriptor of a tile of head dim D: SBO is one 8-row atom.
+template <int D>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo) {
+  if constexpr (line<D>() == 64) {
+    return desc_sw64(addr, lbo, 512);
+  } else {
+    return desc_sw128(addr, lbo, 1024);
+  }
+}
+
+// Where 16-byte chunk c of row r of a staging area sits in its line: the
+// TMA swizzle's XOR pattern (128-byte lines: r % 8; 64-byte lines:
+// (r / 2) % 4), so neighbouring rows fall on different banks.
+template <int D>
+__device__ __forceinline__ int swizzled_chunk(int c, int r) {
+  if constexpr (line<D>() == 64) {
+    return c ^ ((r >> 1) & 3);
+  } else {
+    return c ^ (r & 7);
+  }
+}
 
 // Forward: 128 query rows per block (64 per consumer), 128-key tiles (64
 // at head dim 256, so two stages of K and V fit shared memory beside the
@@ -130,8 +171,10 @@ __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2], const uint32_t (&
     wgmma_rs_n256(d, a, b, 1);
   } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, b, 1);
-  } else {
+  } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, b, 1);
+  } else {
+    wgmma_rs_n32(d, a, b, 1);
   }
 }
 
@@ -148,9 +191,12 @@ __device__ __forceinline__ void wgmma_ss_nk(float (&d)[N / 2], uint64_t a, uint6
   }
 }
 
-// Byte offset of a K-major k16 step `kk` in a tile of `rows` rows.
+// Byte offset of a K-major k16 step `kk` in a tile of `rows` rows: 32
+// bytes a step inside a line, then the next column block.
+template <int D>
 __device__ __forceinline__ uint32_t kmajor_step(int kk, int rows) {
-  return (kk / 4) * rows * kLine + (kk % 4) * 32;
+  constexpr int kSteps = line<D>() / 32;  // k16 steps a line
+  return (kk / kSteps) * rows * line<D>() + (kk % kSteps) * 32;
 }
 
 // The k16 A fragment for depth columns [16 kk, 16 kk + 16) of a float32
@@ -165,17 +211,19 @@ __device__ __forceinline__ void to_frag(const float (&acc)[R], int kk, uint32_t 
 
 // Write a warpgroup's 64 x D float32 accumulator (times `mul`) as bf16
 // into a staging area laid out like a TMA tile of 64 rows (16-byte chunks
-// XORed by row % 8, column blocks `block` bytes apart).
+// at swizzled_chunk<D>, column blocks `block` bytes apart).
 template <int D>
 __device__ __forceinline__ void stage_rows(uint8_t* stage, int block, const float (&acc)[D / 2],
                                            float mul0, float mul1, int r_lo, int c_lo) {
+  constexpr int kPerLine = line<D>() / 16;  // 16-byte chunks a line
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = r_lo + 8 * rr;
       const float mul = rr ? mul1 : mul0;
-      const int off = (j / 8) * block + r * kLine + (((j % 8) ^ (r & 7)) * 16) + 2 * c_lo;
+      const int off = (j / kPerLine) * block + r * line<D>() +
+                      swizzled_chunk<D>(j % kPerLine, r) * 16 + 2 * c_lo;
       *reinterpret_cast<uint32_t*>(stage + off) =
           pack_bf16(acc[4 * j + 2 * rr] * mul, acc[4 * j + 2 * rr + 1] * mul);
     }
@@ -188,12 +236,12 @@ template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, const uint8_t* stage, int block,
                                            const FlashParams& p, int b, int h, int row0,
                                            int t) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = D / 8, kPerLine = line<D>() / 16;
   for (int idx = t; idx < 64 * kChunks; idx += 128) {
     const int r = idx / kChunks, c = idx % kChunks, row = row0 + r;
     if (row >= p.T) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(stage + (c / 8) * block + r * kLine +
-                                                      (((c % 8) ^ (r & 7)) * 16));
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        stage + (c / kPerLine) * block + r * line<D>() + swizzled_chunk<D>(c % kPerLine, r) * 16);
     *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * p.T + row) * p.H + h) * D +
                               c * 8) = val;
   }
@@ -204,8 +252,8 @@ __device__ __forceinline__ void store_rows(bf16* out, const uint8_t* stage, int 
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdSmem {
-  static constexpr int kQ = (D / 64) * kFwdBQ * kLine;   // the Q tile
-  static constexpr int kKV = (D / 64) * fwd_bk<D>() * kLine;  // one K or V tile
+  static constexpr int kQ = col_blocks<D>() * kFwdBQ * line<D>();       // the Q tile
+  static constexpr int kKV = col_blocks<D>() * fwd_bk<D>() * line<D>();  // one K or V tile
   static constexpr int kK = kQ, kV = kK + kStages * kKV, kBar = kV + kStages * kKV;
   static constexpr int kBytes = kBar + 128 + 1024;  // barriers, alignment slack
 };
@@ -215,6 +263,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
+  // The frame of head dim D: line bytes, columns and column blocks of a tile.
+  constexpr int kLine = line<D>(), kCols = tile_cols<D>(), kBlocks = col_blocks<D>();
   using L = FwdSmem<D>;
   constexpr int BK = fwd_bk<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -260,19 +310,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch_map(&tm_k);
       tma_prefetch_map(&tm_v);
       mbar_expect_tx(full_q, L::kQ);
-      for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(q_s + c * kFwdBQ * kLine, &tm_q, full_q, c * 64, h, q0, b);
+      for (int c = 0; c < kBlocks; ++c)
+        tma_load_4d(q_s + c * kFwdBQ * kLine, &tm_q, full_q, c * kCols, h, q0, b);
       for (int i = 0; i < n_kt; ++i) {
         const int s = i % kStages, k0 = (kt_lo + i) * BK;
         const uint32_t ph = ((i / kStages) - 1) & 1;
         if (i >= kStages) mbar_wait(&empty_k[s], ph);
         mbar_expect_tx(&full_k[s], L::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full_k[s], c * 64, h, k0, b);
+        for (int c = 0; c < kBlocks; ++c)
+          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full_k[s], c * kCols, h, k0, b);
         if (i >= kStages) mbar_wait(&empty_v[s], ph);
         mbar_expect_tx(&full_v[s], L::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full_v[s], c * 64, h, k0, b);
+        for (int c = 0; c < kBlocks; ++c)
+          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full_v[s], c * kCols, h, k0, b);
       }
     }
   } else {
@@ -299,8 +349,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&full_k[s], (i / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_nk<BK>(sc, desc_sw128(q_base + kmajor_step(kk, kFwdBQ), 16, 1024),
-                        desc_sw128(k_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
+        wgmma_ss_nk<BK>(sc, desc_sw<D>(q_base + kmajor_step<D>(kk, kFwdBQ), 16),
+                        desc_sw<D>(k_base + kmajor_step<D>(kk, BK), 16), kk > 0);
       wgmma_commit();
     };
     // O += P V for tile i: V is the MN-major B operand (keys are the depth).
@@ -310,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&full_v[s], (i / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_nd<D>(o, pf[kk], desc_sw128(v_base + kk * 16 * kLine, BK * kLine, 1024));
+        wgmma_rs_nd<D>(o, pf[kk], desc_sw<D>(v_base + kk * 16 * kLine, BK * kLine));
       wgmma_commit();
     };
     // Online softmax of tile i in registers (a row's BK columns lie in the
@@ -450,8 +500,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DqSmem {
-  static constexpr int kQ = (D / 64) * kDqBQ * kLine;        // the Q or the dO tile
-  static constexpr int kKV = (D / 64) * dq_bk<D>() * kLine;  // one K or V tile
+  static constexpr int kQ = col_blocks<D>() * kDqBQ * line<D>();        // the Q or the dO tile
+  static constexpr int kKV = col_blocks<D>() * dq_bk<D>() * line<D>();  // one K or V tile
   static constexpr int kDO = kQ, kK = 2 * kQ, kV = kK + kStages * kKV, kBar = kV + kStages * kKV;
   static constexpr int kBytes = kBar + 64 + 1024;  // barriers, alignment slack
 };
@@ -462,6 +512,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
+  // The frame of head dim D: line bytes, columns and column blocks of a tile.
+  constexpr int kLine = line<D>(), kCols = tile_cols<D>(), kBlocks = col_blocks<D>();
   using L = DqSmem<D>;
   constexpr int BK = dq_bk<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -505,17 +557,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch_map(&tm_k);
       tma_prefetch_map(&tm_v);
       mbar_expect_tx(full_q, 2 * L::kQ);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(q_s + c * kDqBQ * kLine, &tm_q, full_q, c * 64, h, q0, b);
-        tma_load_4d(do_s + c * kDqBQ * kLine, &tm_do, full_q, c * 64, h, q0, b);
+      for (int c = 0; c < kBlocks; ++c) {
+        tma_load_4d(q_s + c * kDqBQ * kLine, &tm_q, full_q, c * kCols, h, q0, b);
+        tma_load_4d(do_s + c * kDqBQ * kLine, &tm_do, full_q, c * kCols, h, q0, b);
       }
       for (int i = 0; i < n_kt; ++i) {
         const int s = i % kStages, k0 = (kt_lo + i) * BK;
         if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * L::kKV);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full[s], c * 64, h, k0, b);
-          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full[s], c * 64, h, k0, b);
+        for (int c = 0; c < kBlocks; ++c) {
+          tma_load_4d(k_s + s * L::kKV + c * BK * kLine, &tm_k, &full[s], c * kCols, h, k0, b);
+          tma_load_4d(v_s + s * L::kKV + c * BK * kLine, &tm_v, &full[s], c * kCols, h, k0, b);
         }
       }
     }
@@ -560,13 +612,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_nk<BK>(st, desc_sw128(q_base + kmajor_step(kk, kDqBQ), 16, 1024),
-                          desc_sw128(k_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
+          wgmma_ss_nk<BK>(st, desc_sw<D>(q_base + kmajor_step<D>(kk, kDqBQ), 16),
+                          desc_sw<D>(k_base + kmajor_step<D>(kk, BK), 16), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_nk<BK>(dp, desc_sw128(do_base + kmajor_step(kk, kDqBQ), 16, 1024),
-                          desc_sw128(v_base + kmajor_step(kk, BK), 16, 1024), kk > 0);
+          wgmma_ss_nk<BK>(dp, desc_sw<D>(do_base + kmajor_step<D>(kk, kDqBQ), 16),
+                          desc_sw<D>(v_base + kmajor_step<D>(kk, BK), 16), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(st);
@@ -603,7 +655,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs_nd<D>(dq, sf[kk], desc_sw128(k_base + kk * 16 * kLine, BK * kLine, 1024));
+          wgmma_rs_nd<D>(dq, sf[kk], desc_sw<D>(k_base + kk * 16 * kLine, BK * kLine));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -629,8 +681,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DkvSmem {
-  static constexpr int kKV = (D / 64) * kDkvBK * kLine;  // the K or V tile
-  static constexpr int kQ = (D / 64) * kDkvBQ * kLine;   // one Q or dO tile
+  static constexpr int kKV = col_blocks<D>() * kDkvBK * line<D>();  // the K or V tile
+  static constexpr int kQ = col_blocks<D>() * kDkvBQ * line<D>();   // one Q or dO tile
   static constexpr int kV = kKV, kQs = 2 * kKV, kDO = kQs + kStages * kQ;
   static constexpr int kVec = kDO + kStages * kQ;  // lse and rowterm, per stage
   static constexpr int kBar = kVec + 2 * kStages * kDkvBQ * 4;
@@ -643,6 +695,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
+  // The frame of head dim D: line bytes, columns and column blocks of a tile.
+  constexpr int kLine = line<D>(), kCols = tile_cols<D>(), kBlocks = col_blocks<D>();
   using L = DkvSmem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -686,9 +740,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_prefetch_map(&tm_q);
         tma_prefetch_map(&tm_do);
         mbar_expect_tx(full_kv, 2 * L::kKV);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(k_s + c * kDkvBK * kLine, &tm_k, full_kv, c * 64, h, k0, b);
-          tma_load_4d(v_s + c * kDkvBK * kLine, &tm_v, full_kv, c * 64, h, k0, b);
+        for (int c = 0; c < kBlocks; ++c) {
+          tma_load_4d(k_s + c * kDkvBK * kLine, &tm_k, full_kv, c * kCols, h, k0, b);
+          tma_load_4d(v_s + c * kDkvBK * kLine, &tm_v, full_kv, c * kCols, h, k0, b);
         }
       }
       const int64_t vec0 = static_cast<int64_t>(bh) * p.T;
@@ -702,9 +756,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (t == 0) {
           mbar_expect_tx(&full[s], 2 * L::kQ);
-          for (int c = 0; c < D / 64; ++c) {
-            tma_load_4d(q_s + s * L::kQ + c * kDkvBQ * kLine, &tm_q, &full[s], c * 64, h, q0, b);
-            tma_load_4d(do_s + s * L::kQ + c * kDkvBQ * kLine, &tm_do, &full[s], c * 64, h, q0,
+          for (int c = 0; c < kBlocks; ++c) {
+            tma_load_4d(q_s + s * L::kQ + c * kDkvBQ * kLine, &tm_q, &full[s], c * kCols, h, q0, b);
+            tma_load_4d(do_s + s * L::kQ + c * kDkvBQ * kLine, &tm_do, &full[s], c * kCols, h, q0,
                         b);
           }
         } else {
@@ -745,12 +799,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(st, desc_sw128(k_base + kmajor_step(kk, kDkvBK), 16, 1024),
-                       desc_sw128(q_base + kmajor_step(kk, kDkvBQ), 16, 1024), kk > 0);
+          wgmma_ss_n64(st, desc_sw<D>(k_base + kmajor_step<D>(kk, kDkvBK), 16),
+                       desc_sw<D>(q_base + kmajor_step<D>(kk, kDkvBQ), 16), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(dp, desc_sw128(v_base + kmajor_step(kk, kDkvBK), 16, 1024),
-                       desc_sw128(do_base + kmajor_step(kk, kDkvBQ), 16, 1024), kk > 0);
+          wgmma_ss_n64(dp, desc_sw<D>(v_base + kmajor_step<D>(kk, kDkvBK), 16),
+                       desc_sw<D>(do_base + kmajor_step<D>(kk, kDkvBQ), 16), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -784,7 +838,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDkvBQ / 16; ++kk)
-          wgmma_rs_nd<D>(dv, pf[kk], desc_sw128(do_base + kk * 16 * kLine, kDkvBQ * kLine, 1024));
+          wgmma_rs_nd<D>(dv, pf[kk], desc_sw<D>(do_base + kk * 16 * kLine, kDkvBQ * kLine));
         wgmma_commit();
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -799,7 +853,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDkvBQ / 16; ++kk)
-          wgmma_rs_nd<D>(dk, sf[kk], desc_sw128(q_base + kk * 16 * kLine, kDkvBQ * kLine, 1024));
+          wgmma_rs_nd<D>(dk, sf[kk], desc_sw<D>(q_base + kk * 16 * kLine, kDkvBQ * kLine));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -835,8 +889,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DkvSplitSmem {
-  static constexpr int kKV = (D / 64) * kSplitBK * kLine;  // the K or V tile
-  static constexpr int kQ = (D / 64) * kSplitBQ * kLine;   // one Q or dO tile
+  static constexpr int kKV = col_blocks<D>() * kSplitBK * line<D>();  // the K or V tile
+  static constexpr int kQ = col_blocks<D>() * kSplitBQ * line<D>();   // one Q or dO tile
   static constexpr int kV = kKV, kQs = 2 * kKV, kDO = kQs + kStages * kQ;
   static constexpr int kPt = kDO + kStages * kQ;            // P^T, float32
   static constexpr int kVec = kPt + kSplitBK * kSplitBQ * 4;  // lse and rowterm, per stage
@@ -853,6 +907,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
                                 const __grid_constant__ CUtensorMap tm_do, const FlashParams p) {
+  // The frame of head dim D: line bytes, columns and column blocks of a tile.
+  constexpr int kLine = line<D>(), kCols = tile_cols<D>(), kBlocks = col_blocks<D>();
   using L = DkvSplitSmem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -900,9 +956,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_prefetch_map(&tm_q);
         tma_prefetch_map(&tm_do);
         mbar_expect_tx(full_kv, 2 * L::kKV);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(k_s + c * kSplitBK * kLine, &tm_k, full_kv, c * 64, h, k0, b);
-          tma_load_4d(v_s + c * kSplitBK * kLine, &tm_v, full_kv, c * 64, h, k0, b);
+        for (int c = 0; c < kBlocks; ++c) {
+          tma_load_4d(k_s + c * kSplitBK * kLine, &tm_k, full_kv, c * kCols, h, k0, b);
+          tma_load_4d(v_s + c * kSplitBK * kLine, &tm_v, full_kv, c * kCols, h, k0, b);
         }
       }
       const int64_t vec0 = static_cast<int64_t>(bh) * p.T;
@@ -916,10 +972,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (t == 0) {
           mbar_expect_tx(&full[s], 2 * L::kQ);
-          for (int c = 0; c < D / 64; ++c) {
-            tma_load_4d(q_s + s * L::kQ + c * kSplitBQ * kLine, &tm_q, &full[s], c * 64, h, q0,
+          for (int c = 0; c < kBlocks; ++c) {
+            tma_load_4d(q_s + s * L::kQ + c * kSplitBQ * kLine, &tm_q, &full[s], c * kCols, h, q0,
                         b);
-            tma_load_4d(do_s + s * L::kQ + c * kSplitBQ * kLine, &tm_do, &full[s], c * 64, h,
+            tma_load_4d(do_s + s * L::kQ + c * kSplitBQ * kLine, &tm_do, &full[s], c * kCols, h,
                         q0, b);
           }
         } else {
@@ -956,8 +1012,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, desc_sw128(a_base + kmajor_step(kk, kSplitBK), 16, 1024),
-                     desc_sw128(bq_base + kmajor_step(kk, kSplitBQ), 16, 1024), kk > 0);
+        wgmma_ss_n64(sc, desc_sw<D>(a_base + kmajor_step<D>(kk, kSplitBK), 16),
+                     desc_sw<D>(bq_base + kmajor_step<D>(kk, kSplitBQ), 16), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -1014,7 +1070,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kSplitBQ / 16; ++kk)
-        wgmma_rs_nd<D>(acc, frag[kk], desc_sw128(b_base + kk * 16 * kLine, kSplitBQ * kLine, 1024));
+        wgmma_rs_nd<D>(acc, frag[kk], desc_sw<D>(b_base + kk * 16 * kLine, kSplitBQ * kLine));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1104,29 +1160,39 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (D, H, T, B) of a bf16 (B, T, H, D) tensor with element
-// strides (sb, st, sh, 1), in boxes of 64 head-dim columns x `rows` rows,
-// 128-byte swizzled; rows past T read as zeros.
+// strides (sb, st, sh, 1), in boxes of `cols` head-dim columns x `rows`
+// rows with the given swizzle (tile_map<D> below: head dim D's frame);
+// rows past T read as zeros.
 bool tile_map(CUtensorMap* map, const void* base, const FlashParams& p, int64_t sb, int64_t st,
-              int64_t sh, int rows) {
+              int64_t sh, int rows, int cols, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D), static_cast<cuuint64_t>(p.H),
                               static_cast<cuuint64_t>(p.T), static_cast<cuuint64_t>(p.B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a tile of head dim D: one column block of tile_cols<D>()
+// columns a box, swizzled as its line (64 or 128 bytes).
+template <int D>
+bool tile_map(CUtensorMap* map, const void* base, const FlashParams& p, int64_t sb, int64_t st,
+              int64_t sh, int rows) {
+  return tile_map(map, base, p, sb, st, sh, rows, tile_cols<D>(),
+                  line<D>() == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>
 cudaError_t fwd(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kFwdBQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, fwd_bk<D>()) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, fwd_bk<D>()))
+  if (!tile_map<D>(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kFwdBQ) ||
+      !tile_map<D>(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, fwd_bk<D>()) ||
+      !tile_map<D>(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, fwd_bk<D>()))
     return cudaErrorInvalidValue;
   constexpr int smem = FwdSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<D>,
@@ -1141,10 +1207,10 @@ template <int D>
 cudaError_t bwd_dq(const FlashParams& p, cudaStream_t stream) {
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
   CUtensorMap mq, mk, mv, mdo;
-  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kDqBQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, dq_bk<D>()) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, dq_bk<D>()) ||
-      !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, kDqBQ))
+  if (!tile_map<D>(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kDqBQ) ||
+      !tile_map<D>(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, dq_bk<D>()) ||
+      !tile_map<D>(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, dq_bk<D>()) ||
+      !tile_map<D>(&mdo, p.dout, p, c_st * p.T, c_st, D, kDqBQ))
     return cudaErrorInvalidValue;
   constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<D>,
@@ -1175,10 +1241,10 @@ cudaError_t dkv(const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ = dkv_split<D>() ? kSplitBQ : kDkvBQ;
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
   CUtensorMap mq, mk, mv, mdo;
-  if (!tile_map(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, BQ) ||
-      !tile_map(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, BK) ||
-      !tile_map(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, BK) ||
-      !tile_map(&mdo, p.dout, p, c_st * p.T, c_st, D, BQ))
+  if (!tile_map<D>(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, BQ) ||
+      !tile_map<D>(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, BK) ||
+      !tile_map<D>(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, BK) ||
+      !tile_map<D>(&mdo, p.dout, p, c_st * p.T, c_st, D, BQ))
     return cudaErrorInvalidValue;
   const int smem = dkv_smem_bytes<D>();
   const dim3 grid((p.T + BK - 1) / BK, p.B * p.H);
@@ -1267,6 +1333,7 @@ cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
       !tma_ok(p.v, p.v_sb, p.v_st, p.v_sh) || reinterpret_cast<uintptr_t>(p.o) % 16 != 0)
     return cudaErrorInvalidValue;
   switch (p.D) {
+    case 32: return fwd<32>(p, stream);
     case 64: return fwd<64>(p, stream);
     case 128: return fwd<128>(p, stream);
     default: return fwd<256>(p, stream);
@@ -1299,6 +1366,7 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
 }
 
 int flash_sm90_smem_bytes(int which, int D) {
+  if (which == 0 && D == 32) return FwdSmem<32>::kBytes;
   if (D != 64 && D != 128 && D != 256) return -1;  // no wgmma body
   if (which == 0)
     return D == 64 ? FwdSmem<64>::kBytes : D == 128 ? FwdSmem<128>::kBytes : FwdSmem<256>::kBytes;

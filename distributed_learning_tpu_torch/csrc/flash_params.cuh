@@ -34,11 +34,13 @@ struct FlashParams {
 
 // The kernel that dispatch(which, ...) launches: which 0 forward, 1 dQ,
 // 2 dK/dV.  The wgmma/TMA bodies take bfloat16 with head dim 64, 128 or
-// 256 (all three kernels); wgmma has no float32-exact product, so float32
-// inputs and head dim 32 stay on the CUDA-core bodies.
+// 256 (all three kernels) and 32 (the forward only: dQ and dK/dV at 32
+// stay on the CUDA-core bodies); wgmma has no float32-exact product, so
+// float32 inputs stay on the CUDA-core bodies.
 // ops/flash_attention.py's wgmma_body() mirrors it.
 inline bool uses_wgmma_body(int which, int dtype, int D) {
-  return (which >= 0 && which <= 2) && dtype == 1 && (D == 64 || D == 128 || D == 256);
+  return (which >= 0 && which <= 2) && dtype == 1 &&
+         (D == 64 || D == 128 || D == 256 || (which == 0 && D == 32));
 }
 
 // Defined in flash_attention_sm90.cu; each returns cudaGetLastError().

@@ -162,10 +162,23 @@ def test_attention_reference_matches_jax():
 ])
 def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
     """bf16 with D 64, 128 or 256 takes the wgmma/TMA body of all three
-    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) and D 32
-    the CUDA-core bodies of all three
+    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) the
+    CUDA-core bodies of all three; bf16 at D 32 the wgmma forward with
+    CUDA-core dQ and dK/dV, so not all three
     (``test_torch_flash_body_dispatch.py`` holds each kernel's body)."""
     assert fa.wgmma_body(dtype, D) is wgmma
+
+
+@pytest.mark.parametrize("kernel,wgmma", [
+    ("flash_fwd", True),
+    ("flash_bwd_dq", False),
+    ("flash_bwd_dkv", False),
+])
+def test_body_predicate_at_head_dim_32_is_per_kernel(kernel, wgmma):
+    """bf16 at D 32: the forward on wgmma (64-byte rows), dQ and dK/dV on
+    CUDA cores; float32 there on CUDA cores for every kernel."""
+    assert fa.wgmma_body(torch.bfloat16, 32, kernel) is wgmma
+    assert fa.wgmma_body(torch.float32, 32, kernel) is False
 
 
 def test_tma_rule_rejects_a_view_with_a_stride_off_16_bytes():

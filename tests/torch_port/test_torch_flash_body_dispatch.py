@@ -2,8 +2,10 @@
 (A), dQ (B) and dK/dV (C) choose their body each by (kernel, dtype, head
 dim), as ``uses_wgmma_body`` in ``csrc/flash_params.cuh`` does.  In
 bfloat16 at head dim 256 (and 192, run zero-padded to it) all three take
-their wgmma bodies, while float32 there keeps the CUDA-core bodies; a
-layer's backward runs the pre-pass by B's and C's body, not A's.
+their wgmma bodies, while float32 there keeps the CUDA-core bodies; at
+head dim 32 (and 8, 16, 24, padded to it) the bfloat16 forward takes its
+wgmma body and dQ and dK/dV stay on CUDA cores; a layer's backward runs
+the pre-pass by B's and C's body, not A's.
 
 No kernel runs here: the launch path up to the kernel call is driven on
 CPU tensors with ``_Kernel.launch`` replaced by a recorder.
@@ -22,8 +24,10 @@ def _want(dtype, D):
     Dk = fa.kernel_head_dim(D)
     if Dk > 256:
         return ("cuda_core_wide",) * 3
-    if dtype == torch.float32 or Dk == 32:
+    if dtype == torch.float32:
         return ("cuda_core",) * 3
+    if Dk == 32:
+        return ("wgmma", "cuda_core", "cuda_core")
     return ("wgmma",) * 3
 
 
@@ -81,7 +85,7 @@ def test_d256_backward_launch_takes_wgmma_and_a_row_term(recorded, D, which):
 
 
 @pytest.mark.parametrize("D", [256, 192])
-def test_d256_forward_launch_stays_on_cuda_cores(recorded, D):
+def test_d256_forward_launch_takes_wgmma(recorded, D):
     """The forward at head dim 256 in bf16 (192 through the padding
     helper) records the wgmma body, with lse and no wide-body scratch."""
     q, k, v, *_ = _bwd_inputs(D)
@@ -90,6 +94,36 @@ def test_d256_forward_launch_stays_on_cuda_cores(recorded, D):
     params = recorded[0][2]
     assert params.D == 256 and params.acc is None
     assert o.shape == q.shape and lse.shape == (2, 2, 40)
+
+
+@pytest.mark.parametrize("D", [32, 24, 16, 8])
+def test_d32_forward_launch_takes_wgmma(recorded, D):
+    """The bf16 forward at head dim 32, and at 24, 16 and 8 through the
+    padding helper, records the wgmma body at head dim 32, with lse and
+    no wide-body scratch; O keeps the caller's head dim."""
+    q, k, v, *_ = _bwd_inputs(D)
+    o, lse = fa.padded_fwd(fa._launch_fwd, q, k, v, D ** -0.5, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "wgmma")]
+    params = recorded[0][2]
+    assert params.D == 32 and params.lse is not None and params.acc is None
+    assert o.shape == q.shape and lse.shape == (2, 2, 40)
+
+
+def test_f32_d32_forward_launch_stays_on_cuda_cores(recorded):
+    q, k, v, *_ = _bwd_inputs(32, dtype=torch.float32)
+    fa._launch_fwd(q, k, v, 32 ** -0.5, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "cuda_core")]
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_d32_backward_launch_stays_on_cuda_cores(recorded, which):
+    """dQ and dK/dV at head dim 32 in bf16 record the CUDA-core body, with
+    no row term: the pre-pass does not run for them."""
+    q, k, v, o, do, lse = _bwd_inputs(32)
+    launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
+    launch(q, k, v, o, do, lse, None, 32 ** -0.5, True, None, None)
+    assert [(name, body) for name, body, _ in recorded] == [(f"flash_bwd_{which}", "cuda_core")]
+    assert recorded[0][2].rowterm is None
 
 
 def test_f32_d256_forward_launch_stays_on_cuda_cores(recorded):
@@ -118,6 +152,15 @@ def test_d256_backward_on_a_view_tma_cannot_read_raises(recorded, which):
         else:
             launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
             launch(q, q, q, o, do, lse, None, 0.0625, True, None, None)
+    assert recorded == []
+
+
+def test_d32_forward_on_a_view_tma_cannot_read_raises(recorded):
+    """The bf16 forward at head dim 32 takes no other body either."""
+    buf = torch.zeros(2 * 8 * 40, dtype=torch.bfloat16)
+    q = buf.as_strided((1, 8, 2, 32), (8 * 40, 40, 4, 1))  # 8-byte head stride
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._launch_fwd(q, q, q, 32 ** -0.5, True, None, True)
     assert recorded == []
 
 

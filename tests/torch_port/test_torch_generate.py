@@ -1,6 +1,8 @@
 """KV-cache decode and ``generate`` of the port's ``TransformerLM``
 against the JAX package's, float32 on the CPU, from the reference's init
-through ``convert.py`` (2 layers, d 32 = 4 heads x 8, vocab 64).
+through ``convert.py`` (2 layers, d 32 = 4 heads x 8, vocab 64; and 4
+heads x 32, the head dim whose bf16 forward runs the wgmma body on the
+card).
 
 * greedy ``generate`` token ids equal the reference's for MHA with
   learned positions, GQA with rope and a window, and rope + GQA + MoE
@@ -44,7 +46,12 @@ CONFIGS = {
     "gqa_rope_window": dict(num_kv_heads=2, pos_emb="rope", attn_window=5),
     "rope_gqa_moe": dict(num_kv_heads=2, pos_emb="rope", mlp="moe", num_experts=4,
                          moe_top_k=2, moe_capacity_factor=8.0),
+    "head_dim_32": dict(head_dim=32),
 }
+
+
+def _config(name):
+    return {**BASE, **CONFIGS[name]}
 TP, STEPS = 7, 8
 
 
@@ -52,7 +59,7 @@ TP, STEPS = 7, 8
 def _reference(name):
     """The reference's init, prompt (2 agents' worth, 2 sequences each)
     and greedy tokens for one configuration."""
-    jm = JaxLM(**BASE, **CONFIGS[name])
+    jm = JaxLM(**_config(name))
     params = jax.jit(jm.init)(jax.random.key(3), np.zeros((1, TP), np.int32))["params"]
     prompt = np.random.default_rng(4).integers(0, V, (2, TP)).astype(np.int32)
     toks = np.asarray(jax_generate(jm, params, jnp.asarray(prompt), STEPS))
@@ -60,7 +67,7 @@ def _reference(name):
 
 
 def _port(name, impl="full", n_agents=1, params=None):
-    tm = TransformerLM(attn_impl=impl, n_agents=n_agents, device="cpu", **BASE, **CONFIGS[name])
+    tm = TransformerLM(attn_impl=impl, n_agents=n_agents, device="cpu", **_config(name))
     if params is not None:
         tm.load_stacked(flax_to_torch(params))
     return tm

@@ -56,7 +56,8 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 1000, 2, 128, torch.bfloat16, True, 100, False),
         (2, 384, 2, 64, torch.bfloat16, False, None, True),
         (2, 333, 2, 128, torch.bfloat16, False, None, False),
-        # bf16 with head dim 32 stays on the CUDA-core bodies.
+        # bf16 with head dim 32: the forward on wgmma (64-byte rows), dQ
+        # and dK/dV on the CUDA-core bodies.
         (2, 200, 2, 32, torch.bfloat16, True, 50, True),
         # Other head dims run zero-padded to the next of 32, 64, 128.
         (2, 200, 2, 8, torch.bfloat16, True, None, False),
@@ -121,6 +122,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 256, 2, 64), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 512, 2, 128), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 256, 2, 32), torch.float32, "cuda_core", "cuda_core"),
+    ((2, 256, 2, 32), torch.bfloat16, "wgmma", "cuda_core"),
     ((1, 256, 2, 256), torch.bfloat16, "wgmma", "wgmma"),
     ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide", "cuda_core_wide"),
 ])
@@ -152,7 +154,7 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_bod
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,body,bwd_body", [
-    (8, "cuda_core", "cuda_core"), (16, "cuda_core", "cuda_core"), (48, "wgmma", "wgmma"),
+    (8, "wgmma", "cuda_core"), (16, "wgmma", "cuda_core"), (48, "wgmma", "wgmma"),
     (96, "wgmma", "wgmma"), (192, "wgmma", "wgmma"),
     (320, "cuda_core_wide", "cuda_core_wide")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
@@ -206,8 +208,8 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
                 assert bool(lib.dlt_flash_uses_wgmma(which, code, D)) == fa.wgmma_body(dtype, D,
                                                                                        name)
                 # A wgmma body has a shared-memory size; no other body does.
-                assert (lib.dlt_flash_wgmma_smem_bytes(which, D) > 0) == (
-                    D in (64, 128, 256))
+                assert (lib.dlt_flash_wgmma_smem_bytes(which, D) > 0) == fa.wgmma_body(
+                    torch.bfloat16, D, name)
 
 
 @pytest.mark.gpu
@@ -290,6 +292,44 @@ def test_d256_forward_wgmma_body_matches_plain_and_repeats(card, B, T, H, causal
     qkv = torch.randn(B, T, 3, H, 256, generator=g, device=card).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     scale = 256 ** -0.5
+    tol = TOL[torch.bfloat16]
+    fa.reset_launch_counts()
+    runs = [fa.flash_fwd(q, k, v, scale, causal, window, with_lse=with_lse) for _ in range(2)]
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o.float(), po.float(), atol=tol["o"], rtol=tol["rtol"])
+    assert _max_tile_rel_err(o, po) <= tol["tile"]
+    if with_lse:
+        assert torch.equal(lse, lse2)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    else:
+        assert lse is None and lse2 is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,causal,window,with_lse", [
+    (2, 512, 4, True, None, True),      # causal
+    (2, 512, 4, True, None, False),
+    (2, 1000, 2, True, 100, True),      # a window, ragged
+    (1, 1000, 2, True, 300, False),     # a window over several key tiles, ragged
+    (2, 333, 2, False, None, True),     # non-causal, ragged
+    (2, 129, 2, False, None, False),
+    (2, 64, 2, True, None, True),       # under one tile
+    (2, 64, 2, True, None, False),
+])
+def test_d32_forward_wgmma_body_matches_plain_and_repeats(card, B, T, H, causal, window,
+                                                          with_lse):
+    """The bf16 forward at head dim 32 on its wgmma body (64-byte rows and
+    swizzle): O within ``TOL`` of the plain version on the same inputs,
+    element by element and tile by tile, lse within 1e-4, and the same
+    bits when run again."""
+    g = torch.Generator(device=card).manual_seed(T + H + 2)
+    qkv = torch.randn(B, T, 3, H, 32, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 32 ** -0.5
     tol = TOL[torch.bfloat16]
     fa.reset_launch_counts()
     runs = [fa.flash_fwd(q, k, v, scale, causal, window, with_lse=with_lse) for _ in range(2)]
