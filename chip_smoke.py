@@ -5,8 +5,10 @@ one NVIDIA card: the quickest proof that the port builds and trains there.
     python3 chip_smoke.py [--profile] [--out DIR]
     python3 chip_smoke.py --decode-timing N | --step-timing N
     python3 chip_smoke.py [--wide-only] [--d256-only] [--d32-only] [--sharded-only]
+    python3 chip_smoke.py --sass-against DIR
 
-Phases, each printing one JSON line (any failure exits non-zero):
+Phases, each printing one JSON line (any failure exits non-zero; ``at_s``
+in each is the seconds since the process started, so a slow phase shows):
 
 1. build   — compile ``csrc/*.cu`` with nvcc, one process per source, all
              together; prints the seconds and each kernel's registers and
@@ -22,8 +24,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              the edges of the wgmma bodies' 128-row tiles (T 64, T 129, a
              window of 100 over T 1000, non-causal T 333) and head dims the
              kernels run zero-padded (48, 96; float32 16); head dim 32 (bf16:
-             the forward on its wgmma body with 64-byte rows, dQ and dK/dV
-             on CUDA cores; float32 all CUDA-core) at the slice's model
+             the forward, dQ and dK/dV on their wgmma bodies with 64-byte
+             rows; float32 all CUDA-core) at the slice's model
              width and T as 32 heads x 32 (B 1, with the tile controls and
              the lse cotangent), windowed and ragged, non-causal and ragged,
              and 8 and 16 zero-padded to 32, with the bodies the bf16 cases
@@ -59,7 +61,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
              width and at 4 heads x 256 (``times_f32``, ``times_f32_d256``:
              the float32 CUDA-core bodies, SDPA in float32 their
              yardstick) and at 32 heads x 32 (``times_d32``: the wgmma
-             forward, the CUDA-core dQ and dK/dV).  A bound is the largest
+             forward, dQ and dK/dV).  A bound is the largest
              of the bytes, the products and (below head dim 64 the largest)
              the exponentials over the special-function units' rate.
    profile — with ``--profile``: one ``torch.profiler`` window over one
@@ -263,8 +265,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              against plain attention under phase 4's limits with the
              dropped-key-tile control, then 4 epochs of 1 step trained both
              ways from the same weights (losses within
-             ``SMALL_LM_LOSS_RTOL``); kernel launches counted (the forward
-             on wgmma, dQ and dK/dV on CUDA cores).
+             ``SMALL_LM_LOSS_RTOL``); kernel launches counted (the forward,
+             dQ and dK/dV on wgmma, the backward with the pre-pass).
     lm_head_dim_256 — the slice's LM at 4 heads x 256
              (``TransformerLM(attn_impl="flash", num_heads=4,
              head_dim=256)``, d_model 1024, vocab 8192, T 4096, bf16 over
@@ -285,8 +287,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (cut so plain attention's scores fit) against plain attention
              under phase 4's limits with the dropped-key-tile control; one
              eager epoch of the full slice: tokens/s, peak memory, launches
-             by body (the forward on wgmma, dQ and dK/dV on CUDA cores, no
-             pre-pass) and the epoch split by kernel time.
+             by body (the forward, dQ and dK/dV on wgmma, the backward with
+             the pre-pass) and the epoch split by kernel time.
 32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
              36,489,290 float32 parameters, Metropolis ring): both native
              libraries built into ``_build/``; each agent's parameters
@@ -425,7 +427,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 build and run only the wide bodies' cases and times, only the
 head-dim-256 and 192 cases of phase 2 and ``times_d256``, only the
 head-dim-32, 16 and 8 cases of phase 2 and ``times_d32``, or only phase
-34, and end with the card line.
+34, and end with the card line.  ``--sass-against DIR`` builds this
+checkout's kernels and those of the checkout at ``DIR`` (the parent
+commit, say, unpacked with ``git archive``) and prints which kernels have
+the same SASS (``cuobjdump -sass``, addresses and the file's anonymous
+namespace stripped), which differ and which only one library has.
 
 Then a ``kernels`` JSON line (each kernel also carries its D-256 bodies'
 error, time, bound, plain and library times under ``head_dim_256``, the
@@ -490,7 +496,12 @@ LOSS_RTOL, GRAD_RTOL = 2e-4, 5e-2
 DEVICE = "cuda"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -593,8 +604,10 @@ def phase_build() -> None:
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
           "seconds": round(seconds, 3), "ptxas": ptxas, "spills": spills,
           "fwd_d256": ptxas.get("flash_fwd_kernel_sm90<256>"),
-          "fwd_d32": {"ptxas": ptxas.get("flash_fwd_kernel_sm90<32>"),
-                      "dynamic_smem_bytes": smem.get("flash_fwd_kernel_sm90<32>")},
+          **{f"{tag}_d32": {"ptxas": ptxas.get(f"{name}<32>"),
+                            "dynamic_smem_bytes": smem.get(f"{name}<32>")}
+             for tag, name in (("fwd", "flash_fwd_kernel_sm90"), ("dq", "flash_dq_kernel_sm90"),
+                               ("dkv", "flash_dkv_kernel_sm90"))},
           "c7520": c7520,
           "wgmma_dynamic_smem_bytes": smem})
 
@@ -800,9 +813,10 @@ def phase_kernels_d32(fa):
     """Head dim 32 at the slice's model width and T as 32 heads of 32 (B 1,
     so the plain versions fit; with the tile controls and the lse
     cotangent), windowed and ragged, non-causal and ragged, and 8 and 16
-    zero-padded to 32: in bf16 the forward runs its wgmma body (64-byte
-    rows and swizzle) and dQ and dK/dV their CUDA-core bodies, which the
-    launch counts must show; float32 runs the CUDA-core bodies."""
+    zero-padded to 32: in bf16 the forward, dQ and dK/dV run their wgmma
+    bodies (64-byte rows and swizzle; the backward reads the pre-pass),
+    which the launch counts must show; float32 runs the CUDA-core
+    bodies."""
     bf16, f32 = torch.bfloat16, torch.float32
     fa.reset_launch_counts()
     d32 = _compare_case(fa, "head_dim_32_slice_width", 1, SEQ, D32_HEADS, 32, bf16, True, None,
@@ -817,10 +831,9 @@ def phase_kernels_d32(fa):
     _compare_case(fa, "f32_head_dim_32", 2, 333, 2, 32, f32, True, None, True)
     emit({"phase": "kernels_d32_bodies", "bf16_launches_by_body": bodies})
     fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
-    if not (fwd["wgmma"] > 0 and fwd["cuda_core"] == 0
-            and all(b["cuda_core"] > 0 and b["wgmma"] == 0 for b in (dq, dkv))):
+    if not all(b["wgmma"] > 0 and b["cuda_core"] == 0 for b in (fwd, dq, dkv)):
         raise AssertionError(f"bf16 head dim 32/16/8 bodies {bodies}: want the wgmma forward, "
-                             "dQ and dK/dV on CUDA cores")
+                             "dQ and dK/dV")
     torch.cuda.empty_cache()
     return d32
 
@@ -1150,7 +1163,7 @@ def phase_times_wide(fa):
 
 def phase_times_d32(fa):
     """Head dim 32 (which 8, 16 and 24 run zero-padded) at 32 heads of
-    32: the bf16 wgmma forward, the CUDA-core dQ and dK/dV."""
+    32: the bf16 wgmma forward, dQ and dK/dV."""
     return _times_phase(fa, "times_d32", D32_HEADS, 32)
 
 
@@ -4203,10 +4216,11 @@ def phase_lm_head_dims(fa):
         raise AssertionError(f"head dim 16 training disagrees with plain attention: {trained}")
     per = SMALL_LM_LAYERS * SMALL_LM_EPOCHS
     if not (launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == per
-            and bodies["flash_bwd_dq"]["cuda_core"] == bodies["flash_bwd_dkv"]["cuda_core"] == per
+            and bodies["flash_bwd_dq"]["wgmma"] == bodies["flash_bwd_dkv"]["wgmma"] == per
+            and launches["flash_bwd_rowterm"] == per
             and bodies["flash_fwd"]["wgmma"] >= per and not bodies["flash_fwd"]["cuda_core"]):
-        raise AssertionError(f"head dim 16 launches {launches} {bodies}: want the wgmma forward "
-                             "and the CUDA-core dQ and dK/dV once a layer and step")
+        raise AssertionError(f"head dim 16 launches {launches} {bodies}: want the wgmma forward, "
+                             "dQ and dK/dV and the pre-pass once a layer and step")
     return launches
 
 
@@ -4299,9 +4313,9 @@ def phase_lm_head_dim_32(fa, times_d32):
     One step of 2 agents x 2 layers at T ``D32_PLAIN_SEQ`` against plain
     attention (phase 4's limits and control).  (3) One eager epoch of the
     full slice (8 layers, 4 agents on a ring, B 2, 3 steps and a round):
-    tokens/s, peak memory, launches by body (the forward on wgmma, dQ and
-    dK/dV on CUDA cores, no pre-pass) and the epoch split by kernel time
-    (launches x ``times_d32``'s ms).  Returns the epoch's and the
+    tokens/s, peak memory, launches by body (the forward, dQ and dK/dV on
+    wgmma, the pre-pass once a layer backward) and the epoch split by
+    kernel time (launches x ``times_d32``'s ms).  Returns the epoch's and the
     prefill's launch counts."""
     prompt = _decode_prompt()
     model = _decode_model(LAYERS, heads=D32_HEADS, head_dim=32)
@@ -4326,9 +4340,9 @@ def phase_lm_head_dim_32(fa, times_d32):
     facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
                             dims={**D32_LM, "seq": D32_PLAIN_SEQ})
 
-    epoch = lm_epoch(fa, D32_LM, rowterm=False)
+    epoch = lm_epoch(fa, D32_LM, rowterm=True)
     launches, bodies, expect = epoch["launches"], epoch["by_body"], epoch["expected_launches"]
-    split = {name: launches[name] * times_d32[name]["ms"] for name in fa._KERNEL_NAMES}
+    split = {name: launches[name] * times_d32[name]["ms"] for name in fa.KERNELS}
     split["rest"] = epoch["epoch_seconds"] * 1e3 - sum(split.values())
     epoch["split_ms_by_kernel_time"] = split
     emit({"phase": "lm_head_dim_32", "config": {"vocab": VOCAB, "seq": SEQ, **D32_LM},
@@ -4352,9 +4366,9 @@ def phase_lm_head_dim_32(fa, times_d32):
         raise AssertionError(f"head dim 32 epoch loss not finite: {epoch['train_loss']}")
     fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
     if not (launches == expect and fwd["wgmma"] == expect["flash_fwd"]
-            and dq["cuda_core"] == dkv["cuda_core"] == LAYERS * STEPS):
+            and dq["wgmma"] == dkv["wgmma"] == LAYERS * STEPS):
         raise AssertionError(f"head dim 32 launches {launches} {bodies}: want {expect}, the "
-                             "forward on wgmma, dQ and dK/dV on CUDA cores, no pre-pass")
+                             "forward, dQ and dK/dV on wgmma, the pre-pass once a layer backward")
     return launches, prefill_launches
 
 
@@ -7284,6 +7298,46 @@ def sharded_rank_main(args) -> int:
     return 0
 
 
+def _sass_by_kernel(lib: str) -> dict:
+    """``{kernel: [instruction, ...]}`` of a built library from ``cuobjdump
+    -sass``, without addresses and with the source file's anonymous
+    namespace (a hash of its path) replaced, so two checkouts compare."""
+    from distributed_learning_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_[A-Za-z0-9_]+?_cu_[0-9a-f]+", "ANON", text)
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name:
+            out[name].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+    return out
+
+
+def sass_against(other: str) -> None:
+    """Build the kernels of the checkout at ``other`` in a process of its
+    own (this checkout's are built by then), then compare the two
+    libraries' SASS kernel by kernel."""
+    from distributed_learning_tpu_torch.ops import _build
+
+    other = os.path.abspath(other)
+    code = "from distributed_learning_tpu_torch.ops import _build; print(_build.load_library()._name)"
+    there = subprocess.run([sys.executable, "-c", code], cwd=other, capture_output=True,
+                           text=True, check=True, timeout=900,
+                           env={**os.environ, "PYTHONPATH": other}).stdout.split()[-1]
+    here = _build.load_library()._name
+    a, b = _sass_by_kernel(there), _sass_by_kernel(here)
+    both = sorted(set(a) & set(b))
+    emit({"phase": "sass", "against": other, "kernels_in_both": len(both),
+          "same": sum(a[k] == b[k] for k in both), "differ": [k for k in both if a[k] != b[k]],
+          "only_against": sorted(set(a) - set(b)), "only_here": sorted(set(b) - set(a))})
+
+
 def print_card() -> None:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -7311,7 +7365,11 @@ def main(argv=None) -> int:
     ap.add_argument("--d256-only", action="store_true",
                     help="only build, hold (D 256 and 192) and time (D 256) the D-256 bodies")
     ap.add_argument("--d32-only", action="store_true",
-                    help="only build, hold (D 32, 16 and 8) and time (D 32) the D-32 bodies")
+                    help="only build, hold (D 32, 16 and 8) and time (D 32) the D-32 bodies "
+                         "(A, B and C on wgmma)")
+    ap.add_argument("--sass-against", default=None, metavar="DIR",
+                    help="only build this checkout's kernels and those of the checkout at DIR "
+                         "and compare their SASS kernel by kernel")
     # Set by the sharded phase for its rank processes.
     ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -7334,6 +7392,10 @@ def main(argv=None) -> int:
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
     phase_build()
+    if args.sass_against:
+        sass_against(args.sass_against)
+        print_card()
+        return 0
     if args.decode_timing:
         decode_timing(fa, args.decode_timing)
         print_card()
@@ -7378,7 +7440,7 @@ def main(argv=None) -> int:
     times_wide = phase_times_wide(fa)
     # The float32 CUDA-core bodies (the TP decode's float32 prefill and the
     # float32 MoE LMs run them; at D 256 dQ and dK/dV serve float32 only),
-    # and the bf16 D-32 ones (A on wgmma, B and C on CUDA cores).
+    # and the bf16 D-32 ones (A, B and C on wgmma).
     times_f32 = _times_phase(fa, "times_f32", HEADS, HEAD_DIM, torch.float32)
     times_f32_d256 = _times_phase(fa, "times_f32_d256", D256_HEADS, D256_HEAD_DIM,
                                   torch.float32)
@@ -7484,7 +7546,8 @@ def main(argv=None) -> int:
                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
             # The float32 bodies (CUDA cores) at the slice's launch shape
             # and at 4 heads x 256, and the bf16 head-dim-32 bodies at 32
-            # heads x 32 (A on wgmma, held in phase 2 at that width).
+            # heads x 32 (A, B and C on wgmma, held in phase 2 at that
+            # width).
             **{tag: {"body": bodies_t[k.name], "dtype": dt, "heads": hh, "head_dim": dd,
                      **{f: tt[k.name][f] for f in
                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}

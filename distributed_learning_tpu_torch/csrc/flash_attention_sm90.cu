@@ -1,6 +1,6 @@
 // Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
-// on the tensor cores, bfloat16 with head dim 64, 128 or 256 (the forward
-// also 32), and the backward's pre-pass.
+// on the tensor cores, bfloat16 with head dim 32, 64, 128 or 256, and the
+// backward's pre-pass.
 //
 //   flash_fwd_kernel_sm90        <- _flash_kernel      (launched by _fwd_call)
 //   flash_dq_kernel_sm90         <- _flash_dq_kernel   (launched by _bwd_call)
@@ -58,13 +58,17 @@
 // unrounded P as everywhere else.  All three run O, dQ, dK and dV at
 // N = 256.
 //
-// Head dim 32 (the forward only; dQ and dK/dV stay on the CUDA-core
-// bodies): a bf16 row is 64 bytes, so the frame's tiles have one 64-byte
-// line a row with 64-byte swizzle (line<D>(), col_blocks<D>(): Q 8 KB,
-// each K and V stage 8 KB, 42,112 bytes in all), the same 128-key tiles,
-// ring and ping-pong as D 128, and O at N = 32.  There the exponentials,
-// one ex2 per live pair on the special-function unit (16 a clock per
-// SM), take about twice the time of the two products, so they bound it.
+// Head dim 32: a bf16 row is 64 bytes, so the frame's tiles have one
+// 64-byte line a row with 64-byte swizzle (line<D>(), col_blocks<D>()).
+// The forward keeps D 128's 128-key tiles, ring and ping-pong (Q 8 KB,
+// each K and V stage 8 KB, 42,112 bytes in all) with O at N = 32; dQ and
+// dK/dV keep their D-128 frames too (dQ with 128-key tiles, dq_bk, 50,240
+// bytes; dK/dV with 128-key blocks and 64-query tiles, 34,880 bytes).
+// Every MN-major B operand there (V, K, dO, Q) is one 64-byte atom wide
+// at N = 32, so its LBO is never stepped over.  The exponentials, one ex2
+// per live pair on the special-function unit (16 a clock per SM), take
+// twice the products' time in the forward, 1.3 times in dQ and as long
+// in dK/dV, so they bound all three.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,10 +131,14 @@ template <int D>
 __host__ __device__ constexpr int fwd_bk() { return D == 256 ? 64 : 128; }
 // dQ: 128 query rows per block (64 per consumer), 64-key tiles (32 at
 // head dim 256), so S, dP (m64nBK each) and the 64 x D dQ accumulator fit
-// the consumers' registers and the tiles fit shared memory.
+// the consumers' registers and the tiles fit shared memory.  At head dim
+// 32, where S and dP are chains of only two k16 steps, the tiles take 128
+// keys, so each key tile's barrier round trip carries twice the work: S
+// and dP are then 64 registers each beside dQ's 16 (about 4% faster than
+// 64-key tiles on an H100, PERF.md).
 constexpr int kDqBQ = 128;
 template <int D>
-__host__ __device__ constexpr int dq_bk() { return D == 256 ? 32 : 64; }
+__host__ __device__ constexpr int dq_bk() { return D == 256 ? 32 : D == 32 ? 128 : 64; }
 // dK/dV: 128 keys per block (64 per consumer), 64-query tiles; at head
 // dim 256 (the split kernel) 64 keys per block, both consumers on them.
 constexpr int kDkvBK = 128, kDkvBQ = 64;
@@ -1326,6 +1334,12 @@ bool tma_ok(const void* ptr, int64_t sb, int64_t st, int64_t sh) {
          (sh * 2) % 16 == 0;
 }
 
+// Dynamic shared memory of the forward (which 0), dQ (1) or dK/dV (2) at D.
+template <int D>
+int smem_bytes(int which) {
+  return which == 0 ? FwdSmem<D>::kBytes : which == 1 ? DqSmem<D>::kBytes : dkv_smem_bytes<D>();
+}
+
 }  // namespace
 
 cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
@@ -1336,7 +1350,8 @@ cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
     case 32: return fwd<32>(p, stream);
     case 64: return fwd<64>(p, stream);
     case 128: return fwd<128>(p, stream);
-    default: return fwd<256>(p, stream);
+    case 256: return fwd<256>(p, stream);
+    default: return cudaErrorInvalidValue;  // no body at this head dim
   }
 }
 
@@ -1346,9 +1361,11 @@ cudaError_t flash_dq_sm90(const FlashParams& p, cudaStream_t stream) {
       reinterpret_cast<uintptr_t>(p.dq) % 16 != 0 || p.rowterm == nullptr || p.lse == nullptr)
     return cudaErrorInvalidValue;
   switch (p.D) {
+    case 32: return bwd_dq<32>(p, stream);
     case 64: return bwd_dq<64>(p, stream);
     case 128: return bwd_dq<128>(p, stream);
-    default: return bwd_dq<256>(p, stream);
+    case 256: return bwd_dq<256>(p, stream);
+    default: return cudaErrorInvalidValue;  // no body at this head dim
   }
 }
 
@@ -1359,20 +1376,23 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream) {
       p.rowterm == nullptr || p.lse == nullptr)
     return cudaErrorInvalidValue;
   switch (p.D) {
+    case 32: return dkv<32>(p, stream);
     case 64: return dkv<64>(p, stream);
     case 128: return dkv<128>(p, stream);
-    default: return dkv<256>(p, stream);
+    case 256: return dkv<256>(p, stream);
+    default: return cudaErrorInvalidValue;  // no body at this head dim
   }
 }
 
 int flash_sm90_smem_bytes(int which, int D) {
-  if (which == 0 && D == 32) return FwdSmem<32>::kBytes;
-  if (D != 64 && D != 128 && D != 256) return -1;  // no wgmma body
-  if (which == 0)
-    return D == 64 ? FwdSmem<64>::kBytes : D == 128 ? FwdSmem<128>::kBytes : FwdSmem<256>::kBytes;
-  if (which == 1)
-    return D == 64 ? DqSmem<64>::kBytes : D == 128 ? DqSmem<128>::kBytes : DqSmem<256>::kBytes;
-  return D == 64 ? dkv_smem_bytes<64>() : D == 128 ? dkv_smem_bytes<128>() : dkv_smem_bytes<256>();
+  if (which < 0 || which > 2) return -1;
+  switch (D) {
+    case 32: return smem_bytes<32>(which);
+    case 64: return smem_bytes<64>(which);
+    case 128: return smem_bytes<128>(which);
+    case 256: return smem_bytes<256>(which);
+    default: return -1;  // no wgmma body
+  }
 }
 
 cudaError_t flash_rowterm(const FlashParams& p, cudaStream_t stream) {

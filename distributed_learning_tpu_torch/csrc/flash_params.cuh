@@ -33,14 +33,13 @@ struct FlashParams {
 };
 
 // The kernel that dispatch(which, ...) launches: which 0 forward, 1 dQ,
-// 2 dK/dV.  The wgmma/TMA bodies take bfloat16 with head dim 64, 128 or
-// 256 (all three kernels) and 32 (the forward only: dQ and dK/dV at 32
-// stay on the CUDA-core bodies); wgmma has no float32-exact product, so
+// 2 dK/dV.  The wgmma/TMA bodies take bfloat16 with head dim 32, 64, 128
+// or 256, all three kernels; wgmma has no float32-exact product, so
 // float32 inputs stay on the CUDA-core bodies.
 // ops/flash_attention.py's wgmma_body() mirrors it.
 inline bool uses_wgmma_body(int which, int dtype, int D) {
   return (which >= 0 && which <= 2) && dtype == 1 &&
-         (D == 64 || D == 128 || D == 256 || (which == 0 && D == 32));
+         (D == 32 || D == 64 || D == 128 || D == 256);
 }
 
 // Defined in flash_attention_sm90.cu; each returns cudaGetLastError().
@@ -51,5 +50,5 @@ cudaError_t flash_dkv_sm90(const FlashParams& p, cudaStream_t stream);
 // dims 32, 64, 128 and any multiple of 128.
 cudaError_t flash_rowterm(const FlashParams& p, cudaStream_t stream);
 // Dynamic shared memory of the wgmma forward (which 0), dQ (1) or dK/dV (2)
-// body at head dim D; -1 where there is no such body.
+// body at head dim D (32, 64, 128 or 256); -1 where there is no such body.
 int flash_sm90_smem_bytes(int which, int D);

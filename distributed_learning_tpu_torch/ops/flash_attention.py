@@ -15,11 +15,10 @@ counts its launches, per body:
   dK/dV bodies read (part of their port, not a TPU kernel of its own).
 
 All three kernels have three bodies: ``"wgmma"`` (tensor cores,
-TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 64,
-128 or 256, and for the bfloat16 forward at head dim 32 too (64-byte
-rows); ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32, where
-wgmma has no float32-exact product, and for dQ and dK/dV at head dim 32;
-and
+TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 32
+(64-byte rows), 64, 128 or 256; ``"cuda_core"``
+(``csrc/flash_attention.cu``) for float32 at those head dims, where wgmma
+has no float32-exact product; and
 ``"cuda_core_wide"`` (the same file) for every multiple of 128 above 256,
 which walks the head dim in 128-column chunks and keeps its running O,
 dQ, dK and dV rows in a float32 scratch the wrapper allocates, so no head
@@ -189,16 +188,14 @@ _KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 def wgmma_body(dtype: torch.dtype, head_dim: int, kernel: Optional[str] = None) -> bool:
     """Whether ``kernel`` (``"flash_fwd"``, ``"flash_bwd_dq"`` or
     ``"flash_bwd_dkv"``) takes its wgmma/TMA body for this input:
-    bfloat16 with head dim 64, 128 or 256, whichever the kernel, and the
-    forward at head dim 32 too (dQ and dK/dV there run on CUDA cores).
+    bfloat16 with head dim 32, 64, 128 or 256, whichever the kernel.
     Without ``kernel``, whether all three do.  Mirrors
     ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
     if kernel is None:
         return all(wgmma_body(dtype, head_dim, name) for name in _KERNEL_NAMES)
     if kernel not in _KERNEL_NAMES:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {_KERNEL_NAMES}")
-    dims = (32, 64, 128, 256) if kernel == "flash_fwd" else (64, 128, 256)
-    return dtype == torch.bfloat16 and head_dim in dims
+    return dtype == torch.bfloat16 and head_dim in _HEAD_DIMS
 
 
 def kernel_head_dim(D: int) -> int:

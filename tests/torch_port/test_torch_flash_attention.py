@@ -68,18 +68,24 @@ def _jax_grads(fn, arrays, dtype, co):
 
 
 @pytest.mark.parametrize(
-    "causal,window,dtype",
+    "causal,window,dtype,D",
     [
-        (True, None, "float32"),
-        (False, None, "float32"),
-        (True, 24, "float32"),
-        (True, None, "bfloat16"),
-        (True, 24, "bfloat16"),
+        (True, None, "float32", 32),
+        (False, None, "float32", 32),
+        (True, 24, "float32", 32),
+        (True, None, "bfloat16", 32),
+        (True, 24, "bfloat16", 32),
+        # bf16 head dims 16 and 8, run zero-padded to 32: the route that
+        # runs the pre-pass and the D-32 dQ and dK/dV bodies on the card.
+        (True, None, "bfloat16", 16),
+        (False, None, "bfloat16", 8),
     ],
+    ids=["True-None-float32", "False-None-float32", "True-24-float32", "True-None-bfloat16",
+         "True-24-bfloat16", "True-None-bfloat16-D16", "False-None-bfloat16-D8"],
 )
-def test_flash_attention_matches_jax_interpret(causal, window, dtype):
+def test_flash_attention_matches_jax_interpret(causal, window, dtype, D):
     """Values and q/k/v grads of the plain path vs the Pallas kernels."""
-    shape = (2, 64, 2, 32)
+    shape = (2, 64, 2, D)
     q, k, v, co = _inputs(shape, seed=3)
     tdt = getattr(torch, dtype)
     jdt = getattr(jnp, dtype)
@@ -154,29 +160,28 @@ def test_attention_reference_matches_jax():
 @pytest.mark.parametrize("dtype,D,wgmma", [
     (torch.bfloat16, 64, True),
     (torch.bfloat16, 128, True),
-    (torch.bfloat16, 32, False),
+    (torch.bfloat16, 32, True),
     (torch.float32, 64, False),
     (torch.float32, 128, False),
     (torch.bfloat16, 256, True),
     (torch.float32, 256, False),
 ])
 def test_body_predicate_routes_by_dtype_and_head_dim(dtype, D, wgmma):
-    """bf16 with D 64, 128 or 256 takes the wgmma/TMA body of all three
-    kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma) the
-    CUDA-core bodies of all three; bf16 at D 32 the wgmma forward with
-    CUDA-core dQ and dK/dV, so not all three
+    """bf16 with D 32, 64, 128 or 256 takes the wgmma/TMA body of all
+    three kernels (forward, dQ, dK/dV); float32 (no float32-exact wgmma)
+    the CUDA-core bodies of all three
     (``test_torch_flash_body_dispatch.py`` holds each kernel's body)."""
     assert fa.wgmma_body(dtype, D) is wgmma
 
 
 @pytest.mark.parametrize("kernel,wgmma", [
     ("flash_fwd", True),
-    ("flash_bwd_dq", False),
-    ("flash_bwd_dkv", False),
+    ("flash_bwd_dq", True),
+    ("flash_bwd_dkv", True),
 ])
 def test_body_predicate_at_head_dim_32_is_per_kernel(kernel, wgmma):
-    """bf16 at D 32: the forward on wgmma (64-byte rows), dQ and dK/dV on
-    CUDA cores; float32 there on CUDA cores for every kernel."""
+    """bf16 at D 32: the forward, dQ and dK/dV on wgmma (64-byte rows);
+    float32 there on CUDA cores for every kernel."""
     assert fa.wgmma_body(torch.bfloat16, 32, kernel) is wgmma
     assert fa.wgmma_body(torch.float32, 32, kernel) is False
 

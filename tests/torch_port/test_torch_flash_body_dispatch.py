@@ -1,11 +1,10 @@
 """Which body each flash-attention kernel runs, on the CPU: the forward
 (A), dQ (B) and dK/dV (C) choose their body each by (kernel, dtype, head
 dim), as ``uses_wgmma_body`` in ``csrc/flash_params.cuh`` does.  In
-bfloat16 at head dim 256 (and 192, run zero-padded to it) all three take
-their wgmma bodies, while float32 there keeps the CUDA-core bodies; at
-head dim 32 (and 8, 16, 24, padded to it) the bfloat16 forward takes its
-wgmma body and dQ and dK/dV stay on CUDA cores; a layer's backward runs
-the pre-pass by B's and C's body, not A's.
+bfloat16 at head dim 256 (and 192, run zero-padded to it) and at head dim
+32 (and 8, 16, 24, padded to it) all three take their wgmma bodies, while
+float32 there keeps the CUDA-core bodies; a layer's backward runs the
+pre-pass by B's and C's body, not A's.
 
 No kernel runs here: the launch path up to the kernel call is driven on
 CPU tensors with ``_Kernel.launch`` replaced by a recorder.
@@ -26,8 +25,6 @@ def _want(dtype, D):
         return ("cuda_core_wide",) * 3
     if dtype == torch.float32:
         return ("cuda_core",) * 3
-    if Dk == 32:
-        return ("wgmma", "cuda_core", "cuda_core")
     return ("wgmma",) * 3
 
 
@@ -115,14 +112,29 @@ def test_f32_d32_forward_launch_stays_on_cuda_cores(recorded):
     assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "cuda_core")]
 
 
+@pytest.mark.parametrize("D", [32, 24, 16, 8])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
-def test_d32_backward_launch_stays_on_cuda_cores(recorded, which):
-    """dQ and dK/dV at head dim 32 in bf16 record the CUDA-core body, with
-    no row term: the pre-pass does not run for them."""
-    q, k, v, o, do, lse = _bwd_inputs(32)
-    launch = {"dq": fa._launch_dq, "dkv": fa._launch_dkv}[which]
-    launch(q, k, v, o, do, lse, None, 32 ** -0.5, True, None, None)
-    assert [(name, body) for name, body, _ in recorded] == [(f"flash_bwd_{which}", "cuda_core")]
+def test_d32_backward_launch_takes_wgmma(recorded, D, which):
+    """dQ and dK/dV at head dim 32 in bf16, and at 24, 16 and 8 through the
+    padding helpers, record the wgmma body at head dim 32 and hand the
+    kernel the pre-pass's row term, run here since the caller passed
+    none; the gradients keep the caller's head dim."""
+    q, k, v, o, do, lse = _bwd_inputs(D)
+    launch, padded = {"dq": (fa._launch_dq, fa.padded_bwd_dq),
+                      "dkv": (fa._launch_dkv, fa.padded_bwd_dkv)}[which]
+    out = padded(launch, q, k, v, o, do, lse, None, D ** -0.5, True, None, None)
+    assert [(name, body) for name, body, _ in recorded] == [(f"flash_bwd_{which}", "wgmma")]
+    params = recorded[0][2]
+    assert params.rowterm is not None and params.D == 32
+    assert params.acc is None and params.acc2 is None  # no wide-body scratch
+    assert all(t.shape == q.shape for t in ((out,) if which == "dq" else out))
+
+
+def test_f32_d32_backward_launch_stays_on_cuda_cores(recorded):
+    """float32 at head dim 32 keeps the CUDA-core dQ, with no row term."""
+    q, k, v, o, do, lse = _bwd_inputs(32, dtype=torch.float32)
+    fa._launch_dq(q, k, v, o, do, lse, None, 32 ** -0.5, True, None, None)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_bwd_dq", "cuda_core")]
     assert recorded[0][2].rowterm is None
 
 
@@ -168,7 +180,7 @@ def test_d32_forward_on_a_view_tma_cannot_read_raises(recorded):
     (torch.bfloat16, 256, True),   # A, B and C on wgmma
     (torch.bfloat16, 192, True),
     (torch.bfloat16, 128, True),
-    (torch.bfloat16, 32, False),
+    (torch.bfloat16, 32, True),
     (torch.float32, 256, False),
     (torch.bfloat16, 512, True),   # the wide bodies read it too
 ])

@@ -56,8 +56,8 @@ def _max_tile_rel_err(a, b, rows=64):
         (2, 1000, 2, 128, torch.bfloat16, True, 100, False),
         (2, 384, 2, 64, torch.bfloat16, False, None, True),
         (2, 333, 2, 128, torch.bfloat16, False, None, False),
-        # bf16 with head dim 32: the forward on wgmma (64-byte rows), dQ
-        # and dK/dV on the CUDA-core bodies.
+        # bf16 with head dim 32: the forward, dQ and dK/dV on wgmma
+        # (64-byte rows).
         (2, 200, 2, 32, torch.bfloat16, True, 50, True),
         # Other head dims run zero-padded to the next of 32, 64, 128.
         (2, 200, 2, 8, torch.bfloat16, True, None, False),
@@ -122,7 +122,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 256, 2, 64), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 512, 2, 128), torch.bfloat16, "wgmma", "wgmma"),
     ((2, 256, 2, 32), torch.float32, "cuda_core", "cuda_core"),
-    ((2, 256, 2, 32), torch.bfloat16, "wgmma", "cuda_core"),
+    ((2, 256, 2, 32), torch.bfloat16, "wgmma", "wgmma"),
     ((1, 256, 2, 256), torch.bfloat16, "wgmma", "wgmma"),
     ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide", "cuda_core_wide"),
 ])
@@ -154,7 +154,7 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_bod
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,body,bwd_body", [
-    (8, "wgmma", "cuda_core"), (16, "wgmma", "cuda_core"), (48, "wgmma", "wgmma"),
+    (8, "wgmma", "wgmma"), (16, "wgmma", "wgmma"), (48, "wgmma", "wgmma"),
     (96, "wgmma", "wgmma"), (192, "wgmma", "wgmma"),
     (320, "cuda_core_wide", "cuda_core_wide")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
@@ -213,7 +213,7 @@ def test_dispatcher_agrees_with_python_body_predicate(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,with_dadj", [(128, False), (64, True)])
+@pytest.mark.parametrize("D,with_dadj", [(128, False), (64, True), (32, True)])
 def test_dq_given_the_row_term_equals_dq_that_runs_the_pre_pass(card, D, with_dadj):
     """The wgmma dQ reads the row term it is handed exactly as the one it
     computes itself: the same bits, and one pre-pass launch fewer."""
@@ -265,6 +265,46 @@ def test_d256_backward_wgmma_bodies_match_plain_and_repeat(card, B, T, H, causal
     torch.cuda.synchronize()
     assert fa.KERNELS["flash_bwd_dq"].by_body["wgmma"] == 2
     assert fa.KERNELS["flash_bwd_dkv"].by_body["wgmma"] == 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = (fa.plain_bwd_dq(*args), *fa.plain_bwd_dkv(*args))
+    for got, want in zip(runs[0], plain):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol["grad"], rtol=tol["rtol"])
+        assert _max_tile_rel_err(got, want) <= tol["tile"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,causal,window,with_dadj", [
+    (2, 512, 4, True, None, False),     # causal
+    (2, 129, 2, True, None, False),     # one row past a 128-query tile
+    (2, 1000, 2, True, 100, False),     # a window, ragged
+    (1, 1000, 2, True, 300, True),      # a window over several key tiles, the lse cotangent
+    (1, 1000, 2, True, None, True),     # ragged, the lse cotangent
+    (2, 333, 2, False, None, True),     # non-causal, ragged, the lse cotangent
+    (2, 512, 2, False, None, False),    # non-causal
+    (2, 64, 2, True, None, False),      # under one tile
+    (2, 40, 2, False, None, True),      # under one tile, non-causal, the lse cotangent
+])
+def test_d32_backward_wgmma_bodies_match_plain_and_repeat(card, B, T, H, causal, window,
+                                                          with_dadj):
+    """bf16 dQ and dK/dV at head dim 32 on their wgmma bodies (64-byte
+    rows; 128-key dQ tiles, 128-key dK/dV blocks): within ``TOL`` of the
+    plain versions on the same inputs, element by element and tile by
+    tile, the same bits when run again, and every launch on wgmma."""
+    g = torch.Generator(device=card).manual_seed(T + H + 3)
+    qkv = torch.randn(B, T, 3, H, 32, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(B, T, H, 32, generator=g, device=card).to(torch.bfloat16)
+    dadj = torch.randn(B, H, T, generator=g, device=card) if with_dadj else None
+    scale = 32 ** -0.5
+    tol = TOL[torch.bfloat16]
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    args = (q, k, v, po, do, plse, dadj, scale, causal, window)
+    fa.reset_launch_counts()
+    runs = [(fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.KERNELS[name].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     plain = (fa.plain_bwd_dq(*args), *fa.plain_bwd_dkv(*args))
