@@ -13,7 +13,9 @@ in each is the seconds since the process started, so a slow phase shows):
 1. build   — compile ``csrc/*.cu`` with nvcc, one process per source, all
              together; prints the seconds and each kernel's registers and
              spills as ptxas reports them (the D-256 and D-32 forwards'
-             apart, the latter with its shared memory).
+             apart, the latter with its shared memory; the wide wgmma
+             forward's four instantiations with its shared memory by head
+             dim and its cluster shape).
 2. kernels — each flash-attention kernel and the backward's pre-pass
              against its plain PyTorch version on the same card tensors:
              the slice's launch shape (4 agents x B 2 x 8 heads, T 4096,
@@ -36,10 +38,16 @@ in each is the seconds since the process started, so a slow phase shows):
              tile controls), windowed and ragged, non-causal and ragged,
              float32, and head dim 192 zero-padded to 256, with the bodies
              the bf16 cases launched checked;
-             the wide bodies (head dims above 256, walked in 128-column
-             chunks) at the slice's width as 2 heads x 512 (with the
-             tile controls and the lse cotangent), 320 run at 384, 1152
-             windowed and ragged and non-causal, float32 512 and 320.
+             head dims above 256 (bf16: the forward on its wide wgmma
+             body, O's columns split across blocks; dQ, dK/dV and float32
+             on the wide CUDA-core bodies, walked in 128-column chunks) at
+             the slice's width as 2 heads x 512 (with the tile controls,
+             a control that zeroes O's last 128 columns, and the lse
+             cotangent), 320 run at 384 with the lse cotangent, 384
+             windowed and ragged, 640 non-causal, 1152 windowed and
+             ragged, non-causal, and causal with the lse cotangent,
+             float32 512 and 320, with the bodies each case launched
+             checked.
 3. slice   — ``MasterNode`` over 4 agents on ``Topology.ring(4)`` training
              the full-width TransformerLM (8 layers, 8 x 128 heads, vocab
              8192, T 4096, B 2 per agent, bf16 over float32 weights, adam)
@@ -57,11 +65,12 @@ in each is the seconds since the process started, so a slow phase shows):
              ``scaled_dot_product_attention``'s time as a yardstick (for
              the pre-pass a ``vecdot``); then the same at 4 heads x 256
              (``times_d256``, the D-256 bodies), 2 heads x 512
-             (``times_wide``, the wide bodies), in float32 at the slice's
-             width and at 4 heads x 256 (``times_f32``, ``times_f32_d256``:
-             the float32 CUDA-core bodies, SDPA in float32 their
-             yardstick) and at 32 heads x 32 (``times_d32``: the wgmma
-             forward, dQ and dK/dV).  A bound is the largest
+             (``times_wide``: the wide wgmma forward, the wide CUDA-core
+             dQ and dK/dV), in float32 at the slice's width, at 4 heads x
+             256 and at 2 heads x 512 (``times_f32``, ``times_f32_d256``,
+             ``times_f32_wide``: the float32 CUDA-core bodies, SDPA in
+             float32 their yardstick) and at 32 heads x 32
+             (``times_d32``: the wgmma forward, dQ and dK/dV).  A bound is the largest
              of the bytes, the products and (below head dim 64 the largest)
              the exponentials over the special-function units' rate.
    profile — with ``--profile``: one ``torch.profiler`` window over one
@@ -289,6 +298,16 @@ in each is the seconds since the process started, so a slow phase shows):
              eager epoch of the full slice: tokens/s, peak memory, launches
              by body (the forward, dQ and dK/dV on wgmma, the backward with
              the pre-pass) and the epoch split by kernel time.
+    lm_head_dim_512 — the slice's LM at 2 heads x 512 (``num_heads=2,
+             head_dim=512``, d_model 1024, vocab 8192, bf16 over float32):
+             the prefill and decode check as lm_head_dim_32's (kernel A
+             once a layer on its wide wgmma body), one step of 2 agents x
+             2 layers at T 4096 against plain attention under phase 4's
+             limits with the dropped-key-tile control, and one eager epoch
+             of the full slice: tokens/s, peak memory, launches by body
+             (the forward on wgmma, dQ and dK/dV on the wide CUDA-core
+             bodies, the backward with the pre-pass) and the epoch split
+             by kernel time.
 32. wire   — the ``comm/`` wire layer on the card's WRN-28-10 agents (4 x
              36,489,290 float32 parameters, Metropolis ring): both native
              libraries built into ``_build/``; each agent's parameters
@@ -424,7 +443,8 @@ in each is the seconds since the process started, so a slow phase shows):
              rank stops the others and the phase.
 
 ``--wide-only``, ``--d256-only``, ``--d32-only`` and ``--sharded-only``
-build and run only the wide bodies' cases and times, only the
+build and run only the cases and times above head dim 256 (phase 2's,
+``times_wide`` and ``times_f32_wide``), only the
 head-dim-256 and 192 cases of phase 2 and ``times_d256``, only the
 head-dim-32, 16 and 8 cases of phase 2 and ``times_d32``, or only phase
 34, and end with the card line.  ``--sass-against DIR`` builds this
@@ -434,10 +454,11 @@ the same SASS (``cuobjdump -sass``, addresses and the file's anonymous
 namespace stripped), which differ and which only one library has.
 
 Then a ``kernels`` JSON line (each kernel also carries its D-256 bodies'
-error, time, bound, plain and library times under ``head_dim_256``, the
-wide body's under ``head_dim_wide``, the times of its float32 bodies
-under ``float32`` and ``float32_head_dim_256``, and its head-dim-32
-bodies' error and times under ``head_dim_32``),
+error, time, bound, plain and library times under ``head_dim_256``, its
+body's above head dim 256 (at 2 x 512) under ``head_dim_wide``, the times
+of its float32 bodies under ``float32``, ``float32_head_dim_256`` and
+``float32_head_dim_wide``, and its head-dim-32 bodies' error and times
+under ``head_dim_32``),
 the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits non-zero
@@ -567,14 +588,16 @@ def compare(a, b, atol, rtol, tile):
 # Phase 1: build                                                         #
 # ---------------------------------------------------------------------- #
 def ptxas_summary(report: str) -> dict:
-    """``{kernel<dtype,D>: "R regs, S spill bytes"}`` from ptxas -v."""
+    """``{kernel<dtype,D>: "R regs, S spill bytes"}`` from ptxas -v (the
+    wide wgmma forward as ``<resident|streamed,NS>``)."""
     out, name, spills = {}, None, 0
     for line in report.splitlines():
-        m = re.search(r"[0-9](flash_[a-z_0-9]+?kernel(?:_sm90)?)I(13__nv_bfloat16|f)?(?:Li(\d+)E)?",
-                      line)
+        m = re.search(r"[0-9](flash_[a-z_0-9]+?kernel(?:_sm90)?)I(?:Lb([01])E)?"
+                      r"(13__nv_bfloat16|f)?(?:Li(\d+)E)?", line)
         if m:
-            dtype = {"13__nv_bfloat16": "bf16", "f": "f32", None: ""}[m.group(2)]
-            name = f"{m.group(1)}<{','.join(x for x in (dtype, m.group(3)) if x)}>"
+            q_tile = {"1": "resident", "0": "streamed", None: ""}[m.group(2)]
+            dtype = {"13__nv_bfloat16": "bf16", "f": "f32", None: ""}[m.group(3)]
+            name = f"{m.group(1)}<{','.join(x for x in (q_tile, dtype, m.group(4)) if x)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
@@ -599,8 +622,19 @@ def phase_build() -> None:
     ptxas = ptxas_summary(report)
     # The target is no spill anywhere; a spill is reported, not fatal.
     spills = {k: v for k, v in ptxas.items() if not v.endswith(" 0 spill bytes")}
-    # C7520 (warpgroup.wait injected) would serialise a wgmma pipeline.
+    # C7520 (warpgroup.wait injected) would serialise a wgmma pipeline, and
+    # C7515 names a kernel whose wgmmas ptxas serialised.
     c7520 = [line.strip() for line in report.splitlines() if "C7520" in line]
+    c7515 = sorted({m.group(1) for m in re.finditer(r"C7515.*?function '(\S+?)'", report)})
+    # The wide forward (bf16, head dims above 256): its four instantiations
+    # (Q resident up to D 512 or streamed; 256- and 128-column slices), its
+    # dynamic shared memory by head dim, and its cluster shape (none: each
+    # block is a cluster of one).
+    fwd_wide = {"ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith("flash_fwd_wide_kernel_sm90")},
+                "dynamic_smem_bytes": {D: lib.dlt_flash_wgmma_smem_bytes(0, D)
+                                       for D in (384, 512, 640, 1152)},
+                "cluster_dims": [1, 1, 1]}
     emit({"phase": "build", "sources": sorted(set(SOURCES.values())),
           "seconds": round(seconds, 3), "ptxas": ptxas, "spills": spills,
           "fwd_d256": ptxas.get("flash_fwd_kernel_sm90<256>"),
@@ -608,7 +642,7 @@ def phase_build() -> None:
                             "dynamic_smem_bytes": smem.get(f"{name}<32>")}
              for tag, name in (("fwd", "flash_fwd_kernel_sm90"), ("dq", "flash_dq_kernel_sm90"),
                                ("dkv", "flash_dkv_kernel_sm90"))},
-          "c7520": c7520,
+          "fwd_wide": fwd_wide, "c7520": c7520, "c7515": c7515,
           "wgmma_dynamic_smem_bytes": smem})
 
 
@@ -651,6 +685,13 @@ def _compare_case(fa, label, B, T, H, D, dtype, causal, window, with_lse_grad, c
         broken[:, :TILE_ROWS] = 0
         rejected["o_first_tile_zeroed"] = not compare(
             broken, po, tol["o"], tol["rtol"], tol["tile"])[2]
+        if fa.kernel_head_dim(D) > 256:
+            # Above 256 O's columns are split across blocks: the limits must
+            # reject an O whose last 128 columns (one slice's share) are zero.
+            broken = o.clone()
+            broken[..., -128:] = 0
+            rejected["o_last_128_columns_zeroed"] = not compare(
+                broken, po, tol["o"], tol["rtol"], tol["tile"])[2]
         del broken
     del o, o2, lse
     dadj = None
@@ -838,23 +879,48 @@ def phase_kernels_d32(fa):
     return d32
 
 
-# The wide bodies (head dims above 256, the next multiple of 128): the
-# slice's model width as 2 heads of 512, with the tile controls.
+# Head dims above 256 (the next multiple of 128): the slice's model width
+# as 2 heads of 512, with the tile and column controls.
 WIDE_HEADS, WIDE_HEAD_DIM = 2, 512
 
 
 def phase_kernels_wide(fa):
-    """The wide CUDA-core bodies against their plain versions: D 512 at
-    the slice's width and T, D 320 (run at 384) with the lse cotangent,
-    D 1152 windowed and ragged, and float32 cases."""
+    """Head dims above 256 against the plain versions: D 512 at the
+    slice's width and T (with the tile and column controls and the lse
+    cotangent), D 320 (run at 384) with the lse cotangent, D 384 windowed
+    and ragged, D 640 non-causal (its last column slice 128 wide), D 1152
+    windowed and ragged, non-causal, and causal with the lse cotangent,
+    and float32 cases.  In bf16 the forward runs its wide wgmma body and
+    dQ and dK/dV the wide CUDA-core bodies; float32 runs all three on the
+    wide CUDA-core bodies: each case's launches must show it."""
     bf16, f32 = torch.bfloat16, torch.float32
-    wide = _compare_case(fa, "head_dim_512_slice_width", BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM,
-                         bf16, True, None, True, controls=True)
-    _compare_case(fa, "head_dim_320_dadj", 2, 333, 2, 320, bf16, True, None, True)
-    _compare_case(fa, "head_dim_1152_window_ragged", 1, 300, 1, 1152, bf16, True, 50, False)
-    _compare_case(fa, "head_dim_1152_non_causal", 1, 160, 2, 1152, bf16, False, None, False)
-    _compare_case(fa, "f32_head_dim_512_non_causal_dadj", 1, 200, 2, 512, f32, False, None, True)
-    _compare_case(fa, "f32_head_dim_320", 1, 130, 2, 320, f32, True, None, False)
+    cases = (
+        ("head_dim_512_slice_width", BATCH, SEQ, WIDE_HEADS, WIDE_HEAD_DIM, bf16, True, None, True,
+         True),
+        ("head_dim_320_dadj", 2, 333, 2, 320, bf16, True, None, True, False),
+        ("head_dim_384_window_ragged", 2, 1000, 2, 384, bf16, True, 100, False, False),
+        ("head_dim_640_non_causal", 2, 333, 2, 640, bf16, False, None, False, False),
+        ("head_dim_1152_window_ragged", 1, 300, 1, 1152, bf16, True, 50, False, False),
+        ("head_dim_1152_non_causal", 1, 160, 2, 1152, bf16, False, None, False, False),
+        ("head_dim_1152_dadj", 1, 257, 2, 1152, bf16, True, None, True, False),
+        ("f32_head_dim_512_non_causal_dadj", 1, 200, 2, 512, f32, False, None, True, False),
+        ("f32_head_dim_320", 1, 130, 2, 320, f32, True, None, False, False),
+    )
+    wide, launched, wrong = None, {}, []
+    for label, B, T, H, D, dtype, causal, window, dadj, controls in cases:
+        fa.reset_launch_counts()
+        errs = _compare_case(fa, label, B, T, H, D, dtype, causal, window, dadj, controls=controls)
+        wide = wide or errs
+        got = {n: dict(fa.KERNELS[n].by_body) for n in fa._KERNEL_NAMES}
+        launched[label] = got
+        want = {"flash_fwd": "wgmma" if dtype == bf16 else "cuda_core_wide",
+                "flash_bwd_dq": "cuda_core_wide", "flash_bwd_dkv": "cuda_core_wide"}
+        if not all(got[n][b] > 0 and sum(got[n].values()) == got[n][b] for n, b in want.items()):
+            wrong.append(label)
+    emit({"phase": "kernels_wide_bodies", "launches_by_body": launched})
+    if wrong:
+        raise AssertionError(f"wide cases {wrong} launched {launched}: want the bf16 forward on "
+                             "wgmma, every other wide launch on cuda_core_wide")
     torch.cuda.empty_cache()
     return wide
 
@@ -1156,9 +1222,15 @@ def phase_times_d256(fa):
 
 
 def phase_times_wide(fa):
-    """The wide bodies at the slice's launch shape with its width as 2
-    heads of 512."""
+    """Head dims above 256 at the slice's launch shape with its width as 2
+    heads of 512: the bf16 wide wgmma forward, dQ and dK/dV on the wide
+    CUDA-core bodies."""
     return _times_phase(fa, "times_wide", WIDE_HEADS, WIDE_HEAD_DIM)
+
+
+def phase_times_f32_wide(fa):
+    """The float32 wide CUDA-core bodies (all three) at 2 heads of 512."""
+    return _times_phase(fa, "times_f32_wide", WIDE_HEADS, WIDE_HEAD_DIM, torch.float32)
 
 
 def phase_times_d32(fa):
@@ -4373,6 +4445,90 @@ def phase_lm_head_dim_32(fa, times_d32):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 31, continued: the LM at head dim 512                            #
+# ---------------------------------------------------------------------- #
+# The slice's LM with its model width (d_model 1024) as 2 heads of 512, the
+# width at which the wide bodies are held and timed (phase 2, times_wide).
+# Its step against plain attention runs at the full T: the plain path's
+# float32 scores of one agent, (B 2, 2, 4096, 4096), are 268 MB.
+D512_LM = {"heads": WIDE_HEADS, "head_dim": WIDE_HEAD_DIM}
+
+
+def phase_lm_head_dim_512(fa, times_wide):
+    """``TransformerLM(attn_impl="flash", num_heads=2, head_dim=512)`` at
+    the slice's configuration otherwise.  (1) Serving: ``generate`` at
+    lm_decode's configuration (B 2, prefill 2048, MHA): the prefill's
+    seconds by the prefill-subtracted protocol (no timed steps), its
+    tokens/s and launches (kernel A once a layer, on its wide wgmma body),
+    kernel A's own ms at the prefill's shape; the logits of the prefill
+    and ``DECODE_CHECK_STEPS`` steps against a full forward over the 2,080
+    positions (a ragged T), the greedy tokens against its argmax.  (2) One
+    step of 2 agents x 2 layers at T 4096 against plain attention (phase
+    4's limits and control).  (3) One eager epoch of the full slice (8
+    layers, 4 agents on a ring, B 2, 3 steps and a round): tokens/s, peak
+    memory, launches by body (the forward on wgmma, dQ and dK/dV on the
+    wide CUDA-core bodies, the pre-pass once a layer backward) and the
+    epoch split by kernel time (launches x ``times_wide``'s ms).  Returns
+    the epoch's and the prefill's launch counts."""
+    prompt = _decode_prompt()
+    model = _decode_model(LAYERS, heads=WIDE_HEADS, head_dim=WIDE_HEAD_DIM)
+    dt_prefill, _, prefill_launches = time_decode(fa, model, prompt, steps=0)
+    prefill_bodies = dict(fa.KERNELS["flash_fwd"].by_body)
+    fa.reset_launch_counts()
+    check = decode_vs_full(model, prompt, DECODE_CHECK_STEPS)
+    check_bodies = {k.name: dict(k.by_body) for k in fa.KERNELS.values()}
+    del model
+    q, k, v, _ = _qkv(DECODE_BATCH, DECODE_PREFILL, WIDE_HEADS, WIDE_HEAD_DIM, torch.bfloat16,
+                      seed=5)
+    a_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, WIDE_HEAD_DIM ** -0.5, True, None,
+                                        with_lse=True), 10)
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = {"batch": DECODE_BATCH, "prefill": DECODE_PREFILL, "prefill_s": dt_prefill,
+               "prefill_tokens_per_s": DECODE_BATCH * DECODE_PREFILL / dt_prefill,
+               "prefill_launches": prefill_launches, "prefill_flash_fwd_by_body": prefill_bodies,
+               "kernel_a_ms_at_prefill_shape": a_ms, "kernel_a_ms_per_prefill": LAYERS * a_ms,
+               "logits_rtol": DECODE_LOGITS_RTOL, "check": check,
+               "check_launches_by_body": check_bodies}
+
+    facts = kernel_vs_plain(2, 2, lambda: _patched(fa, "flash_bwd_dkv", _drop_first_key_tile(fa)),
+                            dims=D512_LM)
+
+    epoch = lm_epoch(fa, D512_LM, rowterm=True)
+    launches, bodies, expect = epoch["launches"], epoch["by_body"], epoch["expected_launches"]
+    split = {name: launches[name] * times_wide[name]["ms"] for name in fa.KERNELS}
+    split["rest"] = epoch["epoch_seconds"] * 1e3 - sum(split.values())
+    epoch["split_ms_by_kernel_time"] = split
+    emit({"phase": "lm_head_dim_512", "config": {"vocab": VOCAB, "seq": SEQ, **D512_LM},
+          "agents": AGENTS, "layers": LAYERS, "batch_per_agent": BATCH, "steps": STEPS,
+          "serving": serving, "one_step": facts, "epoch": epoch})
+    if not (check["max_rel_err"] <= DECODE_LOGITS_RTOL and check["tokens_agree"]):
+        raise AssertionError(f"head dim 512 decode disagrees with the full forward: {check}")
+    want_prefill = {"flash_fwd": LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "flash_bwd_rowterm": 0}
+    if prefill_launches != want_prefill or prefill_bodies["wgmma"] != LAYERS:
+        raise AssertionError(f"head dim 512 prefill launches {prefill_launches} "
+                             f"{prefill_bodies}: want kernel A on wgmma once a layer")
+    fwd_check = check_bodies["flash_fwd"]
+    if not (fwd_check["wgmma"] >= 2 * LAYERS and fwd_check["cuda_core_wide"] == 0):
+        raise AssertionError(f"head dim 512 decode check launched {check_bodies}: want every "
+                             "forward on wgmma")
+    if not facts["ok"]:
+        raise AssertionError("head dim 512: kernel path and plain path disagree, or the "
+                             "control was not rejected")
+    if not all(math.isfinite(x) for x in epoch["train_loss"]):
+        raise AssertionError(f"head dim 512 epoch loss not finite: {epoch['train_loss']}")
+    fwd, dq, dkv = (bodies[n] for n in fa._KERNEL_NAMES)
+    if not (launches == expect and fwd["wgmma"] == expect["flash_fwd"]
+            and dq["cuda_core_wide"] == dkv["cuda_core_wide"] == LAYERS * STEPS):
+        raise AssertionError(f"head dim 512 launches {launches} {bodies}: want {expect}, the "
+                             "forward on wgmma, dQ and dK/dV on cuda_core_wide, the pre-pass "
+                             "once a layer backward")
+    return launches, prefill_launches
+
+
+# ---------------------------------------------------------------------- #
 # Phase 32: the comm/ wire layer on the card's WRN-28-10 agents          #
 # ---------------------------------------------------------------------- #
 # The float32 wire carries the parameters exactly, so its ring round
@@ -7408,6 +7564,7 @@ def main(argv=None) -> int:
         if args.wide_only:
             phase_kernels_wide(fa)
             phase_times_wide(fa)
+            phase_times_f32_wide(fa)
         if args.d256_only:
             phase_kernels_d256(fa)
             phase_times_d256(fa)
@@ -7444,6 +7601,7 @@ def main(argv=None) -> int:
     times_f32 = _times_phase(fa, "times_f32", HEADS, HEAD_DIM, torch.float32)
     times_f32_d256 = _times_phase(fa, "times_f32_d256", D256_HEADS, D256_HEAD_DIM,
                                   torch.float32)
+    times_f32_wide = phase_times_f32_wide(fa)
     times_d32 = phase_times_d32(fa)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7500,6 +7658,7 @@ def main(argv=None) -> int:
     head_dim_launches = phase_lm_head_dims(fa)
     d256_launches = phase_lm_head_dim_256(fa)
     d32_launches, d32_prefill_launches = phase_lm_head_dim_32(fa, times_d32)
+    d512_launches, d512_prefill_launches = phase_lm_head_dim_512(fa, times_wide)
     mark("head_dims")
     phase_wire()
     mark("wire")
@@ -7512,6 +7671,8 @@ def main(argv=None) -> int:
     bodies_d256 = _bodies(fa, D256_HEAD_DIM, torch.bfloat16)
     bodies_f32 = _bodies(fa, HEAD_DIM, torch.float32)
     bodies_d32 = _bodies(fa, 32, torch.bfloat16)
+    bodies_wide = _bodies(fa, WIDE_HEAD_DIM, torch.bfloat16)
+    bodies_f32_wide = _bodies(fa, WIDE_HEAD_DIM, torch.float32)
     kernels = []
     for k in fa.KERNELS.values():
         t = times[k.name]
@@ -7530,6 +7691,8 @@ def main(argv=None) -> int:
                                  "lm_head_dim_256": d256_launches[k.name],
                                  "lm_head_dim_32": d32_launches[k.name],
                                  "lm_head_dim_32_prefill": d32_prefill_launches[k.name],
+                                 "lm_head_dim_512": d512_launches[k.name],
+                                 "lm_head_dim_512_prefill": d512_prefill_launches[k.name],
                                  "lm_sharded": sharded_launches[k.name],
                                  "seq_parallel": seq_launches[k.name],
                                  "model_parallel": mp_launches[k.name],
@@ -7544,10 +7707,10 @@ def main(argv=None) -> int:
             "head_dim_256": {"body": bodies_d256[k.name], "max_abs_err": d256_errs[k.name],
                              **{f: times_d256[k.name][f] for f in
                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
-            # The float32 bodies (CUDA cores) at the slice's launch shape
-            # and at 4 heads x 256, and the bf16 head-dim-32 bodies at 32
-            # heads x 32 (A, B and C on wgmma, held in phase 2 at that
-            # width).
+            # The float32 bodies (CUDA cores) at the slice's launch shape,
+            # at 4 heads x 256 and at 2 heads x 512, and the bf16
+            # head-dim-32 bodies at 32 heads x 32 (A, B and C on wgmma,
+            # held in phase 2 at that width).
             **{tag: {"body": bodies_t[k.name], "dtype": dt, "heads": hh, "head_dim": dd,
                      **{f: tt[k.name][f] for f in
                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
@@ -7555,10 +7718,14 @@ def main(argv=None) -> int:
                    ("float32", times_f32, bodies_f32, "float32", HEADS, HEAD_DIM),
                    ("float32_head_dim_256", times_f32_d256, bodies_f32, "float32", D256_HEADS,
                     D256_HEAD_DIM),
+                   ("float32_head_dim_wide", times_f32_wide, bodies_f32_wide, "float32",
+                    WIDE_HEADS, WIDE_HEAD_DIM),
                    ("head_dim_32", times_d32, bodies_d32, "bfloat16", D32_HEADS, 32))},
-            # The wide body (CUDA cores, head dims above 256) at 2 heads x
-            # 512, held and timed in the kernels and times_wide phases.
-            "head_dim_wide": {"body": "cuda_core_wide", "head_dim": WIDE_HEAD_DIM,
+            # Head dims above 256 at 2 heads x 512 (bf16: A on its wide
+            # wgmma body, B and C on the wide CUDA-core bodies), held and
+            # timed in the kernels and times_wide phases; lm_head_dim_512
+            # launches them.
+            "head_dim_wide": {"body": bodies_wide[k.name], "head_dim": WIDE_HEAD_DIM,
                               "max_abs_err": wide_errs[k.name],
                               **{f: times_wide[k.name][f] for f in
                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},

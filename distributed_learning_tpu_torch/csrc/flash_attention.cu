@@ -7,10 +7,12 @@
 //   flash_dq_kernel    <- _flash_dq_kernel  (launched by _bwd_call)
 //   flash_dkv_kernel   <- _flash_dkv_kernel (launched by _bwd_call)
 // Each kernel also has a wgmma/TMA body (flash_attention_sm90.cu) for
-// bfloat16 with head dim 32, 64, 128 or 256; dispatch() picks it by
+// bfloat16 with head dim 32, 64, 128 or 256, and the forward one for
+// bfloat16 at every multiple of 128 above 256; dispatch() picks it by
 // (kernel, dtype, D) alone (uses_wgmma_body in flash_params.cuh).  The
 // bodies here serve float32 inputs at head dims 32 to 256 and (the wide
-// bodies) every multiple of 128 above 256, in either dtype.
+// bodies) every multiple of 128 above 256: the forward in float32, dQ and
+// dK/dV in either dtype.
 //
 // What they compute is what the TPU kernels compute: native-dtype inputs
 // (float32 or bfloat16) with float32 accumulation; sm_scale applied to the
@@ -529,7 +531,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 // float32 memory unchanged.  The backward reads the pre-pass's row term.
 // Bound on this card: the same flops as the bodies above plus the
 // scratch traffic (8 bytes a row element per tile); a simple, correct
-// design on CUDA cores (PERF.md has its times).
+// design on CUDA cores (PERF.md has its times).  The forward is built for
+// float32 only: bfloat16 runs flash_fwd_wide_kernel_sm90.
 // ---------------------------------------------------------------------------
 constexpr int kWideChunk = 128;  // head-dim columns staged at once
 constexpr int kWideRows = 32;    // BQ = BK
@@ -1012,7 +1015,13 @@ cudaError_t run_wide(int which, const FlashParams& p, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const int tiles = (p.T + kWideRows - 1) / kWideRows;
   switch (which) {
-    case 0: return launch(flash_fwd_wide_kernel<T>, kWideFwdSmem, tiles, p, stream);
+    case 0:
+      // bf16 runs the wgmma forward above 256, so this one is not built for it.
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch(flash_fwd_wide_kernel<T>, kWideFwdSmem, tiles, p, stream);
+      }
     case 1: return launch(flash_dq_wide_kernel<T>, kWideDqSmem, tiles, p, stream);
     default: return launch(flash_dkv_wide_kernel<T>, kWideDkvSmem, tiles, p, stream);
   }
@@ -1076,7 +1085,7 @@ int dlt_flash_bwd_rowterm(const FlashParams* p, void* stream) {
 // 1 if dispatch(which, ...) takes the wgmma/TMA body for this dtype and head dim.
 int dlt_flash_uses_wgmma(int which, int dtype, int D) { return uses_wgmma_body(which, dtype, D); }
 // Dynamic shared memory a wgmma body launches with (which 0, 1 or 2; D 32,
-// 64, 128 or 256); -1 where there is no such body.
+// 64, 128 or 256, and the forward above 256); -1 where there is no such body.
 int dlt_flash_wgmma_smem_bytes(int which, int D) { return flash_sm90_smem_bytes(which, D); }
 int dlt_flash_struct_size() { return static_cast<int>(sizeof(FlashParams)); }
 

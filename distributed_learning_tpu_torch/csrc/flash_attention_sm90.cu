@@ -1,8 +1,10 @@
 // Flash attention forward (A), dQ (B) and dK/dV (C) for Hopper (sm_90a)
-// on the tensor cores, bfloat16 with head dim 32, 64, 128 or 256, and the
-// backward's pre-pass.
+// on the tensor cores, bfloat16 with head dim 32, 64, 128 or 256 (the
+// forward also every multiple of 128 above 256), and the backward's
+// pre-pass.
 //
 //   flash_fwd_kernel_sm90        <- _flash_kernel      (launched by _fwd_call)
+//   flash_fwd_wide_kernel_sm90      head dims above 256, O's columns split
 //   flash_dq_kernel_sm90         <- _flash_dq_kernel   (launched by _bwd_call)
 //   flash_dkv_kernel_sm90        <- _flash_dkv_kernel  (launched by _bwd_call),
 //   flash_dkv_split_kernel_sm90     head dim 64/128 and 256
@@ -258,6 +260,53 @@ __device__ __forceinline__ void store_rows(bf16* out, const uint8_t* stage, int 
 // ---------------------------------------------------------------------------
 // A. Forward: O = softmax(scale * Q K^T + mask) V, optionally lse.
 // ---------------------------------------------------------------------------
+// Online softmax of a warpgroup's 64 x BK score tile (keys k0 ...) in
+// registers, a row's BK columns in the 4 threads of a quad: sc becomes P,
+// m moves to the new row max; the factor that rescales the previous O and
+// l is returned in corr, this thread's share of P's row sums in sum.
+template <int BK>
+__device__ __forceinline__ void online_softmax(const FlashParams& p, int wrow0, int row0,
+                                               int c_lo, int k0, float (&sc)[BK / 2],
+                                               float (&m)[2], float (&corr)[2],
+                                               float (&sum)[2]) {
+  float mx[2] = {m[0], m[1]};
+  const bool masked = needs_mask(p, wrow0, 64, k0, BK);
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) sc[j] *= p.scale;
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!keep(p, row0 + 8 * (e >> 1), k0 + 8 * j + c_lo + (e & 1))) sc[4 * j + e] = kNegInf;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+  float ml[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+    m[r] = mx[r];
+    // A row with no live key yet keeps m = -1e30: its masked entries
+    // then give 0 here (not exp(0)), which the later corr = 0 would have
+    // erased anyway.
+    ml[r] = m[r] == kNegInf ? 0.f : m[r] * kLog2e;
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = ex2(fmaf(sc[4 * j + e], kLog2e, -ml[e >> 1]));
+      sum[e >> 1] += pv;
+      sc[4 * j + e] = pv;
+    }
+  }
+}
+
 template <int D>
 struct FwdSmem {
   static constexpr int kQ = col_blocks<D>() * kFwdBQ * line<D>();       // the Q tile
@@ -371,47 +420,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_rs_nd<D>(o, pf[kk], desc_sw<D>(v_base + kk * 16 * kLine, BK * kLine));
       wgmma_commit();
     };
-    // Online softmax of tile i in registers (a row's BK columns lie in the
-    // 4 threads of a quad): sc becomes P, m moves to the new row max; the
-    // factor that rescales the previous O and l is returned in corr.
     auto softmax = [&](int i, float (&corr)[2], float (&sum)[2]) {
-      const int k0 = (kt_lo + i) * BK;
-      float mx[2] = {m[0], m[1]};
-      const bool masked = needs_mask(p, wrow0, 64, k0, BK);
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sc[j] *= p.scale;
-      if (masked) {
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!keep(p, row0 + 8 * (e >> 1), k0 + 8 * j + c_lo + (e & 1))) sc[4 * j + e] = kNegInf;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-      float ml[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        corr[r] = ex2((m[r] - mx[r]) * kLog2e);
-        m[r] = mx[r];
-        // A row with no live key yet keeps m = -1e30: its masked entries
-        // then give 0 here (not exp(0)), which the later corr = 0 would
-        // have erased anyway.
-        ml[r] = m[r] == kNegInf ? 0.f : m[r] * kLog2e;
-        sum[r] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pv = ex2(fmaf(sc[4 * j + e], kLog2e, -ml[e >> 1]));
-          sum[e >> 1] += pv;
-          sc[4 * j + e] = pv;
-        }
-      }
+      online_softmax<BK>(p, wrow0, row0, c_lo, (kt_lo + i) * BK, sc, m, corr, sum);
     };
     auto release = [&](uint64_t* bar) {
       __syncwarp();
@@ -493,6 +503,291 @@ __global__ void __launch_bounds__(kThreads, 1)
     named_sync(1 + wg, 128);
     store_rows<D>(static_cast<bf16*>(p.o), stage, kFwdBQ * kLine, p, b, h, wrow0, t);
     if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < p.T) p.lse[static_cast<int64_t>(bh) * p.T + row] = m[r] + logf(l[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A above head dim 256 (any multiple of 128): O's columns split across
+// blocks.
+//
+// A consumer's 64 x D float32 O would need D / 2 registers a thread (256
+// at D 512), and a 128-row Q tile of D 1152 is 288 KB of shared memory.
+// So a block takes 128 query rows (64 a consumer) and one slice of O's
+// columns, NS = 256 wide (the last slice 128 wide where D / 128 is odd,
+// in a second launch), and keeps the D-256 forward's register frame: O
+// at m64nNS (128 registers), S and P of a 64-key tile (32 and 16).  Each
+// block forms S = Q K^T over the whole head dim as a chain of 64-column
+// blocks (4 k16 steps each), K arriving by TMA through a ring of 64-key x
+// 64-column stages that a stage's wgmma group releases as soon as the
+// next group is issued (wait_group 1), so no D is too large for the ring.
+// Q stays resident in shared memory up to D 512 (kWideResidentMaxD: 128
+// KB beside a 4-stage K ring and two V stages, 230,656 bytes); above it Q
+// is streamed with K, a 64-column block of each a ring stage (6 stages).
+// V arrives as the block's own column slice, two 64-key stages.
+//
+// Every slice of a query tile forms the same S, m and l bits (the same
+// products in the same order), so their O columns are consistent and
+// slice 0 alone writes lse.  At D 512 (two slices) recomputing S costs
+// 1.5x the function's products, and it leaves no scratch and no atomics.
+// Both consumers consume each ring stage; they do not take turns (a turn
+// held over a chain of D / 64 stages would need the whole key tile in the
+// ring), and each overlaps its softmax with its own P.V as the forward
+// above does.  The arithmetic is flash_fwd_kernel_sm90's.
+// ---------------------------------------------------------------------------
+constexpr int kWideBQ = 128, kWideBK = 64;
+constexpr int kWideResidentMaxD = 512;
+constexpr int kWideQBlock = kWideBQ * 128;  // one 64-column block of the Q tile: 16 KB
+constexpr int kWideKBlock = kWideBK * 128;  // of a K tile: 8 KB
+
+template <bool kResident, int NS>
+struct WideFwdSmem {
+  // Resident: Q's D / 64 blocks, then a ring of K blocks.  Streamed: a
+  // ring of (Q block, K block) stages.  Then two V stages and the barriers.
+  static constexpr int kStages = kResident ? 4 : 6;
+  static constexpr int kStage = kResident ? kWideKBlock : kWideQBlock + kWideKBlock;
+  static constexpr int kKOff = kResident ? 0 : kWideQBlock;  // the K block in a stage
+  static constexpr int kV = NS / 64 * kWideKBlock;           // one V stage
+  __host__ __device__ static int ring(int D) { return kResident ? D / 64 * kWideQBlock : 0; }
+  __host__ __device__ static int v(int D) { return ring(D) + kStages * kStage; }
+  __host__ __device__ static int bar(int D) { return v(D) + 2 * kV; }
+  __host__ __device__ static int bytes(int D) { return bar(D) + 256 + 1024; }  // alignment slack
+};
+
+// Copy the staged rows [0, 64) x NS to rows [row0, row0 + 64), columns
+// [col0, col0 + NS) of a contiguous (B, T, H, D) bf16 tensor in 16-byte
+// stores; rows past T are dropped.
+template <int NS>
+__device__ __forceinline__ void store_slice_rows(bf16* out, const uint8_t* stage, int block,
+                                                 const FlashParams& p, int b, int h, int row0,
+                                                 int col0, int t) {
+  constexpr int kChunks = NS / 8;
+  for (int idx = t; idx < 64 * kChunks; idx += 128) {
+    const int r = idx / kChunks, c = idx % kChunks, row = row0 + r;
+    if (row >= p.T) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(stage + (c / 8) * block + r * 128 +
+                                                      swizzled_chunk<NS>(c % 8, r) * 16);
+    *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * p.T + row) * p.H + h) * p.D +
+                              col0 + c * 8) = val;
+  }
+}
+
+template <bool kResident, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v, const FlashParams p,
+                               int col_base, int n_slices) {
+  using L = WideFwdSmem<kResident, NS>;
+  constexpr int BK = kWideBK, kStages = L::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int nc = p.D / 64;  // 64-column blocks of the head dim: the chain of S
+  uint8_t* q_s = smem;      // resident Q
+  uint8_t* ring = smem + L::ring(p.D);
+  uint8_t* v_s = smem + L::v(p.D);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar(p.D));
+  uint64_t* full_q = bars;
+  uint64_t* full = bars + 1;  // a ring stage
+  uint64_t* empty = full + kStages;
+  uint64_t* full_v = empty + kStages;
+  uint64_t* empty_v = full_v + 2;
+
+  // The slices of a query tile are neighbours in the grid, so they read
+  // its Q and K rows from L2 at about the same time.
+  const int slice = static_cast<int>(blockIdx.x) % n_slices;
+  const int col0 = col_base + slice * NS;
+  const int n_qt = (p.T + kWideBQ - 1) / kWideBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_slices) * kWideBQ;  // longest causal rows first
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  int k_lo = 0, k_hi = p.T;
+  if (p.causal) {
+    k_hi = min(p.T, q0 + kWideBQ);
+    if (p.window > 0) k_lo = max(0, q0 - (p.window - 1));
+  }
+  const int kt_lo = k_lo / BK, n_kt = (k_hi + BK - 1) / BK - kt_lo;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the rings full, in the order the
+    // consumers take them: key tile i's D / 64 ring stages, then its V.
+    reg_dealloc<kProducerRegs>();
+    if (t == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      if constexpr (kResident) {
+        mbar_expect_tx(full_q, nc * kWideQBlock);
+        for (int c = 0; c < nc; ++c)
+          tma_load_4d(q_s + c * kWideQBlock, &tm_q, full_q, 64 * c, h, q0, b);
+      }
+      int g = 0;  // ring stages filled
+      for (int i = 0; i < n_kt; ++i) {
+        const int k0 = (kt_lo + i) * BK;
+        for (int c = 0; c < nc; ++c, ++g) {
+          const int s = g % kStages;
+          if (g >= kStages) mbar_wait(&empty[s], ((g / kStages) - 1) & 1);
+          uint8_t* stage = ring + s * L::kStage;
+          if constexpr (kResident) {
+            mbar_expect_tx(&full[s], kWideKBlock);
+          } else {
+            mbar_expect_tx(&full[s], kWideQBlock + kWideKBlock);
+            tma_load_4d(stage, &tm_q, &full[s], 64 * c, h, q0, b);
+          }
+          tma_load_4d(stage + L::kKOff, &tm_k, &full[s], 64 * c, h, k0, b);
+        }
+        const int vs = i % 2;
+        if (i >= 2) mbar_wait(&empty_v[vs], ((i / 2) - 1) & 1);
+        mbar_expect_tx(&full_v[vs], L::kV);
+        for (int j = 0; j < NS / 64; ++j)
+          tma_load_4d(v_s + vs * L::kV + j * BK * 128, &tm_v, &full_v[vs], col0 + 64 * j, h, k0,
+                      b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+    // and their O columns [col0, col0 + NS).  This thread holds rows r_lo
+    // and r_lo + 8, columns 8 j + c_lo + {0, 1} of every 8-column chunk j.
+    reg_alloc<kConsumerRegs>();
+    const int lane = t % 32;
+    const int r_lo = 16 * (t / 32) + lane / 4, c_lo = 2 * (lane % 4);
+    const int wrow0 = q0 + 64 * wg, row0 = wrow0 + r_lo;
+
+    float o[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float sc[BK / 2];         // S, then P, of the newest tile
+    uint32_t pf[BK / 16][4];  // P of the previous tile as bf16, the A operand of P.V
+    int g = 0;                // ring stages taken
+
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S = Q K^T for tile i, 64 x BK per warpgroup, as a chain of D / 64
+    // groups; each stage is released once the next group is issued and
+    // its own has completed.  The last group is left in flight.  The first
+    // block is issued apart, so every wgmma in the loop accumulates
+    // (scale-d 1): a scale-d read at run time made ptxas serialise the
+    // chain (C7515; 1.09 against 0.82 ms at 2 x 512 on an H100).
+    auto s_block = [&](int c, int scale0) {
+      const int s = g % kStages;
+      mbar_wait(&full[s], (g / kStages) & 1);
+      uint8_t* stage = ring + s * L::kStage;
+      const uint32_t q_base =
+          smem_addr(kResident ? q_s + c * kWideQBlock : stage) + wg * 64 * 128;
+      const uint32_t k_base = smem_addr(stage + L::kKOff);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(sc, desc_sw128(q_base + 32 * kk, 16, 1024),
+                     desc_sw128(k_base + 32 * kk, 16, 1024), kk > 0 ? 1 : scale0);
+      wgmma_commit();
+      ++g;
+    };
+    auto issue_s = [&] {
+      s_block(0, 0);
+      for (int c = 1; c < nc; ++c) {
+        s_block(c, 1);
+        wgmma_wait<1>();
+        release(&empty[(g - 2) % kStages]);
+      }
+    };
+    // O += P V for tile i: V is the MN-major B operand (keys are the depth).
+    auto issue_pv = [&](int i) {
+      const int vs = i % 2;
+      const uint32_t v_base = smem_addr(v_s + vs * L::kV);
+      mbar_wait(&full_v[vs], (i / 2) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_nd<NS>(o, pf[kk], desc_sw128(v_base + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+    };
+    auto softmax = [&](int i, float (&corr)[2], float (&sum)[2]) {
+      online_softmax<BK>(p, wrow0, row0, c_lo, (kt_lo + i) * BK, sc, m, corr, sum);
+    };
+
+    // Per tile i: S_i's chain, then P_{i-1} V_{i-1}; the softmax of tile
+    // i runs while P_{i-1} V_{i-1} is on the tensor cores.  Both
+    // warpgroups walk the same tiles (a tile none of a warpgroup's rows
+    // sees runs masked), so every stage gets its kConsumers * 4 arrivals.
+    float corr[2], sum[2];
+    if constexpr (kResident) mbar_wait(full_q, 0);
+    issue_s();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(&empty[(g - 1) % kStages]);
+    softmax(0, corr, sum);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = sum[r];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_frag(sc, kk, pf[kk]);
+    for (int i = 1; i < n_kt; ++i) {
+      issue_s();
+      issue_pv(i - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      release(&empty[(g - 1) % kStages]);
+      softmax(i, corr, sum);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
+      release(&empty_v[(i - 1) % 2]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];  // this thread's columns
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) to_frag(sc, kk, pf[kk]);
+    }
+    issue_pv(n_kt - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+
+    // Epilogue: O / l as bf16, staged in this warpgroup's rows of the Q
+    // blocks (resident) or of the first NS / 64 ring stages' Q blocks
+    // (streamed), which only it reads and TMA no longer writes, then
+    // 16-byte stores into the slice's columns.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    uint8_t* stage = (kResident ? q_s : ring) + wg * 64 * 128;
+    const int block = kResident ? kWideQBlock : L::kStage;
+    fence_proxy_async();
+    stage_rows<NS>(stage, block, o, 1.f / l[0], 1.f / l[1], r_lo, c_lo);
+    named_sync(1 + wg, 128);
+    store_slice_rows<NS>(static_cast<bf16*>(p.o), stage, block, p, b, h, wrow0, col0, t);
+    if (col0 == 0 && p.lse != nullptr && lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
@@ -1211,6 +1506,44 @@ cudaError_t fwd(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The wide forward: slices of NS columns [col_base, col_base + n_slices NS).
+template <bool kResident, int NS>
+cudaError_t fwd_wide_slices(const FlashParams& p, const CUtensorMap& mq, const CUtensorMap& mk,
+                            const CUtensorMap& mv, int col_base, int n_slices,
+                            cudaStream_t stream) {
+  const int smem = WideFwdSmem<kResident, NS>::bytes(p.D);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel_sm90<kResident, NS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + kWideBQ - 1) / kWideBQ * n_slices, p.B * p.H);
+  flash_fwd_wide_kernel_sm90<kResident, NS>
+      <<<grid, kThreads, smem, stream>>>(mq, mk, mv, p, col_base, n_slices);
+  return cudaGetLastError();
+}
+
+// Head dims above 256: D / 256 slices of 256 columns, then one of 128
+// where D / 128 is odd.
+template <bool kResident>
+cudaError_t fwd_wide(const FlashParams& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!tile_map<256>(&mq, p.q, p, p.q_sb, p.q_st, p.q_sh, kWideBQ) ||
+      !tile_map<256>(&mk, p.k, p, p.k_sb, p.k_st, p.k_sh, kWideBK) ||
+      !tile_map<256>(&mv, p.v, p, p.v_sb, p.v_st, p.v_sh, kWideBK))
+    return cudaErrorInvalidValue;
+  const int n_full = p.D / 256;
+  cudaError_t err = fwd_wide_slices<kResident, 256>(p, mq, mk, mv, 0, n_full, stream);
+  if (err != cudaSuccess || p.D % 256 == 0) return err;
+  return fwd_wide_slices<kResident, 128>(p, mq, mk, mv, 256 * n_full, 1, stream);
+}
+
+// Whether the wide forward takes head dim D, and its dynamic shared memory
+// there (the larger of its two launches).
+bool wide_fwd(int D) { return D > 256 && D % 128 == 0; }
+int wide_fwd_smem_bytes(int D) {
+  return D <= kWideResidentMaxD ? WideFwdSmem<true, 256>::bytes(D)
+                                : WideFwdSmem<false, 256>::bytes(D);
+}
+
 template <int D>
 cudaError_t bwd_dq(const FlashParams& p, cudaStream_t stream) {
   const int64_t c_st = static_cast<int64_t>(p.H) * D;  // dO is contiguous
@@ -1351,7 +1684,9 @@ cudaError_t flash_fwd_sm90(const FlashParams& p, cudaStream_t stream) {
     case 64: return fwd<64>(p, stream);
     case 128: return fwd<128>(p, stream);
     case 256: return fwd<256>(p, stream);
-    default: return cudaErrorInvalidValue;  // no body at this head dim
+    default:
+      if (!wide_fwd(p.D)) return cudaErrorInvalidValue;  // no body at this head dim
+      return p.D <= kWideResidentMaxD ? fwd_wide<true>(p, stream) : fwd_wide<false>(p, stream);
   }
 }
 
@@ -1391,7 +1726,7 @@ int flash_sm90_smem_bytes(int which, int D) {
     case 64: return smem_bytes<64>(which);
     case 128: return smem_bytes<128>(which);
     case 256: return smem_bytes<256>(which);
-    default: return -1;  // no wgmma body
+    default: return which == 0 && wide_fwd(D) ? wide_fwd_smem_bytes(D) : -1;  // no wgmma body
   }
 }
 

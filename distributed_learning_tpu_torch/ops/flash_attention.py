@@ -16,10 +16,13 @@ counts its launches, per body:
 
 All three kernels have three bodies: ``"wgmma"`` (tensor cores,
 TMA-fed, ``csrc/flash_attention_sm90.cu``) for bfloat16 with head dim 32
-(64-byte rows), 64, 128 or 256; ``"cuda_core"``
-(``csrc/flash_attention.cu``) for float32 at those head dims, where wgmma
-has no float32-exact product; and
-``"cuda_core_wide"`` (the same file) for every multiple of 128 above 256,
+(64-byte rows), 64, 128 or 256, and for the bfloat16 forward at every
+multiple of 128 above 256 (O's columns split across blocks, S formed over
+the whole head dim in each); ``"cuda_core"``
+(``csrc/flash_attention.cu``) for float32 at head dims up to 256, where
+wgmma has no float32-exact product; and
+``"cuda_core_wide"`` (the same file) for every multiple of 128 above 256
+(float32, and bfloat16 dQ and dK/dV),
 which walks the head dim in 128-column chunks and keeps its running O,
 dQ, dK and dV rows in a float32 scratch the wrapper allocates, so no head
 dim is too large for it.  The kernels take head dims 32, 64,
@@ -188,14 +191,19 @@ _KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 def wgmma_body(dtype: torch.dtype, head_dim: int, kernel: Optional[str] = None) -> bool:
     """Whether ``kernel`` (``"flash_fwd"``, ``"flash_bwd_dq"`` or
     ``"flash_bwd_dkv"``) takes its wgmma/TMA body for this input:
-    bfloat16 with head dim 32, 64, 128 or 256, whichever the kernel.
-    Without ``kernel``, whether all three do.  Mirrors
-    ``uses_wgmma_body`` in ``csrc/flash_params.cuh``."""
+    bfloat16 with head dim 32, 64, 128 or 256, whichever the kernel, and
+    for the forward also every multiple of 128 above 256.  Without
+    ``kernel``, whether all three do.  Mirrors ``uses_wgmma_body`` in
+    ``csrc/flash_params.cuh``."""
     if kernel is None:
         return all(wgmma_body(dtype, head_dim, name) for name in _KERNEL_NAMES)
     if kernel not in _KERNEL_NAMES:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {_KERNEL_NAMES}")
-    return dtype == torch.bfloat16 and head_dim in _HEAD_DIMS
+    if dtype != torch.bfloat16:
+        return False
+    if head_dim in _HEAD_DIMS:
+        return True
+    return kernel == "flash_fwd" and wide_body(head_dim) and head_dim % _WIDE_CHUNK == 0
 
 
 def kernel_head_dim(D: int) -> int:
@@ -210,8 +218,10 @@ def kernel_head_dim(D: int) -> int:
 
 
 def wide_body(head_dim: int) -> bool:
-    """Whether a kernel head dim runs the wide CUDA-core bodies (above
-    256; mirrors ``wide()`` in ``csrc/flash_attention.cu``)."""
+    """Whether a kernel head dim is above 256, where dQ, dK/dV and the
+    float32 forward run the wide CUDA-core bodies (mirrors ``wide()`` in
+    ``csrc/flash_attention.cu``) and the bfloat16 forward its wide wgmma
+    body."""
     return head_dim > 256
 
 
@@ -411,10 +421,10 @@ def _needs_rowterm(q) -> bool:
     return any(_body(q, name) != "cuda_core" for name in ("flash_bwd_dq", "flash_bwd_dkv"))
 
 
-def _scratch(q, n: int):
-    """The wide bodies' float32 (B, H, T, D) scratch, ``n`` of them (None
-    each for another body)."""
-    if not wide_body(kernel_head_dim(q.shape[-1])):
+def _scratch(q, n: int, body: str):
+    """The wide CUDA-core bodies' float32 (B, H, T, D) scratch, ``n`` of
+    them (None each for another body)."""
+    if body != "cuda_core_wide":
         return (None,) * n
     B, T, H, D = q.shape
     return tuple(torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
@@ -461,7 +471,7 @@ def _launch_fwd(q, k, v, scale, causal, window, with_lse):
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    acc, = _scratch(q, 1)
+    acc, = _scratch(q, 1, body)
     _FWD.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, acc=acc), q.device, body)
     return o, lse
 
@@ -507,7 +517,7 @@ def _launch_dq(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     body = _body(q, _DQ.name)
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm, body)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    acc, = _scratch(q, 1)
+    acc, = _scratch(q, 1, body)
     _DQ.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
                        dadj=dadj, rowterm=rowterm, dq=dq, acc=acc), q.device, body)
     return dq
@@ -556,7 +566,7 @@ def _launch_dkv(q, k, v, o, do, lse, dadj, scale, causal, window, rowterm):
     rowterm = _bwd_rowterm(q, k, v, o, do, dadj, rowterm, body)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    acc, acc2 = _scratch(q, 2)
+    acc, acc2 = _scratch(q, 2, body)
     _DKV.launch(_params(q, k, v, scale, causal, window, o=o, lse=lse, dout=do,
                         dadj=dadj, rowterm=rowterm, dk=dk, dv=dv, acc=acc, acc2=acc2),
                 q.device, body)

@@ -3,8 +3,10 @@
 dim), as ``uses_wgmma_body`` in ``csrc/flash_params.cuh`` does.  In
 bfloat16 at head dim 256 (and 192, run zero-padded to it) and at head dim
 32 (and 8, 16, 24, padded to it) all three take their wgmma bodies, while
-float32 there keeps the CUDA-core bodies; a layer's backward runs the
-pre-pass by B's and C's body, not A's.
+float32 there keeps the CUDA-core bodies; above 256 the bfloat16 forward
+takes its wide wgmma body (no scratch) while dQ, dK/dV and float32 keep
+the wide CUDA-core bodies; a layer's backward runs the pre-pass by B's
+and C's body, not A's.
 
 No kernel runs here: the launch path up to the kernel call is driven on
 CPU tensors with ``_Kernel.launch`` replaced by a recorder.
@@ -22,6 +24,8 @@ def _want(dtype, D):
     """(A, B, C) bodies of a call of head dim D."""
     Dk = fa.kernel_head_dim(D)
     if Dk > 256:
+        if dtype == torch.bfloat16:
+            return ("wgmma", "cuda_core_wide", "cuda_core_wide")
         return ("cuda_core_wide",) * 3
     if dtype == torch.float32:
         return ("cuda_core",) * 3
@@ -29,7 +33,7 @@ def _want(dtype, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256, 320, 512])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256, 320, 512, 640, 1152])
 def test_each_kernel_takes_its_own_body(D, dtype):
     q = torch.zeros(1, 4, 1, D, dtype=dtype)
     want = _want(dtype, D)
@@ -104,6 +108,47 @@ def test_d32_forward_launch_takes_wgmma(recorded, D):
     params = recorded[0][2]
     assert params.D == 32 and params.lse is not None and params.acc is None
     assert o.shape == q.shape and lse.shape == (2, 2, 40)
+
+
+@pytest.mark.parametrize("D", [320, 384, 512, 1152])
+def test_wide_bf16_forward_takes_wgmma_and_its_backward_keeps_the_scratch(recorded, D):
+    """The bf16 forward above 256 (320 through the padding helper, at 384)
+    records the wgmma body with lse and no scratch, and O keeps the
+    caller's head dim; the same layer's dQ and dK/dV stay on the wide
+    CUDA-core bodies with their float32 scratch and the pre-pass's row
+    term."""
+    q, k, v, o, do, lse = _bwd_inputs(D)
+    out, lse_out = fa.padded_fwd(fa._launch_fwd, q, k, v, D ** -0.5, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "wgmma")]
+    params = recorded[0][2]
+    assert params.D == fa.kernel_head_dim(D) and params.lse is not None and params.acc is None
+    assert out.shape == q.shape and lse_out.shape == (2, 2, 40)
+    recorded.clear()
+    fa.padded_bwd_dq(fa._launch_dq, q, k, v, o, do, lse, None, D ** -0.5, True, None, None)
+    fa.padded_bwd_dkv(fa._launch_dkv, q, k, v, o, do, lse, None, D ** -0.5, True, None, None)
+    assert [(name, body) for name, body, _ in recorded] == [
+        ("flash_bwd_dq", "cuda_core_wide"), ("flash_bwd_dkv", "cuda_core_wide")]
+    dq_params, dkv_params = recorded[0][2], recorded[1][2]
+    assert dq_params.acc is not None and dq_params.rowterm is not None
+    assert (dkv_params.acc is not None and dkv_params.acc2 is not None
+            and dkv_params.rowterm is not None)
+
+
+@pytest.mark.parametrize("D", [384, 512])
+def test_f32_wide_forward_stays_on_cuda_cores_with_its_scratch(recorded, D):
+    q, k, v, *_ = _bwd_inputs(D, dtype=torch.float32)
+    fa._launch_fwd(q, k, v, D ** -0.5, True, None, True)
+    assert [(name, body) for name, body, _ in recorded] == [("flash_fwd", "cuda_core_wide")]
+    assert recorded[0][2].acc is not None
+
+
+def test_wide_forward_on_a_view_tma_cannot_read_raises(recorded):
+    """The bf16 forward above 256 takes no other body either."""
+    buf = torch.zeros(2 * 8 * 520, dtype=torch.bfloat16)
+    q = buf.as_strided((1, 8, 2, 512), (8 * 520, 520, 4, 1))  # 8-byte head stride
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._launch_fwd(q, q, q, 512 ** -0.5, True, None, True)
+    assert recorded == []
 
 
 def test_f32_d32_forward_launch_stays_on_cuda_cores(recorded):

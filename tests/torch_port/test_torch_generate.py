@@ -1,8 +1,8 @@
 """KV-cache decode and ``generate`` of the port's ``TransformerLM``
 against the JAX package's, float32 on the CPU, from the reference's init
-through ``convert.py`` (2 layers, d 32 = 4 heads x 8, vocab 64; and 4
-heads x 32, the head dim whose bf16 forward runs the wgmma body on the
-card).
+through ``convert.py`` (2 layers, d 32 = 4 heads x 8, vocab 64; 4 heads x
+32, the head dim whose bf16 forward runs the wgmma body on the card; and
+2 heads x 512, whose bf16 forward runs the wide wgmma body there).
 
 * greedy ``generate`` token ids equal the reference's for MHA with
   learned positions, GQA with rope and a window, and rope + GQA + MoE
@@ -47,6 +47,7 @@ CONFIGS = {
     "rope_gqa_moe": dict(num_kv_heads=2, pos_emb="rope", mlp="moe", num_experts=4,
                          moe_top_k=2, moe_capacity_factor=8.0),
     "head_dim_32": dict(head_dim=32),
+    "head_dim_512": dict(num_heads=2, head_dim=512),
 }
 
 

@@ -124,7 +124,7 @@ def test_kernels_match_plain_versions_on_card(card, B, T, H, D, dtype, causal,
     ((2, 256, 2, 32), torch.float32, "cuda_core", "cuda_core"),
     ((2, 256, 2, 32), torch.bfloat16, "wgmma", "wgmma"),
     ((1, 256, 2, 256), torch.bfloat16, "wgmma", "wgmma"),
-    ((1, 160, 2, 384), torch.bfloat16, "cuda_core_wide", "cuda_core_wide"),
+    ((1, 160, 2, 384), torch.bfloat16, "wgmma", "cuda_core_wide"),
 ])
 def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_body):
     """Two runs give the same bits, and every launch is counted once, on
@@ -156,7 +156,7 @@ def test_kernels_are_deterministic_and_counted(card, shape, dtype, body, bwd_bod
 @pytest.mark.parametrize("D,body,bwd_body", [
     (8, "wgmma", "wgmma"), (16, "wgmma", "wgmma"), (48, "wgmma", "wgmma"),
     (96, "wgmma", "wgmma"), (192, "wgmma", "wgmma"),
-    (320, "cuda_core_wide", "cuda_core_wide")])
+    (320, "wgmma", "cuda_core_wide")])
 def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
     """``flash_attention`` at a head dim the kernels do not have: the
     gradients of a bf16 call equal the plain versions' at ``TOL``, every
@@ -189,12 +189,13 @@ def test_padded_head_dims_train_through_the_kernels(card, D, body, bwd_body):
 @pytest.mark.gpu
 def test_head_dim_above_128_raises_and_names_its_roadmap_item(card):
     # The item is closed since the wide bodies: no head dim raises, and
-    # D 320 runs at 384 on the wide body with its own head dim out.
+    # D 320 runs at 384 (bf16: the wide wgmma forward) with its own head
+    # dim out.
     q = torch.zeros(1, 8, 1, 320, device=card, dtype=torch.bfloat16)
     fa.reset_launch_counts()
     out = fa.flash_attention(q, q, q)
     torch.cuda.synchronize()
-    assert out.shape == q.shape and fa.KERNELS["flash_fwd"].by_body["cuda_core_wide"] == 1
+    assert out.shape == q.shape and fa.KERNELS["flash_fwd"].by_body["wgmma"] == 1
 
 
 @pytest.mark.gpu
@@ -370,6 +371,45 @@ def test_d32_forward_wgmma_body_matches_plain_and_repeats(card, B, T, H, causal,
     qkv = torch.randn(B, T, 3, H, 32, generator=g, device=card).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     scale = 32 ** -0.5
+    tol = TOL[torch.bfloat16]
+    fa.reset_launch_counts()
+    runs = [fa.flash_fwd(q, k, v, scale, causal, window, with_lse=with_lse) for _ in range(2)]
+    po, plse = fa.plain_fwd(q, k, v, scale, causal, window, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.KERNELS["flash_fwd"].by_body == {"wgmma": 2, "cuda_core": 0, "cuda_core_wide": 0}
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o.float(), po.float(), atol=tol["o"], rtol=tol["rtol"])
+    assert _max_tile_rel_err(o, po) <= tol["tile"]
+    if with_lse:
+        assert torch.equal(lse, lse2)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    else:
+        assert lse is None and lse2 is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,D,causal,window,with_lse", [
+    (2, 512, 2, 512, True, None, True),     # causal, two 256-column slices
+    (2, 512, 2, 512, True, None, False),
+    (2, 129, 2, 384, True, None, True),     # one row past a 128-query tile; a 128-column slice
+    (2, 1000, 2, 384, True, 100, True),     # a window, ragged
+    (1, 1000, 2, 512, True, 300, False),    # a window over several key tiles, ragged
+    (2, 333, 2, 640, False, None, True),    # non-causal, ragged; Q streamed, a 128-column slice
+    (1, 300, 1, 1152, True, 50, True),      # a window, ragged, five slices
+    (1, 160, 2, 1152, False, None, False),
+    (2, 64, 2, 512, True, None, True),      # under one tile
+])
+def test_wide_forward_wgmma_body_matches_plain_and_repeats(card, B, T, H, D, causal, window,
+                                                          with_lse):
+    """The bf16 forward above head dim 256 on its wgmma body (O's columns
+    split across blocks, S over the whole head dim in each): O within
+    ``TOL`` of the plain version on the same inputs, element by element
+    and tile by tile, lse within 1e-4, and the same bits when run again."""
+    g = torch.Generator(device=card).manual_seed(T + H + D)
+    qkv = torch.randn(B, T, 3, H, D, generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = D ** -0.5
     tol = TOL[torch.bfloat16]
     fa.reset_launch_counts()
     runs = [fa.flash_fwd(q, k, v, scale, causal, window, with_lse=with_lse) for _ in range(2)]

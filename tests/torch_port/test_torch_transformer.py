@@ -1,7 +1,11 @@
 """The port's agent-stacked TransformerLM against the JAX package's, from
 converted flax weights, in float32 on the CPU.  Tolerances: logits 2e-5
 and parameter grads 2e-6 absolute (float32 sums in another order; the
-logits are O(1), the grads O(0.1))."""
+logits are O(1), the grads O(0.1)).  At 2 heads x 512 (the head dim whose
+bfloat16 forward runs the wide wgmma body on the card) the JAX side runs
+its Pallas flash kernels in interpret mode."""
+
+import functools
 
 import jax
 import numpy as np
@@ -10,6 +14,7 @@ import pytest
 import torch
 
 from distributed_learning_tpu.models.transformer import TransformerLM as JaxLM
+from distributed_learning_tpu.ops import flash_attention as jax_fa
 from distributed_learning_tpu_torch.convert import flax_to_torch, torch_to_flax
 from distributed_learning_tpu_torch.models import TransformerLM, get_model
 from distributed_learning_tpu_torch.parallel import ConsensusEngine, Topology
@@ -19,17 +24,29 @@ one_thread = pytest.fixture(scope="module", autouse=True)(one_intra_op_thread)
 
 V, T, L, H, DH = 64, 64, 2, 2, 32
 CFG = dict(vocab_size=V, num_layers=L, num_heads=H, head_dim=DH, max_len=T)
+WIDE_CFG = dict(CFG, num_heads=2, head_dim=512)
 
 
-def _jax_params(impl, seed=0, window=None):
-    model = JaxLM(attn_impl=impl, attn_window=window, **CFG)
+def _jax_params(impl, seed=0, window=None, cfg=CFG):
+    model = JaxLM(attn_impl=impl, attn_window=window, **cfg)
     x0 = np.zeros((1, T), np.int32)
     return model, jax.jit(model.init)(jax.random.key(seed), x0)["params"]
 
 
 @pytest.mark.parametrize("impl,window", [("full", None), ("flash", None), ("flash", 12)])
 def test_logits_and_grads_match_jax(impl, window):
-    jm, params = _jax_params(impl, window=window)
+    _match_jax(impl, window, CFG)
+
+
+@pytest.mark.parametrize("window", [None, 12])
+def test_head_dim_512_logits_and_grads_match_jax_interpret(window, monkeypatch):
+    monkeypatch.setattr(jax_fa, "flash_attention",
+                        functools.partial(jax_fa.flash_attention, interpret=True))
+    _match_jax("flash", window, WIDE_CFG)
+
+
+def _match_jax(impl, window, cfg):
+    jm, params = _jax_params(impl, window=window, cfg=cfg)
     rng = np.random.default_rng(0)
     x = rng.integers(0, V, (2, T)).astype(np.int32)
     y = rng.integers(0, V, (2, T)).astype(np.int32)
@@ -41,7 +58,7 @@ def test_logits_and_grads_match_jax(impl, window):
     jlogits = np.asarray(jax.jit(jm.apply)({"params": params}, x))
     jgrads = flax_to_torch(jax.jit(jax.grad(jloss))(params))
 
-    tm = TransformerLM(attn_impl=impl, attn_window=window, n_agents=1, device="cpu", **CFG)
+    tm = TransformerLM(attn_impl=impl, attn_window=window, n_agents=1, device="cpu", **cfg)
     tm.load_stacked(flax_to_torch(params))
     logits = tm(torch.as_tensor(x, dtype=torch.long)[None])
     np.testing.assert_allclose(logits.detach().numpy()[0], jlogits, atol=2e-5)
